@@ -1,0 +1,211 @@
+"""The torch port's intersection ops held against the JAX package: the plain
+dense and BVH4 traversals against the Pallas kernels (interpret mode, as
+the JAX package's own tests run them), the Woop reference path and
+post_intersect.  The CUDA kernels are held against the plain versions on
+the card by tests/test_torch_cuda.py."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from yulio_raytracer_tpu.geometry import mesh as jmesh, bvh as jbvh
+from yulio_raytracer_tpu.geometry import primitives as jprim
+from yulio_raytracer_tpu.io import builtin_scenes as jbs
+from yulio_raytracer_tpu.ops import intersect as jops
+from yulio_raytracer_tpu.ops import pallas_dense as ppd
+from yulio_raytracer_tpu.ops import pallas_traverse as ppt
+from yulio_raytracer_tpu.ops import pallas_wide as pw
+
+from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
+from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
+from yulio_raytracer_tpu_torch.ops import dense, wide, intersect as ops
+from yulio_raytracer_tpu_torch.ops import cuda_build as cb
+
+torch.set_num_threads(2)
+
+
+def build_tables(m, b, p, **tree_kw):
+    """(host geometry, woop, tree) of the tests/test_pallas.py scene
+    (sphere, floor quad, culled triangle; leaf 8), built as its _build
+    does with the mesh/bvh/primitives modules m, b, p, but with the
+    default tree of a commit (the port's only tree)."""
+    packed = m.pack_meshes([
+        p.tessellate_sphere([0, 0, 0], 1.0, 12, 16),
+        p.quad([-5, -1.2, -5], [5, -1.2, -5], [5, -1.2, 5], [-5, -1.2, 5]),
+        p.single_triangle([2, 0, 0], [3, 0, 0], [2, 1, 0],
+                          cull=m.CULL_BACK)], pad_multiple=64)
+    tree = b.build(packed.v0, packed.e1, packed.e2, packed.valid,
+                   leaf_size=8, **tree_kw)
+    host = {k: getattr(packed, k) for k in (
+        'v0', 'e1', 'e2', 'ng', 'vn', 'uv', 'mat_id', 'light_id', 'cull',
+        'illum_mask', 'shadow_mask', 'valid')}
+    host = b.permute_geom(host, tree.order)
+    woop = m.woop_matrices(host['v0'], host['e1'], host['e2'], host['valid'])
+    return host, woop, tree
+
+
+def test_pack_tables_match_on_pallas_scene():
+    jhost, jwoop, jtree = build_tables(jmesh, jbvh, jprim, quality='high')
+    host, woop, tree = build_tables(mesh, bvh, primitives)
+    np.testing.assert_array_equal(woop, jwoop)
+    assert_tris_equal(wide.pack_tris(woop, host), ppt.pack_tris(jwoop, jhost))
+    np.testing.assert_array_equal(wide.pack_nodes4(tree),
+                                  pw.pack_nodes4(jtree))
+
+
+def assert_tris_equal(tris, jtris):
+    """The port's packed rows equal the reference's, which only append
+    zero rows for its TPU kernels."""
+    g = tris.shape[0]
+    np.testing.assert_array_equal(tris, jtris[:g])
+    assert not np.any(jtris[g:])
+
+
+R = ppt.BLOCK          # the reference kernels take multiples of 1024
+R_ODD = 1000           # the port takes any count
+
+
+@pytest.fixture(scope='module')
+def tables():
+    """JAX and port tables of the tests/test_pallas.py wide-kernel scene,
+    and its rays (RandomState(5), as test_wide_bvh4_matches_binary)."""
+    jhost, jwoop, jtree = build_tables(jmesh, jbvh, jprim, quality='high')
+    host, woop, tree = build_tables(mesh, bvh, primitives)
+    rs = np.random.RandomState(5)
+    org = (rs.randn(R, 3) * 3).astype(np.float32)
+    d = rs.randn(R, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = np.full((R,), 1e-4, np.float32)
+    tf = np.full((R,), np.inf, np.float32)
+    tf[::7] = -1.0                         # dead lanes: tfar < tnear
+    tf[3::7] = 2.5                         # finite segments
+    return dict(
+        jtris=jnp.asarray(ppt.pack_tris(jwoop, jhost)),
+        jnodes4=jnp.asarray(pw.pack_nodes4(jtree)),
+        tris=torch.as_tensor(wide.pack_tris(woop, host)),
+        nodes4=torch.as_tensor(wide.pack_nodes4(tree)),
+        rays=(org, d, tn, tf))
+
+
+def _jax_rays(rays):
+    return tuple(jnp.asarray(x) for x in rays)
+
+
+def _torch_rays(rays, n=None):
+    return tuple(torch.as_tensor(x[:n]) for x in rays)
+
+
+def _assert_hits_agree(got, ref, n=None):
+    t0, tri0 = np.asarray(ref.t)[:n], np.asarray(ref.tri)[:n]
+    t1, tri1 = got.t.numpy(), got.tri.numpy()
+    assert t1.shape == t0.shape
+    np.testing.assert_array_equal(tri1 >= 0, tri0 >= 0)
+    hit = tri0 >= 0
+    np.testing.assert_allclose(t1[hit], t0[hit], rtol=1e-6, atol=1e-7)
+    assert np.isinf(t1[~hit]).all()
+    assert (tri1 == tri0).mean() >= 0.999      # ties may pick another tri
+
+
+@pytest.mark.parametrize('n', [R, R_ODD])
+def test_plain_dense_matches_pallas(tables, n):
+    jr = _jax_rays(tables['rays'])
+    ref = ppd.intersect_dense(tables['jtris'], *jr, interpret=True)
+    got = dense.intersect_dense(tables['tris'], *_torch_rays(tables['rays'],
+                                                             n))
+    _assert_hits_agree(got, ref, n)
+    np.testing.assert_allclose(got.u.numpy()[got.tri.numpy() >= 0],
+                               np.asarray(ref.u)[:n][got.tri.numpy() >= 0],
+                               atol=1e-5)
+    occ_ref = ppd.occluded_dense(tables['jtris'], *jr, interpret=True)
+    occ = dense.occluded_dense(tables['tris'], *_torch_rays(tables['rays'],
+                                                            n))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref)[:n])
+
+
+@pytest.mark.parametrize('n', [R, R_ODD])
+def test_plain_wide_matches_pallas(tables, n):
+    jr = _jax_rays(tables['rays'])
+    ref = pw.intersect_packet4(tables['jnodes4'], tables['jtris'], *jr,
+                               max_leaf=8, interpret=True)
+    got = wide.intersect_packet4(tables['nodes4'], tables['tris'],
+                                 *_torch_rays(tables['rays'], n))
+    _assert_hits_agree(got, ref, n)
+    occ_ref = pw.occluded_packet4(tables['jnodes4'], tables['jtris'], *jr,
+                                  max_leaf=8, interpret=True)
+    occ = wide.occluded_packet4(tables['nodes4'], tables['tris'],
+                                *_torch_rays(tables['rays'], n))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref)[:n])
+
+
+def test_plain_wide_matches_brute_on_colonnade():
+    """The BVH4 traversal of a real (reduced colonnade) tree finds the
+    dense sweep's closest hits and occlusion over the same rows."""
+    sc = bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(leaf_size=32)
+    rs = np.random.RandomState(4)
+    n = 2000
+    org = torch.as_tensor((rs.randn(n, 3) * 4 + [0, 2, 0]).astype(np.float32))
+    d = rs.randn(n, 3).astype(np.float32)
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True))
+    tn = torch.full((n,), 1e-4)
+    tf = torch.full((n,), float('inf'))
+    ref = dense.intersect_dense(sc.tris, org, d, tn, tf)
+    got = wide.intersect_packet4(sc.nodes4, sc.tris, org, d, tn, tf)
+    np.testing.assert_array_equal(got.tri.numpy(), ref.tri.numpy())
+    np.testing.assert_array_equal(got.t.numpy(), ref.t.numpy())
+    tf = torch.full((n,), 3.0)
+    np.testing.assert_array_equal(
+        wide.occluded_packet4(sc.nodes4, sc.tris, org, d, tn, tf).numpy(),
+        dense.occluded_dense(sc.tris, org, d, tn, tf).numpy())
+
+
+@pytest.mark.parametrize('which', ['dense', 'wide'])
+def test_kernel_wrappers_bound_the_ray_count(tables, which):
+    """A batch the kernels cannot index raises before any launch (meta
+    tensors carry the shape without memory)."""
+    n = cb.MAX_RAYS
+    rays = (torch.empty((n, 3), device='meta'),
+            torch.empty((n, 3), device='meta'),
+            torch.empty((n,), device='meta'), torch.empty((n,), device='meta'))
+    tabs = ((tables['tris'].to('meta'),) if which == 'dense' else
+            (tables['nodes4'].to('meta'), tables['tris'].to('meta')))
+    fns = ((dense.intersect_dense, dense.occluded_dense) if which == 'dense'
+           else (wide.intersect_packet4, wide.occluded_packet4))
+    for fn in fns:
+        with pytest.raises(ValueError, match='exceed one launch'):
+            fn(*tabs, *rays)
+
+
+def test_woop_reference_and_post_intersect_match():
+    js = jbs.cornell_box().commit()
+    geom = {k: torch.as_tensor(np.array(js.geom[k]))
+            for k in ('woop', 'ng', 'cull', 'shade_tab')}
+    rs = np.random.RandomState(9)
+    n = 2048
+    org = (rs.randn(n, 3) * 150 + [278, 273, 280]).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = np.full((n,), 1e-3, np.float32)
+    tf = np.full((n,), np.inf, np.float32)
+    jr = tuple(jnp.asarray(x) for x in (org, d, tn, tf))
+    tr = tuple(torch.as_tensor(x) for x in (org, d, tn, tf))
+    ref = jops.intersect_woop(js.geom, *jr)
+    got = ops.intersect_woop(geom, *tr)
+    # the reference transforms rays by a matmul, which sums in another
+    # order: with cornell's ~500-unit coordinates the cancellation in
+    # o'_w leaves t within 2e-4 relative (measured max 6e-5)
+    both = (got.tri.numpy() == np.asarray(ref.tri)) & (got.tri.numpy() >= 0)
+    assert both.mean() >= 0.999 * (np.asarray(ref.tri) >= 0).mean()
+    np.testing.assert_allclose(got.t.numpy()[both], np.asarray(ref.t)[both],
+                               rtol=2e-4)
+    np.testing.assert_array_equal(
+        ops.occluded_woop(geom, *tr[:3], torch.full((n,), 200.0)).numpy(),
+        np.asarray(jops.occluded_woop(js.geom, *jr[:3],
+                                      jnp.full((n,), 200.0))))
+    # post_intersect on the same hits (a fraction miss)
+    jd = jops.post_intersect(js.geom, jr[0], jr[1], ref)
+    td = ops.post_intersect(geom, tr[0], tr[1], ops.Hit(
+        *(torch.as_tensor(np.array(x)) for x in ref)))
+    for k, v in td.items():
+        if k in jd:
+            np.testing.assert_allclose(v.numpy(), np.asarray(jd[k]),
+                                       atol=1e-5, rtol=1e-6, err_msg=k)

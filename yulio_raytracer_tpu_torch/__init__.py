@@ -1,0 +1,17 @@
+"""yulio_raytracer_tpu_torch: the PyTorch/CUDA port of yulio_raytracer_tpu.
+
+The JAX package stays the reference; every module here names its JAX
+counterpart by file, and tests/test_torch_*.py hold each against it.  The
+port imports torch and numpy, never jax.  Its traversal kernels are CUDA
+C++ for Hopper (sm_90a) in csrc/, built by nvcc at first use into
+build/kernels/ and bound with ctypes (ops/cuda_build.py); on CPU tensors
+each kernel wrapper runs its plain torch version instead.
+
+Layers, from the entry point down:
+  renderer     render_frame: passes of camera-sample ray batches
+  integrator   wavefront path tracer (NEE, Russian roulette)
+  cameras / sampling / shading / lights / film   per-ray math in torch
+  scene        SceneBuilder.commit(device=...) -> TorchScene
+  geometry     host-side packing and BVH build (numpy, native builder)
+  ops          intersection: dense.py and wide.py wrap the kernels
+"""

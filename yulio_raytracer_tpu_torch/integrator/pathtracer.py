@@ -1,0 +1,275 @@
+"""Wavefront path-trace integrator.
+
+Counterpart of `yulio_raytracer_tpu/integrator/pathtracer.py` (`trace`
+and its bounce, pathtracer.py:299-694): the whole ray batch is the state
+and every branch of the reference's per-pixel loop is a masked tensor
+op.  The reference's `lax.scan` over bounces is a Python loop here.
+
+Kept from the reference, deliberately: decorrelated RNG streams per
+(pixel, sample, bounce, purpose) with its dimension layout; Russian
+roulette divides surviving throughput by q; every light's shadow rays
+go through ONE any-hit call per bounce; dead lanes carry tfar = -1 so
+the kernels reject them at once.
+
+Not in this slice: ray sorting ('morton' and 'none' both run unsorted),
+environment lights and backplates, the dome shadow cap (finite
+t_max_shadow_ray), motion blur, the precomputed sampler, live-ray
+compaction (`trace_compacted`), the triangle-sharded mesh axis.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import math as vm
+from ..core import rng
+from ..lights import lights as glights
+from ..ops import dense, wide
+from ..ops import intersect as ops_i
+from ..shading import lobes as lb
+from ..shading import materials as gmat
+
+# the reference assigns ULP twice (pathtracer.py:44-46); this value wins
+ULP = 1.1920929e-7
+
+
+@dataclass(frozen=True)
+class PTParams:
+    """Defaults match pathtraceintegrator.cpp:24-32."""
+    max_depth: int = 10
+    rr_depth: int = 5
+    min_contribution: float = 0.02
+    epsilon: float = 32.0 * ULP
+    # 'morton' (the reference's default) and 'none' both trace unsorted:
+    # whether ray sorting pays on the GPU is to be measured
+    ray_binning: str = 'morton'
+
+    def __post_init__(self):
+        if self.ray_binning not in ('morton', 'none'):
+            raise NotImplementedError(
+                f"ray_binning={self.ray_binning!r} is not ported yet "
+                "('morton' or 'none')")
+
+
+# RNG dimension layout per bounce d: base = stride + stride * d
+_DIM_SCATTER = 0        # 2D lobe directional sample
+_DIM_SCATTER_TYPE = 1   # 1D lobe selection
+_DIM_RR = 2             # 1D russian roulette
+_DIM_SHADOW = 3         # 1D shadow tMax jitter (+light)
+_DIM_LIGHT = 8          # 2D light sample (+light)
+
+
+def _dim_layout(n_lights: int):
+    """(dim_light, stride) for n_lights: the historical layout for <= 5
+    lights, widened beyond so light and jitter dims never collide."""
+    if n_lights <= 5:
+        return _DIM_LIGHT, 16
+    dim_light = _DIM_SHADOW + n_lights
+    return dim_light, dim_light + n_lights
+
+
+def _bounce_dims(depth: int, stride: int = 16) -> int:
+    return (stride + stride * depth) & rng._MASK
+
+
+def _intersect(scene, org, dirn, tnear, tfar):
+    if scene.nodes4 is None:
+        return dense.intersect_dense(scene.tris, org, dirn, tnear, tfar)
+    return wide.intersect_packet4(scene.nodes4, scene.tris, org, dirn,
+                                  tnear, tfar)
+
+
+def _occluded(scene, org, dirn, tnear, tfar):
+    if scene.nodes4 is None:
+        return dense.occluded_dense(scene.tris, org, dirn, tnear, tfar)
+    return wide.occluded_packet4(scene.nodes4, scene.tris, org, dirn,
+                                 tnear, tfar)
+
+
+def _init_state(org, dirn, pixel_id, sample_id):
+    """Fresh wavefront state for primary rays."""
+    r, dev = org.shape[0], org.device
+    ones = torch.ones((r,), device=dev)
+    return {
+        'org': org,
+        'dir': dirn,
+        'L': torch.zeros((r, 3), device=dev),
+        'throughput': torch.ones((r, 3), device=dev),
+        'active': torch.ones((r,), dtype=torch.bool, device=dev),
+        'ignore_vl': torch.zeros((r,), dtype=torch.bool, device=dev),
+        'medium_eta': ones,
+        'medium_trans': torch.ones((r, 3), device=dev),
+        'eta_rr': ones,
+        'num_rays': torch.zeros((), device=dev),
+        'pid': pixel_id,
+        'sid': sample_id,
+    }
+
+
+def _light_groups(lights):
+    """NEE groups: same-kind lights sampled in one batched call, in order
+    of each kind's first light; each group carries its light indices
+    (the RNG dims) and its parameters stacked to (nk, 1, ...)."""
+    groups = {}
+    for li, l in enumerate(lights):
+        groups.setdefault(l['kind'], []).append(li)
+    out = []
+    for kind, idxs in groups.items():
+        stacked = {'kind': kind}
+        for key, val in lights[idxs[0]].items():
+            if isinstance(val, torch.Tensor):
+                stacked[key] = torch.stack(
+                    [lights[i][key] for i in idxs])[:, None]
+        masks = [lights[i]['illum_mask'] & rng._MASK for i in idxs]
+        out.append((idxs, stacked, masks))
+    return out
+
+
+def _make_bounce(scene, params: PTParams, seed):
+    """The per-bounce wavefront body: bounce(state, depth) -> state."""
+    lights = scene.lights
+    dim_light, dim_stride = _dim_layout(len(lights))
+    groups = _light_groups(lights)
+
+    def bounce(state, depth: int):
+        r, dev = state['org'].shape[0], state['org'].device
+        pixel_id, sample_id = state['pid'], state['sid']
+        base = _bounce_dims(depth, dim_stride)
+        org, dirn = state['org'], state['dir']
+        thr, L = state['throughput'], state['L']
+
+        # terminate low-contribution paths (pathtraceintegrator.cpp:66-67)
+        active = state['active'] & (torch.amax(thr, dim=-1)
+                                    >= params.min_contribution)
+        # dead lanes get tfar < tnear: every kernel rejects them at once
+        tfar_live = torch.where(active, float('inf'), -1.0)
+        hit = _intersect(scene, org, dirn, torch.zeros((r,), device=dev),
+                         tfar_live)
+        state = dict(state)
+        state['num_rays'] = state['num_rays'] + torch.sum(active)
+        dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
+        wo = -dirn
+        # escaped rays: no environment lights or backplate in this slice
+        active = active & hit.valid
+
+        # face-forward normals (cpp:94-98)
+        backfacing = vm.dot(dg['Ng'], dirn) > 0.0
+        ng = torch.where(backfacing[:, None], -dg['Ng'], dg['Ng'])
+        ns = torch.where(backfacing[:, None], -dg['Ns'], dg['Ns'])
+
+        # shade: material -> lobe context (cpp:108-111)
+        lobed, aux = gmat.shade_context(scene.materials, scene.textures,
+                                        dg['mat_id'], state['medium_eta'],
+                                        state['medium_trans'])
+
+        # area-light emission (cpp:113-115)
+        for li, l in enumerate(lights):
+            is_hit_light = (active & (dg['light_id'] == li) & ~backfacing
+                            & ~state['ignore_vl'])
+            L = L + torch.where(is_hit_light[:, None],
+                                thr * glights.le_area(l, backfacing), 0.0)
+
+        # NEE: shadow rays to every light, all occlusion tests in ONE call
+        use_dl = lb.has_type(lobed, lb.DIFFUSE) & active
+        err_eps = dg['error'] * params.epsilon
+        cand_gs, contrib_gs, wi_gs, tfar_gs = [], [], [], []
+        illum = dg['illum_mask'] & rng._MASK
+        for idxs, light, masks in groups:
+            dims = torch.tensor([(base + dim_light + li) & rng._MASK
+                                 for li in idxs], device=dev)[:, None]
+            mask_ok = (torch.tensor(masks, device=dev)[:, None] & illum) != 0
+            u2 = rng.uniform2(seed, pixel_id, sample_id, dims)  # (nk, R, 2)
+            le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
+            cand = (use_dl & mask_ok & (pdf > 0.0)
+                    & torch.any(le > 0.0, dim=-1))
+            brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE)
+            cand = cand & torch.any(brdf > 0.0, dim=-1)
+            contrib = thr * le * brdf / torch.clamp(pdf, min=1e-20)[..., None]
+            cand_gs.append(cand)
+            contrib_gs.append(contrib)
+            wi_gs.append(wi)
+            tfar_gs.append(torch.where(cand, tmax - err_eps, -1.0))
+        if cand_gs:
+            cand_all = torch.cat(cand_gs)              # (nl, R)
+            nl = cand_all.shape[0]
+            state['num_rays'] = state['num_rays'] + torch.sum(cand_all)
+            occ_all = _occluded(scene, dg['P'].repeat(nl, 1),
+                                torch.cat(wi_gs).reshape(nl * r, 3),
+                                err_eps.repeat(nl),
+                                torch.cat(tfar_gs).reshape(nl * r))
+            lit = cand_all & ~occ_all.reshape(nl, r)
+            L = L + torch.sum(torch.where(lit[:, :, None],
+                                          torch.cat(contrib_gs), 0.0), dim=0)
+
+        # depth cut (cpp:169-170)
+        cont = active & (depth < params.max_depth - 1)
+
+        # russian roulette (cpp:172-182, with 1/q compensation)
+        q = torch.clamp(torch.amax(thr, dim=-1) * state['eta_rr'] ** 2,
+                        max=0.95)
+        rr_on = depth >= params.rr_depth - 1
+        if rr_on:
+            rr_u = rng.uniform1(seed, pixel_id, sample_id, base + _DIM_RR)
+            cont = cont & ~(rr_u >= q)
+            rr_scale = 1.0 / torch.clamp(q, min=1e-3)
+        else:
+            rr_scale = torch.ones_like(q)
+
+        # GI: sample one lobe (cpp:184-213)
+        s2 = rng.uniform2(seed, pixel_id, sample_id, base + _DIM_SCATTER)
+        s1 = rng.uniform1(seed, pixel_id, sample_id,
+                          base + _DIM_SCATTER_TYPE)
+        samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
+                               types_present=scene.lobe_types)
+        cont = (cont & samp['valid'] & (samp['pdf'] > 0.0)
+                & torch.any(samp['weight'] > 0.0, dim=-1))
+
+        # Beer attenuation through the current medium (cpp:197-201)
+        trans_med = state['medium_trans']
+        absorbing = torch.any(trans_med < 1.0, dim=-1)
+        beer = torch.where(absorbing[:, None],
+                           torch.pow(torch.clamp(trans_med, min=1e-20),
+                                     hit.t[:, None]), 1.0)
+        w = samp['weight'] * beer / torch.clamp(samp['pdf'], min=1e-20)[:, None]
+        new_thr = thr * w * rr_scale[:, None]
+
+        # medium transition on sampled transmission (cpp:203-206)
+        trans_bit = (samp['type_bits'] & lb.TRANSMISSION_BITS) != 0
+        new_eta_m, new_trans_m = gmat.next_medium(
+            aux, trans_bit, state['medium_eta'], state['medium_trans'])
+
+        # new ray from the hit point, pushed by the error-scaled epsilon
+        # (cpp:210: Ray(dg.P, dir, err*eps, inf)) with tnear = 0
+        new_dir = samp['wi']
+        new_org = dg['P'] + new_dir * err_eps[:, None]
+        # diffuse-sampled -> ignore directly visible lights next bounce
+        new_ignore = (samp['type_bits'] & lb.DIFFUSE) != 0
+
+        state['org'] = torch.where(cont[:, None], new_org, org)
+        state['dir'] = torch.where(cont[:, None], new_dir, dirn)
+        state['throughput'] = torch.where(cont[:, None], new_thr, thr)
+        state['L'] = L
+        state['active'] = cont
+        state['ignore_vl'] = torch.where(cont, new_ignore,
+                                         state['ignore_vl'])
+        state['medium_eta'] = torch.where(cont, new_eta_m,
+                                          state['medium_eta'])
+        state['medium_trans'] = torch.where(cont[:, None], new_trans_m,
+                                            state['medium_trans'])
+        state['eta_rr'] = torch.where(cont, state['eta_rr'] * samp['eta'],
+                                      state['eta_rr'])
+        return state
+
+    return bounce
+
+
+def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id):
+    """Radiance along primary rays.  org/dirn: (R, 3) f32; pixel_id,
+    sample_id: (R,) int64 holding u32 RNG keys.  Returns (L (R, 3),
+    num_rays (scalar tensor: closest-hit rays plus shadow candidates))."""
+    state = _init_state(org, dirn, pixel_id, sample_id)
+    bounce = _make_bounce(scene, params, seed)
+    for depth in range(params.max_depth):
+        state = bounce(state, depth)
+    return state['L'], state['num_rays']

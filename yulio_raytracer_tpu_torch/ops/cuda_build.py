@@ -1,0 +1,135 @@
+"""Build and load the package's CUDA kernels at first use.
+
+Each `csrc/<name>.cu` is compiled by nvcc alone into a shared library
+with a plain C interface, `build/kernels/lib<name>-<hash>.so` under the
+repository root (the hash covers the sources and flags, so an edited
+source rebuilds), and loaded with ctypes.  Every C entry point returns
+`cudaGetLastError()` after its launch; `launch` raises on a nonzero
+code.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
+# rays per launch: the kernels hold a ray index, and the block count
+# times the block size, in an int
+MAX_RAYS = 1 << 30
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def lib_path(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu at its current
+    sources."""
+    h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn == name + '.cu' or fn.endswith('.cuh'):
+            with open(os.path.join(CSRC, fn), 'rb') as f:
+                h.update(fn.encode() + f.read())
+    return os.path.join(BUILD_DIR, f'lib{name}-{h.hexdigest()[:12]}.so')
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library exists; returns the path.
+    The compiler's output (with ptxas register counts) is kept beside
+    the library as a .log file."""
+    out = lib_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{out}.{os.getpid()}.tmp'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           os.path.join(CSRC, name + '.cu')]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    with open(out[:-3] + '.log', 'w') as f:
+        f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built on first use), with
+    `signatures` {function: [argtypes]} declared; every function returns
+    a C int (a cudaError_t)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build(name))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(fn, what: str, device, *args):
+    """Call the C entry point fn on `device`'s current stream: tensors go
+    as pointers, ints as ints, the stream last; raise if the launch
+    failed."""
+    ptrs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*ptrs, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+
+
+def ray_args(org, dirn, tnear, tfar):
+    """One ray batch for a kernel: checked to hold fewer than MAX_RAYS
+    rays, made contiguous, then checked to be (R, 3) / (R,) f32 CUDA
+    tensors on one device."""
+    r = org.shape[0]
+    if r >= MAX_RAYS:
+        raise ValueError(f"{r} rays exceed one launch ({MAX_RAYS})")
+    org, dirn, tnear, tfar = (x.contiguous() for x in (org, dirn, tnear,
+                                                        tfar))
+    for name, x, shape in (('org', org, (r, 3)), ('dirn', dirn, (r, 3)),
+                           ('tnear', tnear, (r,)), ('tfar', tfar, (r,))):
+        if (x.dtype != torch.float32 or tuple(x.shape) != shape
+                or x.device != org.device or not x.is_cuda):
+            raise ValueError(f"{name}: expected a float32 CUDA tensor of "
+                             f"shape {shape} on {org.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return org, dirn, tnear, tfar
+
+
+def table_arg(name, x, width, device):
+    """Check a packed table: contiguous f32 (N, width) on `device`,
+    16-byte aligned for the kernels' vector loads."""
+    if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != width
+            or not x.is_contiguous() or x.device != device
+            or x.data_ptr() % 16):
+        raise ValueError(f"{name}: expected a contiguous, 16-byte aligned "
+                         f"float32 (N, {width}) tensor on {device}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return x
+
+
+def empty_hit(r: int, device):
+    """Uninitialized (t, tri, u, v) outputs for r rays."""
+    return (torch.empty((r,), dtype=torch.float32, device=device),
+            torch.empty((r,), dtype=torch.int32, device=device),
+            torch.empty((r,), dtype=torch.float32, device=device),
+            torch.empty((r,), dtype=torch.float32, device=device))

@@ -1,0 +1,357 @@
+"""BVH4 traversal: the default accel for scenes above 2048 triangles.
+
+Counterpart of `yulio_raytracer_tpu/ops/pallas_wide.py`
+(`intersect_packet4` / `occluded_packet4`, with `pack_nodes4`) and of the
+table packing in `yulio_raytracer_tpu/ops/pallas_traverse.py`
+(`pack_tris`), which imports jax and so is copied here.  On a CUDA tensor
+each wrapper launches its kernel from `csrc/wide.cu` (one ray per
+thread, private stack); on a CPU tensor it runs the plain torch version,
+a vectorized per-ray stack traversal of the same tables in the same
+order (the counterpart of `ops/traverse.py`), which the kernels are held
+against on the card.  Any ray count is accepted.
+
+Node rows, (N4, 32) f32, 4 slots of [lo.x lo.y lo.z hi.x hi.y hi.z A tag]:
+tag > 0 leaf of `tag` triangles from packed triangle A; tag == -1
+interior, A = child row; tag == 0 empty (its +inf/-inf box is don't-care:
+a slot is decided by its tag, never by its box).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build as cb
+from .intersect import Hit, woop_test
+
+STACK = 128          # per-ray stack entries (pallas_traverse.STACK)
+INF = float('inf')
+_PLAIN_RAYS = 1 << 18  # rays per slice of the plain traversal
+
+_V, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    'yrt_intersect_wide': [_V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _V, _V],
+    'yrt_occluded_wide': [_V, _V, _V, _V, _V, _V, _I, _V, _V],
+}
+# descending compare-exchange network over the 4 slots (far first)
+_SORT_NET4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+
+
+# ---------------------------------------------------------------- tables
+
+def pack_tris(woop: np.ndarray, geom_host: dict) -> np.ndarray:
+    """(G, 128) f32: 8 triangles per row, 16 floats each
+    [woop.T flattened (12) | ng (3) | cull], the last row filled with
+    zero triangles (inert: zero woop gives d'_z == 0, which never hits).
+    The reference's table is this one followed by zero rows that only
+    its TPU kernels read."""
+    t = woop.shape[1] // 3
+    w = np.asarray(woop, np.float32).reshape(4, t, 3)
+    w = np.transpose(w, (1, 0, 2)).reshape(t, 12)
+    flat = np.concatenate([
+        w, np.asarray(geom_host['ng'], np.float32),
+        np.asarray(geom_host['cull'], np.float32)[:, None]], axis=1)
+    g = (t + 7) // 8
+    out = np.zeros((g * 8, 16), np.float32)
+    out[:t] = flat
+    return out.reshape(g, 128)
+
+
+def _check_packed(out: np.ndarray, width: int) -> np.ndarray:
+    """Raise ValueError unless the wide table is exact in f32 (node
+    indices and leaf ranges below 2^24) and its worst-case stack
+    occupancy, (width - 1) * depth + 1, fits STACK."""
+    tags = out.reshape(-1, width, 8)[:, :, 7]
+    a = out.reshape(-1, width, 8)[:, :, 6]
+    if out.shape[0] >= 1 << 24:
+        raise ValueError("wide node index exceeds f32 exact range 2^24")
+    leaf = tags > 0
+    if np.any(leaf) and float(np.max(a[leaf] + tags[leaf])) >= float(1 << 24):
+        raise ValueError("leaf triangle range exceeds f32-exact 2^24")
+    children = [[] for _ in range(out.shape[0])]
+    interior = tags < 0
+    for w in range(out.shape[0]):
+        for k in range(width):
+            if interior[w, k]:
+                children[w].append(int(a[w, k]))
+    depth = 1
+    frontier = [0]
+    while frontier:
+        nxt = [c for w in frontier for c in children[w]]
+        if nxt:
+            depth += 1
+        frontier = nxt
+    worst = (width - 1) * depth + 1
+    if worst > STACK:
+        raise ValueError(
+            f"wide tree depth {depth} could occupy {worst} stack slots "
+            f"(> STACK={STACK}); rebuild with a shallower/balanced tree")
+    return out
+
+
+def pack_nodes4(bvh) -> np.ndarray:
+    """Collapse a binary FlatBVH (skip-pointer layout) into (N4, 32) f32
+    4-wide rows: each wide node holds a binary node's children, interior
+    children expanded one more level."""
+    lo, hi = bvh.lo, bvh.hi
+    start, count, skip = bvh.start, bvh.count, bvh.skip
+    interior = count == 0
+
+    def children(b):
+        l = b + 1
+        return l, int(skip[l])
+
+    def slot_of(b):
+        """(lo, hi, A, tag) for binary node b as a slot."""
+        if interior[b]:
+            return (lo[b], hi[b], b, -1.0)       # A patched to wide id
+        return (lo[b], hi[b], float(start[b]), float(count[b]))
+
+    rows = []
+    wide_of = {}            # binary interior node -> wide row index
+    pending = []            # (wide_row, slot_k, binary_interior_node)
+
+    def emit(b):
+        if not interior[b]:
+            slots = [slot_of(b)]
+        else:
+            slots = []
+            for c in children(b):
+                if interior[c]:
+                    slots.extend(slot_of(g) for g in children(c))
+                else:
+                    slots.append(slot_of(c))
+        row = np.zeros(32, np.float32)
+        me = len(rows)
+        rows.append(row)
+        for k, (slo, shi, a, tag) in enumerate(slots):
+            row[8 * k:8 * k + 3] = slo
+            row[8 * k + 3:8 * k + 6] = shi
+            row[8 * k + 7] = tag
+            if tag < 0:
+                pending.append((me, k, int(a)))
+            else:
+                row[8 * k + 6] = a
+        for k in range(len(slots), 4):
+            row[8 * k + 0:8 * k + 3] = INF
+            row[8 * k + 3:8 * k + 6] = -INF
+            row[8 * k + 7] = 0.0
+        return me
+
+    wide_of[0] = emit(0)
+    i = 0
+    while i < len(pending):
+        w, k, b = pending[i]
+        i += 1
+        if b not in wide_of:
+            wide_of[b] = emit(b)
+        rows[w][8 * k + 6] = float(wide_of[b])
+    return _check_packed(np.stack(rows).astype(np.float32), 4)
+
+
+# ------------------------------------------------------- plain versions
+
+def _safe_inv(d):
+    return 1.0 / torch.where(torch.abs(d) > 1e-30, d,
+                             torch.where(d >= 0, 1e-30, -1e-30))
+
+
+def _slab(nd, o, inv, tnear, tfar):
+    """Slab test of (n, 4) slots nd (n, 4, 8) for rays o/inv (n, 1, 3);
+    returns (hit, tmin), each (n, 4), in the kernels' order."""
+    t0x = (nd[..., 0] - o[..., 0]) * inv[..., 0]
+    t1x = (nd[..., 3] - o[..., 0]) * inv[..., 0]
+    t0y = (nd[..., 1] - o[..., 1]) * inv[..., 1]
+    t1y = (nd[..., 4] - o[..., 1]) * inv[..., 1]
+    t0z = (nd[..., 2] - o[..., 2]) * inv[..., 2]
+    t1z = (nd[..., 5] - o[..., 2]) * inv[..., 2]
+    tmin = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                       torch.minimum(t0y, t1y)),
+                         torch.maximum(torch.minimum(t0z, t1z), tnear))
+    tmax = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                       torch.maximum(t0y, t1y)),
+                         torch.minimum(torch.maximum(t0z, t1z), tfar))
+    return tmin <= tmax, tmin
+
+
+def _leaf_test(rows, a, c, org, dirn, tnear, tfar):
+    """Triangles [a, a + c) of each ray's leaf: (th, uh, vh, ok), each
+    (n, max c), column j = triangle a + j."""
+    j = torch.arange(int(c.max()), device=a.device)
+    inrange = j < c[:, None]
+    idx = torch.where(inrange, a[:, None] + j, 0)
+    s = rows[idx].permute(2, 0, 1)                   # (16, n, max c)
+    th, uh, vh, ok = woop_test(s, org[:, None, :], dirn[:, None, :],
+                               tnear[:, None], tfar[:, None])
+    return th, uh, vh, ok & inrange
+
+
+def _push(stacks, sp, rid, mask, values):
+    """Push values[k] (n,) onto the stacks of rays rid where mask (n,)."""
+    sp[rid] += mask
+    r, s = rid[mask], sp[rid][mask]
+    for st, val in zip(stacks, values):
+        st[r, s] = val[mask]
+
+
+def _chunked(fn, org, dirn, tnear, tfar, *tables):
+    """Run fn over slices of at most _PLAIN_RAYS rays (bounds the
+    per-ray stacks' memory) and concatenate the results."""
+    outs = [fn(*tables, org[i:i + _PLAIN_RAYS], dirn[i:i + _PLAIN_RAYS],
+               tnear[i:i + _PLAIN_RAYS], tfar[i:i + _PLAIN_RAYS])
+            for i in range(0, org.shape[0], _PLAIN_RAYS)] or [
+        fn(*tables, org, dirn, tnear, tfar)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return Hit(*(torch.cat(x) for x in zip(*outs)))
+
+
+def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
+    """Plain torch version of the closest-hit kernel: every ray walks the
+    tree with its own stack, in the kernel's order."""
+    if org.is_cuda:
+        intersect_wide_plain.cuda_calls += 1
+    return _chunked(_closest_plain, org, dirn, tnear, tfar, nodes4, tris)
+
+
+def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar):
+    """Plain torch version of the any-hit kernel; rays with
+    tfar <= tnear report not occluded."""
+    if org.is_cuda:
+        occluded_wide_plain.cuda_calls += 1
+    return _chunked(_any_plain, org, dirn, tnear, tfar, nodes4, tris)
+
+
+def _closest_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
+    r, dev = org.shape[0], org.device
+    rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, 4, 8)
+    inv = _safe_inv(dirn)
+    st_a = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((r, STACK), dtype=torch.float32, device=dev)
+    st_c = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    t_b = tfar.clone()
+    tri_b = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    u_b = torch.zeros((r,), dtype=torch.float32, device=dev)
+    v_b = torch.zeros((r,), dtype=torch.float32, device=dev)
+    act = torch.arange(r, device=dev)
+    while act.numel():
+        top = sp[act]
+        a, tpop, c = st_a[act, top], st_t[act, top], st_c[act, top]
+        sp[act] = top - 1
+        live = tpop <= t_b[act]
+        leaf = live & (c > 0)
+        if bool(leaf.any()):
+            rid, la, lc = act[leaf], a[leaf], c[leaf]
+            th, uh, vh, ok = _leaf_test(rows, la, lc, org[rid], dirn[rid],
+                                        tnear[rid], t_b[rid])
+            tmin, j = torch.min(torch.where(ok, th, INF), dim=1)
+            hit = torch.any(ok, dim=1)
+            rid, j = rid[hit], j[hit]
+            t_b[rid] = tmin[hit]
+            tri_b[rid] = (la[hit] + j).to(torch.int32)
+            u_b[rid] = uh[hit].gather(1, j[:, None])[:, 0]
+            v_b[rid] = vh[hit].gather(1, j[:, None])[:, 0]
+        inner = live & (c == 0)
+        if bool(inner.any()):
+            rid = act[inner]
+            nd = nodes[a[inner]]                         # (n, 4, 8)
+            tag = nd[..., 7].to(torch.int64)
+            hit, tmin = _slab(nd, org[rid][:, None, :], inv[rid][:, None, :],
+                              tnear[rid][:, None], t_b[rid][:, None])
+            has = hit & (tag != 0)
+            cols = [list(x.unbind(1)) for x in (
+                torch.where(has, tmin, -INF), nd[..., 6].to(torch.int64),
+                torch.clamp(tag, min=0), has)]
+            for x, y in _SORT_NET4:
+                lt = cols[0][x] < cols[0][y]
+                for col in cols:
+                    col[x], col[y] = (torch.where(lt, col[y], col[x]),
+                                      torch.where(lt, col[x], col[y]))
+            m, ca, cc, hs = cols
+            for k in range(4):
+                _push((st_a, st_t, st_c), sp, rid, hs[k], (ca[k], m[k], cc[k]))
+        act = act[sp[act] >= 0]
+    t = torch.where(tri_b >= 0, t_b, INF)
+    return Hit(t, tri_b, u_b, v_b)
+
+
+def _any_plain(nodes4, tris, org, dirn, tnear, tfar):
+    r, dev = org.shape[0], org.device
+    rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, 4, 8)
+    inv = _safe_inv(dirn)
+    st_a = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    st_c = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    occ = torch.zeros((r,), dtype=torch.bool, device=dev)
+    act = torch.nonzero(tfar > tnear)[:, 0]
+    while act.numel():
+        top = sp[act]
+        a, c = st_a[act, top], st_c[act, top]
+        sp[act] = top - 1
+        leaf = c > 0
+        if bool(leaf.any()):
+            rid = act[leaf]
+            ok = _leaf_test(rows, a[leaf], c[leaf], org[rid], dirn[rid],
+                            tnear[rid], tfar[rid])[3]
+            occ[rid] = torch.any(ok, dim=1)
+        inner = ~leaf
+        if bool(inner.any()):
+            rid = act[inner]
+            nd = nodes[a[inner]]
+            tag = nd[..., 7].to(torch.int64)
+            hit, _ = _slab(nd, org[rid][:, None, :], inv[rid][:, None, :],
+                           tnear[rid][:, None], tfar[rid][:, None])
+            push = hit & (tag != 0)
+            ca, cc = nd[..., 6].to(torch.int64), torch.clamp(tag, min=0)
+            for k in range(4):
+                _push((st_a, st_c), sp, rid, push[:, k], (ca[:, k], cc[:, k]))
+        act = act[(sp[act] >= 0) & ~occ[act]]
+    return occ
+
+
+# ------------------------------------------------------------- wrappers
+
+def _kernel_args(nodes4, tris, org, dirn, tnear, tfar):
+    org, dirn, tnear, tfar = cb.ray_args(org, dirn, tnear, tfar)
+    return (cb.table_arg('nodes4', nodes4, 32, org.device),
+            cb.table_arg('tris', tris.reshape(-1, 16), 16, org.device),
+            org, dirn, tnear, tfar)
+
+
+def _lib():
+    return cb.library('wide', _SIGNATURES)
+
+
+def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
+    """Closest hit of each ray (R, 3) through the BVH4 tables."""
+    if org.device.type == 'cpu':
+        return intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar)
+    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar)
+    r, dev = args[2].shape[0], args[2].device
+    hit = cb.empty_hit(r, dev)
+    cb.launch(_lib().yrt_intersect_wide, 'intersect_packet4', dev, *args, r,
+              *hit)
+    intersect_packet4.launches += 1
+    return Hit(*hit)
+
+
+def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar):
+    """(R,) bool: is each ray segment (tnear, tfar) occluded."""
+    if org.device.type == 'cpu':
+        return occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar)
+    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar)
+    r, dev = args[2].shape[0], args[2].device
+    occ = torch.empty((r,), dtype=torch.bool, device=dev)
+    cb.launch(_lib().yrt_occluded_wide, 'occluded_packet4', dev, *args, r,
+              occ)
+    occluded_packet4.launches += 1
+    return occ
+
+
+# launch counts: kernels launched, and plain versions run on CUDA tensors
+intersect_packet4.launches = 0
+occluded_packet4.launches = 0
+intersect_wide_plain.cuda_calls = 0
+occluded_wide_plain.cuda_calls = 0
