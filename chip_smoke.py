@@ -5,17 +5,24 @@
 
 Phases, one line each (a failure raises and the exit code is nonzero):
  1. toolchain: torch / CUDA / nvcc versions, the card's name and power limit;
- 2. build: the CUDA kernels from yulio_raytracer_tpu_torch/csrc, with nvcc;
+ 2. build: the CUDA kernels from yulio_raytracer_tpu_torch/csrc, one nvcc
+    per source, all started together;
  3. every kernel against its plain torch version on the card, at the main
-    path's shapes: the dense pair on cornell (64^2 camera rays plus
+    paths' shapes: the dense pair on cornell (64^2 camera rays plus
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
-    pair on the full colonnade (1024^2 camera rays, 1M scattered rays, the
-    shadow rays to its 4 triangle lights);
- 4. the pinned CPU goldens rendered through render_frame on the card
-    (cornell_64 through the dense kernels, colonnade_64 through the BVH4
-    kernels), PSNR >= 40 dB, with launch counters showing which kernels
-    ran and that no plain version ran on a CUDA tensor;
- 5. timed full-size frames (cornell_512, colonnade_1024).
+    pair and the binary pair on the full colonnade (1024^2 camera rays, 1M
+    scattered rays, the shadow rays to its 4 triangle lights), the motion
+    kernel on the motion field (512^2 camera rays with their times, 1M
+    scattered rays at random times);
+ 4. the pinned CPU goldens rendered through render_frame on the card, one
+    path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
+    colonnade_64 through the BVH4 kernels and again with accel='bvh2'
+    through the binary kernels, motion_64 through the motion kernel.  Every
+    launch counter is set to 0 before each render and read after it: the
+    path's kernels must have run, no other kernel, and no plain version on
+    a CUDA tensor;
+ 5. timed full-size frames (cornell_512, colonnade_1024,
+    colonnade_1024_bvh2, motion_field_512).
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -26,6 +33,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -71,13 +79,27 @@ def psnr(img, ref):
     return 10 * np.log10(max(float(img.max()), 1e-9) ** 2 / max(mse, 1e-20))
 
 
-def camera_rays(renderer, cam, width, height, dev):
-    """One camera sample per pixel in tile order (sample 0, seed SEED)."""
+def camera_rays(renderer, scene, cam, width, height, dev):
+    """One camera sample per pixel in tile order (sample 0, seed SEED):
+    (org, dir, time), time None unless the scene moves."""
     order = torch.as_tensor(renderer._tile_order(width, height), device=dev)
     sid = torch.zeros_like(order)
     from yulio_raytracer_tpu_torch.sampling import patterns
-    return renderer._gen_rays(cam, width, height, patterns.grid_scalars(1),
-                              order, sid, SEED)
+    return renderer._gen_rays(scene, cam, width, height,
+                              patterns.grid_scalars(1), order, sid, SEED)
+
+
+def scattered_rays(scene, n, gen, dev):
+    """n rays from uniform points of the scene's box in uniform
+    directions, at uniform times."""
+    lo = torch.tensor(scene.bbox_lo, device=dev)
+    hi = torch.tensor(scene.bbox_hi, device=dev)
+    org = lo + (hi - lo) * torch.rand(n, 3, generator=gen, device=dev)
+    d = torch.randn(n, 3, generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return (org, d, torch.zeros(n, device=dev),
+            torch.full((n,), float('inf'), device=dev),
+            torch.rand(n, generator=gen, device=dev))
 
 
 def hemisphere_rays(scene, org, dirn, hit, gen, dev):
@@ -157,7 +179,7 @@ def main():
     from yulio_raytracer_tpu_torch.film import accum
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
-    from yulio_raytracer_tpu_torch.ops import cuda_build, dense, wide
+    from yulio_raytracer_tpu_torch.ops import cuda_build, dense, traverse, wide
     from yulio_raytracer_tpu_torch import renderer
 
     dev = torch.device('cuda')
@@ -169,9 +191,11 @@ def main():
           f"{nvcc.stdout.strip().splitlines()[-1]}; card: {card}")
 
     t0 = time.perf_counter()
-    for name in ('dense', 'wide'):
-        log = cuda_build.build(name)[:-3] + '.log'
-        regs = [l.split(':', 1)[1].strip() for l in open(log)
+    names = ('dense', 'wide', 'binary')
+    with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
+        libs = list(pool.map(cuda_build.build, names))
+    for name, lib in zip(names, libs):
+        regs = [l.split(':', 1)[1].strip() for l in open(lib[:-3] + '.log')
                 if 'registers' in l]
         phase('build', f"{name}.cu: {'; '.join(regs)}")
     phase('build', f"kernels built in {time.perf_counter() - t0:.2f} s")
@@ -190,8 +214,8 @@ def main():
 
     t0 = time.perf_counter()
     cornell = bs.cornell_box().commit(device=dev)
-    org, dirn = camera_rays(renderer, bs.cornell_camera(64, 64), 64, 64,
-                            dev)
+    org, dirn, _ = camera_rays(renderer, cornell, bs.cornell_camera(64, 64),
+                               64, 64, dev)
     zeros = torch.zeros(org.shape[0], device=dev)
     inf = torch.full_like(zeros, float('inf'))
     hit = dense.intersect_dense_plain(cornell.tris, org, dirn, zeros, inf)
@@ -209,77 +233,123 @@ def main():
 
     t1 = time.perf_counter()
     colonnade = bs.colonnade().commit(device=dev, leaf_size=32)
+    t2 = time.perf_counter()
+    colonnade2 = bs.colonnade().commit(device=dev, leaf_size=32,
+                                       accel='bvh2')
     phase('kernels', f"colonnade: {colonnade.num_triangles} triangles, "
           f"{colonnade.nodes4.shape[0]} BVH4 nodes, leaf 32, committed in "
-          f"{time.perf_counter() - t1:.2f} s")
+          f"{t2 - t1:.2f} s; with accel='bvh2': "
+          f"{colonnade2.nodes.shape[0]} binary nodes, committed in "
+          f"{time.perf_counter() - t2:.2f} s")
+    if not torch.equal(colonnade.tris, colonnade2.tris):
+        raise AssertionError("the bvh2 and bvh4 commits differ in their "
+                             "triangle rows")
     tables = (colonnade.nodes4, colonnade.tris)
-    org, dirn = camera_rays(renderer, bs.colonnade_camera(1024, 1024),
-                            1024, 1024, dev)
+    tables2 = (colonnade2.nodes, colonnade2.tris)
+    org, dirn, _ = camera_rays(renderer, colonnade,
+                               bs.colonnade_camera(1024, 1024), 1024, 1024,
+                               dev)
     zeros = torch.zeros(org.shape[0], device=dev)
     inf = torch.full_like(zeros, float('inf'))
-    record('intersect_packet4', compare(
-        'intersect_packet4 (colonnade camera)', wide.intersect_packet4,
-        wide.intersect_wide_plain, (*tables, org, dirn, zeros, inf)))
-    hit = wide.intersect_packet4(*tables, org, dirn, zeros, inf)
+    cam_rays = (org, dirn, zeros, inf)
+    hit = wide.intersect_packet4(*tables, *cam_rays)
     ho, hd, htn, htf, dg, eps = hemisphere_rays(colonnade, org, dirn, hit,
                                                 gen, dev)
-    record('intersect_packet4', compare(
-        'intersect_packet4 (colonnade scattered)', wide.intersect_packet4,
-        wide.intersect_wide_plain, (*tables, ho, hd, htn, htf)))
     so, sd, stn, stf = shadow_rays(colonnade, dg, eps, hit.valid, gen, dev)
+    for what, rays in (('camera', cam_rays), ('scattered', (ho, hd, htn,
+                                                              htf))):
+        record('intersect_packet4', compare(
+            f'intersect_packet4 (colonnade {what})', wide.intersect_packet4,
+            wide.intersect_wide_plain, (*tables, *rays)))
+        record('intersect_packet', compare(
+            f'intersect_packet (colonnade bvh2 {what})',
+            traverse.intersect_packet, traverse.intersect_binary_plain,
+            (*tables2, *rays)))
     record('occluded_packet4', compare(
         'occluded_packet4 (colonnade shadow)', wide.occluded_packet4,
         wide.occluded_wide_plain, (*tables, so, sd, stn, stf)))
+    record('occluded_packet', compare(
+        'occluded_packet (colonnade bvh2 shadow)', traverse.occluded_packet,
+        traverse.occluded_binary_plain, (*tables2, so, sd, stn, stf)))
+
+    t1 = time.perf_counter()
+    motion = bs.motion_field().commit(device=dev)
+    phase('kernels', f"motion_field: {motion.num_triangles} triangles, "
+          f"{motion.nodes.shape[0]} binary nodes over union bounds, "
+          f"accel {motion.accel}, committed in "
+          f"{time.perf_counter() - t1:.2f} s")
+    org, dirn, tm = camera_rays(renderer, motion,
+                                bs.motion_field_camera(512, 512), 512, 512,
+                                dev)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    inf = torch.full_like(zeros, float('inf'))
+    for what, rays in (('camera', (org, dirn, zeros, inf, tm)),
+                       ('scattered', scattered_rays(motion, 1 << 20, gen,
+                                                    dev))):
+        record('intersect_packet_mb', compare(
+            f'intersect_packet_mb (motion_field {what})',
+            traverse.intersect_packet_mb, traverse.intersect_motion_plain,
+            (motion.nodes, motion.tris_mb, *rays)))
     phase('kernels', f"all kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # ---- 4. goldens through the main path --------------------------------
+    # ---- 4. goldens, one path each ----------------------------------------
     counters = [dense.intersect_dense, dense.occluded_dense,
-                wide.intersect_packet4, wide.occluded_packet4]
+                wide.intersect_packet4, wide.occluded_packet4,
+                traverse.intersect_packet, traverse.occluded_packet,
+                traverse.intersect_packet_mb]
     plains = [dense.intersect_dense_plain, dense.occluded_dense_plain,
-              wide.intersect_wide_plain, wide.occluded_wide_plain]
-    for f in counters:
-        f.launches = 0
-    for f in plains:
-        f.cuda_calls = 0
-
-    def launches():
-        return [f.launches for f in counters]
-
+              wide.intersect_wide_plain, wide.occluded_wide_plain,
+              traverse.intersect_binary_plain,
+              traverse.occluded_binary_plain,
+              traverse.intersect_motion_plain]
+    main_launches = [0] * len(counters)
     goldens = (
         ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32, (0, 1)),
         ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
          (2, 3)),
+        ('colonnade_64', colonnade2, bs.colonnade_camera(64, 64), 3, 8,
+         (4, 5)),
+        ('motion_64', motion, bs.motion_field_camera(64, 64), 2, 16, (6,)),
     )
     for name, scene, cam, depth, spp, used in goldens:
-        before = launches()
+        for f in counters:
+            f.launches = 0
+        for f in plains:
+            f.cuda_calls = 0
         film, stats = renderer.render_frame(
             scene, cam, pt.PTParams(max_depth=depth), 64, 64, spp=spp,
             seed=SEED)
         img = accum.resolve(film).cpu().numpy()
-        ran = [a - b for a, b in zip(launches(), before)]
+        ran = [f.launches for f in counters]
         ref = np.load(os.path.join(GOLDEN, name + '_cpu.npz'))['img']
         if img.shape != ref.shape or not np.isfinite(img).all():
             raise AssertionError(f"{name}: image {img.shape} not finite or "
                                  f"not of the golden's shape {ref.shape}")
         db = psnr(img, ref)
-        phase('golden', f"{name}: PSNR {db:.2f} dB vs {name}_cpu.npz "
-              f"(gate {PSNR_MIN}), {stats.num_rays:.0f} rays, kernel "
-              f"launches {dict(zip([f.__name__ for f in counters], ran))}")
+        counts = dict(zip([f.__name__ for f in counters], ran))
+        phase('golden', f"{name} (accel {scene.accel}): PSNR {db:.2f} dB vs "
+              f"{name}_cpu.npz (gate {PSNR_MIN}), {stats.num_rays:.0f} rays, "
+              f"kernel launches {counts}")
         if db < PSNR_MIN:
             raise AssertionError(f"{name}: PSNR {db:.2f} < {PSNR_MIN}")
-        if any(ran[i] == 0 for i in used):
-            raise AssertionError(f"{name}: a kernel of its path never ran")
-    if any(f.cuda_calls for f in plains):
-        raise AssertionError("a plain version ran on CUDA tensors in the "
-                             "main path")
-    main_launches = launches()
+        if any((ran[i] > 0) != (i in used) for i in range(len(counters))):
+            raise AssertionError(f"{name} (accel {scene.accel}): its path's "
+                                 "kernels did not run, or others did")
+        if any(f.cuda_calls for f in plains):
+            raise AssertionError(f"{name}: a plain version ran on CUDA "
+                                 "tensors in the main path")
+        main_launches = [a + b for a, b in zip(main_launches, ran)]
 
     # ---- 5. timed full-size frames ----------------------------------------
     frames = (
         ('cornell_512', cornell, bs.cornell_camera(512, 512), 512, 32, 4),
         ('colonnade_1024', colonnade, bs.colonnade_camera(1024, 1024), 1024,
          8, 4),
+        ('colonnade_1024_bvh2', colonnade2, bs.colonnade_camera(1024, 1024),
+         1024, 8, 4),
+        ('motion_field_512', motion, bs.motion_field_camera(512, 512), 512,
+         16, 4),
     )
     for name, scene, cam, res, spp, depth in frames:
         params = pt.PTParams(max_depth=depth)
@@ -290,7 +360,8 @@ def main():
                                       seed=SEED + i)[1] for i in (1, 2, 3)]
         mrps = sorted(s.mrps for s in runs)
         secs = sorted(s.seconds for s in runs)
-        phase('frame', f"{name} ({res}^2, {spp} spp, depth {depth}): "
+        phase('frame', f"{name} ({res}^2, {spp} spp, depth {depth}, accel "
+              f"{scene.accel}): "
               f"{mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, max {mrps[2]:.2f}),"
               f" frame_s {secs[1]:.3f} (min {secs[0]:.3f}, max "
               f"{secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} Mrays/frame, "
@@ -306,6 +377,12 @@ def main():
                               'pallas_wide.py:507'),
         'occluded_packet4': ('wide.cu', 'yulio_raytracer_tpu/ops/'
                              'pallas_wide.py:676'),
+        'intersect_packet': ('binary.cu', 'yulio_raytracer_tpu/ops/'
+                             'pallas_traverse.py:514'),
+        'occluded_packet': ('binary.cu', 'yulio_raytracer_tpu/ops/'
+                            'pallas_traverse.py:820'),
+        'intersect_packet_mb': ('binary.cu', 'yulio_raytracer_tpu/ops/'
+                                'pallas_traverse.py:1570'),
     }
     kernels = []
     for f, n in zip(counters, main_launches):

@@ -1,5 +1,5 @@
 """The torch port's CUDA kernels on the card: each held against its plain
-torch version, and the cornell golden rendered through them.
+torch version, and the cornell and motion goldens rendered through them.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -16,7 +16,8 @@ import torch
 from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
-from yulio_raytracer_tpu_torch.ops import dense, wide
+from yulio_raytracer_tpu_torch.ops import dense, traverse, wide
+from yulio_raytracer_tpu_torch.scene import SceneBuilder
 from yulio_raytracer_tpu_torch import renderer
 from yulio_raytracer_tpu_torch.film import accum
 
@@ -33,8 +34,9 @@ def cuda():
 
 
 def _tables_and_rays(dev, n=1000):
-    """Packed rows and BVH4 nodes of a sphere over a floor with one culled
-    triangle (leaf 8), and n random rays with dead and finite lanes."""
+    """Packed rows and BVH4 and binary nodes of a sphere over a floor with
+    one culled triangle (leaf 8), and n random rays with dead and finite
+    lanes."""
     packed = mesh.pack_meshes([
         primitives.tessellate_sphere([0, 0, 0], 1.0, 12, 16),
         primitives.quad([-5, -1.2, -5], [5, -1.2, -5], [5, -1.2, 5],
@@ -56,22 +58,27 @@ def _tables_and_rays(dev, n=1000):
             d / np.linalg.norm(d, axis=1, keepdims=True),
             np.full((n,), 1e-4, np.float32), tf]
     return (torch.as_tensor(wide.pack_tris(woop, host)).to(dev),
-            torch.as_tensor(wide.pack_nodes4(tree)).to(dev),
+            {'wide': torch.as_tensor(wide.pack_nodes4(tree)).to(dev),
+             'binary': torch.as_tensor(traverse.pack_nodes(tree)).to(dev)},
             [torch.as_tensor(x).to(dev) for x in rays])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('which', ['dense', 'wide'])
+@pytest.mark.parametrize('which', ['dense', 'wide', 'binary'])
 def test_kernels_match_plain_on_card(cuda, which):
-    tris, nodes4, rays = _tables_and_rays(cuda)
+    tris, nodes, rays = _tables_and_rays(cuda)
     if which == 'dense':
         pairs = ((dense.intersect_dense, dense.intersect_dense_plain),
                  (dense.occluded_dense, dense.occluded_dense_plain))
         tables = (tris,)
-    else:
+    elif which == 'wide':
         pairs = ((wide.intersect_packet4, wide.intersect_wide_plain),
                  (wide.occluded_packet4, wide.occluded_wide_plain))
-        tables = (nodes4, tris)
+        tables = (nodes['wide'], tris)
+    else:
+        pairs = ((traverse.intersect_packet, traverse.intersect_binary_plain),
+                 (traverse.occluded_packet, traverse.occluded_binary_plain))
+        tables = (nodes['binary'], tris)
     (kc, pc), (ka, pa) = pairs
     launches = kc.launches
     got, ref = kc(*tables, *rays), pc(*tables, *rays)
@@ -81,6 +88,39 @@ def test_kernels_match_plain_on_card(cuda, which):
         np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
     np.testing.assert_array_equal(ka(*tables, *rays).cpu().numpy(),
                                   pa(*tables, *rays).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_motion_kernel_matches_plain_on_card(cuda):
+    """The motion kernel on a moving quad and a falling sphere (the
+    tests/test_motion.py scene, leaf 8) at random times, bit-equal to its
+    plain version; its hit mask is occluded_packet_mb."""
+    sb = SceneBuilder()
+    sb.add_mesh(mesh.HostMesh(
+        np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]],
+                   np.float32), np.asarray([[0, 2, 1], [0, 3, 2]], np.int32),
+        motions=np.tile(np.float32([2, 0, 0]), (4, 1))))
+    sph = primitives.tessellate_sphere([0, 2, 0], 0.6, 10, 12)
+    sph.motions = np.tile(np.float32([0, -1.5, 0]), (len(sph.positions), 1))
+    sb.add_mesh(sph)
+    sc = sb.commit(device=cuda, force_bvh=True, leaf_size=8)
+    assert sc.accel == 'bvh4mb'
+    _, _, rays = _tables_and_rays(cuda)
+    rays[0] = rays[0] * (2 / 3) + torch.tensor([0.0, 3.0, 0.0], device=cuda)
+    time = torch.rand(rays[0].shape[0], generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda)
+    launches = traverse.intersect_packet_mb.launches
+    got = traverse.intersect_packet_mb(sc.nodes, sc.tris_mb, *rays, time)
+    ref = traverse.intersect_motion_plain(sc.nodes, sc.tris_mb, *rays, time)
+    torch.cuda.synchronize()
+    assert traverse.intersect_packet_mb.launches == launches + 1
+    assert bool((ref.tri >= 0).any())
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    np.testing.assert_array_equal(
+        traverse.occluded_packet_mb(sc.nodes, sc.tris_mb, *rays,
+                                    time).cpu().numpy(),
+        (ref.tri >= 0).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -104,3 +144,19 @@ def test_cornell_golden_on_card(cuda):
     assert dense.intersect_dense.launches > before[0]
     assert dense.occluded_dense.launches > before[1]
     assert dense.intersect_dense_plain.cuda_calls == before[2]
+
+
+@pytest.mark.cuda
+def test_motion_golden_on_card(cuda):
+    """motion_64 (depth 2, 16 spp, seed 42) through the motion kernel."""
+    before = (traverse.intersect_packet_mb.launches,
+              traverse.intersect_motion_plain.cuda_calls)
+    film, _ = renderer.render_frame(
+        bs.motion_field().commit(device=cuda), bs.motion_field_camera(64, 64),
+        pt.PTParams(max_depth=2), 64, 64, spp=16, seed=42)
+    img = accum.resolve(film).cpu().numpy()
+    golden = np.load(os.path.join(GOLDEN, 'motion_64_cpu.npz'))['img']
+    mse = ((img - golden) ** 2).mean()
+    assert 10 * np.log10(img.max() ** 2 / max(mse, 1e-20)) >= 40.0
+    assert traverse.intersect_packet_mb.launches > before[0]
+    assert traverse.intersect_motion_plain.cuda_calls == before[1]

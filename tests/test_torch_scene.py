@@ -36,7 +36,7 @@ def test_pack_tables_match_on_reduced_colonnade():
 def _numpy_leaves(js):
     """A committed JAX TpuScene's leaves as numpy (what from_numpy_scene
     takes)."""
-    np_ = lambda d: {k: np.asarray(v) for k, v in d.items()
+    np_ = lambda d: {k: np.asarray(v) for k, v in (d or {}).items()
                      if not isinstance(v, dict)}
     lights = [{k: (v if isinstance(v, (str, int, float)) else np.asarray(v))
                for k, v in l.items()} for l in js.lights]
@@ -52,12 +52,20 @@ def _assert_scenes_equal(a, b):
     for k in ('leaf_size', 'bbox_lo', 'bbox_hi', 'num_triangles',
               'lobe_types', 'accel'):
         assert getattr(a, k) == getattr(b, k), k
-    # the reference's rows end in zero rows that only its TPU kernels read
-    g = b.tris.shape[0]
-    assert not a.tris[g:].any()
-    pairs = [('tris', a.tris[:g], b.tris), ('nodes4', a.nodes4, b.nodes4)]
-    for grp in ('geom', 'materials', 'textures'):
+    pairs = [(k, getattr(a, k), getattr(b, k))
+             for k in ('nodes4', 'nodes', 'tris_mb')]
+    if b.tris is None:
+        assert a.tris is None
+    else:
+        # the reference's rows end in zero rows only its TPU kernels read
+        g = b.tris.shape[0]
+        assert not a.tris[g:].any()
+        pairs.append(('tris', a.tris[:g], b.tris))
+    for grp in ('geom', 'materials', 'textures', 'motion'):
         ga, gb = getattr(a, grp), getattr(b, grp)
+        if ga is None or gb is None:
+            assert ga is None and gb is None, grp
+            continue
         assert ga.keys() == gb.keys(), grp
         pairs += [(f'{grp}.{k}', ga[k], gb[k]) for k in ga]
     assert len(a.lights) == len(b.lights)

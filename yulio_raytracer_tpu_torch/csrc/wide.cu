@@ -32,48 +32,9 @@
 // the per-thread stack lives in local memory.  Making it fast (caching the
 // top of the tree in shared memory, sorting rays for coherence, wide
 // loads, a short register stack) is later work.
-#include "woop.cuh"
+#include "bvh.cuh"
 
 #define WIDE_BLOCK 128
-#define STACK 128
-
-struct Slab {
-    float ix, iy, iz;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-    return 1.0f / (fabsf(d) > 1e-30f ? d : (d >= 0.0f ? 1e-30f : -1e-30f));
-}
-
-// slab test of one node slot (8 floats at s) in the reference's order;
-// returns tmin <= tmax and the entry distance tmin.
-__device__ __forceinline__ bool slab(const float* __restrict__ s,
-                                     const Ray& r, const Slab& inv,
-                                     float tnear, float tfar, float& tmin) {
-    float t0x = (__ldg(s + 0) - r.ox) * inv.ix;
-    float t1x = (__ldg(s + 3) - r.ox) * inv.ix;
-    float t0y = (__ldg(s + 1) - r.oy) * inv.iy;
-    float t1y = (__ldg(s + 4) - r.oy) * inv.iy;
-    float t0z = (__ldg(s + 2) - r.oz) * inv.iz;
-    float t1z = (__ldg(s + 5) - r.oz) * inv.iz;
-    tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                 fmaxf(fminf(t0z, t1z), tnear));
-    float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                       fminf(fmaxf(t0z, t1z), tfar));
-    return tmin <= tmax;
-}
-
-__device__ __forceinline__ void load_row(const float4* __restrict__ tris,
-                                         int j, float* w) {
-    #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        float4 x = __ldg(tris + 4 * j + q);
-        w[4 * q + 0] = x.x;
-        w[4 * q + 1] = x.y;
-        w[4 * q + 2] = x.z;
-        w[4 * q + 3] = x.w;
-    }
-}
 
 template <typename T>
 __device__ __forceinline__ void cswap(bool c, T& a, T& b) {
@@ -114,7 +75,7 @@ intersect_wide_kernel(const float* __restrict__ nodes,
         if (c > 0) {
             for (int j = a; j < a + c; ++j) {
                 float w[16], th, uh, vh;
-                load_row(tris, j, w);
+                load_row<4>(tris, 4, j, w);
                 if (woop_test(w, r, r.tnear, t_b, th, uh, vh)) {
                     t_b = th;
                     tri_b = j;
@@ -190,7 +151,7 @@ occluded_wide_kernel(const float* __restrict__ nodes,
             if (c > 0) {
                 for (int j = a; j < a + c; ++j) {
                     float w[16], th, uh, vh;
-                    load_row(tris, j, w);
+                    load_row<4>(tris, 4, j, w);
                     if (woop_test(w, r, r.tnear, r.tfar, th, uh, vh)) {
                         occ = true;
                         break;

@@ -1,11 +1,13 @@
-"""Host-side BVH build (the native C++ builder) and triangle permutation.
+"""Host-side BVH build and triangle permutation.
 
 The part of `yulio_raytracer_tpu/geometry/bvh.py` that the port's commit
-runs: its default tree (`build(..., quality='high')` there: object-split
-binned SAH with leaf starts aligned to the packed 8-triangle rows), built
-by `native/libyrt_native.so`.  Layout: depth-first nodes with skip
-pointers; leaf triangle ranges are contiguous in the permuted triangle
-order (`permute_geom`).
+runs: for static scenes its default tree (`build(..., quality='high')`
+there: object-split binned SAH with leaf starts aligned to the packed
+8-triangle rows), built by `native/libyrt_native.so`; for motion scenes
+its numpy object-split binned-SAH builder over given per-triangle boxes
+(the union of each triangle's t=0 and t=1 boxes).  Layout: depth-first
+nodes with skip pointers; leaf triangle ranges are contiguous in the
+permuted triangle order (`permute_geom`).
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ class FlatBVH:
     start: np.ndarray   # (N,) i32  leaf: first triangle (in permuted order)
     count: np.ndarray   # (N,) i32  leaf: #tris; 0 for interior nodes
     skip: np.ndarray    # (N,) i32  next node on miss / after leaf (N = done)
-    # (R,) i64 gather list new position -> old triangle index; R >= T,
-    # since aligning leaf starts pads the list (permute_geom gathers)
+    # (R,) i64 gather list new position -> old triangle index; R >= T
+    # for the native build, whose aligned leaf starts pad the list, and
+    # R == T for the numpy build (permute_geom gathers)
     order: np.ndarray
     num_nodes: int
 
@@ -59,11 +62,14 @@ def _load_native():
 
 def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
           valid: np.ndarray, leaf_size: int = 64,
-          nbins: int = 16) -> FlatBVH:
+          nbins: int = 16, bounds=None) -> FlatBVH:
     """Build a flattened skip-pointer BVH over triangles (v0, v0+e1, v0+e2):
     object splits, leaf starts aligned to the packed 8-triangle rows.
     Invalid (padding/degenerate) triangles get empty bounds and are never
-    hit."""
+    hit.  `bounds` = (lo, hi), each (T, 3), overrides the per-triangle
+    boxes and builds with the numpy builder instead (motion scenes)."""
+    if bounds is not None:
+        return _build_numpy(valid, leaf_size, nbins, bounds)
     lib = _load_native()
     t = len(v0)
     max_refs = 2 * max(t, 1) + 64
@@ -92,8 +98,124 @@ def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
                    order[:int(nrefs[0])].copy(), n)
 
 
+def _sah_split(lo, hi, cent, idx, nbins=16):
+    """Binned SAH split of triangle subset idx. Returns (axis, left_idx,
+    right_idx) or None if no good split."""
+    clo = cent[idx].min(axis=0)
+    chi = cent[idx].max(axis=0)
+    ext = chi - clo
+    axis = int(np.argmax(ext))
+    if ext[axis] <= 1e-30:
+        return None
+    # bin by centroid
+    scale = nbins * (1.0 - 1e-6) / ext[axis]
+    b = ((cent[idx, axis] - clo[axis]) * scale).astype(np.int32)
+    b = np.clip(b, 0, nbins - 1)
+
+    # per-bin counts and bounds
+    counts = np.zeros(nbins, np.int64)
+    blo = np.full((nbins, 3), np.inf, np.float64)
+    bhi = np.full((nbins, 3), -np.inf, np.float64)
+    for k in range(nbins):
+        sel = b == k
+        counts[k] = sel.sum()
+        if counts[k]:
+            blo[k] = lo[idx[sel]].min(axis=0)
+            bhi[k] = hi[idx[sel]].max(axis=0)
+
+    def area(l, h):
+        d = np.maximum(h - l, 0)
+        return (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                + d[..., 2] * d[..., 0])
+
+    # sweep: cost of splitting after bin k
+    llo = np.minimum.accumulate(blo, axis=0)
+    lhi = np.maximum.accumulate(bhi, axis=0)
+    rlo = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+    rhi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+    lcnt = np.cumsum(counts)
+    rcnt = np.cumsum(counts[::-1])[::-1]
+    cost = np.full(nbins - 1, np.inf)
+    for k in range(nbins - 1):
+        if lcnt[k] == 0 or rcnt[k + 1] == 0:
+            continue
+        cost[k] = (lcnt[k] * area(llo[k], lhi[k])
+                   + rcnt[k + 1] * area(rlo[k + 1], rhi[k + 1]))
+    k = int(np.argmin(cost))
+    if not np.isfinite(cost[k]):
+        # fallback: median split on the widest axis
+        med = np.median(cent[idx, axis])
+        left = idx[cent[idx, axis] <= med]
+        right = idx[cent[idx, axis] > med]
+        if len(left) == 0 or len(right) == 0:
+            half = len(idx) // 2
+            srt = idx[np.argsort(cent[idx, axis], kind='stable')]
+            left, right = srt[:half], srt[half:]
+        return axis, left, right
+    sel = b <= k
+    return axis, idx[sel], idx[~sel]
+
+
+def _build_numpy(valid, leaf_size, nbins, bounds) -> FlatBVH:
+    """The reference's numpy object-split binned-SAH build over the boxes
+    `bounds`; every node's triangles form one contiguous range of the
+    returned permutation (invalid triangles last, in no leaf)."""
+    lo = np.asarray(bounds[0], np.float64).copy()
+    hi = np.asarray(bounds[1], np.float64).copy()
+    valid = np.asarray(valid, bool)
+    cent = 0.5 * (lo + hi)
+    cent[~valid] = 0.0
+    lo[~valid] = np.inf
+    hi[~valid] = -np.inf
+    live = np.nonzero(valid)[0]
+    dead = np.nonzero(~valid)[0]
+
+    nodes = []      # [lo, hi, start, count] in DFS order
+    is_leaf = []
+    order = []
+    stack = [live]
+    while stack:
+        sub = stack.pop()
+        if len(sub):
+            nlo, nhi = lo[sub].min(axis=0), hi[sub].max(axis=0)
+        else:
+            nlo, nhi = np.full(3, np.inf), np.full(3, -np.inf)
+        split = (_sah_split(lo, hi, cent, sub, nbins)
+                 if len(sub) > leaf_size else None)
+        is_leaf.append(split is None)
+        if split is None:
+            nodes.append([nlo, nhi, len(order), len(sub)])
+            order.extend(sub.tolist())
+        else:
+            nodes.append([nlo, nhi, 0, 0])
+            # the left subtree follows its parent: push the right first
+            stack.append(split[2])
+            stack.append(split[1])
+    n = len(nodes)
+
+    # skip[i] = end of node i's subtree: i + 1 for a leaf, else the end of
+    # its right child, which was pushed before the left child's end
+    skip = np.zeros(n, np.int32)
+    ends: list[int] = []
+    for i in range(n - 1, -1, -1):
+        if is_leaf[i]:
+            skip[i] = i + 1
+        else:
+            ends.pop()
+            skip[i] = ends.pop()
+        ends.append(int(skip[i]))
+    order.extend(dead.tolist())
+    return FlatBVH(
+        lo=np.stack([nd[0] for nd in nodes]).astype(np.float32),
+        hi=np.stack([nd[1] for nd in nodes]).astype(np.float32),
+        start=np.asarray([nd[2] for nd in nodes], np.int32),
+        count=np.asarray([nd[3] for nd in nodes], np.int32),
+        skip=skip, order=np.asarray(order, np.int64), num_nodes=n)
+
+
 PER_TRIANGLE_KEYS = ('v0', 'e1', 'e2', 'ng', 'vn', 'uv', 'mat_id',
-                     'light_id', 'cull', 'illum_mask', 'shadow_mask', 'valid')
+                     'light_id', 'cull', 'illum_mask', 'shadow_mask', 'valid',
+                     'mv0', 'me1', 'me2')
 
 
 def permute_geom(geom: dict, order: np.ndarray) -> dict:

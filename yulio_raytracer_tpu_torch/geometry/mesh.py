@@ -1,7 +1,7 @@
 """SoA triangle geometry, host side (numpy only).
 
 The part of `yulio_raytracer_tpu/geometry/mesh.py` that the port's commit
-runs, for static meshes (no motion, no authored tangents, no
+runs, for static and moving meshes (no authored tangents, no
 camera-aligned billboards): `pack_meshes`, `woop_matrices` and
 `add_shade_table` produce the same arrays, so a scene committed by either
 package holds identical tables.
@@ -26,6 +26,7 @@ class HostMesh:
     triangles: np.ndarray            # (T, 3) i32
     normals: Optional[np.ndarray] = None    # (V, 3) f32 or None
     texcoords: Optional[np.ndarray] = None  # (V, 2) f32 or None
+    motions: Optional[np.ndarray] = None    # (V, 3) f32 dP/dt (motion blur)
     material: int = 0
     light: int = -1                  # area-light id or -1
     cull: int = CULL_NONE
@@ -51,6 +52,10 @@ class PackedGeometry:
     valid: np.ndarray       # (T,) bool — padding/degenerate mask
     bbox_lo: np.ndarray     # (3,) f32 scene bounds
     bbox_hi: np.ndarray     # (3,) f32
+    # motion blur (None when no mesh moves): positions(t) = v0 + t*mv0 ...
+    mv0: Optional[np.ndarray] = None   # (T, 3)
+    me1: Optional[np.ndarray] = None
+    me2: Optional[np.ndarray] = None
 
     @property
     def num_triangles(self) -> int:
@@ -149,6 +154,9 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
     tables are equal)."""
     v0s, e1s, e2s, vns, uvs = [], [], [], [], []
     mats, lights, culls, ims, sms = [], [], [], [], []
+    movs = []
+    any_motion = any(m.motions is not None and len(m.motions)
+                     for m in meshes)
     for m in meshes:
         pos = np.asarray(m.positions, np.float32)
         tri = np.asarray(m.triangles, np.int64)
@@ -158,6 +166,13 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
         v0s.append(p0)
         e1s.append(p1 - p0)
         e2s.append(p2 - p0)
+        if any_motion:
+            if m.motions is not None and len(m.motions):
+                mo = np.asarray(m.motions, np.float32)
+                m0, m1, m2 = mo[tri[:, 0]], mo[tri[:, 1]], mo[tri[:, 2]]
+            else:
+                m0 = m1 = m2 = np.zeros((len(tri), 3), np.float32)
+            movs.append((m0, m1 - m0, m2 - m0))
         if m.normals is not None and len(m.normals):
             n = np.asarray(m.normals, np.float32)
             vns.append(np.stack([n[tri[:, 0]], n[tri[:, 1]], n[tri[:, 2]]], axis=1))
@@ -206,6 +221,9 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
     finite = np.isfinite(verts).all(axis=1)
     bb_lo, bb_hi = (verts[finite].min(axis=0), verts[finite].max(axis=0)) \
         if finite.any() else (np.zeros(3), np.zeros(3))
+    mv0, me1, me2 = (
+        _pad(np.concatenate(x).astype(np.float32, copy=False))
+        for x in zip(*movs)) if movs else (None, None, None)
 
     return PackedGeometry(
         v0=_pad(v0.astype(np.float32, copy=False)),
@@ -222,4 +240,5 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
         valid=_pad(valid, fill=False),
         bbox_lo=bb_lo.astype(np.float32, copy=False),
         bbox_hi=bb_hi.astype(np.float32, copy=False),
+        mv0=mv0, me1=me1, me2=me2,
     )

@@ -8,13 +8,15 @@ op.  The reference's `lax.scan` over bounces is a Python loop here.
 Kept from the reference, deliberately: decorrelated RNG streams per
 (pixel, sample, bounce, purpose) with its dimension layout; Russian
 roulette divides surviving throughput by q; every light's shadow rays
-go through ONE any-hit call per bounce; dead lanes carry tfar = -1 so
-the kernels reject them at once.
+go through one any-hit call per bounce (cut into whole-light launches
+only where one launch could not index them); dead lanes carry tfar = -1
+so the kernels reject them at once; a motion scene's paths keep their
+camera ray's time.
 
 Not in this slice: ray sorting ('morton' and 'none' both run unsorted),
 environment lights and backplates, the dome shadow cap (finite
-t_max_shadow_ray), motion blur, the precomputed sampler, live-ray
-compaction (`trace_compacted`), the triangle-sharded mesh axis.
+t_max_shadow_ray), the precomputed sampler, live-ray compaction
+(`trace_compacted`), the triangle-sharded mesh axis.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import torch
 from ..core import math as vm
 from ..core import rng
 from ..lights import lights as glights
-from ..ops import dense, wide
+from ..ops import cuda_build as cb
+from ..ops import dense, traverse, wide
 from ..ops import intersect as ops_i
 from ..shading import lobes as lb
 from ..shading import materials as gmat
@@ -73,22 +76,62 @@ def _bounce_dims(depth: int, stride: int = 16) -> int:
     return (stride + stride * depth) & rng._MASK
 
 
-def _intersect(scene, org, dirn, tnear, tfar):
-    if scene.nodes4 is None:
-        return dense.intersect_dense(scene.tris, org, dirn, tnear, tfar)
-    return wide.intersect_packet4(scene.nodes4, scene.tris, org, dirn,
-                                  tnear, tfar)
+def _intersect(scene, org, dirn, tnear, tfar, time=None):
+    """Closest hits through the traversal scene.accel names; a motion
+    scene traces at each ray's time."""
+    if scene.accel == 'bvh4mb':
+        return traverse.intersect_packet_mb(scene.nodes, scene.tris_mb, org,
+                                            dirn, tnear, tfar, time)
+    if scene.motion is not None:
+        return ops_i.intersect_brute(scene.motion, org, dirn, tnear, tfar,
+                                     time=time)
+    if scene.accel == 'bvh4':
+        return wide.intersect_packet4(scene.nodes4, scene.tris, org, dirn,
+                                      tnear, tfar)
+    if scene.accel == 'bvh2':
+        return traverse.intersect_packet(scene.nodes, scene.tris, org, dirn,
+                                         tnear, tfar)
+    return dense.intersect_dense(scene.tris, org, dirn, tnear, tfar)
 
 
-def _occluded(scene, org, dirn, tnear, tfar):
-    if scene.nodes4 is None:
-        return dense.occluded_dense(scene.tris, org, dirn, tnear, tfar)
-    return wide.occluded_packet4(scene.nodes4, scene.tris, org, dirn,
-                                 tnear, tfar)
+def _occluded(scene, org, dirn, tnear, tfar, time=None):
+    """Any-hit of each ray segment (as _intersect)."""
+    if scene.accel == 'bvh4mb':
+        return traverse.occluded_packet_mb(scene.nodes, scene.tris_mb, org,
+                                           dirn, tnear, tfar, time)
+    if scene.motion is not None:
+        return ops_i.occluded_brute(scene.motion, org, dirn, tnear, tfar,
+                                    time=time)
+    if scene.accel == 'bvh4':
+        return wide.occluded_packet4(scene.nodes4, scene.tris, org, dirn,
+                                     tnear, tfar)
+    if scene.accel == 'bvh2':
+        return traverse.occluded_packet(scene.nodes, scene.tris, org, dirn,
+                                        tnear, tfar)
+    return dense.occluded_dense(scene.tris, org, dirn, tnear, tfar)
 
 
-def _init_state(org, dirn, pixel_id, sample_id):
-    """Fresh wavefront state for primary rays."""
+def _occluded_lights(scene, p, wi, tnear, tfar, time):
+    """Any-hit of every light's shadow rays: p, tnear, time (R,...) are
+    shared by the lights, wi (nl, R, 3) and tfar (nl, R) are per light.
+    Each launch takes whole lights, fewer than cuda_build.MAX_RAYS rays
+    in all, so any light count traces; the result does not depend on
+    the split.  Returns (nl * R,) bool, light-major."""
+    nl, r = tfar.shape
+    per = max(1, (cb.MAX_RAYS - 1) // r)
+    occ = []
+    for l0 in range(0, nl, per):
+        k = min(per, nl - l0)
+        occ.append(_occluded(
+            scene, p.repeat(k, 1), wi[l0:l0 + k].reshape(k * r, 3),
+            tnear.repeat(k), tfar[l0:l0 + k].reshape(k * r),
+            None if time is None else time.repeat(k)))
+    return torch.cat(occ)
+
+
+def _init_state(org, dirn, pixel_id, sample_id, time=None):
+    """Fresh wavefront state for primary rays (with each ray's time in a
+    motion scene)."""
     r, dev = org.shape[0], org.device
     ones = torch.ones((r,), device=dev)
     return {
@@ -104,6 +147,7 @@ def _init_state(org, dirn, pixel_id, sample_id):
         'num_rays': torch.zeros((), device=dev),
         'pid': pixel_id,
         'sid': sample_id,
+        'time': time,
     }
 
 
@@ -145,7 +189,7 @@ def _make_bounce(scene, params: PTParams, seed):
         # dead lanes get tfar < tnear: every kernel rejects them at once
         tfar_live = torch.where(active, float('inf'), -1.0)
         hit = _intersect(scene, org, dirn, torch.zeros((r,), device=dev),
-                         tfar_live)
+                         tfar_live, state['time'])
         state = dict(state)
         state['num_rays'] = state['num_rays'] + torch.sum(active)
         dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
@@ -170,7 +214,8 @@ def _make_bounce(scene, params: PTParams, seed):
             L = L + torch.where(is_hit_light[:, None],
                                 thr * glights.le_area(l, backfacing), 0.0)
 
-        # NEE: shadow rays to every light, all occlusion tests in ONE call
+        # NEE: shadow rays to every light, all occlusion tests in one
+        # call (split into whole-light launches only past a launch's rays)
         use_dl = lb.has_type(lobed, lb.DIFFUSE) & active
         err_eps = dg['error'] * params.epsilon
         cand_gs, contrib_gs, wi_gs, tfar_gs = [], [], [], []
@@ -194,10 +239,9 @@ def _make_bounce(scene, params: PTParams, seed):
             cand_all = torch.cat(cand_gs)              # (nl, R)
             nl = cand_all.shape[0]
             state['num_rays'] = state['num_rays'] + torch.sum(cand_all)
-            occ_all = _occluded(scene, dg['P'].repeat(nl, 1),
-                                torch.cat(wi_gs).reshape(nl * r, 3),
-                                err_eps.repeat(nl),
-                                torch.cat(tfar_gs).reshape(nl * r))
+            occ_all = _occluded_lights(scene, dg['P'], torch.cat(wi_gs),
+                                       err_eps, torch.cat(tfar_gs),
+                                       state['time'])
             lit = cand_all & ~occ_all.reshape(nl, r)
             L = L + torch.sum(torch.where(lit[:, :, None],
                                           torch.cat(contrib_gs), 0.0), dim=0)
@@ -264,11 +308,14 @@ def _make_bounce(scene, params: PTParams, seed):
     return bounce
 
 
-def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id):
+def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id,
+          time=None):
     """Radiance along primary rays.  org/dirn: (R, 3) f32; pixel_id,
-    sample_id: (R,) int64 holding u32 RNG keys.  Returns (L (R, 3),
-    num_rays (scalar tensor: closest-hit rays plus shadow candidates))."""
-    state = _init_state(org, dirn, pixel_id, sample_id)
+    sample_id: (R,) int64 holding u32 RNG keys; time: (R,) f32 in [0, 1]
+    for a motion scene (every bounce and shadow ray of a path keeps it).
+    Returns (L (R, 3), num_rays (scalar tensor: closest-hit rays plus
+    shadow candidates))."""
+    state = _init_state(org, dirn, pixel_id, sample_id, time)
     bounce = _make_bounce(scene, params, seed)
     for depth in range(params.max_depth):
         state = bounce(state, depth)

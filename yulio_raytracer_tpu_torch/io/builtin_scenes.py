@@ -1,10 +1,13 @@
 """Built-in test and benchmark scenes.
 
 Counterpart of `yulio_raytracer_tpu/io/builtin_scenes.py` (the cornell
-box and the colonnade with their cameras): the same meshes, materials
-and lights in the same order, so both packages commit equal tables.
+box, the colonnade and the motion field with their cameras): the same
+meshes, materials and lights in the same order, so both packages commit
+equal tables.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -149,3 +152,35 @@ def colonnade_camera(width: int = 1024, height: int = 1024):
     """Down-the-hall view: coherent primaries, deep occlusion."""
     l2w = cam.look_at((-9.0, 2.2, 0.0), (10.0, 1.6, 0.0), (0.0, 1.0, 0.0))
     return cam.Pinhole(l2w, angle=65.0, aspect=width / height)
+
+
+def motion_field(n_spheres: int = 16, tess=(10, 12), seed: int = 11
+                 ) -> SceneBuilder:
+    """Motion-blur scene: a field of spheres, each moving at its own
+    constant velocity (per-vertex linear motion), over a ground plane
+    under a quad light; ~3.5k triangles at the defaults, so commit builds
+    the union-bounds tree and the motion kernel traces it."""
+    sb = SceneBuilder()
+    rs = np.random.RandomState(seed)
+    grey = sb.add_material(gmat.make_material(
+        'matte', {'reflectance': (0.6, 0.6, 0.6)}))
+    hue = [sb.add_material(gmat.make_material('matte', {'reflectance': c}))
+           for c in ((0.7, 0.2, 0.15), (0.2, 0.45, 0.7), (0.75, 0.65, 0.2))]
+    sb.add_mesh(_quad_mesh([-8, 0, -8], [8, 0, -8], [8, 0, 8], [-8, 0, 8],
+                           grey))
+    nt, np_ = tess
+    for i in range(n_spheres):
+        c = [rs.uniform(-6, 6), rs.uniform(0.6, 2.5), rs.uniform(-6, 6)]
+        m = primitives.tessellate_sphere(c, rs.uniform(0.3, 0.7), nt, np_,
+                                         material=hue[i % 3])
+        vel = rs.uniform(-2.5, 2.5, size=3).astype(np.float32)
+        sb.add_mesh(dataclasses.replace(
+            m, motions=np.tile(vel, (len(m.positions), 1))))
+    add_quad_light(sb, (-1.5, 7.0, -1.5), (3.0, 0, 0), (0, 0, 3.0),
+                   (60.0, 60.0, 60.0))
+    return sb
+
+
+def motion_field_camera(width: int = 512, height: int = 512):
+    l2w = cam.look_at((0.0, 6.0, -10.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
+    return cam.Pinhole(l2w, angle=55.0, aspect=width / height)

@@ -96,23 +96,22 @@ def launch(fn, what: str, device, *args):
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
 
 
-def ray_args(org, dirn, tnear, tfar):
-    """One ray batch for a kernel: checked to hold fewer than MAX_RAYS
-    rays, made contiguous, then checked to be (R, 3) / (R,) f32 CUDA
-    tensors on one device."""
+def ray_args(org, dirn, tnear, tfar, *time):
+    """One ray batch for a kernel (with its per-ray `time` for a motion
+    kernel): checked to hold fewer than MAX_RAYS rays, made contiguous,
+    then checked to be (R, 3) / (R,) f32 CUDA tensors on one device."""
     r = org.shape[0]
     if r >= MAX_RAYS:
         raise ValueError(f"{r} rays exceed one launch ({MAX_RAYS})")
-    org, dirn, tnear, tfar = (x.contiguous() for x in (org, dirn, tnear,
-                                                        tfar))
-    for name, x, shape in (('org', org, (r, 3)), ('dirn', dirn, (r, 3)),
-                           ('tnear', tnear, (r,)), ('tfar', tfar, (r,))):
+    xs = tuple(x.contiguous() for x in (org, dirn, tnear, tfar, *time))
+    for name, x in zip(('org', 'dirn', 'tnear', 'tfar', 'time'), xs):
+        shape = (r, 3) if name in ('org', 'dirn') else (r,)
         if (x.dtype != torch.float32 or tuple(x.shape) != shape
                 or x.device != org.device or not x.is_cuda):
             raise ValueError(f"{name}: expected a float32 CUDA tensor of "
                              f"shape {shape} on {org.device}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    return org, dirn, tnear, tfar
+    return xs
 
 
 def table_arg(name, x, width, device):

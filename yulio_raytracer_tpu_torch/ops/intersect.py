@@ -1,11 +1,15 @@
-"""Ray-triangle intersection: the plain Woop test and shading geometry.
+"""Ray-triangle intersection: the plain Woop and Moller-Trumbore tests
+and shading geometry.
 
 Counterpart of `yulio_raytracer_tpu/ops/intersect.py`.  Triangles are
 packed rows of 16 floats [woop (12) | ng (3) | cull] (`ops/wide.py`
 `pack_tris`, the layout the reference's kernels read); the vectorized
 Woop test over them is the plain version behind the dense kernels
 (`ops/dense.py`) and, through `woop_rows`, the reference's CPU path
-`intersect_woop` / `occluded_woop`.
+`intersect_woop` / `occluded_woop`.  `intersect_brute` /
+`occluded_brute` test every triangle of a vertex-edge table, at each
+ray's time in a motion scene: the reference's plain path, which traces
+motion scenes of at most 2048 triangles.
 
 Conventions (the kernels' contract): barycentrics accepted inclusively
 by 32 f32-ulps-at-1.0 (BARY_EPS); hits strictly inside (tnear, tfar); a
@@ -76,44 +80,55 @@ def _chunks(n_rays, n_tris):
     return rc, tc
 
 
+def _blocks(n_rays, n_tris, test):
+    """(ray slice, first triangle, test(ray slice, triangle slice)) over
+    the (rays x triangles) blocks of one plain sweep."""
+    rc, tc = _chunks(n_rays, n_tris)
+    for r0 in range(0, n_rays, rc):
+        sl = slice(r0, r0 + rc)
+        for t0 in range(0, n_tris, tc):
+            yield sl, t0, test(sl, slice(t0, t0 + tc))
+
+
+def _closest(blocks, org) -> Hit:
+    """Closest hit of each ray over _blocks of (th, uh, vh, ok)."""
+    r, dev = org.shape[0], org.device
+    t_b = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    tri_b = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    u_b = torch.zeros((r,), dtype=torch.float32, device=dev)
+    v_b = torch.zeros((r,), dtype=torch.float32, device=dev)
+    for sl, t0, (th, uh, vh, ok) in blocks:
+        th = torch.where(ok, th, INF)
+        tmin, j = torch.min(th, dim=1)               # first index on ties
+        better = tmin < t_b[sl]
+        t_b[sl] = torch.where(better, tmin, t_b[sl])
+        tri_b[sl] = torch.where(better, (j + t0).to(torch.int32), tri_b[sl])
+        u_b[sl] = torch.where(better, uh.gather(1, j[:, None])[:, 0], u_b[sl])
+        v_b[sl] = torch.where(better, vh.gather(1, j[:, None])[:, 0], v_b[sl])
+    return Hit(t_b, tri_b, u_b, v_b)
+
+
+def _any(blocks, org):
+    """(R,) bool: does any triangle of the _blocks occlude the ray."""
+    occ = torch.zeros((org.shape[0],), dtype=torch.bool, device=org.device)
+    for sl, _, res in blocks:
+        occ[sl] |= torch.any(res[3], dim=1)
+    return occ
+
+
+def _row_blocks(rows, org, dirn, tnear, tfar):
+    return _blocks(org.shape[0], rows.shape[0], lambda s, ts: _woop_block(
+        rows[ts], org[s], dirn[s], tnear[s], tfar[s]))
+
+
 def closest_rows(rows, org, dirn, tnear, tfar) -> Hit:
     """Closest hit of every ray against every packed row (T, 16)."""
-    r, n = org.shape[0], rows.shape[0]
-    rc, tc = _chunks(r, n)
-    t_b = torch.full((r,), INF, dtype=torch.float32, device=org.device)
-    tri_b = torch.full((r,), -1, dtype=torch.int32, device=org.device)
-    u_b = torch.zeros((r,), dtype=torch.float32, device=org.device)
-    v_b = torch.zeros((r,), dtype=torch.float32, device=org.device)
-    for r0 in range(0, r, rc):
-        sl = slice(r0, r0 + rc)
-        for t0 in range(0, n, tc):
-            th, uh, vh, ok = _woop_block(rows[t0:t0 + tc], org[sl], dirn[sl],
-                                         tnear[sl], tfar[sl])
-            th = torch.where(ok, th, INF)
-            tmin, j = torch.min(th, dim=1)           # first index on ties
-            better = tmin < t_b[sl]
-            t_b[sl] = torch.where(better, tmin, t_b[sl])
-            tri_b[sl] = torch.where(better, (j + t0).to(torch.int32),
-                                    tri_b[sl])
-            u_b[sl] = torch.where(better, uh.gather(1, j[:, None])[:, 0],
-                                  u_b[sl])
-            v_b[sl] = torch.where(better, vh.gather(1, j[:, None])[:, 0],
-                                  v_b[sl])
-    return Hit(t_b, tri_b, u_b, v_b)
+    return _closest(_row_blocks(rows, org, dirn, tnear, tfar), org)
 
 
 def any_rows(rows, org, dirn, tnear, tfar):
     """(R,) bool: does any packed row occlude the ray segment."""
-    r, n = org.shape[0], rows.shape[0]
-    rc, tc = _chunks(r, n)
-    occ = torch.zeros((r,), dtype=torch.bool, device=org.device)
-    for r0 in range(0, r, rc):
-        sl = slice(r0, r0 + rc)
-        for t0 in range(0, n, tc):
-            ok = _woop_block(rows[t0:t0 + tc], org[sl], dirn[sl], tnear[sl],
-                             tfar[sl])[3]
-            occ[sl] |= torch.any(ok, dim=1)
-    return occ
+    return _any(_row_blocks(rows, org, dirn, tnear, tfar), org)
 
 
 def woop_rows(geom) -> torch.Tensor:
@@ -134,6 +149,63 @@ def intersect_woop(geom, org, dirn, tnear, tfar) -> Hit:
 def occluded_woop(geom, org, dirn, tnear, tfar):
     """Any-hit against all of geom's triangles (plain reference)."""
     return any_rows(woop_rows(geom), org, dirn, tnear, tfar)
+
+
+def _mt_block(v0, e1, e2, cull, valid, org, dirn, tnear, tfar,
+              motion=None, time=None):
+    """Moller-Trumbore of rays (Rc,) against a triangle block (Tc,), as
+    the reference's `_mt_block`: (t, u, v, ok), each (Rc, Tc).  With
+    motion = (mv0, me1, me2) and time (Rc,), vertices move linearly:
+    v(t) = v + t * m."""
+    o, d = org[:, None, :], dirn[:, None, :]
+    v0b, e1b, e2b = v0[None], e1[None], e2[None]
+    if motion is not None:
+        tb = time[:, None, None]
+        v0b = v0b + tb * motion[0][None]
+        e1b = e1b + tb * motion[1][None]
+        e2b = e2b + tb * motion[2][None]
+    pvec = torch.linalg.cross(d, e2b)
+    det = torch.sum(e1b * pvec, dim=-1)
+    ng_dot_d = torch.sum(torch.linalg.cross(e1b, e2b) * d, dim=-1)
+    cull_ok = torch.where(cull[None, :] == 1, ng_dot_d < 0.0, True)
+    nz = torch.abs(det) > 1e-12
+    inv_det = torch.where(nz, 1.0 / det, 0.0)
+    tvec = o - v0b
+    u = torch.sum(tvec * pvec, dim=-1) * inv_det
+    qvec = torch.linalg.cross(tvec, e1b)
+    v = torch.sum(d * qvec, dim=-1) * inv_det
+    t = torch.sum(e2b * qvec, dim=-1) * inv_det
+    ok = (nz & (u >= -BARY_EPS) & (v >= -BARY_EPS) & (u + v <= 1.0 + BARY_EPS)
+          & (t > tnear[:, None]) & (t < tfar[:, None])
+          & cull_ok & valid[None, :])
+    return t, u, v, ok
+
+
+def _brute_blocks(geom, org, dirn, tnear, tfar, time):
+    """_blocks of _mt_block over a geom dict holding v0, e1, e2, cull,
+    valid and, for a motion scene traced at `time`, mv0, me1, me2."""
+    keys = ('mv0', 'me1', 'me2') if time is not None else ()
+
+    def test(s, ts):
+        return _mt_block(
+            geom['v0'][ts], geom['e1'][ts], geom['e2'][ts],
+            geom['cull'][ts], geom['valid'][ts],
+            org[s], dirn[s], tnear[s], tfar[s],
+            tuple(geom[k][ts] for k in keys) or None,
+            None if time is None else time[s])
+    return _blocks(org.shape[0], geom['v0'].shape[0], test)
+
+
+def intersect_brute(geom, org, dirn, tnear, tfar, time=None) -> Hit:
+    """Closest hit of each ray against all of geom's triangles (plain
+    Moller-Trumbore; with `time`, the triangles at each ray's time)."""
+    return _closest(_brute_blocks(geom, org, dirn, tnear, tfar, time), org)
+
+
+def occluded_brute(geom, org, dirn, tnear, tfar, time=None):
+    """(R,) bool any-hit against all of geom's triangles (see
+    intersect_brute)."""
+    return _any(_brute_blocks(geom, org, dirn, tnear, tfar, time), org)
 
 
 def post_intersect(geom, org, dirn, hit: Hit):

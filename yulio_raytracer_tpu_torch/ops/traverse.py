@@ -1,0 +1,373 @@
+"""Binary-BVH and motion-blur traversal.
+
+Counterpart of `yulio_raytracer_tpu/ops/pallas_traverse.py`
+(`intersect_packet`, `occluded_packet`, `intersect_packet_mb` and
+`occluded_packet_mb`, with the tables `pack_nodes`, `pack_tris_mb` and
+`motion_bounds`), which imports jax, so the table packing is copied here.
+The plain versions are also the counterpart of the per-ray BVH walk of
+`yulio_raytracer_tpu/ops/traverse.py`.  On a CUDA tensor each wrapper
+launches its kernel from `csrc/binary.cu` (one ray per thread, private
+stack); on a CPU tensor it runs the plain torch version, a vectorized
+per-ray stack traversal of the same tables in the same order, which the
+kernels are held against on the card.  Any ray count is accepted.
+
+Node rows, (N, 8) f32 [lo.x lo.y lo.z hi.x hi.y hi.z A tag] in
+depth-first order: tag > 0 is a leaf of `tag` triangles from packed
+triangle A; tag = -(axis + 1) an interior node whose left child is the
+next row and whose right child is row A.  A ray pops first the child on
+the side its own direction points to along `axis` (the reference's
+packets use the packet's summed direction).
+
+Motion triangle rows, (G, 128) f32: 4 triangles of 32 floats
+[v0 e1 e2 mv0 me1 me2 cull | pad]; at time s in [0, 1] the triangle is
+(v0 + s mv0, e1 + s me1, e2 + s me2).  Motion scenes build their tree
+over `motion_bounds`, so one node table serves every time.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build as cb
+from . import wide
+from .intersect import BARY_EPS, Hit
+
+STACK = wide.STACK   # per-ray stack entries (pallas_traverse.STACK)
+MB_STRIDE = 32       # floats per motion triangle
+INF = float('inf')
+
+_V, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    'yrt_intersect_binary': [_V] * 6 + [_I] + [_V] * 5,
+    'yrt_occluded_binary': [_V] * 6 + [_I] + [_V] * 2,
+    'yrt_intersect_motion': [_V] * 7 + [_I] + [_V] * 5,
+}
+
+
+# ---------------------------------------------------------------- tables
+
+def pack_nodes(bvh) -> np.ndarray:
+    """FlatBVH -> (N, 8) f32 node rows (see module docstring)."""
+    n = bvh.num_nodes
+    idx = np.arange(n)
+    interior = bvh.count == 0
+    # DFS layout: left child = i+1, right child = skip[i+1] (the end of
+    # the left subtree is where the right subtree starts)
+    left = np.minimum(idx + 1, n - 1)
+    right = np.zeros(n, np.int32)
+    right[interior] = bvh.skip[left[interior]]
+    a = np.where(interior, right, bvh.start).astype(np.float32)
+    # traversal-order axis: the dominant separation axis of the two
+    # children's box centroids
+    ctr = 0.5 * (bvh.lo.astype(np.float64) + bvh.hi.astype(np.float64))
+    sep = np.abs(ctr[right] - ctr[left])
+    sep[~np.isfinite(sep)] = 0.0
+    axis = np.argmax(sep, axis=1).astype(np.int32)
+    tag = np.where(interior, -(axis + 1), bvh.count).astype(np.float32)
+    return _check_nodes(np.concatenate([
+        bvh.lo.astype(np.float32), bvh.hi.astype(np.float32),
+        a[:, None], tag[:, None]], axis=1))
+
+
+def _check_nodes(nodes: np.ndarray) -> np.ndarray:
+    """Raise ValueError unless the binary table is exact in f32 (node
+    indices and leaf ranges below 2^24) and its worst-case stack
+    occupancy, depth + 1, fits STACK."""
+    a, tag = nodes[:, 6], nodes[:, 7]
+    if nodes.shape[0] >= 1 << 24:
+        raise ValueError("binary node index exceeds f32 exact range 2^24")
+    leaf = tag > 0
+    if np.any(leaf) and float(np.max(a[leaf] + tag[leaf])) >= float(1 << 24):
+        raise ValueError("leaf triangle range exceeds f32-exact 2^24")
+    depth = np.ones(nodes.shape[0], np.int64)
+    for i in np.nonzero(tag < 0)[0]:      # parents precede their children
+        depth[i + 1] = depth[int(a[i])] = depth[i] + 1
+    worst = int(depth.max()) + 1
+    if worst > STACK:
+        raise ValueError(
+            f"binary tree depth {worst - 1} could occupy {worst} stack "
+            f"slots (> STACK={STACK}); rebuild with a shallower tree")
+    return nodes
+
+
+def pack_tris_mb(geom_host: dict) -> np.ndarray:
+    """(G, 128) f32: 4 motion triangles per row, 32 floats each
+    [v0(3) e1(3) e2(3) mv0(3) me1(3) me2(3) cull | pad].  Invalid
+    triangles and padding rows are zero (zero edges give det == 0)."""
+    v0 = np.asarray(geom_host['v0'], np.float32)
+    t = v0.shape[0]
+    flat = np.zeros((t, MB_STRIDE), np.float32)
+    flat[:, 0:3] = v0
+    flat[:, 3:6] = geom_host['e1']
+    flat[:, 6:9] = geom_host['e2']
+    flat[:, 9:12] = geom_host['mv0']
+    flat[:, 12:15] = geom_host['me1']
+    flat[:, 15:18] = geom_host['me2']
+    flat[:, 18] = geom_host['cull']
+    flat[~np.asarray(geom_host['valid'], bool)] = 0.0
+    g = (t + 3) // 4
+    out = np.zeros((g * 4, MB_STRIDE), np.float32)
+    out[:t] = flat
+    return out.reshape(g, 128)
+
+
+def motion_bounds(v0, e1, e2, mv0, me1, me2):
+    """Per-triangle union bounds over t in [0, 1] (linear motion: the
+    union of the t=0 and t=1 triangle boxes is exact)."""
+    cs = [v0, v0 + e1, v0 + e2]
+    cs += [c + m for c, m in zip(cs, (mv0, mv0 + me1, mv0 + me2))]
+    lo = np.min(np.stack(cs), axis=0)
+    hi = np.max(np.stack(cs), axis=0)
+    return lo.astype(np.float64), hi.astype(np.float64)
+
+
+# ------------------------------------------------------- plain versions
+
+def mb_test(w, time, org, dirn):
+    """Time-interpolated Moller-Trumbore with the cull test, in the
+    operation order of the reference's `_mb_tri_test`.  w: the 19 row
+    fields [v0 e1 e2 mv0 me1 me2 cull], each broadcastable against time
+    and org[..., k].  Returns (ok, th, uh, vh); the (tnear, tfar) window
+    is the caller's."""
+    ox, oy, oz = org[..., 0], org[..., 1], org[..., 2]
+    dx, dy, dz = dirn[..., 0], dirn[..., 1], dirn[..., 2]
+    e1x = w[3] + time * w[12]
+    e1y = w[4] + time * w[13]
+    e1z = w[5] + time * w[14]
+    e2x = w[6] + time * w[15]
+    e2y = w[7] + time * w[16]
+    e2z = w[8] + time * w[17]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ngx = e1y * e2z - e1z * e2y
+    ngy = e1z * e2x - e1x * e2z
+    ngz = e1x * e2y - e1y * e2x
+    ngd = dx * ngx + dy * ngy + dz * ngz
+    cull_ok = (w[18] != 1.0) | (ngd < 0.0)
+    nz = torch.abs(det) > 1e-12
+    inv_det = torch.where(nz, 1.0 / det, 0.0)
+    tvx = ox - (w[0] + time * w[9])
+    tvy = oy - (w[1] + time * w[10])
+    tvz = oz - (w[2] + time * w[11])
+    uh = (tvx * px + tvy * py + tvz * pz) * inv_det
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    vh = (dx * qx + dy * qy + dz * qz) * inv_det
+    th = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = (nz & (uh >= -BARY_EPS) & (vh >= -BARY_EPS)
+          & (uh + vh <= 1.0 + BARY_EPS) & cull_ok)
+    return ok, th, uh, vh
+
+
+def _woop_leaf(tris):
+    """Leaf test over Woop rows (K5/K6): (a, c, org, dirn, tnear, tfar,
+    time) -> (th, uh, vh, ok), each (n, max c)."""
+    rows = tris.reshape(-1, 16)
+
+    def test(a, c, org, dirn, tnear, tfar, _time):
+        return wide._leaf_test(rows, a, c, org, dirn, tnear, tfar)
+    return test
+
+
+def _motion_leaf(tris_mb):
+    """Leaf test over motion rows at each ray's time (K7)."""
+    rows = tris_mb.reshape(-1, MB_STRIDE)
+
+    def test(a, c, org, dirn, tnear, tfar, time):
+        w, inrange = wide._leaf_rows(rows, a, c)     # (32, n, max c)
+        ok, th, uh, vh = mb_test(w, time[:, None], org[:, None, :],
+                                 dirn[:, None, :])
+        ok = ok & (th > tnear[:, None]) & (th < tfar[:, None]) & inrange
+        return th, uh, vh, ok
+    return test
+
+
+def _children(nodes, node, a, tag, org, dirn, inv, tnear, tfar):
+    """Both children of interior nodes, far child first: (kids, hit,
+    tmin), each (n, 2).  The near child is the left one when the ray's
+    direction along the node's axis is >= 0."""
+    kids = torch.stack([node + 1, a], dim=1)
+    left_near = dirn.gather(1, -tag[:, None] - 1) >= 0.0
+    kids = torch.where(left_near, kids.flip(1), kids)
+    hit, tmin = wide._slab(nodes[kids], org[:, None, :], inv[:, None, :],
+                           tnear[:, None], tfar[:, None])
+    return kids, hit, tmin
+
+
+def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None) -> Hit:
+    r, dev = org.shape[0], org.device
+    inv = wide._safe_inv(dirn)
+    st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((r, STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    t_b = tfar.clone()
+    tri_b = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    u_b = torch.zeros((r,), dtype=torch.float32, device=dev)
+    v_b = torch.zeros((r,), dtype=torch.float32, device=dev)
+    act = torch.arange(r, device=dev)
+    while act.numel():
+        top = sp[act]
+        node, tpop = st_n[act, top], st_t[act, top]
+        sp[act] = top - 1
+        live = tpop <= t_b[act]
+        nd = nodes[node]
+        a, tag = nd[:, 6].to(torch.int64), nd[:, 7].to(torch.int64)
+        lf = live & (tag > 0)
+        if bool(lf.any()):
+            rid, la = act[lf], a[lf]
+            th, uh, vh, ok = leaf(la, tag[lf], org[rid], dirn[rid],
+                                  tnear[rid], t_b[rid],
+                                  None if time is None else time[rid])
+            tmin, j = torch.min(torch.where(ok, th, INF), dim=1)
+            hit = torch.any(ok, dim=1)
+            rid, j = rid[hit], j[hit]
+            t_b[rid] = tmin[hit]
+            tri_b[rid] = (la[hit] + j).to(torch.int32)
+            u_b[rid] = uh[hit].gather(1, j[:, None])[:, 0]
+            v_b[rid] = vh[hit].gather(1, j[:, None])[:, 0]
+        inner = live & (tag < 0)
+        if bool(inner.any()):
+            rid = act[inner]
+            kids, hit, tmin = _children(nodes, node[inner], a[inner],
+                                        tag[inner], org[rid], dirn[rid],
+                                        inv[rid], tnear[rid], t_b[rid])
+            for k in range(2):
+                wide._push((st_n, st_t), sp, rid, hit[:, k],
+                           (kids[:, k], tmin[:, k]))
+        act = act[sp[act] >= 0]
+    t = torch.where(tri_b >= 0, t_b, INF)
+    return Hit(t, tri_b, u_b, v_b)
+
+
+def _any_plain(nodes, leaf, org, dirn, tnear, tfar):
+    r, dev = org.shape[0], org.device
+    inv = wide._safe_inv(dirn)
+    st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    occ = torch.zeros((r,), dtype=torch.bool, device=dev)
+    act = torch.nonzero(tfar > tnear)[:, 0]
+    while act.numel():
+        top = sp[act]
+        node = st_n[act, top]
+        sp[act] = top - 1
+        nd = nodes[node]
+        a, tag = nd[:, 6].to(torch.int64), nd[:, 7].to(torch.int64)
+        lf = tag > 0
+        if bool(lf.any()):
+            rid = act[lf]
+            ok = leaf(a[lf], tag[lf], org[rid], dirn[rid], tnear[rid],
+                      tfar[rid], None)[3]
+            occ[rid] = torch.any(ok, dim=1)
+        inner = tag < 0
+        if bool(inner.any()):
+            rid = act[inner]
+            kids, hit, _ = _children(nodes, node[inner], a[inner],
+                                     tag[inner], org[rid], dirn[rid],
+                                     inv[rid], tnear[rid], tfar[rid])
+            for k in range(2):
+                wide._push((st_n,), sp, rid, hit[:, k], (kids[:, k],))
+        act = act[(sp[act] >= 0) & ~occ[act]]
+    return occ
+
+
+def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar) -> Hit:
+    """Plain torch version of the binary closest-hit kernel."""
+    if org.is_cuda:
+        intersect_binary_plain.cuda_calls += 1
+    return wide._chunked(_closest_plain, (nodes, _woop_leaf(tris)),
+                         org, dirn, tnear, tfar)
+
+
+def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar):
+    """Plain torch version of the binary any-hit kernel; rays with
+    tfar <= tnear report not occluded."""
+    if org.is_cuda:
+        occluded_binary_plain.cuda_calls += 1
+    return wide._chunked(_any_plain, (nodes, _woop_leaf(tris)),
+                         org, dirn, tnear, tfar)
+
+
+def intersect_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar,
+                           time) -> Hit:
+    """Plain torch version of the motion-blur closest-hit kernel."""
+    if org.is_cuda:
+        intersect_motion_plain.cuda_calls += 1
+    return wide._chunked(_closest_plain, (nodes, _motion_leaf(tris_mb)),
+                         org, dirn, tnear, tfar, time)
+
+
+# ------------------------------------------------------------- wrappers
+
+def _kernel_args(nodes, rows, *rays):
+    rays = cb.ray_args(*rays)
+    dev = rays[0].device
+    return (cb.table_arg('nodes', nodes, 8, dev),
+            cb.table_arg('tris', rows, rows.shape[1], dev), *rays)
+
+
+def _lib():
+    return cb.library('binary', _SIGNATURES)
+
+
+def intersect_packet(nodes, tris, org, dirn, tnear, tfar) -> Hit:
+    """Closest hit of each ray (R, 3) through the binary BVH tables."""
+    if org.device.type == 'cpu':
+        return intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar)
+    args = _kernel_args(nodes, tris.reshape(-1, 16), org, dirn, tnear, tfar)
+    r, dev = args[2].shape[0], args[2].device
+    hit = cb.empty_hit(r, dev)
+    cb.launch(_lib().yrt_intersect_binary, 'intersect_packet', dev, *args,
+              r, *hit)
+    intersect_packet.launches += 1
+    return Hit(*hit)
+
+
+def occluded_packet(nodes, tris, org, dirn, tnear, tfar):
+    """(R,) bool: is each ray segment (tnear, tfar) occluded."""
+    if org.device.type == 'cpu':
+        return occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar)
+    args = _kernel_args(nodes, tris.reshape(-1, 16), org, dirn, tnear, tfar)
+    r, dev = args[2].shape[0], args[2].device
+    occ = torch.empty((r,), dtype=torch.bool, device=dev)
+    cb.launch(_lib().yrt_occluded_binary, 'occluded_packet', dev, *args, r,
+              occ)
+    occluded_packet.launches += 1
+    return occ
+
+
+def intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
+                        time) -> Hit:
+    """Closest hit of each ray at its time (R,) in [0, 1], through nodes
+    built over motion_bounds and the pack_tris_mb rows."""
+    if org.device.type == 'cpu':
+        return intersect_motion_plain(nodes, tris_mb, org, dirn, tnear,
+                                      tfar, time)
+    args = _kernel_args(nodes, tris_mb.reshape(-1, MB_STRIDE), org, dirn,
+                        tnear, tfar, time)
+    r, dev = args[2].shape[0], args[2].device
+    hit = cb.empty_hit(r, dev)
+    cb.launch(_lib().yrt_intersect_motion, 'intersect_packet_mb', dev,
+              *args, r, *hit)
+    intersect_packet_mb.launches += 1
+    return Hit(*hit)
+
+
+def occluded_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar, time):
+    """(R,) bool: the motion closest-hit kernel's hit mask, as the
+    reference's occluded_packet_mb (no dedicated any-hit kernel)."""
+    return intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
+                               time).tri >= 0
+
+
+# launch counts: kernels launched, and plain versions run on CUDA tensors
+intersect_packet.launches = 0
+occluded_packet.launches = 0
+intersect_packet_mb.launches = 0
+intersect_binary_plain.cuda_calls = 0
+occluded_binary_plain.cuda_calls = 0
+intersect_motion_plain.cuda_calls = 0

@@ -175,13 +175,20 @@ def _slab(nd, o, inv, tnear, tfar):
     return tmin <= tmax, tmin
 
 
-def _leaf_test(rows, a, c, org, dirn, tnear, tfar):
-    """Triangles [a, a + c) of each ray's leaf: (th, uh, vh, ok), each
-    (n, max c), column j = triangle a + j."""
+def _leaf_rows(rows, a, c):
+    """The rows of triangles [a, a + c) of each ray's leaf, field-major
+    (width, n, max c) with column j = triangle a + j, and which columns
+    are in range."""
     j = torch.arange(int(c.max()), device=a.device)
     inrange = j < c[:, None]
     idx = torch.where(inrange, a[:, None] + j, 0)
-    s = rows[idx].permute(2, 0, 1)                   # (16, n, max c)
+    return rows[idx].permute(2, 0, 1), inrange
+
+
+def _leaf_test(rows, a, c, org, dirn, tnear, tfar):
+    """Triangles [a, a + c) of each ray's leaf: (th, uh, vh, ok), each
+    (n, max c), column j = triangle a + j."""
+    s, inrange = _leaf_rows(rows, a, c)              # (16, n, max c)
     th, uh, vh, ok = woop_test(s, org[:, None, :], dirn[:, None, :],
                                tnear[:, None], tfar[:, None])
     return th, uh, vh, ok & inrange
@@ -195,13 +202,12 @@ def _push(stacks, sp, rid, mask, values):
         st[r, s] = val[mask]
 
 
-def _chunked(fn, org, dirn, tnear, tfar, *tables):
-    """Run fn over slices of at most _PLAIN_RAYS rays (bounds the
-    per-ray stacks' memory) and concatenate the results."""
-    outs = [fn(*tables, org[i:i + _PLAIN_RAYS], dirn[i:i + _PLAIN_RAYS],
-               tnear[i:i + _PLAIN_RAYS], tfar[i:i + _PLAIN_RAYS])
-            for i in range(0, org.shape[0], _PLAIN_RAYS)] or [
-        fn(*tables, org, dirn, tnear, tfar)]
+def _chunked(fn, tables, *rays):
+    """Run fn(*tables, *rays) over slices of at most _PLAIN_RAYS rays
+    (bounds the per-ray stacks' memory) and concatenate the results."""
+    outs = [fn(*tables, *(x[i:i + _PLAIN_RAYS] for x in rays))
+            for i in range(0, rays[0].shape[0], _PLAIN_RAYS)] or [
+        fn(*tables, *rays)]
     if isinstance(outs[0], torch.Tensor):
         return torch.cat(outs)
     return Hit(*(torch.cat(x) for x in zip(*outs)))
@@ -212,7 +218,7 @@ def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
     tree with its own stack, in the kernel's order."""
     if org.is_cuda:
         intersect_wide_plain.cuda_calls += 1
-    return _chunked(_closest_plain, org, dirn, tnear, tfar, nodes4, tris)
+    return _chunked(_closest_plain, (nodes4, tris), org, dirn, tnear, tfar)
 
 
 def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar):
@@ -220,7 +226,7 @@ def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar):
     tfar <= tnear report not occluded."""
     if org.is_cuda:
         occluded_wide_plain.cuda_calls += 1
-    return _chunked(_any_plain, org, dirn, tnear, tfar, nodes4, tris)
+    return _chunked(_any_plain, (nodes4, tris), org, dirn, tnear, tfar)
 
 
 def _closest_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:

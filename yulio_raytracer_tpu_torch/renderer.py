@@ -25,21 +25,27 @@ from .sampling import patterns
 # RNG dims reserved for the camera
 DIM_PIXEL = 0
 DIM_LENS = 1
+DIM_TIME = 2   # motion-blur time sample
 # rays per pass: ~1 KB of wavefront state per ray (shadow batches
 # included) keeps a pass within a few GB of device memory
 MAX_RAYS_PER_PASS = 1 << 22
 
 
-def _gen_rays(camera, width, height, spp, pixel_ids, sample_ids, seed):
-    """Camera samples -> (org, dir).  pixel_ids/sample_ids: (R,) int64;
-    spp: patterns.grid_scalars(spp)."""
+def _gen_rays(scene, camera, width, height, spp, pixel_ids, sample_ids,
+              seed):
+    """Camera samples -> (org, dir, time); time (R,) in [0, 1) for a
+    motion scene, else None.  pixel_ids/sample_ids: (R,) int64; spp:
+    patterns.grid_scalars(spp)."""
     px = (pixel_ids % width).to(torch.float32)
     py = (pixel_ids // width).to(torch.float32)
     juv = patterns.pixel_sample(seed, pixel_ids, sample_ids, spp, DIM_PIXEL)
     lens = patterns.sample_2d(seed, pixel_ids, sample_ids, DIM_LENS)
     uv = torch.stack([(px + juv[:, 0]) / width,
                       (py + juv[:, 1]) / height], dim=-1)
-    return camera.ray(uv, lens)
+    org, dirn = camera.ray(uv, lens)
+    time = (patterns.sample_1d(seed, pixel_ids, sample_ids, DIM_TIME)
+            if scene.motion is not None else None)
+    return org, dirn, time
 
 
 @lru_cache(maxsize=8)
@@ -91,10 +97,11 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
             pixel_ids = pix.repeat(k)
             sample_ids = (s0 + torch.arange(
                 k, device=device)).repeat_interleave(pix.shape[0])
-            org, dirn = _gen_rays(camera, width, height, spp_grid,
-                                  pixel_ids, sample_ids, seed)
+            org, dirn, ray_time = _gen_rays(scene, camera, width, height,
+                                            spp_grid, pixel_ids, sample_ids,
+                                            seed)
             rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
-                                          pixel_ids, sample_ids)
+                                          pixel_ids, sample_ids, ray_time)
             # pixels are unique within each of the k sample slices, so
             # the scatter is a deterministic permutation add
             rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))

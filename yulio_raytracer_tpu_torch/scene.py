@@ -7,14 +7,19 @@ them into a `TorchScene` on one device:
 * the packed triangle rows `tris` ((G, 128) f32, ops/wide.py pack_tris);
 * for scenes above BRUTE_FORCE_MAX_TRIS triangles, a binary SAH BVH
   (geometry/bvh.py, leaf `leaf_size`) collapsed to the BVH4 rows `nodes4`
-  (the reference's default accel); smaller scenes run the dense kernels;
+  (the reference's default accel), or kept as the binary rows `nodes`
+  (ops/traverse.py, `accel='bvh2'` and the fallback); smaller scenes run
+  the dense kernels;
+* for motion scenes, the vertex-edge arrays `motion` and, above
+  BRUTE_FORCE_MAX_TRIS, binary rows over union bounds with the motion
+  triangle rows `tris_mb`;
 * the shading table, material table, texture atlas and light list.
 
 The reference's TPU layout rules (SMEM leaf growth, the VMEM/HBM split,
 the zero rows after the packed triangles) and its ablation tables
-(binary nodes, treelets, planes, grid) are not part of this package.
-Every other array equals the reference commit's (`from_numpy_scene`
-builds a TorchScene from those arrays).
+(treelets, planes, grid) are not part of this package.  Every other
+array equals the reference commit's (`from_numpy_scene` builds a
+TorchScene from those arrays).
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from .geometry import bvh as gbvh
 from .geometry import mesh as gmesh
 from .geometry import primitives
 from .lights import lights as glights
-from .ops import wide
+from .ops import traverse, wide
 from .shading import materials as gmat
 from .shading import textures as gtex
 
@@ -69,29 +74,58 @@ class SceneBuilder:
             self.add_mesh(tri)
         return lid
 
-    def commit(self, device='cpu', leaf_size: int = 64) -> "TorchScene":
+    def commit(self, device='cpu', leaf_size: int = 64,
+               force_bvh: Optional[bool] = None,
+               accel: str = 'default') -> "TorchScene":
         """Pack the staged scene onto `device` (a torch device or its
-        name).  Raises NotImplementedError for non-triangle lights and
-        ValueError when the BVH4 collapse exceeds the kernels' stack
-        bound."""
+        name).  A BVH is built above BRUTE_FORCE_MAX_TRIS triangles (or
+        as force_bvh says).  accel, as in the reference:
+        'default' takes the BVH4 collapse and falls back to the binary
+        tables when it fails its stack or exactness guard; 'bvh2' forces
+        the binary tables; 'bvh4' raises where the collapse fails;
+        'bvh4mb' requires motion geometry.  A motion scene's tree is built
+        over union bounds and traversed by the motion kernel whatever
+        accel says.  The scene's `accel` records what runs.  Raises
+        ValueError for an unknown accel and NotImplementedError for
+        non-triangle lights."""
+        if accel not in ('default', 'bvh2', 'bvh4', 'bvh4mb'):
+            raise ValueError(
+                f"unknown accel {accel!r}: expected 'default' "
+                f"(auto-select), 'bvh2', 'bvh4', or 'bvh4mb' "
+                f"(motion scenes)")
         packed = gmesh.pack_meshes(self.meshes)
         n_tris = packed.num_triangles
-        host = {k: getattr(packed, k) for k in gbvh.PER_TRIANGLE_KEYS}
-        nodes4 = None
-        if n_tris > BRUTE_FORCE_MAX_TRIS:
+        has_motion = packed.mv0 is not None
+        if accel == 'bvh4mb' and not has_motion:
+            raise ValueError("accel='bvh4mb' requires motion geometry "
+                             "(meshes with motion vertex buffers)")
+        use_bvh = (force_bvh if force_bvh is not None
+                   else n_tris > BRUTE_FORCE_MAX_TRIS)
+        host = {k: getattr(packed, k) for k in gbvh.PER_TRIANGLE_KEYS
+                if getattr(packed, k) is not None}
+        if use_bvh:
+            bounds = (traverse.motion_bounds(
+                packed.v0, packed.e1, packed.e2, packed.mv0, packed.me1,
+                packed.me2) if has_motion else None)
             tree = gbvh.build(packed.v0, packed.e1, packed.e2, packed.valid,
-                              leaf_size=leaf_size)
+                              leaf_size=leaf_size, bounds=bounds)
             host = gbvh.permute_geom(host, tree.order)
-            nodes4 = wide.pack_nodes4(tree)
-        woop = gmesh.woop_matrices(host['v0'], host['e1'], host['e2'],
-                                   host['valid'])
-        tris = wide.pack_tris(woop, host)
+        if has_motion:
+            # small motion scenes keep no tables: they trace every triangle
+            packet = ({'nodes': traverse.pack_nodes(tree),
+                       'tris_mb': traverse.pack_tris_mb(host)}
+                      if use_bvh else {})
+        else:
+            woop = gmesh.woop_matrices(host['v0'], host['e1'], host['e2'],
+                                       host['valid'])
+            packet = {'tris': wide.pack_tris(woop, host)}
+            if use_bvh:
+                packet.update(_static_nodes(tree, accel))
         lights = [glights.set_scene_bounds(l, packed.bbox_lo, packed.bbox_hi)
                   for l in self.lights]
         return from_numpy_scene(
             geom=gmesh.add_shade_table(host),
-            packet={'tris': tris} if nodes4 is None
-            else {'tris': tris, 'nodes4': nodes4},
+            packet=packet,
             materials=gmat.build_table(self.materials),
             textures=self.textures.build(),
             lights=lights,
@@ -104,12 +138,35 @@ class SceneBuilder:
             device=device)
 
 
+def _static_nodes(tree, accel: str) -> dict:
+    """The node table of a static BVH scene: {'nodes4': BVH4 rows}, or
+    {'nodes': binary rows} for accel 'bvh2' and where the BVH4 collapse
+    fails its guards (which raises for accel 'bvh4')."""
+    if accel != 'bvh2':
+        try:
+            return {'nodes4': wide.pack_nodes4(tree)}
+        except ValueError:
+            if accel == 'bvh4':
+                raise
+    return {'nodes': traverse.pack_nodes(tree)}
+
+
+# the vertex-edge arrays a motion scene traces at each ray's time
+MOTION_KEYS = ('v0', 'e1', 'e2', 'mv0', 'me1', 'me2', 'cull', 'valid')
+
+
 @dataclass(frozen=True)
 class TorchScene:
-    """A committed scene on one device."""
+    """A committed scene on one device.  Of the traversal tables, only
+    those of the traversal that runs are present (see `accel`); a
+    motion scene also keeps its vertex-edge arrays (`motion`), which
+    mark it as moving."""
     device: torch.device
-    tris: torch.Tensor            # (G, 128) f32 packed triangle rows
-    nodes4: Optional[torch.Tensor]  # (N4, 32) f32 BVH4 rows, or None
+    tris: Optional[torch.Tensor]    # (G, 128) f32 packed triangle rows
+    nodes4: Optional[torch.Tensor]  # (N4, 32) f32 BVH4 rows
+    nodes: Optional[torch.Tensor]   # (N, 8) f32 binary BVH rows
+    tris_mb: Optional[torch.Tensor]  # (G, 128) f32 motion triangle rows
+    motion: Optional[dict]        # MOTION_KEYS arrays of a motion scene
     geom: dict                    # {'shade_tab': (T, 28) f32}
     materials: dict               # material table (shading/materials.py)
     textures: dict                # texture atlas (empty in this slice)
@@ -122,36 +179,49 @@ class TorchScene:
 
     @property
     def accel(self) -> str:
-        """'dense' or 'bvh4': which kernel pair traverses the scene."""
-        return 'dense' if self.nodes4 is None else 'bvh4'
+        """Which traversal runs: 'bvh4mb' (the motion kernel), 'bvh4',
+        'bvh2' (the binary kernels) or 'dense' (the dense kernels; for a
+        motion scene, every triangle at each ray's time in torch ops)."""
+        if self.tris_mb is not None:
+            return 'bvh4mb'
+        if self.nodes4 is not None:
+            return 'bvh4'
+        return 'dense' if self.nodes is None else 'bvh2'
 
 
 def from_numpy_scene(geom, packet, materials, textures, lights, *,
                      leaf_size, bbox_lo, bbox_hi, num_triangles,
                      lobe_types, device='cpu') -> TorchScene:
     """A TorchScene from a committed scene's arrays, as numpy: the fields
-    of the reference's TpuScene (`geom`, `packet`, `materials`,
-    `textures`, `lights` as merged dicts, and the static fields).  Raises
-    NotImplementedError for tables this package cannot traverse or shade
-    (a binary-BVH packet without 'nodes4', other lobe types, textures,
-    non-triangle lights)."""
+    of the reference's TpuScene (`geom`, `packet` ({} for none),
+    `materials`, `textures`, `lights` as merged dicts, and the static
+    fields).  It keeps the tables of the traversal the reference runs on
+    them (the BVH4 rows over the binary ones, the motion rows and the
+    motion arrays of a motion scene) and drops the ablation tables.
+    Raises NotImplementedError for what this package cannot shade (other
+    lobe types, textures, non-triangle lights)."""
     device = torch.device(device)
 
     def dev(x):
         return torch.as_tensor(np.array(x)).to(device)
 
-    if 'nodes' in packet and 'nodes4' not in packet:
-        raise NotImplementedError(
-            "binary BVH traversal is not ported yet (BVH4 only)")
+    def table(key):
+        return dev(packet[key]) if key in packet else None
+
     gmat.check_table(materials)
     for l in lights:
         if l['kind'] != 'triangle':
             raise NotImplementedError(
                 f"{l['kind']!r} lights are not ported yet ('triangle' only)")
+    nodes4 = table('nodes4')
     return TorchScene(
         device=device,
-        tris=dev(packet['tris']),
-        nodes4=dev(packet['nodes4']) if 'nodes4' in packet else None,
+        tris=table('tris'),
+        nodes4=nodes4,
+        nodes=table('nodes') if nodes4 is None else None,
+        tris_mb=table('tris_mb'),
+        motion=({k: dev(geom[k]) for k in MOTION_KEYS} if 'mv0' in geom
+                else None),
         geom={'shade_tab': dev(geom['shade_tab'])},
         materials={k: dev(v) for k, v in materials.items()},
         textures={k: dev(v) for k, v in textures.items()},
