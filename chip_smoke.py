@@ -11,18 +11,29 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     paths' shapes: the dense pair on cornell (64^2 camera rays plus
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
     pair and the binary pair on the full colonnade (1024^2 camera rays, 1M
-    scattered rays, the shadow rays to its 4 triangle lights), the motion
-    kernel on the motion field (512^2 camera rays with their times, 1M
-    scattered rays at random times);
+    hemisphere rays from their hits, the shadow rays to its 4 triangle
+    lights), the pair kernels on the colonnade's grid (the hemisphere and
+    shadow rays, each over its entry cell's tiles) and the grid march (the
+    hemisphere rays), the motion kernel on the motion field (512^2 camera
+    rays with their times, 1M scattered rays at random times); then the
+    grid path (ops/grid.py intersect_grid / occluded_grid) against the
+    binary kernels on the same hemisphere and shadow rays.  The plain
+    versions count the pair and box tests their kernels make;
  4. the pinned CPU goldens rendered through render_frame on the card, one
     path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
-    colonnade_64 through the BVH4 kernels and again with accel='bvh2'
-    through the binary kernels, motion_64 through the motion kernel.  Every
-    launch counter is set to 0 before each render and read after it: the
-    path's kernels must have run, no other kernel, and no plain version on
-    a CUDA tensor;
+    colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
+    the binary kernels and again with ray_binning='grid' (BVH4 on bounce
+    0, the grid's pair kernels and the binary fallback after it),
+    motion_64 through the motion kernel.  Every launch counter is set to 0
+    before each render and read after it: the path's kernels must have
+    run, no other kernel, and no plain version on a CUDA tensor;
  5. timed full-size frames (cornell_512, colonnade_1024,
-    colonnade_1024_bvh2, motion_field_512).
+    colonnade_1024_bvh2, colonnade_1024_grid, motion_field_512), with
+    each kernel's launches per frame;
+ 6. each kernel's bound: the larger of the bytes it must move (tables,
+    rays and ranges read once, results written once) over 3.35 TB/s and
+    its pair and box tests (counted by the plain versions in phase 3) times
+    their flops over 67 TFLOP/s f32, against its time in phase 3.
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -45,6 +56,20 @@ TRI_MISMATCH_MAX = 1e-4      # ties only: equal t, another triangle
 MASK_MISMATCH_MAX = 1e-4     # hit/miss and occlusion masks
 T_REL_ERR_MAX = 1e-6         # where the triangle agrees
 PSNR_MIN = 40.0
+# the H100 SXM's published peaks: HBM3 bytes/s, and f32
+# flops/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+# flops of one test, counted from the sources: every multiply, add,
+# subtract, negate, divide, abs and compare (selects are free)
+WOOP_FLOPS = 55     # csrc/woop.cuh woop_test: six 3-term dot products
+#                     (33), |dwp| test (2), 1/dwp (1), th (2), u and v (4),
+#                     ng.d (5), cull (2), window tests (6)
+MOTION_FLOPS = 87   # csrc/motion.cuh motion_test: edges at time s (12),
+#                     p, ng, q crosses (27), det, ng.d, u, v, th (28), tv (9),
+#                     |det| test and 1/det (3), cull (2), window tests (6)
+SLAB_FLOPS = 25     # csrc/bvh.cuh slab: 6 subtracts, 6 multiplies, 12
+#                     min/max, 1 compare
 
 
 def phase(name, msg):
@@ -58,10 +83,11 @@ def smi_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=5):
+def cuda_ms(fn, reps=5, warm=True):
     """Median milliseconds of fn() over reps runs (CUDA events), after
-    one warm-up run."""
-    fn()
+    one warm-up run unless warm is False."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -72,6 +98,18 @@ def cuda_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def nbytes(*xs):
+    """Bytes of the tensors among xs, and of the tensors of dicts among
+    them."""
+    n = 0
+    for x in xs:
+        if isinstance(x, dict):
+            n += nbytes(*x.values())
+        elif isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+    return n
 
 
 def psnr(img, ref):
@@ -137,11 +175,23 @@ def shadow_rays(scene, dg, eps, valid, gen, dev):
     return (torch.cat(os_), torch.cat(ds), torch.cat(tns), torch.cat(tfs))
 
 
-def compare(name, kernel, plain, args):
-    """Hold a kernel against its plain version; returns a result dict."""
+def compare(name, kernel, plain, args, counts=None, labels=('kernel',
+                                                              'plain'),
+            other_tie_rule=False):
+    """Hold a kernel against its plain version; returns a result dict with
+    the bytes the kernel must move (tensor arguments read once, results
+    written once).  counts, a dict, is handed to the plain version's first
+    call to gather its tests.  With other_tie_rule (two traversals that
+    order equal-t triangles differently), a triangle that differs at a
+    bit-equal t is a tie: reported, not held to the bound."""
+    from yulio_raytracer_tpu_torch.ops.intersect import Hit
     k = kernel(*args)
-    p = plain(*args)
+    p = plain(*args) if counts is None else plain(*args, counts=counts)
     torch.cuda.synchronize()
+    out = k if isinstance(k, tuple) else (k,)
+    moved = nbytes(*args) + nbytes(*out)
+    if isinstance(k, tuple) and len(k) == 2:        # raw (t, slot)
+        k, p = (Hit(*k, None, None), Hit(*p, None, None))
     if isinstance(k, torch.Tensor):
         mism = float((k != p).float().mean())
         err = float((k.float() - p.float()).abs().max()) if k.numel() else 0.0
@@ -150,7 +200,9 @@ def compare(name, kernel, plain, args):
     else:
         hk, hp = k.tri >= 0, p.tri >= 0
         mask_mism = float((hk != hp).float().mean())
-        tri_mism = float((k.tri != p.tri).float().mean())
+        differ = k.tri != p.tri
+        ties = differ & (k.t == p.t) if other_tie_rule else differ & False
+        tri_mism = float((differ & ~ties).float().mean())
         same = (k.tri == p.tri) & hk
         dt = (k.t[same] - p.t[same]).abs()
         err = float(dt.max()) if dt.numel() else 0.0
@@ -158,28 +210,38 @@ def compare(name, kernel, plain, args):
             if dt.numel() else 0.0
         line = (f"hit-mask mismatch {mask_mism:.3g}, tri mismatch "
                 f"{tri_mism:.3g}, max rel t err {rel:.3g}")
+        if other_tie_rule:
+            line += (f", ties at a bit-equal t resolved otherwise "
+                     f"{float(ties.float().mean()):.3g}")
         ok = (mask_mism <= MASK_MISMATCH_MAX and tri_mism <= TRI_MISMATCH_MAX
               and rel <= T_REL_ERR_MAX)
     ms = cuda_ms(lambda: kernel(*args))
-    plain_ms = cuda_ms(lambda: plain(*args))
-    r = args[2].shape[0]
-    phase('kernels', f"{name} on {r} rays: {line}; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
+    # the plain versions are slow loops of torch ops and no yardstick of
+    # speed: one run, warmed by the one above
+    plain_ms = cuda_ms(lambda: plain(*args), reps=1, warm=False)
+    r = next(a.shape[0] for a in args if isinstance(a, torch.Tensor)
+             and a.dim() == 2 and a.shape[1] == 3)
+    phase('kernels', f"{name} on {r} rays: {line}; {labels[0]} {ms:.3f} ms, "
+          f"{labels[1]} {plain_ms:.3f} ms")
     if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version: "
-                             f"{line}")
-    return {'rays': r, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+        raise AssertionError(f"{name} disagrees with its {labels[1]} "
+                             f"version: {line}")
+    return {'rays': r, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bytes': moved}
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from yulio_raytracer_tpu_torch.film import accum
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
-    from yulio_raytracer_tpu_torch.ops import cuda_build, dense, traverse, wide
+    from yulio_raytracer_tpu_torch.ops import (cuda_build, dense, grid,
+                                               intersect, pairs, traverse,
+                                               wide)
     from yulio_raytracer_tpu_torch import renderer
 
     dev = torch.device('cuda')
@@ -191,7 +253,7 @@ def main():
           f"{nvcc.stdout.strip().splitlines()[-1]}; card: {card}")
 
     t0 = time.perf_counter()
-    names = ('dense', 'wide', 'binary')
+    names = ('dense', 'wide', 'binary', 'grid')
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         libs = list(pool.map(cuda_build.build, names))
     for name, lib in zip(names, libs):
@@ -200,17 +262,66 @@ def main():
         phase('build', f"{name}.cu: {'; '.join(regs)}")
     phase('build', f"kernels built in {time.perf_counter() - t0:.2f} s")
 
+    # every kernel: (wrapper, plain version, source, TPU kernel it replaces,
+    # flops of its pair test)
+    kernels = (
+        (dense.intersect_dense, dense.intersect_dense_plain, 'dense.cu',
+         'yulio_raytracer_tpu/ops/pallas_dense.py:94', WOOP_FLOPS),
+        (dense.occluded_dense, dense.occluded_dense_plain, 'dense.cu',
+         'yulio_raytracer_tpu/ops/pallas_dense.py:167', WOOP_FLOPS),
+        (wide.intersect_packet4, wide.intersect_wide_plain, 'wide.cu',
+         'yulio_raytracer_tpu/ops/pallas_wide.py:507', WOOP_FLOPS),
+        (wide.occluded_packet4, wide.occluded_wide_plain, 'wide.cu',
+         'yulio_raytracer_tpu/ops/pallas_wide.py:676', WOOP_FLOPS),
+        (traverse.intersect_packet, traverse.intersect_binary_plain,
+         'binary.cu', 'yulio_raytracer_tpu/ops/pallas_traverse.py:514',
+         WOOP_FLOPS),
+        (traverse.occluded_packet, traverse.occluded_binary_plain,
+         'binary.cu', 'yulio_raytracer_tpu/ops/pallas_traverse.py:820',
+         WOOP_FLOPS),
+        (traverse.intersect_packet_mb, traverse.intersect_motion_plain,
+         'binary.cu', 'yulio_raytracer_tpu/ops/pallas_traverse.py:1570',
+         MOTION_FLOPS),
+        (pairs.intersect_pairs_raw, pairs.intersect_pairs_raw_plain,
+         'grid.cu', 'yulio_raytracer_tpu/ops/pallas_pairs.py:248',
+         WOOP_FLOPS),
+        (pairs.occluded_pairs, pairs.occluded_pairs_plain, 'grid.cu',
+         'yulio_raytracer_tpu/ops/pallas_pairs.py:320', WOOP_FLOPS),
+        (grid.march_raw, grid.march_raw_plain, 'grid.cu',
+         'yulio_raytracer_tpu/ops/grid.py:513', WOOP_FLOPS),
+    )
+    counters = [k[0] for k in kernels]
+    plains = [k[1] for k in kernels]
+
+    def zero_counters():
+        for f in counters:
+            f.launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
     # ---- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
-    def record(key, res):
-        acc = results.setdefault(key, {'rays': 0, 'max_abs_err': 0.0,
-                                       'ms': 0.0, 'plain_ms': 0.0})
-        acc['rays'] += res['rays']
+    def record(f, res, tests):
+        """Add one compared set of kernel f: res from compare(), tests
+        {'pair': n, 'box': n} (ints or device tensors)."""
+        acc = results.setdefault(f.__name__, {
+            'rays': 0, 'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
+            'bytes': 0, 'pair': 0, 'box': 0})
+        for key in ('rays', 'ms', 'plain_ms', 'bytes'):
+            acc[key] += res[key]
         acc['max_abs_err'] = max(acc['max_abs_err'], res['max_abs_err'])
-        acc['ms'] += res['ms']
-        acc['plain_ms'] += res['plain_ms']
+        for key in ('pair', 'box'):
+            acc[key] += int(tests.get(key, 0))
+
+    def check(f, name, args, tests=None):
+        """compare() kernel f against its plain version and record it;
+        the plain version counts the kernel's tests unless `tests` gives
+        them (the dense kernels, whose tests follow from the shapes)."""
+        counted = {} if tests is None else None
+        record(f, compare(name, f, plains[counters.index(f)], args,
+                          counted), tests or counted)
 
     t0 = time.perf_counter()
     cornell = bs.cornell_box().commit(device=dev)
@@ -223,13 +334,18 @@ def main():
                                                 dev)
     args = (cornell.tris, torch.cat([org, ho]), torch.cat([dirn, hd]),
             torch.cat([zeros, htn]), torch.cat([inf, htf]))
-    record('intersect_dense', compare(
-        'intersect_dense (cornell)', dense.intersect_dense,
-        dense.intersect_dense_plain, args))
+    rows = cornell.tris.reshape(-1, 16)
+    # the dense kernels test every row, the any-hit one up to each ray's
+    # first hit
+    check(dense.intersect_dense, 'intersect_dense (cornell)', args,
+          {'pair': args[1].shape[0] * rows.shape[0]})
     so, sd, stn, stf = shadow_rays(cornell, dg, eps, hit.valid, gen, dev)
-    record('occluded_dense', compare(
-        'occluded_dense (cornell)', dense.occluded_dense,
-        dense.occluded_dense_plain, (cornell.tris, so, sd, stn, stf)))
+    ok = intersect._woop_block(rows, so, sd, stn, stf)[3]
+    check(dense.occluded_dense, 'occluded_dense (cornell)',
+          (cornell.tris, so, sd, stn, stf),
+          {'pair': wide.tests_to_first_hit(
+              ok, torch.full_like(stn, rows.shape[0], dtype=torch.int64)
+          ).sum()})
 
     t1 = time.perf_counter()
     colonnade = bs.colonnade().commit(device=dev, leaf_size=32)
@@ -237,13 +353,20 @@ def main():
     colonnade2 = bs.colonnade().commit(device=dev, leaf_size=32,
                                        accel='bvh2')
     phase('kernels', f"colonnade: {colonnade.num_triangles} triangles, "
-          f"{colonnade.nodes4.shape[0]} BVH4 nodes, leaf 32, committed in "
-          f"{t2 - t1:.2f} s; with accel='bvh2': "
+          f"{colonnade.nodes4.shape[0]} BVH4 nodes, leaf 32, with its grid, "
+          f"committed in {t2 - t1:.2f} s; with accel='bvh2': "
           f"{colonnade2.nodes.shape[0]} binary nodes, committed in "
           f"{time.perf_counter() - t2:.2f} s")
     if not torch.equal(colonnade.tris, colonnade2.tris):
         raise AssertionError("the bvh2 and bvh4 commits differ in their "
                              "triangle rows")
+    g = colonnade.grid
+    per_cell = (g['cell_tile_hi'] - g['cell_tile_lo']).float()
+    phase('kernels', f"colonnade grid: {per_cell.numel()} cells, "
+          f"{g['rows'].shape[0] // pairs.TL} tiles of {pairs.TL} slots "
+          f"({nbytes(g['rows']) / 1e6:.2f} MB of rows), tiles per cell mean "
+          f"{float(per_cell.mean()):.2f}, max {float(per_cell.max()):.0f}, "
+          f"{int((per_cell > 0).sum())} cells non-empty")
     tables = (colonnade.nodes4, colonnade.tris)
     tables2 = (colonnade2.nodes, colonnade2.tris)
     org, dirn, _ = camera_rays(renderer, colonnade,
@@ -255,22 +378,41 @@ def main():
     hit = wide.intersect_packet4(*tables, *cam_rays)
     ho, hd, htn, htf, dg, eps = hemisphere_rays(colonnade, org, dirn, hit,
                                                 gen, dev)
-    so, sd, stn, stf = shadow_rays(colonnade, dg, eps, hit.valid, gen, dev)
-    for what, rays in (('camera', cam_rays), ('scattered', (ho, hd, htn,
-                                                              htf))):
-        record('intersect_packet4', compare(
-            f'intersect_packet4 (colonnade {what})', wide.intersect_packet4,
-            wide.intersect_wide_plain, (*tables, *rays)))
-        record('intersect_packet', compare(
-            f'intersect_packet (colonnade bvh2 {what})',
-            traverse.intersect_packet, traverse.intersect_binary_plain,
-            (*tables2, *rays)))
-    record('occluded_packet4', compare(
-        'occluded_packet4 (colonnade shadow)', wide.occluded_packet4,
-        wide.occluded_wide_plain, (*tables, so, sd, stn, stf)))
-    record('occluded_packet', compare(
-        'occluded_packet (colonnade bvh2 shadow)', traverse.occluded_packet,
-        traverse.occluded_binary_plain, (*tables2, so, sd, stn, stf)))
+    hemi = (ho, hd, htn, htf)
+    shadow = shadow_rays(colonnade, dg, eps, hit.valid, gen, dev)
+    for what, rays in (('camera', cam_rays), ('hemisphere', hemi)):
+        check(wide.intersect_packet4, f'intersect_packet4 (colonnade {what})',
+              (*tables, *rays))
+        check(traverse.intersect_packet,
+              f'intersect_packet (colonnade bvh2 {what})', (*tables2, *rays))
+    check(wide.occluded_packet4, 'occluded_packet4 (colonnade shadow)',
+          (*tables, *shadow))
+    check(traverse.occluded_packet, 'occluded_packet (colonnade bvh2 shadow)',
+          (*tables2, *shadow))
+    # the grid's kernels: each ray over its entry cell's tiles, and the
+    # whole march (the tables it reads)
+    check(pairs.intersect_pairs_raw,
+          'intersect_pairs_raw (colonnade grid, hemisphere, entry cells)',
+          (g['rows'], *hemi, *grid.entry_ranges(g, *hemi)))
+    check(pairs.occluded_pairs,
+          'occluded_pairs (colonnade grid, shadow, entry cells)',
+          (g['rows'], *shadow, *grid.entry_ranges(g, *shadow)))
+    march_tables = {k: g[k] for k in ('rows', 'cell_tile_lo', 'cell_tile_hi',
+                                      'grid_lo', 'grid_hi')}
+    check(grid.march_raw, 'march_raw (colonnade grid, hemisphere)',
+          (march_tables, *hemi))
+    # the grid path end to end (K8/K9 rounds, K5/K6 fallback) against
+    # the binary kernels alone
+    compare('intersect_grid vs intersect_packet (colonnade hemisphere)',
+            lambda *r: grid.intersect_grid(g, colonnade.nodes,
+                                           colonnade.tris, *r),
+            lambda *r: traverse.intersect_packet(*tables2, *r), hemi,
+            labels=('grid path', 'K5'), other_tie_rule=True)
+    compare('occluded_grid vs occluded_packet (colonnade shadow)',
+            lambda *r: grid.occluded_grid(g, colonnade.nodes,
+                                          colonnade.tris, *r),
+            lambda *r: traverse.occluded_packet(*tables2, *r), shadow,
+            labels=('grid path', 'K6'), other_tie_rule=True)
 
     t1 = time.perf_counter()
     motion = bs.motion_field().commit(device=dev)
@@ -286,40 +428,35 @@ def main():
     for what, rays in (('camera', (org, dirn, zeros, inf, tm)),
                        ('scattered', scattered_rays(motion, 1 << 20, gen,
                                                     dev))):
-        record('intersect_packet_mb', compare(
-            f'intersect_packet_mb (motion_field {what})',
-            traverse.intersect_packet_mb, traverse.intersect_motion_plain,
-            (motion.nodes, motion.tris_mb, *rays)))
+        check(traverse.intersect_packet_mb,
+              f'intersect_packet_mb (motion_field {what})',
+              (motion.nodes, motion.tris_mb, *rays))
     phase('kernels', f"all kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. goldens, one path each ----------------------------------------
-    counters = [dense.intersect_dense, dense.occluded_dense,
-                wide.intersect_packet4, wide.occluded_packet4,
-                traverse.intersect_packet, traverse.occluded_packet,
-                traverse.intersect_packet_mb]
-    plains = [dense.intersect_dense_plain, dense.occluded_dense_plain,
-              wide.intersect_wide_plain, wide.occluded_wide_plain,
-              traverse.intersect_binary_plain,
-              traverse.occluded_binary_plain,
-              traverse.intersect_motion_plain]
     main_launches = [0] * len(counters)
+    ix = {f.__name__: i for i, f in enumerate(counters)}
+    k3, k4, k5, k6, k8, k9 = (ix[n] for n in (
+        'intersect_packet4', 'occluded_packet4', 'intersect_packet',
+        'occluded_packet', 'intersect_pairs_raw', 'occluded_pairs'))
     goldens = (
-        ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32, (0, 1)),
+        ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32, 'morton',
+         (0, 1)),
         ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
-         (2, 3)),
+         'morton', (k3, k4)),
         ('colonnade_64', colonnade2, bs.colonnade_camera(64, 64), 3, 8,
-         (4, 5)),
-        ('motion_64', motion, bs.motion_field_camera(64, 64), 2, 16, (6,)),
+         'morton', (k5, k6)),
+        ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
+         'grid', (k3, k4, k5, k6, k8, k9)),
+        ('motion_64', motion, bs.motion_field_camera(64, 64), 2, 16,
+         'morton', (ix['intersect_packet_mb'],)),
     )
-    for name, scene, cam, depth, spp, used in goldens:
-        for f in counters:
-            f.launches = 0
-        for f in plains:
-            f.cuda_calls = 0
+    for name, scene, cam, depth, spp, binning, used in goldens:
+        zero_counters()
         film, stats = renderer.render_frame(
-            scene, cam, pt.PTParams(max_depth=depth), 64, 64, spp=spp,
-            seed=SEED)
+            scene, cam, pt.PTParams(max_depth=depth, ray_binning=binning),
+            64, 64, spp=spp, seed=SEED)
         img = accum.resolve(film).cpu().numpy()
         ran = [f.launches for f in counters]
         ref = np.load(os.path.join(GOLDEN, name + '_cpu.npz'))['img']
@@ -327,15 +464,24 @@ def main():
             raise AssertionError(f"{name}: image {img.shape} not finite or "
                                  f"not of the golden's shape {ref.shape}")
         db = psnr(img, ref)
-        counts = dict(zip([f.__name__ for f in counters], ran))
-        phase('golden', f"{name} (accel {scene.accel}): PSNR {db:.2f} dB vs "
-              f"{name}_cpu.npz (gate {PSNR_MIN}), {stats.num_rays:.0f} rays, "
-              f"kernel launches {counts}")
+        counts = {f.__name__: n for f, n in zip(counters, ran) if n}
+        phase('golden', f"{name} (accel {scene.accel}, ray_binning "
+              f"{binning}): PSNR {db:.2f} dB vs {name}_cpu.npz (gate "
+              f"{PSNR_MIN}), {stats.num_rays:.0f} rays, kernel launches "
+              f"{counts}")
         if db < PSNR_MIN:
             raise AssertionError(f"{name}: PSNR {db:.2f} < {PSNR_MIN}")
         if any((ran[i] > 0) != (i in used) for i in range(len(counters))):
             raise AssertionError(f"{name} (accel {scene.accel}): its path's "
                                  "kernels did not run, or others did")
+        # the grid path: BVH4 on bounce 0 only; on each later bounce 8
+        # closest rounds and 4 any-hit rounds, each with one fallback
+        if binning == 'grid' and not (
+                ran[k3] == ran[k4] and ran[k5] == ran[k6] == (depth - 1)
+                * ran[k3] and ran[k8] == 8 * ran[k5]
+                and ran[k9] == 4 * ran[k6]):
+            raise AssertionError(f"{name} (grid): launches {counts} are not "
+                                 "BVH4 on bounce 0 and the grid after it")
         if any(f.cuda_calls for f in plains):
             raise AssertionError(f"{name}: a plain version ran on CUDA "
                                  "tensors in the main path")
@@ -343,58 +489,67 @@ def main():
 
     # ---- 5. timed full-size frames ----------------------------------------
     frames = (
-        ('cornell_512', cornell, bs.cornell_camera(512, 512), 512, 32, 4),
+        ('cornell_512', cornell, bs.cornell_camera(512, 512), 512, 32, 4,
+         'morton'),
         ('colonnade_1024', colonnade, bs.colonnade_camera(1024, 1024), 1024,
-         8, 4),
+         8, 4, 'morton'),
         ('colonnade_1024_bvh2', colonnade2, bs.colonnade_camera(1024, 1024),
-         1024, 8, 4),
+         1024, 8, 4, 'morton'),
+        ('colonnade_1024_grid', colonnade, bs.colonnade_camera(1024, 1024),
+         1024, 8, 4, 'grid'),
         ('motion_field_512', motion, bs.motion_field_camera(512, 512), 512,
-         16, 4),
+         16, 4, 'morton'),
     )
-    for name, scene, cam, res, spp, depth in frames:
-        params = pt.PTParams(max_depth=depth)
+    for name, scene, cam, res, spp, depth, binning in frames:
+        params = pt.PTParams(max_depth=depth, ray_binning=binning)
         torch.cuda.reset_peak_memory_stats()
         renderer.render_frame(scene, cam, params, res, res, spp=spp,
                               seed=SEED)
+        zero_counters()
         runs = [renderer.render_frame(scene, cam, params, res, res, spp=spp,
                                       seed=SEED + i)[1] for i in (1, 2, 3)]
+        per_frame = {f.__name__: (f.launches // len(runs)
+                                  if f.launches % len(runs) == 0
+                                  else f.launches / len(runs))
+                     for f in counters if f.launches}
         mrps = sorted(s.mrps for s in runs)
         secs = sorted(s.seconds for s in runs)
         phase('frame', f"{name} ({res}^2, {spp} spp, depth {depth}, accel "
-              f"{scene.accel}): "
+              f"{scene.accel}, ray_binning {binning}): "
               f"{mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, max {mrps[2]:.2f}),"
               f" frame_s {secs[1]:.3f} (min {secs[0]:.3f}, max "
               f"{secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} Mrays/frame, "
               f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-              f" on {card}")
+              f", launches per frame {per_frame} on {card}")
 
-    sources = {
-        'intersect_dense': ('dense.cu', 'yulio_raytracer_tpu/ops/'
-                            'pallas_dense.py:94'),
-        'occluded_dense': ('dense.cu', 'yulio_raytracer_tpu/ops/'
-                           'pallas_dense.py:167'),
-        'intersect_packet4': ('wide.cu', 'yulio_raytracer_tpu/ops/'
-                              'pallas_wide.py:507'),
-        'occluded_packet4': ('wide.cu', 'yulio_raytracer_tpu/ops/'
-                             'pallas_wide.py:676'),
-        'intersect_packet': ('binary.cu', 'yulio_raytracer_tpu/ops/'
-                             'pallas_traverse.py:514'),
-        'occluded_packet': ('binary.cu', 'yulio_raytracer_tpu/ops/'
-                            'pallas_traverse.py:820'),
-        'intersect_packet_mb': ('binary.cu', 'yulio_raytracer_tpu/ops/'
-                                'pallas_traverse.py:1570'),
-    }
-    kernels = []
-    for f, n in zip(counters, main_launches):
-        src, replaces = sources[f.__name__]
+    # ---- 6. bounds ---------------------------------------------------------
+    summary = []
+    for (f, _, src, replaces, pair_flops), n in zip(kernels, main_launches):
         res = results[f.__name__]
-        kernels.append({
+        flops = res['pair'] * pair_flops + res['box'] * SLAB_FLOPS
+        bytes_ms = res['bytes'] / PEAK_BYTES * 1e3
+        flops_ms = flops / PEAK_FLOPS * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+        phase('bounds', f"{f.__name__} on {res['rays']} rays: "
+              f"{res['pair']} pair tests x {pair_flops} flops + "
+              f"{res['box']} box tests x {SLAB_FLOPS} flops = {flops:.4g} "
+              f"flops ({flops_ms:.4f} ms), {res['bytes']} bytes "
+              f"({bytes_ms:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, "
+              f"kernel {res['ms']:.3f} ms: {bound_ms / res['ms']:.2%} of the "
+              f"bound's rate; no single PyTorch call computes it")
+        summary.append({
             'name': f.__name__, 'route': 'cuda',
             'source': 'yulio_raytracer_tpu_torch/csrc/' + src,
             'replaces': replaces, 'launches': n,
             'max_abs_err': res['max_abs_err'], 'ms': res['ms'],
-            'plain_ms': res['plain_ms'], 'rays': res['rays']})
-    print(json.dumps({'kernels': kernels}))
+            'plain_ms': res['plain_ms'], 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None, 'rays': res['rays'],
+            'pair_tests': res['pair'], 'box_tests': res['box'],
+            'bytes': res['bytes']})
+    phase('done', f"all phases passed in {time.perf_counter() - t_start:.1f}"
+          f" s")
+    print(json.dumps({'kernels': summary}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

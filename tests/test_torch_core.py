@@ -217,7 +217,7 @@ def test_tonemap_matches():
     lambda: mat.make_material('glass', {}),
     lambda: lb.check_types([jlb.SPECULAR_REFLECT]),
     lambda: lights.sample({'kind': 'point'}, None, None, None),
-    lambda: pt.PTParams(ray_binning='grid'),
+    lambda: pt.PTParams(ray_binning='treelet'),
 ])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

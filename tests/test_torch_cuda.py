@@ -1,5 +1,6 @@
 """The torch port's CUDA kernels on the card: each held against its plain
-torch version, and the cornell and motion goldens rendered through them.
+torch version, and the cornell, motion and grid colonnade goldens rendered
+through them.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -16,7 +17,7 @@ import torch
 from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
-from yulio_raytracer_tpu_torch.ops import dense, traverse, wide
+from yulio_raytracer_tpu_torch.ops import dense, grid, pairs, traverse, wide
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
 from yulio_raytracer_tpu_torch import renderer
 from yulio_raytracer_tpu_torch.film import accum
@@ -34,9 +35,9 @@ def cuda():
 
 
 def _tables_and_rays(dev, n=1000):
-    """Packed rows and BVH4 and binary nodes of a sphere over a floor with
-    one culled triangle (leaf 8), and n random rays with dead and finite
-    lanes."""
+    """Packed rows, and the BVH4 and binary nodes and the res-8 grid, of a
+    sphere over a floor with one culled triangle (leaf 8), and n random
+    rays with dead and finite lanes."""
     packed = mesh.pack_meshes([
         primitives.tessellate_sphere([0, 0, 0], 1.0, 12, 16),
         primitives.quad([-5, -1.2, -5], [5, -1.2, -5], [5, -1.2, 5],
@@ -59,7 +60,9 @@ def _tables_and_rays(dev, n=1000):
             np.full((n,), 1e-4, np.float32), tf]
     return (torch.as_tensor(wide.pack_tris(woop, host)).to(dev),
             {'wide': torch.as_tensor(wide.pack_nodes4(tree)).to(dev),
-             'binary': torch.as_tensor(traverse.pack_nodes(tree)).to(dev)},
+             'binary': torch.as_tensor(traverse.pack_nodes(tree)).to(dev),
+             'grid': {k: torch.as_tensor(v).to(dev) for k, v in
+                      grid.build_grid(woop, host).items()}},
             [torch.as_tensor(x).to(dev) for x in rays])
 
 
@@ -88,6 +91,31 @@ def test_kernels_match_plain_on_card(cuda, which):
         np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
     np.testing.assert_array_equal(ka(*tables, *rays).cpu().numpy(),
                                   pa(*tables, *rays).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_grid_kernels_match_plain_on_card(cuda):
+    """K8 and K9 over the whole table and over each ray's entry cell, and
+    the grid march K10, bit-equal to their plain versions."""
+    _, tables, rays = _tables_and_rays(cuda)
+    g = tables['grid']
+    before = (pairs.intersect_pairs_raw.launches,
+              pairs.occluded_pairs.launches, grid.march_raw.launches)
+    outs = []
+    for ranges in ((), grid.entry_ranges(g, *rays)):
+        outs += [(pairs.intersect_pairs_raw(g['rows'], *rays, *ranges),
+                  pairs.intersect_pairs_raw_plain(g['rows'], *rays, *ranges)),
+                 ((pairs.occluded_pairs(g['rows'], *rays, *ranges),),
+                  (pairs.occluded_pairs_plain(g['rows'], *rays, *ranges),))]
+    outs.append((grid.march_raw(g, *rays), grid.march_raw_plain(g, *rays)))
+    torch.cuda.synchronize()
+    assert (pairs.intersect_pairs_raw.launches, pairs.occluded_pairs.launches,
+            grid.march_raw.launches) == tuple(b + k for b, k in
+                                              zip(before, (2, 2, 1)))
+    assert bool((outs[-1][1][1] >= 0).any()) and bool(outs[1][1][0].any())
+    for got, ref in outs:
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -160,3 +188,24 @@ def test_motion_golden_on_card(cuda):
     assert 10 * np.log10(img.max() ** 2 / max(mse, 1e-20)) >= 40.0
     assert traverse.intersect_packet_mb.launches > before[0]
     assert traverse.intersect_motion_plain.cuda_calls == before[1]
+
+
+@pytest.mark.cuda
+def test_colonnade_grid_golden_on_card(cuda):
+    """colonnade_64 (depth 3, 8 spp, leaf 32, seed 42) with
+    ray_binning='grid': BVH4 on bounce 0, the grid's pair kernels and the
+    binary fallback after it."""
+    kernels = (pairs.intersect_pairs_raw, pairs.occluded_pairs,
+               traverse.intersect_packet, traverse.occluded_packet)
+    before = [f.launches for f in kernels]
+    plain = pairs.intersect_pairs_raw_plain.cuda_calls
+    film, _ = renderer.render_frame(
+        bs.colonnade().commit(device=cuda, leaf_size=32),
+        bs.colonnade_camera(64, 64),
+        pt.PTParams(max_depth=3, ray_binning='grid'), 64, 64, spp=8, seed=42)
+    img = accum.resolve(film).cpu().numpy()
+    golden = np.load(os.path.join(GOLDEN, 'colonnade_64_cpu.npz'))['img']
+    mse = ((img - golden) ** 2).mean()
+    assert 10 * np.log10(img.max() ** 2 / max(mse, 1e-20)) >= 40.0
+    assert all(f.launches > b for f, b in zip(kernels, before))
+    assert pairs.intersect_pairs_raw_plain.cuda_calls == plain

@@ -98,7 +98,7 @@ def test_motion_tables_match(which):
 @pytest.mark.parametrize('which', ['test_motion', 'motion_field_4'])
 def test_from_numpy_scene_equals_own_commit_motion(which):
     jsb, sb, kw = _both(which)
-    js, own = jsb.commit(**kw), sb.commit(**kw)
+    js, own = jsb.commit(**kw), sb.commit(device='cpu', **kw)
     assert own.motion is not None
     assert own.accel == ('bvh4mb' if which == 'test_motion' else 'dense')
     _assert_scenes_equal(tscene.from_numpy_scene(**_numpy_leaves(js)), own)
@@ -109,7 +109,7 @@ def moving():
     """The test_motion.py packet scene committed by both packages, its
     rays (RandomState(9)) and times."""
     jsb, sb, kw = _both('test_motion')
-    js, sc = jsb.commit(**kw), sb.commit(**kw)
+    js, sc = jsb.commit(**kw), sb.commit(device='cpu', **kw)
     rs = np.random.RandomState(9)
     org = rs.randn(R, 3).astype(np.float32) * 2 + np.float32([0, 3, 0])
     d = rs.randn(R, 3).astype(np.float32)
@@ -177,7 +177,7 @@ def test_brute_matches_jax_with_and_without_time(moving):
 
 def _render_both(jsb, sb, res, spp, depth, **kw):
     film, stats = renderer.render_frame(
-        sb.commit(**kw), bs.motion_field_camera(res, res),
+        sb.commit(device='cpu', **kw), bs.motion_field_camera(res, res),
         pt.PTParams(max_depth=depth), res, res, spp=spp, seed=42)
     jfilm, jstats = jrenderer.render_frame(
         jsb.commit(**kw), jbs.motion_field_camera(res, res),

@@ -140,7 +140,8 @@ def test_plain_wide_matches_pallas(tables, n):
 def test_plain_wide_matches_brute_on_colonnade():
     """The BVH4 traversal of a real (reduced colonnade) tree finds the
     dense sweep's closest hits and occlusion over the same rows."""
-    sc = bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(leaf_size=32)
+    sc = bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(
+        device='cpu', leaf_size=32)
     rs = np.random.RandomState(4)
     n = 2000
     org = torch.as_tensor((rs.randn(n, 3) * 4 + [0, 2, 0]).astype(np.float32))

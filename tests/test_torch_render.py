@@ -38,7 +38,8 @@ def _render(scene, cam, depth, res, spp):
 def test_cornell_matches_pinned_golden():
     """The cornell golden (depth 4, 32 spp, seed 42) through the dense
     path, at the JAX package's own bar (tests/test_golden.py)."""
-    img, stats = _render(bs.cornell_box().commit(), bs.cornell_camera(64, 64),
+    img, stats = _render(bs.cornell_box().commit(device='cpu'),
+                         bs.cornell_camera(64, 64),
                          4, 64, 32)
     golden = np.load(os.path.join(GOLDEN, 'cornell_64_cpu.npz'))['img']
     assert img.shape == golden.shape and np.isfinite(img).all()
@@ -50,7 +51,8 @@ def test_colonnade_matches_jax_render():
     """The reduced colonnade through the BVH4 path against the JAX
     package's CPU render (Moller-Trumbore BVH traversal there, Woop here:
     float-level differences only)."""
-    img, stats = _render(bs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32),
+    img, stats = _render(bs.colonnade(**COLONNADE_SMALL).commit(
+        device='cpu', leaf_size=32),
                          bs.colonnade_camera(32, 32), 3, 32, 2)
     js = jbs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32)
     jfilm, jstats = jrenderer.render_frame(
@@ -64,7 +66,7 @@ def test_colonnade_matches_jax_render():
 def test_render_independent_of_pass_size(monkeypatch):
     """Cutting the frame into other passes (sample folds, pixel splits)
     changes only the order of the per-pixel sums."""
-    sc = bs.cornell_box().commit()
+    sc = bs.cornell_box().commit(device='cpu')
     cam = bs.cornell_camera(16, 16)
     ref, rstats = _render(sc, cam, 3, 16, 6)
     for max_rays in (16 * 16 * 4, 100):       # folds of 4 + 2; pixel splits
@@ -83,7 +85,7 @@ def test_port_never_imports_jax():
         "from yulio_raytracer_tpu_torch.io import builtin_scenes as bs\n"
         "from yulio_raytracer_tpu_torch.integrator import pathtracer as pt\n"
         "from yulio_raytracer_tpu_torch import renderer\n"
-        "sc = bs.cornell_box().commit()\n"
+        "sc = bs.cornell_box().commit(device='cpu')\n"
         "renderer.render_frame(sc, bs.cornell_camera(8, 8),\n"
         "                      pt.PTParams(max_depth=2), 8, 8, spp=1)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -34,17 +34,18 @@ def test_pack_tables_match_on_reduced_colonnade():
 
 
 def _numpy_leaves(js):
-    """A committed JAX TpuScene's leaves as numpy (what from_numpy_scene
-    takes)."""
-    np_ = lambda d: {k: np.asarray(v) for k, v in (d or {}).items()
-                     if not isinstance(v, dict)}
+    """A committed JAX TpuScene's leaves as numpy, with device='cpu' (what
+    from_numpy_scene takes)."""
+    def np_(d):
+        return {k: np_(v) if isinstance(v, dict) else np.asarray(v)
+                for k, v in (d or {}).items()}
     lights = [{k: (v if isinstance(v, (str, int, float)) else np.asarray(v))
                for k, v in l.items()} for l in js.lights]
     return dict(geom=np_(js.geom), packet=np_(js.packet),
                 materials=np_(js.materials), textures=np_(js.textures),
                 lights=lights, leaf_size=js.leaf_size, bbox_lo=js.bbox_lo,
                 bbox_hi=js.bbox_hi, num_triangles=js.num_triangles,
-                lobe_types=js.lobe_types)
+                lobe_types=js.lobe_types, accel=js.accel, device='cpu')
 
 
 def _assert_scenes_equal(a, b):
@@ -61,7 +62,7 @@ def _assert_scenes_equal(a, b):
         g = b.tris.shape[0]
         assert not a.tris[g:].any()
         pairs.append(('tris', a.tris[:g], b.tris))
-    for grp in ('geom', 'materials', 'textures', 'motion'):
+    for grp in ('geom', 'materials', 'textures', 'motion', 'grid'):
         ga, gb = getattr(a, grp), getattr(b, grp)
         if ga is None or gb is None:
             assert ga is None and gb is None, grp
@@ -88,11 +89,11 @@ def _assert_scenes_equal(a, b):
 def test_from_numpy_scene_equals_own_commit(which):
     if which == 'cornell':
         js = jbs.cornell_box().commit()
-        own = bs.cornell_box().commit()
+        own = bs.cornell_box().commit(device='cpu')
     else:
         kw = dict(cols_x=3, cols_z=2, tess=(8, 10))
         js = jbs.colonnade(**kw).commit(leaf_size=32)
-        own = bs.colonnade(**kw).commit(leaf_size=32)
+        own = bs.colonnade(**kw).commit(device='cpu', leaf_size=32)
     assert own.accel == ('dense' if which == 'cornell' else 'bvh4')
     carried = tscene.from_numpy_scene(**_numpy_leaves(js))
     _assert_scenes_equal(carried, own)

@@ -154,8 +154,9 @@ def test_plain_binary_wrappers_bound_the_ray_count(tables):
 def test_plain_binary_matches_bvh4_on_colonnade():
     """The binary and BVH4 traversals of one reduced-colonnade tree find
     the same closest hits and occlusion."""
-    s2 = bs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32, accel='bvh2')
-    s4 = bs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32)
+    s2 = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32,
+                                                accel='bvh2')
+    s4 = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32)
     torch.testing.assert_close(s2.tris, s4.tris, rtol=0, atol=0)
     rs = np.random.RandomState(4)
     n = 2000
@@ -178,12 +179,13 @@ def test_plain_binary_matches_bvh4_on_colonnade():
 
 def test_commit_accel_records_what_runs():
     sb = bs.colonnade(**COLONNADE_SMALL)
-    assert sb.commit(leaf_size=32).accel == 'bvh4'
-    s2 = sb.commit(leaf_size=32, accel='bvh2')
+    assert sb.commit(device='cpu', leaf_size=32).accel == 'bvh4'
+    s2 = sb.commit(device='cpu', leaf_size=32, accel='bvh2')
     assert s2.accel == 'bvh2' and s2.nodes4 is None
     assert s2.nodes is not None and s2.tris is not None
-    assert bs.cornell_box().commit(accel='bvh2').accel == 'dense'
-    assert bs.cornell_box().commit(force_bvh=True).accel == 'bvh4'
+    assert bs.cornell_box().commit(device='cpu', accel='bvh2').accel == 'dense'
+    assert bs.cornell_box().commit(device='cpu',
+                                   force_bvh=True).accel == 'bvh4'
 
 
 def test_commit_default_falls_back_to_binary(monkeypatch):
@@ -193,12 +195,13 @@ def test_commit_default_falls_back_to_binary(monkeypatch):
         raise ValueError("wide tree too deep")
     monkeypatch.setattr(wide, '_check_packed', refuse)
     sb = bs.colonnade(**COLONNADE_SMALL)
-    sc = sb.commit(leaf_size=32)
+    sc = sb.commit(device='cpu', leaf_size=32)
     assert sc.accel == 'bvh2' and sc.nodes4 is None
     np.testing.assert_array_equal(
-        sc.nodes.numpy(), sb.commit(leaf_size=32, accel='bvh2').nodes.numpy())
+        sc.nodes.numpy(),
+        sb.commit(device='cpu', leaf_size=32, accel='bvh2').nodes.numpy())
     with pytest.raises(ValueError, match='too deep'):
-        sb.commit(leaf_size=32, accel='bvh4')
+        sb.commit(device='cpu', leaf_size=32, accel='bvh4')
 
 
 @pytest.mark.parametrize('accel', ['bvh4mb', 'bvh8'])
@@ -210,7 +213,8 @@ def test_commit_rejects_accel(accel):
 
 def test_from_numpy_scene_equals_own_commit_bvh2():
     js = jbs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32, accel='bvh2')
-    own = bs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32, accel='bvh2')
+    own = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32,
+                                                 accel='bvh2')
     assert js.accel == own.accel == 'bvh2'
     _assert_scenes_equal(tscene.from_numpy_scene(**_numpy_leaves(js)), own)
 
@@ -221,7 +225,8 @@ def test_colonnade_bvh2_matches_jax_render():
     """The reduced colonnade through the binary path against the JAX
     package's CPU render (as test_torch_render does for BVH4)."""
     film, stats = renderer.render_frame(
-        bs.colonnade(**COLONNADE_SMALL).commit(leaf_size=32, accel='bvh2'),
+        bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32,
+                                               accel='bvh2'),
         bs.colonnade_camera(32, 32), pt.PTParams(max_depth=3), 32, 32,
         spp=2, seed=42)
     img = accum.resolve(film).numpy()
@@ -255,7 +260,7 @@ def test_shadow_batch_split_is_bit_equal(monkeypatch, scene, per):
     lights one by one; 256 triangle lights: 100 + 100 + 56); the film
     is bit-equal to the unsplit render's."""
     sb = bs.cornell_box() if scene == 'cornell' else _lamp_box()
-    sc = sb.commit()
+    sc = sb.commit(device='cpu')
     nl, res, spp, depth = len(sc.lights), 8, 2, 2
     cam = bs.cornell_camera(res, res)
 

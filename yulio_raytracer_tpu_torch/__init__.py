@@ -11,7 +11,9 @@ Layers, from the entry point down:
   renderer     render_frame: passes of camera-sample ray batches
   integrator   wavefront path tracer (NEE, Russian roulette)
   cameras / sampling / shading / lights / film   per-ray math in torch
-  scene        SceneBuilder.commit(device=...) -> TorchScene
+  scene        SceneBuilder.commit(device=None: the card) -> TorchScene
   geometry     host-side packing and BVH build (numpy, native builder)
-  ops          intersection: dense.py and wide.py wrap the kernels
+  ops          intersection: dense.py, wide.py, traverse.py, pairs.py
+               and grid.py wrap the kernels
+profile_frame.py profiles one frame of a timed cell on the card.
 """

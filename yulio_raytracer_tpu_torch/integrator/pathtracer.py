@@ -13,7 +13,14 @@ only where one launch could not index them); dead lanes carry tfar = -1
 so the kernels reject them at once; a motion scene's paths keep their
 camera ray's time.
 
-Not in this slice: ray sorting ('morton' and 'none' both run unsorted),
+Ray binning on bounces >= 1 (the reference's `sort_rays`, off on bounce
+0): 'grid' runs a static BVH scene's closest and any-hit calls through the
+uniform grid (ops/grid.py: DDA rounds of the pair kernels, then the
+binary BVH kernels for the rays still marching); 'morton' and 'none'
+both trace unsorted, since whether ray sorting pays on the GPU is still
+to be measured.  A motion scene, and a dense one, never take the grid.
+
+Not in this slice: ray sorting, the 'dense' and 'treelet' binnings,
 environment lights and backplates, the dome shadow cap (finite
 t_max_shadow_ray), the precomputed sampler, live-ray compaction
 (`trace_compacted`), the triangle-sharded mesh axis.
@@ -29,6 +36,7 @@ from ..core import rng
 from ..lights import lights as glights
 from ..ops import cuda_build as cb
 from ..ops import dense, traverse, wide
+from ..ops import grid as ggrid
 from ..ops import intersect as ops_i
 from ..shading import lobes as lb
 from ..shading import materials as gmat
@@ -44,15 +52,15 @@ class PTParams:
     rr_depth: int = 5
     min_contribution: float = 0.02
     epsilon: float = 32.0 * ULP
-    # 'morton' (the reference's default) and 'none' both trace unsorted:
-    # whether ray sorting pays on the GPU is to be measured
+    # bounces >= 1: 'grid' traces through the uniform grid; 'morton' (the
+    # reference's default) and 'none' both trace unsorted
     ray_binning: str = 'morton'
 
     def __post_init__(self):
-        if self.ray_binning not in ('morton', 'none'):
+        if self.ray_binning not in ('morton', 'none', 'grid'):
             raise NotImplementedError(
                 f"ray_binning={self.ray_binning!r} is not ported yet "
-                "('morton' or 'none')")
+                "('morton', 'none' or 'grid')")
 
 
 # RNG dimension layout per bounce d: base = stride + stride * d
@@ -76,15 +84,25 @@ def _bounce_dims(depth: int, stride: int = 16) -> int:
     return (stride + stride * depth) & rng._MASK
 
 
-def _intersect(scene, org, dirn, tnear, tfar, time=None):
-    """Closest hits through the traversal scene.accel names; a motion
-    scene traces at each ray's time."""
+def _use_grid(scene, sort_rays, binning):
+    return (sort_rays and binning == 'grid' and scene.grid is not None
+            and scene.nodes is not None)
+
+
+def _intersect(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
+               binning='morton'):
+    """Closest hits, in the reference's order: a motion scene traces at
+    each ray's time; sorted rays under binning 'grid' take the grid where
+    the scene has one; else the traversal scene.accel names."""
     if scene.accel == 'bvh4mb':
         return traverse.intersect_packet_mb(scene.nodes, scene.tris_mb, org,
                                             dirn, tnear, tfar, time)
     if scene.motion is not None:
         return ops_i.intersect_brute(scene.motion, org, dirn, tnear, tfar,
                                      time=time)
+    if _use_grid(scene, sort_rays, binning):
+        return ggrid.intersect_grid(scene.grid, scene.nodes, scene.tris, org,
+                                    dirn, tnear, tfar)
     if scene.accel == 'bvh4':
         return wide.intersect_packet4(scene.nodes4, scene.tris, org, dirn,
                                       tnear, tfar)
@@ -94,7 +112,8 @@ def _intersect(scene, org, dirn, tnear, tfar, time=None):
     return dense.intersect_dense(scene.tris, org, dirn, tnear, tfar)
 
 
-def _occluded(scene, org, dirn, tnear, tfar, time=None):
+def _occluded(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
+              binning='morton'):
     """Any-hit of each ray segment (as _intersect)."""
     if scene.accel == 'bvh4mb':
         return traverse.occluded_packet_mb(scene.nodes, scene.tris_mb, org,
@@ -102,6 +121,9 @@ def _occluded(scene, org, dirn, tnear, tfar, time=None):
     if scene.motion is not None:
         return ops_i.occluded_brute(scene.motion, org, dirn, tnear, tfar,
                                     time=time)
+    if _use_grid(scene, sort_rays, binning):
+        return ggrid.occluded_grid(scene.grid, scene.nodes, scene.tris, org,
+                                   dirn, tnear, tfar)
     if scene.accel == 'bvh4':
         return wide.occluded_packet4(scene.nodes4, scene.tris, org, dirn,
                                      tnear, tfar)
@@ -111,9 +133,10 @@ def _occluded(scene, org, dirn, tnear, tfar, time=None):
     return dense.occluded_dense(scene.tris, org, dirn, tnear, tfar)
 
 
-def _occluded_lights(scene, p, wi, tnear, tfar, time):
+def _occluded_lights(scene, p, wi, tnear, tfar, time, sort_rays, binning):
     """Any-hit of every light's shadow rays: p, tnear, time (R,...) are
-    shared by the lights, wi (nl, R, 3) and tfar (nl, R) are per light.
+    shared by the lights, wi (nl, R, 3) and tfar (nl, R) are per light;
+    sort_rays and binning choose the traversal as in _occluded.
     Each launch takes whole lights, fewer than cuda_build.MAX_RAYS rays
     in all, so any light count traces; the result does not depend on
     the split.  Returns (nl * R,) bool, light-major."""
@@ -125,7 +148,7 @@ def _occluded_lights(scene, p, wi, tnear, tfar, time):
         occ.append(_occluded(
             scene, p.repeat(k, 1), wi[l0:l0 + k].reshape(k * r, 3),
             tnear.repeat(k), tfar[l0:l0 + k].reshape(k * r),
-            None if time is None else time.repeat(k)))
+            None if time is None else time.repeat(k), sort_rays, binning))
     return torch.cat(occ)
 
 
@@ -178,6 +201,8 @@ def _make_bounce(scene, params: PTParams, seed):
 
     def bounce(state, depth: int):
         r, dev = state['org'].shape[0], state['org'].device
+        # the reference bins rays on every bounce after the first
+        binned = (depth > 0, params.ray_binning)
         pixel_id, sample_id = state['pid'], state['sid']
         base = _bounce_dims(depth, dim_stride)
         org, dirn = state['org'], state['dir']
@@ -189,7 +214,7 @@ def _make_bounce(scene, params: PTParams, seed):
         # dead lanes get tfar < tnear: every kernel rejects them at once
         tfar_live = torch.where(active, float('inf'), -1.0)
         hit = _intersect(scene, org, dirn, torch.zeros((r,), device=dev),
-                         tfar_live, state['time'])
+                         tfar_live, state['time'], *binned)
         state = dict(state)
         state['num_rays'] = state['num_rays'] + torch.sum(active)
         dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
@@ -241,7 +266,7 @@ def _make_bounce(scene, params: PTParams, seed):
             state['num_rays'] = state['num_rays'] + torch.sum(cand_all)
             occ_all = _occluded_lights(scene, dg['P'], torch.cat(wi_gs),
                                        err_eps, torch.cat(tfar_gs),
-                                       state['time'])
+                                       state['time'], *binned)
             lit = cand_all & ~occ_all.reshape(nl, r)
             L = L + torch.sum(torch.where(lit[:, :, None],
                                           torch.cat(contrib_gs), 0.0), dim=0)

@@ -126,6 +126,14 @@ def table_arg(name, x, width, device):
     return x
 
 
+def count(counts, key, n):
+    """Add n (an int, or a tensor summed without a device sync) to
+    counts[key] unless counts is None: the plain versions gather the
+    pair and box tests their kernels make this way."""
+    if counts is not None:
+        counts[key] = counts.get(key, 0) + n
+
+
 def empty_hit(r: int, device):
     """Uninitialized (t, tri, u, v) outputs for r rays."""
     return (torch.empty((r,), dtype=torch.float32, device=device),

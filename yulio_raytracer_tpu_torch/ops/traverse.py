@@ -26,6 +26,7 @@ over `motion_bounds`, so one node table serves every time.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import numpy as np
 import torch
@@ -199,7 +200,8 @@ def _children(nodes, node, a, tag, org, dirn, inv, tnear, tfar):
     return kids, hit, tmin
 
 
-def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None) -> Hit:
+def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None,
+                   counts=None) -> Hit:
     r, dev = org.shape[0], org.device
     inv = wide._safe_inv(dirn)
     st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
@@ -230,9 +232,11 @@ def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None) -> Hit:
             tri_b[rid] = (la[hit] + j).to(torch.int32)
             u_b[rid] = uh[hit].gather(1, j[:, None])[:, 0]
             v_b[rid] = vh[hit].gather(1, j[:, None])[:, 0]
+            cb.count(counts, 'pair', tag[lf].sum())
         inner = live & (tag < 0)
         if bool(inner.any()):
             rid = act[inner]
+            cb.count(counts, 'box', 2 * rid.numel())
             kids, hit, tmin = _children(nodes, node[inner], a[inner],
                                         tag[inner], org[rid], dirn[rid],
                                         inv[rid], tnear[rid], t_b[rid])
@@ -244,7 +248,7 @@ def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None) -> Hit:
     return Hit(t, tri_b, u_b, v_b)
 
 
-def _any_plain(nodes, leaf, org, dirn, tnear, tfar):
+def _any_plain(nodes, leaf, org, dirn, tnear, tfar, counts=None):
     r, dev = org.shape[0], org.device
     inv = wide._safe_inv(dirn)
     st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
@@ -263,9 +267,12 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar):
             ok = leaf(a[lf], tag[lf], org[rid], dirn[rid], tnear[rid],
                       tfar[rid], None)[3]
             occ[rid] = torch.any(ok, dim=1)
+            cb.count(counts, 'pair',
+                     wide.tests_to_first_hit(ok, tag[lf]).sum())
         inner = tag < 0
         if bool(inner.any()):
             rid = act[inner]
+            cb.count(counts, 'box', 2 * rid.numel())
             kids, hit, _ = _children(nodes, node[inner], a[inner],
                                      tag[inner], org[rid], dirn[rid],
                                      inv[rid], tnear[rid], tfar[rid])
@@ -275,30 +282,35 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar):
     return occ
 
 
-def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar) -> Hit:
-    """Plain torch version of the binary closest-hit kernel."""
+def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar,
+                           counts=None) -> Hit:
+    """Plain torch version of the binary closest-hit kernel.  counts, a
+    dict, gathers the kernel's triangle ('pair') and slab ('box')
+    tests."""
     if org.is_cuda:
         intersect_binary_plain.cuda_calls += 1
-    return wide._chunked(_closest_plain, (nodes, _woop_leaf(tris)),
-                         org, dirn, tnear, tfar)
+    return wide._chunked(partial(_closest_plain, counts=counts),
+                         (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar)
 
 
-def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar):
+def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar, counts=None):
     """Plain torch version of the binary any-hit kernel; rays with
-    tfar <= tnear report not occluded."""
+    tfar <= tnear report not occluded.  counts as above."""
     if org.is_cuda:
         occluded_binary_plain.cuda_calls += 1
-    return wide._chunked(_any_plain, (nodes, _woop_leaf(tris)),
-                         org, dirn, tnear, tfar)
+    return wide._chunked(partial(_any_plain, counts=counts),
+                         (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar)
 
 
-def intersect_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar,
-                           time) -> Hit:
-    """Plain torch version of the motion-blur closest-hit kernel."""
+def intersect_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar, time,
+                           counts=None) -> Hit:
+    """Plain torch version of the motion-blur closest-hit kernel.  counts
+    as above."""
     if org.is_cuda:
         intersect_motion_plain.cuda_calls += 1
-    return wide._chunked(_closest_plain, (nodes, _motion_leaf(tris_mb)),
-                         org, dirn, tnear, tfar, time)
+    return wide._chunked(partial(_closest_plain, counts=counts),
+                         (nodes, _motion_leaf(tris_mb)), org, dirn, tnear,
+                         tfar, time)
 
 
 # ------------------------------------------------------------- wrappers

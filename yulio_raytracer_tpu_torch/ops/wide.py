@@ -18,6 +18,7 @@ a slot is decided by its tag, never by its box).
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import numpy as np
 import torch
@@ -194,6 +195,13 @@ def _leaf_test(rows, a, c, org, dirn, tnear, tfar):
     return th, uh, vh, ok & inrange
 
 
+def tests_to_first_hit(ok, c):
+    """(n,) triangle tests an any-hit leaf loop makes over leaves of c
+    triangles whose results are ok (n, max c): up to the first hit."""
+    j = torch.arange(1, ok.shape[1] + 1, device=ok.device)
+    return torch.amin(torch.where(ok, j, c[:, None]), dim=1)
+
+
 def _push(stacks, sp, rid, mask, values):
     """Push values[k] (n,) onto the stacks of rays rid where mask (n,)."""
     sp[rid] += mask
@@ -213,23 +221,27 @@ def _chunked(fn, tables, *rays):
     return Hit(*(torch.cat(x) for x in zip(*outs)))
 
 
-def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
+def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar,
+                         counts=None) -> Hit:
     """Plain torch version of the closest-hit kernel: every ray walks the
-    tree with its own stack, in the kernel's order."""
+    tree with its own stack, in the kernel's order.  counts, a dict,
+    gathers the kernel's triangle ('pair') and slab ('box') tests."""
     if org.is_cuda:
         intersect_wide_plain.cuda_calls += 1
-    return _chunked(_closest_plain, (nodes4, tris), org, dirn, tnear, tfar)
+    return _chunked(partial(_closest_plain, counts=counts), (nodes4, tris),
+                    org, dirn, tnear, tfar)
 
 
-def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar):
+def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
     """Plain torch version of the any-hit kernel; rays with
-    tfar <= tnear report not occluded."""
+    tfar <= tnear report not occluded.  counts as intersect_wide_plain."""
     if org.is_cuda:
         occluded_wide_plain.cuda_calls += 1
-    return _chunked(_any_plain, (nodes4, tris), org, dirn, tnear, tfar)
+    return _chunked(partial(_any_plain, counts=counts), (nodes4, tris),
+                    org, dirn, tnear, tfar)
 
 
-def _closest_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
+def _closest_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None) -> Hit:
     r, dev = org.shape[0], org.device
     rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, 4, 8)
     inv = _safe_inv(dirn)
@@ -259,9 +271,11 @@ def _closest_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
             tri_b[rid] = (la[hit] + j).to(torch.int32)
             u_b[rid] = uh[hit].gather(1, j[:, None])[:, 0]
             v_b[rid] = vh[hit].gather(1, j[:, None])[:, 0]
+            cb.count(counts, 'pair', lc.sum())
         inner = live & (c == 0)
         if bool(inner.any()):
             rid = act[inner]
+            cb.count(counts, 'box', 4 * rid.numel())
             nd = nodes[a[inner]]                         # (n, 4, 8)
             tag = nd[..., 7].to(torch.int64)
             hit, tmin = _slab(nd, org[rid][:, None, :], inv[rid][:, None, :],
@@ -283,7 +297,7 @@ def _closest_plain(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
     return Hit(t, tri_b, u_b, v_b)
 
 
-def _any_plain(nodes4, tris, org, dirn, tnear, tfar):
+def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
     r, dev = org.shape[0], org.device
     rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, 4, 8)
     inv = _safe_inv(dirn)
@@ -302,9 +316,11 @@ def _any_plain(nodes4, tris, org, dirn, tnear, tfar):
             ok = _leaf_test(rows, a[leaf], c[leaf], org[rid], dirn[rid],
                             tnear[rid], tfar[rid])[3]
             occ[rid] = torch.any(ok, dim=1)
+            cb.count(counts, 'pair', tests_to_first_hit(ok, c[leaf]).sum())
         inner = ~leaf
         if bool(inner.any()):
             rid = act[inner]
+            cb.count(counts, 'box', 4 * rid.numel())
             nd = nodes[a[inner]]
             tag = nd[..., 7].to(torch.int64)
             hit, _ = _slab(nd, org[rid][:, None, :], inv[rid][:, None, :],

@@ -1,0 +1,118 @@
+"""Where a frame's device time goes: one frame of a timed cell under
+torch.profiler on the card.
+
+    python -m yulio_raytracer_tpu_torch.profile_frame [cell ...]
+
+The cells are the frames chip_smoke.py times (default: all of them).
+Each is committed on the card and rendered once to warm up, then once
+under the profiler.  One line per cell: the wall time of the profiled
+frame, the device's busy time (the sum of the device activities' time;
+the port runs one stream, so they do not overlap) and its share of the
+wall, the device launches, each port kernel's calls and device time,
+and the rest of the device time (the torch glue of the bounce).  The
+last line is the same as one JSON object.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import re
+import sys
+import time
+
+import torch
+
+from . import renderer
+from .integrator import pathtracer as pt
+from .io import builtin_scenes as bs
+
+# name: (commit, camera, resolution, spp, depth, ray_binning)
+CELLS = {
+    'cornell_512': (lambda: bs.cornell_box().commit(), bs.cornell_camera,
+                    512, 32, 4, 'morton'),
+    'colonnade_1024': (lambda: bs.colonnade().commit(leaf_size=32),
+                       bs.colonnade_camera, 1024, 8, 4, 'morton'),
+    'colonnade_1024_bvh2': (
+        lambda: bs.colonnade().commit(leaf_size=32, accel='bvh2'),
+        bs.colonnade_camera, 1024, 8, 4, 'morton'),
+    'colonnade_1024_grid': (lambda: bs.colonnade().commit(leaf_size=32),
+                            bs.colonnade_camera, 1024, 8, 4, 'grid'),
+    'motion_field_512': (lambda: bs.motion_field().commit(),
+                         bs.motion_field_camera, 512, 16, 4, 'morton'),
+}
+# the port's kernels by their __global__ names (csrc/*.cu)
+KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
+           'intersect_wide_kernel', 'occluded_wide_kernel', 'closest_kernel',
+           'occluded_kernel', 'closest_pairs_kernel', 'occluded_pairs_kernel',
+           'march_kernel')
+
+
+def kernel_of(event_name: str):
+    """The port kernel a profiler event names (mangled or demangled), or
+    None."""
+    m = re.match(r'_Z(\d+)', event_name)
+    ident = (event_name[m.end():m.end() + int(m.group(1))] if m else
+             event_name.removeprefix('void ').split('(')[0].split('<')[0])
+    return ident if ident in KERNELS else None
+
+
+def profile_cell(name: str) -> dict:
+    commit, camera, res, spp, depth, binning = CELLS[name]
+    scene = commit()
+    cam = camera(res, res)
+    params = pt.PTParams(max_depth=depth, ray_binning=binning)
+    renderer.render_frame(scene, cam, params, res, res, spp=spp, seed=42)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _, stats = renderer.render_frame(scene, cam, params, res, res,
+                                         spp=spp, seed=43)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches, kernels = 0.0, 0, {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        busy_us += us
+        launches += evt.count
+        k = kernel_of(evt.key)
+        if k is not None:
+            calls, k_us = kernels.get(k, (0, 0.0))
+            kernels[k] = (calls + evt.count, k_us + us)
+    kernel_us = sum(us for _, us in kernels.values())
+    return {'cell': name, 'wall_ms': wall * 1e3, 'busy_ms': busy_us / 1e3,
+            'busy_share': busy_us / 1e3 / (wall * 1e3),
+            'device_launches': launches, 'num_rays': stats.num_rays,
+            'kernels': {k: {'calls': c, 'ms': us / 1e3}
+                        for k, (c, us) in sorted(kernels.items())},
+            'glue_ms': (busy_us - kernel_us) / 1e3}
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("profile_frame: no CUDA device", file=sys.stderr)
+        return 1
+    unknown = [c for c in argv if c not in CELLS]
+    if unknown:
+        print(f"profile_frame: unknown cells {unknown}; known: "
+              f"{', '.join(CELLS)}", file=sys.stderr)
+        return 2
+    card = torch.cuda.get_device_name(0)
+    rows = []
+    for name in argv or CELLS:
+        r = profile_cell(name)
+        rows.append(r)
+        ks = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms"
+                       for k, v in r['kernels'].items())
+        print(f"[profile] {name}: wall {r['wall_ms']:.1f} ms, device busy "
+              f"{r['busy_ms']:.1f} ms ({r['busy_share']:.1%}), "
+              f"{r['device_launches']} device launches; {ks}; glue "
+              f"{r['glue_ms']:.1f} ms; on {card}", flush=True)
+    print(json.dumps({'card': card, 'cells': rows}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))

@@ -2,14 +2,17 @@
 
 Counterpart of `yulio_raytracer_tpu/scene.py`: `SceneBuilder` stages
 meshes, materials and lights on the host; `commit(device=...)` packs
-them into a `TorchScene` on one device:
+them into a `TorchScene` on one device, the card unless the caller asks
+for another:
 
 * the packed triangle rows `tris` ((G, 128) f32, ops/wide.py pack_tris);
 * for scenes above BRUTE_FORCE_MAX_TRIS triangles, a binary SAH BVH
-  (geometry/bvh.py, leaf `leaf_size`) collapsed to the BVH4 rows `nodes4`
-  (the reference's default accel), or kept as the binary rows `nodes`
-  (ops/traverse.py, `accel='bvh2'` and the fallback); smaller scenes run
-  the dense kernels;
+  (geometry/bvh.py, leaf `leaf_size`) as the binary rows `nodes`
+  (ops/traverse.py) and, unless `accel='bvh2'` or the collapse fails its
+  guards, its BVH4 collapse `nodes4` (the reference's default accel),
+  with the uniform grid `grid` (ops/grid.py build_grid, GRID_RES^3
+  cells) for `ray_binning='grid'`, whose fallback walks `nodes`; smaller
+  scenes run the dense kernels;
 * for motion scenes, the vertex-edge arrays `motion` and, above
   BRUTE_FORCE_MAX_TRIS, binary rows over union bounds with the motion
   triangle rows `tris_mb`;
@@ -17,9 +20,12 @@ them into a `TorchScene` on one device:
 
 The reference's TPU layout rules (SMEM leaf growth, the VMEM/HBM split,
 the zero rows after the packed triangles) and its ablation tables
-(treelets, planes, grid) are not part of this package.  Every other
-array equals the reference commit's (`from_numpy_scene` builds a
-TorchScene from those arrays).
+(treelets, planes) are not part of this package.  The reference builds
+the grid only where its planes fit a 15.3 MB VMEM budget; the port builds
+it for every static BVH scene, so a scene above that budget takes the
+grid path here and the sorted-BVH path in the reference, with the same
+hits up to ties.  Every other array equals the reference commit's
+(`from_numpy_scene` builds a TorchScene from those arrays).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from .geometry import bvh as gbvh
 from .geometry import mesh as gmesh
 from .geometry import primitives
 from .lights import lights as glights
+from .ops import grid as ggrid
 from .ops import traverse, wide
 from .shading import materials as gmat
 from .shading import textures as gtex
@@ -74,20 +81,22 @@ class SceneBuilder:
             self.add_mesh(tri)
         return lid
 
-    def commit(self, device='cpu', leaf_size: int = 64,
+    def commit(self, device=None, leaf_size: int = 64,
                force_bvh: Optional[bool] = None,
                accel: str = 'default') -> "TorchScene":
         """Pack the staged scene onto `device` (a torch device or its
-        name).  A BVH is built above BRUTE_FORCE_MAX_TRIS triangles (or
-        as force_bvh says).  accel, as in the reference:
+        name; None is the card, and raises without one).  A BVH is built
+        above BRUTE_FORCE_MAX_TRIS triangles (or as force_bvh says).
+        accel, as in the reference:
         'default' takes the BVH4 collapse and falls back to the binary
         tables when it fails its stack or exactness guard; 'bvh2' forces
         the binary tables; 'bvh4' raises where the collapse fails;
         'bvh4mb' requires motion geometry.  A motion scene's tree is built
         over union bounds and traversed by the motion kernel whatever
         accel says.  The scene's `accel` records what runs.  Raises
-        ValueError for an unknown accel and NotImplementedError for
-        non-triangle lights."""
+        ValueError for an unknown accel, RuntimeError for a CUDA device
+        when there is none, and NotImplementedError for non-triangle
+        lights."""
         if accel not in ('default', 'bvh2', 'bvh4', 'bvh4mb'):
             raise ValueError(
                 f"unknown accel {accel!r}: expected 'default' "
@@ -99,6 +108,7 @@ class SceneBuilder:
         if accel == 'bvh4mb' and not has_motion:
             raise ValueError("accel='bvh4mb' requires motion geometry "
                              "(meshes with motion vertex buffers)")
+        device = resolve_device(device)
         use_bvh = (force_bvh if force_bvh is not None
                    else n_tris > BRUTE_FORCE_MAX_TRIS)
         host = {k: getattr(packed, k) for k in gbvh.PER_TRIANGLE_KEYS
@@ -115,12 +125,16 @@ class SceneBuilder:
             packet = ({'nodes': traverse.pack_nodes(tree),
                        'tris_mb': traverse.pack_tris_mb(host)}
                       if use_bvh else {})
+            accel_used = 'bvh4mb' if use_bvh else 'dense'
         else:
             woop = gmesh.woop_matrices(host['v0'], host['e1'], host['e2'],
                                        host['valid'])
             packet = {'tris': wide.pack_tris(woop, host)}
+            accel_used = 'dense'
             if use_bvh:
                 packet.update(_static_nodes(tree, accel))
+                packet['grid'] = ggrid.build_grid(woop, host)
+                accel_used = 'bvh4' if 'nodes4' in packet else 'bvh2'
         lights = [glights.set_scene_bounds(l, packed.bbox_lo, packed.bbox_hi)
                   for l in self.lights]
         return from_numpy_scene(
@@ -135,20 +149,23 @@ class SceneBuilder:
             num_triangles=n_tris,
             lobe_types=tuple(sorted({lo.type for ms in self.materials
                                      for lo in ms.lobes})),
+            accel=accel_used,
             device=device)
 
 
 def _static_nodes(tree, accel: str) -> dict:
-    """The node table of a static BVH scene: {'nodes4': BVH4 rows}, or
-    {'nodes': binary rows} for accel 'bvh2' and where the BVH4 collapse
-    fails its guards (which raises for accel 'bvh4')."""
+    """The node tables of a static BVH scene: the binary rows 'nodes'
+    (which the grid path's fallback walks) and the BVH4 rows 'nodes4',
+    except for accel 'bvh2' and where the BVH4 collapse fails its guards
+    (which raises for accel 'bvh4')."""
+    tables = {'nodes': traverse.pack_nodes(tree)}
     if accel != 'bvh2':
         try:
-            return {'nodes4': wide.pack_nodes4(tree)}
+            tables['nodes4'] = wide.pack_nodes4(tree)
         except ValueError:
             if accel == 'bvh4':
                 raise
-    return {'nodes': traverse.pack_nodes(tree)}
+    return tables
 
 
 # the vertex-edge arrays a motion scene traces at each ray's time
@@ -157,15 +174,18 @@ MOTION_KEYS = ('v0', 'e1', 'e2', 'mv0', 'me1', 'me2', 'cull', 'valid')
 
 @dataclass(frozen=True)
 class TorchScene:
-    """A committed scene on one device.  Of the traversal tables, only
-    those of the traversal that runs are present (see `accel`); a
-    motion scene also keeps its vertex-edge arrays (`motion`), which
-    mark it as moving."""
+    """A committed scene on one device.  `accel` says which traversal
+    runs: 'bvh4mb' (the motion kernel), 'bvh4', 'bvh2' (the binary
+    kernels) or 'dense' (the dense kernels; for a motion scene, every
+    triangle at each ray's time in torch ops).  A static BVH scene keeps
+    its binary rows and its grid beside its BVH4 rows; a motion scene
+    keeps its vertex-edge arrays (`motion`), which mark it as moving."""
     device: torch.device
     tris: Optional[torch.Tensor]    # (G, 128) f32 packed triangle rows
     nodes4: Optional[torch.Tensor]  # (N4, 32) f32 BVH4 rows
     nodes: Optional[torch.Tensor]   # (N, 8) f32 binary BVH rows
     tris_mb: Optional[torch.Tensor]  # (G, 128) f32 motion triangle rows
+    grid: Optional[dict]          # ops/grid.py GRID_KEYS tables
     motion: Optional[dict]        # MOTION_KEYS arrays of a motion scene
     geom: dict                    # {'shade_tab': (T, 28) f32}
     materials: dict               # material table (shading/materials.py)
@@ -176,31 +196,33 @@ class TorchScene:
     bbox_hi: tuple
     num_triangles: int
     lobe_types: tuple             # static set of lobe type ids in use
+    accel: str
 
-    @property
-    def accel(self) -> str:
-        """Which traversal runs: 'bvh4mb' (the motion kernel), 'bvh4',
-        'bvh2' (the binary kernels) or 'dense' (the dense kernels; for a
-        motion scene, every triangle at each ray's time in torch ops)."""
-        if self.tris_mb is not None:
-            return 'bvh4mb'
-        if self.nodes4 is not None:
-            return 'bvh4'
-        return 'dense' if self.nodes is None else 'bvh2'
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; None is the card.  Raises RuntimeError
+    for a CUDA device when there is none: nothing falls back to the
+    CPU."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {device}; pass "
+                           "device='cpu' to run on the CPU")
+    return device
 
 
 def from_numpy_scene(geom, packet, materials, textures, lights, *,
                      leaf_size, bbox_lo, bbox_hi, num_triangles,
-                     lobe_types, device='cpu') -> TorchScene:
-    """A TorchScene from a committed scene's arrays, as numpy: the fields
-    of the reference's TpuScene (`geom`, `packet` ({} for none),
-    `materials`, `textures`, `lights` as merged dicts, and the static
-    fields).  It keeps the tables of the traversal the reference runs on
-    them (the BVH4 rows over the binary ones, the motion rows and the
-    motion arrays of a motion scene) and drops the ablation tables.
-    Raises NotImplementedError for what this package cannot shade (other
-    lobe types, textures, non-triangle lights)."""
-    device = torch.device(device)
+                     lobe_types, accel, device=None) -> TorchScene:
+    """A TorchScene on `device` (None: the card) from a committed scene's
+    arrays, as numpy: the fields of the reference's TpuScene (`geom`,
+    `packet` ({} for none; its 'grid' a dict), `materials`, `textures`,
+    `lights` as merged dicts, and the static fields, `accel` among
+    them).  It keeps the node, triangle and motion tables and the grid's
+    GRID_KEYS, and drops the ablation tables; a scene without node
+    tables is 'dense' whatever the reference's accel says.  Raises
+    NotImplementedError for what this package cannot shade (other lobe
+    types, textures, non-triangle lights)."""
+    device = resolve_device(device)
 
     def dev(x):
         return torch.as_tensor(np.array(x)).to(device)
@@ -213,13 +235,14 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
         if l['kind'] != 'triangle':
             raise NotImplementedError(
                 f"{l['kind']!r} lights are not ported yet ('triangle' only)")
-    nodes4 = table('nodes4')
     return TorchScene(
         device=device,
         tris=table('tris'),
-        nodes4=nodes4,
-        nodes=table('nodes') if nodes4 is None else None,
+        nodes4=table('nodes4'),
+        nodes=table('nodes'),
         tris_mb=table('tris_mb'),
+        grid=({k: dev(packet['grid'][k]) for k in ggrid.GRID_KEYS}
+              if 'grid' in packet else None),
         motion=({k: dev(geom[k]) for k in MOTION_KEYS} if 'mv0' in geom
                 else None),
         geom={'shade_tab': dev(geom['shade_tab'])},
@@ -233,4 +256,5 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
         bbox_hi=tuple(bbox_hi),
         num_triangles=int(num_triangles),
         lobe_types=tuple(lobe_types),
+        accel=accel if 'nodes' in packet else 'dense',
     )
