@@ -12,28 +12,39 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
     pair and the binary pair on the full colonnade (1024^2 camera rays, 1M
     hemisphere rays from their hits, the shadow rays to its 4 triangle
-    lights), the pair kernels on the colonnade's grid (the hemisphere and
-    shadow rays, each over its entry cell's tiles) and the grid march (the
-    hemisphere rays), the motion kernel on the motion field (512^2 camera
-    rays with their times, 1M scattered rays at random times); then the
-    grid path (ops/grid.py intersect_grid / occluded_grid) against the
-    binary kernels on the same hemisphere and shadow rays.  The plain
+    lights; the binary pair also with each ray started at its nearest
+    treelet's root), the pair kernels on the colonnade's grid (the
+    hemisphere and shadow rays, each over its entry cell's tiles) and the
+    grid march (the hemisphere rays), the split-leaf kernel K11 (the
+    sorted hemisphere rays and the camera rays), the motion kernel on the
+    motion field (512^2 camera rays with their times, 1M scattered rays at
+    random times); then the grid, treelet and dense paths (ops/grid.py,
+    ops/treelets.py intersect_packet_binned and intersect_dense_binned,
+    and their any-hit forms) against the binary
+    kernels on the same hemisphere and shadow rays, and K11 unsorted and
+    sorted against K5 on the hemisphere rays, timed in turns.  The plain
     versions count the pair and box tests their kernels make;
  4. the pinned CPU goldens rendered through render_frame on the card, one
     path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
-    the binary kernels and again with ray_binning='grid' (BVH4 on bounce
-    0, the grid's pair kernels and the binary fallback after it),
-    motion_64 through the motion kernel.  Every launch counter is set to 0
-    before each render and read after it: the path's kernels must have
-    run, no other kernel, and no plain version on a CUDA tensor;
+    the binary kernels and again with ray_binning 'grid', 'treelet' and
+    'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
+    motion_64 through the motion kernel; and K11's entry points (sorted
+    on the colonnade's 1M hemisphere rays, unsorted on its camera rays).
+    Every launch counter is set to 0 before each run and read after it:
+    the path's kernels must have run, no other kernel, and no plain
+    version on a CUDA tensor;
  5. timed full-size frames (cornell_512, colonnade_1024,
-    colonnade_1024_bvh2, colonnade_1024_grid, motion_field_512), with
-    each kernel's launches per frame;
+    colonnade_1024_bvh2, colonnade_1024_grid, colonnade_1024_treelet,
+    colonnade_1024_dense, motion_field_512), with each kernel's launches
+    per frame;
  6. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3) times
-    their flops over 67 TFLOP/s f32, against its time in phase 3.
+    their flops over 67 TFLOP/s f32, against its time in phase 3.  K11's
+    tests are those K5's plain version counts on the same rays, the tests
+    their closest hits need; the tests K11's schedule makes (every lane of
+    a block) are printed beside them as that schedule's waste.
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -239,9 +250,10 @@ def main():
     from yulio_raytracer_tpu_torch.film import accum
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
-    from yulio_raytracer_tpu_torch.ops import (cuda_build, dense, grid,
-                                               intersect, pairs, traverse,
-                                               wide)
+    from yulio_raytracer_tpu_torch.ops import (binning, cuda_build, dense,
+                                               grid, intersect, pairs,
+                                               splitleaf, traverse,
+                                               treelets, wide)
     from yulio_raytracer_tpu_torch import renderer
 
     dev = torch.device('cuda')
@@ -253,7 +265,7 @@ def main():
           f"{nvcc.stdout.strip().splitlines()[-1]}; card: {card}")
 
     t0 = time.perf_counter()
-    names = ('dense', 'wide', 'binary', 'grid')
+    names = ('dense', 'wide', 'binary', 'grid', 'splitleaf')
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         libs = list(pool.map(cuda_build.build, names))
     for name, lib in zip(names, libs):
@@ -289,6 +301,9 @@ def main():
          'yulio_raytracer_tpu/ops/pallas_pairs.py:320', WOOP_FLOPS),
         (grid.march_raw, grid.march_raw_plain, 'grid.cu',
          'yulio_raytracer_tpu/ops/grid.py:513', WOOP_FLOPS),
+        (splitleaf.intersect_packet_split, splitleaf.intersect_split_plain,
+         'splitleaf.cu', 'yulio_raytracer_tpu/ops/pallas_splitleaf.py:349',
+         WOOP_FLOPS),
     )
     counters = [k[0] for k in kernels]
     plains = [k[1] for k in kernels]
@@ -303,25 +318,32 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
-    def record(f, res, tests):
+    def record(f, res, tests, schedule):
         """Add one compared set of kernel f: res from compare(), tests
-        {'pair': n, 'box': n} (ints or device tensors)."""
+        and schedule {'pair': n, 'box': n} (ints or device tensors)."""
         acc = results.setdefault(f.__name__, {
             'rays': 0, 'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
-            'bytes': 0, 'pair': 0, 'box': 0})
+            'bytes': 0, 'pair': 0, 'box': 0, 'schedule_pair': 0,
+            'schedule_box': 0})
         for key in ('rays', 'ms', 'plain_ms', 'bytes'):
             acc[key] += res[key]
         acc['max_abs_err'] = max(acc['max_abs_err'], res['max_abs_err'])
         for key in ('pair', 'box'):
             acc[key] += int(tests.get(key, 0))
+            acc['schedule_' + key] += int(schedule.get(key, 0))
 
-    def check(f, name, args, tests=None):
+    def check(f, name, args, tests=None, schedule=False):
         """compare() kernel f against its plain version and record it;
-        the plain version counts the kernel's tests unless `tests` gives
-        them (the dense kernels, whose tests follow from the shapes)."""
-        counted = {} if tests is None else None
+        returns the tests the plain version counted.  `tests` gives the
+        tests the function needs where that count is not it: the dense
+        kernels' follow from the shapes; with schedule (K11) the plain
+        version's count, the tests of the kernel's schedule, is kept
+        beside them."""
+        counted = {} if tests is None or schedule else None
         record(f, compare(name, f, plains[counters.index(f)], args,
-                          counted), tests or counted)
+                          counted), tests or counted,
+               counted if schedule else {})
+        return counted
 
     t0 = time.perf_counter()
     cornell = bs.cornell_box().commit(device=dev)
@@ -380,11 +402,13 @@ def main():
                                                 gen, dev)
     hemi = (ho, hd, htn, htf)
     shadow = shadow_rays(colonnade, dg, eps, hit.valid, gen, dev)
+    k5_tests = {}     # the tests the closest hits need, per ray set
     for what, rays in (('camera', cam_rays), ('hemisphere', hemi)):
         check(wide.intersect_packet4, f'intersect_packet4 (colonnade {what})',
               (*tables, *rays))
-        check(traverse.intersect_packet,
-              f'intersect_packet (colonnade bvh2 {what})', (*tables2, *rays))
+        k5_tests[what] = check(traverse.intersect_packet,
+                               f'intersect_packet (colonnade bvh2 {what})',
+                               (*tables2, *rays))
     check(wide.occluded_packet4, 'occluded_packet4 (colonnade shadow)',
           (*tables, *shadow))
     check(traverse.occluded_packet, 'occluded_packet (colonnade bvh2 shadow)',
@@ -413,6 +437,94 @@ def main():
                                           colonnade.tris, *r),
             lambda *r: traverse.occluded_packet(*tables2, *r), shadow,
             labels=('grid path', 'K6'), other_tie_rule=True)
+
+    # the treelet binnings' kernels: K5/K6 with each ray started at the
+    # root of its nearest treelet (the first round's choice)
+    tl = colonnade.treelets
+    if not torch.equal(colonnade.nodes, colonnade2.nodes):
+        raise AssertionError("the bvh2 and bvh4 commits differ in their "
+                             "binary rows")
+    span = (tl['treelet_tile_hi'] - tl['treelet_tile_lo']).float()
+    phase('kernels', f"colonnade treelets: {tl['treelet_roots'].numel()}, "
+          f"tiles of {pairs.TL} slots per treelet mean "
+          f"{float(span.mean()):.2f}, max {float(span.max()):.0f}")
+
+    def first_round(rays):
+        sel, has = treelets.treelet_assign(
+            tl['treelet_boxes'], *rays, treelets.no_treelets_visited(
+                rays[0].shape[0], tl['treelet_boxes'].shape[0], dev))
+        return (*rays[:3], torch.where(has, rays[3], -1.0),
+                tl['treelet_roots'][torch.clamp(sel, min=0).long()])
+    check(traverse.intersect_packet, 'intersect_packet (colonnade bvh2 '
+          'hemisphere, from round-1 treelet roots)',
+          (*tables2, *first_round(hemi)))
+    check(traverse.occluded_packet, 'occluded_packet (colonnade bvh2 '
+          'shadow, from round-1 treelet roots)',
+          (*tables2, *first_round(shadow)))
+    # K11 on the sorted bounce-1 rays and on the camera rays
+    # (scripts/bench_incoherent.py's 'split' runs), max_leaf the leaf size;
+    # its closest hits need the tests K5 made on the same rays (a per-ray
+    # walk's count does not depend on the order of the rays)
+    lo, hi, leaf = colonnade.bbox_lo, colonnade.bbox_hi, colonnade.leaf_size
+    hemi_sorted = tuple(x[binning.sort_perm(*hemi, lo, hi)] for x in hemi)
+    check(splitleaf.intersect_packet_split, 'intersect_packet_split '
+          '(colonnade hemisphere, sorted)', (*tables2, *hemi_sorted, leaf),
+          k5_tests['hemisphere'], schedule=True)
+    check(splitleaf.intersect_packet_split, 'intersect_packet_split '
+          '(colonnade camera)', (*tables2, *cam_rays, leaf),
+          k5_tests['camera'], schedule=True)
+    # the treelet and dense paths end to end (rounds, then the fallback)
+    # against the binary kernels alone
+    binned = {
+        'treelet': (lambda *r: treelets.intersect_packet_binned(
+            colonnade.nodes, colonnade.tris, tl['treelet_roots'],
+            tl['treelet_boxes'], *r),
+            lambda *r: treelets.occluded_packet_binned(
+            colonnade.nodes, colonnade.tris, tl['treelet_roots'],
+            tl['treelet_boxes'], *r)),
+        'dense': (lambda *r: treelets.intersect_dense_binned(
+            colonnade.nodes, colonnade.tris, tl['planes_rows'],
+            tl['treelet_boxes'], tl['treelet_tile_lo'], tl['treelet_tile_hi'],
+            *r),
+            lambda *r: treelets.occluded_dense_binned(
+            colonnade.nodes, colonnade.tris, tl['planes_rows'],
+            tl['treelet_boxes'], tl['treelet_tile_lo'], tl['treelet_tile_hi'],
+            *r)),
+    }
+    for how, (closest, anyhit) in binned.items():
+        compare(f'intersect {how} path vs intersect_packet (colonnade '
+                'hemisphere)', closest,
+                lambda *r: traverse.intersect_packet(*tables2, *r), hemi,
+                labels=(f'{how} path', 'K5'), other_tie_rule=True)
+        compare(f'occluded {how} path vs occluded_packet (colonnade shadow)',
+                anyhit, lambda *r: traverse.occluded_packet(*tables2, *r),
+                shadow, labels=(f'{how} path', 'K6'), other_tie_rule=True)
+    # does sorting pay?  K11 unsorted and sorted against K5 on the same
+    # 1M hemisphere rays, then all of them timed in turns
+    split_runs = {
+        'K11': lambda *r: splitleaf.intersect_packet_split(*tables2, *r,
+                                                           leaf),
+        'K11 sorted': lambda *r: splitleaf.intersect_packet_split_sorted(
+            *tables2, *r, lo, hi, leaf)}
+    for what, fn in split_runs.items():
+        compare(f'{what} vs intersect_packet (colonnade hemisphere)', fn,
+                lambda *r: traverse.intersect_packet(*tables2, *r), hemi,
+                labels=(what, 'K5'), other_tie_rule=True)
+    runs = {
+        'K5': lambda: traverse.intersect_packet(*tables2, *hemi),
+        'K5 sorted': lambda: binning.sorted_call(
+            lambda *r: traverse.intersect_packet(*tables2, *r), *hemi, lo,
+            hi),
+        'K11': lambda: split_runs['K11'](*hemi),
+        'K11 sorted': lambda: split_runs['K11 sorted'](*hemi),
+        'sort alone': lambda: binning.sort_perm(*hemi, lo, hi)}
+    turns = {k: [] for k in runs}
+    for k in [*runs, *reversed(runs)]:
+        turns[k].append(cuda_ms(runs[k], reps=3))
+    phase('kernels', "colonnade 1M hemisphere rays in turns (median of 3, "
+          "each way), ms: " + ', '.join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in turns.items())
+          + f" on {card}")
 
     t1 = time.perf_counter()
     motion = bs.motion_field().commit(device=dev)
@@ -449,6 +561,10 @@ def main():
          'morton', (k5, k6)),
         ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
          'grid', (k3, k4, k5, k6, k8, k9)),
+        ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
+         'treelet', (k3, k4, k5, k6)),
+        ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
+         'dense', (k3, k4, k5, k6, k8, k9)),
         ('motion_64', motion, bs.motion_field_camera(64, 64), 2, 16,
          'morton', (ix['intersect_packet_mb'],)),
     )
@@ -482,10 +598,48 @@ def main():
                 and ran[k9] == 4 * ran[k6]):
             raise AssertionError(f"{name} (grid): launches {counts} are not "
                                  "BVH4 on bounce 0 and the grid after it")
+        # the treelet binnings: BVH4 on bounce 0 only; on each later
+        # bounce 2 rounds (K5/K6 from roots, or K8/K9 over treelet tiles)
+        # and one K5/K6 fallback per call
+        bounces = (depth - 1) * ran[k3]
+        if binning == 'treelet' and not (
+                ran[k3] == ran[k4] and ran[k5] == ran[k6] == 3 * bounces):
+            raise AssertionError(f"{name} (treelet): launches {counts} are "
+                                 "not BVH4 on bounce 0 and 3 binary calls "
+                                 "per call after it")
+        if binning == 'dense' and not (
+                ran[k3] == ran[k4] and ran[k5] == ran[k6] == bounces
+                and ran[k8] == 2 * ran[k5] and ran[k9] == 2 * ran[k6]):
+            raise AssertionError(f"{name} (dense): launches {counts} are not "
+                                 "BVH4 on bounce 0 and 2 pair rounds and a "
+                                 "binary fallback per call after it")
         if any(f.cuda_calls for f in plains):
             raise AssertionError(f"{name}: a plain version ran on CUDA "
                                  "tensors in the main path")
         main_launches = [a + b for a, b in zip(main_launches, ran)]
+    # K11's entry points, the reference's bench_incoherent.py 'split'
+    # runs: sorted on the 1M bounce-1 rays, unsorted on the camera rays;
+    # their hits are K5's
+    k5_hits = [traverse.intersect_packet(*tables2, *rays)
+               for rays in (hemi, cam_rays)]
+    zero_counters()
+    split_hits = [
+        splitleaf.intersect_packet_split_sorted(*tables2, *hemi, lo, hi,
+                                                leaf),
+        splitleaf.intersect_packet_split(*tables2, *cam_rays, leaf)]
+    ran = [f.launches for f in counters]
+    counts = {f.__name__: n for f, n in zip(counters, ran) if n}
+    same = all(torch.equal(a.t, b.t) and torch.equal(a.tri >= 0, b.tri >= 0)
+               for a, b in zip(split_hits, k5_hits))
+    phase('golden', f"split-leaf entry points on the colonnade's "
+          f"{hemi[0].shape[0]} hemisphere rays (sorted) and "
+          f"{cam_rays[0].shape[0]} camera rays: t and hit mask equal to "
+          f"K5's: {same}, kernel launches {counts}")
+    if not same or counts != {'intersect_packet_split': 2} or any(
+            f.cuda_calls for f in plains):
+        raise AssertionError("the split-leaf entry points did not run K11 "
+                             "alone, or disagree with K5")
+    main_launches = [a + b for a, b in zip(main_launches, ran)]
 
     # ---- 5. timed full-size frames ----------------------------------------
     frames = (
@@ -497,6 +651,10 @@ def main():
          1024, 8, 4, 'morton'),
         ('colonnade_1024_grid', colonnade, bs.colonnade_camera(1024, 1024),
          1024, 8, 4, 'grid'),
+        ('colonnade_1024_treelet', colonnade,
+         bs.colonnade_camera(1024, 1024), 1024, 8, 4, 'treelet'),
+        ('colonnade_1024_dense', colonnade, bs.colonnade_camera(1024, 1024),
+         1024, 8, 4, 'dense'),
         ('motion_field_512', motion, bs.motion_field_camera(512, 512), 512,
          16, 4, 'morton'),
     )
@@ -531,13 +689,20 @@ def main():
         flops_ms = flops / PEAK_FLOPS * 1e3
         bound_ms = max(bytes_ms, flops_ms)
         bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+        waste = ''
+        if res['schedule_pair'] or res['schedule_box']:
+            waste = (f"; its schedule made {res['schedule_pair']} pair and "
+                     f"{res['schedule_box']} box tests, "
+                     f"{res['schedule_pair'] / max(res['pair'], 1):.2f}x and "
+                     f"{res['schedule_box'] / max(res['box'], 1):.2f}x "
+                     f"those the function needs")
         phase('bounds', f"{f.__name__} on {res['rays']} rays: "
               f"{res['pair']} pair tests x {pair_flops} flops + "
               f"{res['box']} box tests x {SLAB_FLOPS} flops = {flops:.4g} "
               f"flops ({flops_ms:.4f} ms), {res['bytes']} bytes "
               f"({bytes_ms:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, "
               f"kernel {res['ms']:.3f} ms: {bound_ms / res['ms']:.2%} of the "
-              f"bound's rate; no single PyTorch call computes it")
+              f"bound's rate{waste}; no single PyTorch call computes it")
         summary.append({
             'name': f.__name__, 'route': 'cuda',
             'source': 'yulio_raytracer_tpu_torch/csrc/' + src,
@@ -547,6 +712,9 @@ def main():
             'bound_by': bound_by, 'library_ms': None, 'rays': res['rays'],
             'pair_tests': res['pair'], 'box_tests': res['box'],
             'bytes': res['bytes']})
+        if waste:
+            summary[-1].update(schedule_pair_tests=res['schedule_pair'],
+                               schedule_box_tests=res['schedule_box'])
     phase('done', f"all phases passed in {time.perf_counter() - t_start:.1f}"
           f" s")
     print(json.dumps({'kernels': summary}))

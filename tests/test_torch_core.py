@@ -18,9 +18,9 @@ from yulio_raytracer_tpu_torch.core import rng
 from yulio_raytracer_tpu_torch.sampling import patterns, shapesampler as ss
 from yulio_raytracer_tpu_torch.cameras import cameras as cam
 from yulio_raytracer_tpu_torch.shading import lobes as lb, materials as mat
+from yulio_raytracer_tpu_torch.shading import textures as tex
 from yulio_raytracer_tpu_torch.lights import lights
 from yulio_raytracer_tpu_torch.film import tonemap
-from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 
 torch.set_num_threads(2)
 N = 100_000
@@ -217,7 +217,7 @@ def test_tonemap_matches():
     lambda: mat.make_material('glass', {}),
     lambda: lb.check_types([jlb.SPECULAR_REFLECT]),
     lambda: lights.sample({'kind': 'point'}, None, None, None),
-    lambda: pt.PTParams(ray_binning='treelet'),
+    lambda: tex.TextureTableBuilder().add(np.zeros((2, 2, 3), np.float32)),
 ])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

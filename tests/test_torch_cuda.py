@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels on the card: each held against its plain
-torch version, and the cornell, motion and grid colonnade goldens rendered
-through them.
+torch version (the binary kernels also from per-ray treelet roots, and the
+split-leaf kernel K11), and the cornell, motion, grid, treelet and dense
+colonnade goldens rendered through them.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -17,7 +18,8 @@ import torch
 from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
-from yulio_raytracer_tpu_torch.ops import dense, grid, pairs, traverse, wide
+from yulio_raytracer_tpu_torch.ops import (dense, grid, pairs, splitleaf,
+                                           traverse, treelets, wide)
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
 from yulio_raytracer_tpu_torch import renderer
 from yulio_raytracer_tpu_torch.film import accum
@@ -152,6 +154,54 @@ def test_motion_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_rooted_binary_kernels_match_plain_on_card(cuda):
+    """K5/K6 with each ray started at a treelet root (the nearest treelet
+    of its box entry, as the treelet binning's first round picks it),
+    bit-equal to their plain versions."""
+    tris, nodes, rays = _tables_and_rays(cuda)
+    troots, tboxes = (torch.as_tensor(x).to(cuda) for x in
+                      treelets.treelet_cut(nodes['binary'].cpu().numpy(), 6))
+    sel, has = treelets.treelet_assign(tboxes, *rays, treelets.
+                                       no_treelets_visited(rays[0].shape[0],
+                                                           6, cuda))
+    roots = troots[torch.clamp(sel, min=0).long()]
+    rays[3] = torch.where(has, rays[3], -1.0)
+    args = (nodes['binary'], tris, *rays, roots)
+    got = traverse.intersect_packet(*args)
+    ref = traverse.intersect_binary_plain(*args)
+    torch.cuda.synchronize()
+    assert bool((ref.tri >= 0).any())
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    np.testing.assert_array_equal(
+        traverse.occluded_packet(*args).cpu().numpy(),
+        traverse.occluded_binary_plain(*args).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1000, 1024])
+def test_splitleaf_kernel_matches_plain_on_card(cuda, n):
+    """K11 bit-equal to its plain version, the tail packet (1000 rays) and
+    the sorted form among them; its hits are K5's."""
+    tris, nodes, rays = _tables_and_rays(cuda, n)
+    launches = splitleaf.intersect_packet_split.launches
+    got = splitleaf.intersect_packet_split(nodes['binary'], tris, *rays)
+    ref = splitleaf.intersect_split_plain(nodes['binary'], tris, *rays)
+    srt = splitleaf.intersect_packet_split_sorted(
+        nodes['binary'], tris, *rays, (-5.0, -1.2, -5.0), (5.0, 1.0, 5.0))
+    k5 = traverse.intersect_packet(nodes['binary'], tris, *rays)
+    torch.cuda.synchronize()
+    assert splitleaf.intersect_packet_split.launches == launches + 2
+    assert bool((ref.tri >= 0).any())
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    for g in (got, srt):
+        np.testing.assert_array_equal(g.t.cpu().numpy(), k5.t.cpu().numpy())
+        np.testing.assert_array_equal(g.tri.cpu().numpy(),
+                                      k5.tri.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_tables_off_the_card(cuda):
     tris, _, rays = _tables_and_rays(cuda)
     with pytest.raises(ValueError):
@@ -191,18 +241,22 @@ def test_motion_golden_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_colonnade_grid_golden_on_card(cuda):
-    """colonnade_64 (depth 3, 8 spp, leaf 32, seed 42) with
-    ray_binning='grid': BVH4 on bounce 0, the grid's pair kernels and the
-    binary fallback after it."""
-    kernels = (pairs.intersect_pairs_raw, pairs.occluded_pairs,
-               traverse.intersect_packet, traverse.occluded_packet)
+@pytest.mark.parametrize('binning', ['grid', 'dense', 'treelet'])
+def test_colonnade_grid_golden_on_card(cuda, binning):
+    """colonnade_64 (depth 3, 8 spp, leaf 32, seed 42) with ray_binning
+    'grid', 'dense' or 'treelet': BVH4 on bounce 0, then the binning's
+    kernels (the pair kernels and the binary fallback, or the binary
+    kernels alone)."""
+    kernels = ((traverse.intersect_packet, traverse.occluded_packet)
+               + ((pairs.intersect_pairs_raw, pairs.occluded_pairs)
+                  if binning != 'treelet' else ()))
     before = [f.launches for f in kernels]
     plain = pairs.intersect_pairs_raw_plain.cuda_calls
     film, _ = renderer.render_frame(
         bs.colonnade().commit(device=cuda, leaf_size=32),
         bs.colonnade_camera(64, 64),
-        pt.PTParams(max_depth=3, ray_binning='grid'), 64, 64, spp=8, seed=42)
+        pt.PTParams(max_depth=3, ray_binning=binning), 64, 64, spp=8,
+        seed=42)
     img = accum.resolve(film).cpu().numpy()
     golden = np.load(os.path.join(GOLDEN, 'colonnade_64_cpu.npz'))['img']
     mse = ((img - golden) ** 2).mean()

@@ -321,10 +321,12 @@ def test_entry_ranges_are_the_first_round(grid_setup):
 # ------------------------------------------------------------- dispatch
 
 def test_grid_binning_is_accepted():
-    assert pt.PTParams(ray_binning='grid').ray_binning == 'grid'
-    for binning in ('dense', 'treelet'):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            pt.PTParams(ray_binning=binning)
+    """All five binnings of the reference are accepted, 'grid' among
+    them; an unknown one raises."""
+    for binning in ('morton', 'none', 'grid', 'dense', 'treelet'):
+        assert pt.PTParams(ray_binning=binning).ray_binning == binning
+    with pytest.raises(ValueError, match='unknown ray_binning'):
+        pt.PTParams(ray_binning='hilbert')
 
 
 def _record(monkeypatch, calls, module, name):

@@ -62,7 +62,8 @@ def _assert_scenes_equal(a, b):
         g = b.tris.shape[0]
         assert not a.tris[g:].any()
         pairs.append(('tris', a.tris[:g], b.tris))
-    for grp in ('geom', 'materials', 'textures', 'motion', 'grid'):
+    for grp in ('geom', 'materials', 'textures', 'motion', 'grid',
+                'treelets'):
         ga, gb = getattr(a, grp), getattr(b, grp)
         if ga is None or gb is None:
             assert ga is None and gb is None, grp

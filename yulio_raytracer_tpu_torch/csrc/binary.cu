@@ -5,8 +5,11 @@
 //   yrt_intersect_binary <- _kernel    (intersect_packet, closest hit)
 //   yrt_occluded_binary  <- _kernel_any (occluded_packet, any hit)
 //   yrt_intersect_motion <- _kernel_mb (intersect_packet_mb, motion blur)
-// The reference runs the first two where the BVH4 collapse fails its
-// guards or accel='bvh2' asks for them, and the third on motion scenes
+// The first two take an optional start node per ray (the reference's
+// `roots`, one per 1024-ray packet), which the treelet binning's rounds
+// give.  The reference runs them where the BVH4 collapse fails its
+// guards or accel='bvh2' asks for them, under the 'treelet' and 'dense'
+// binnings on bounces >= 1, and the third on motion scenes
 // (its occluded_packet_mb is this kernel's hit mask, and so is the
 // port's: there is no motion any-hit kernel).
 //
@@ -20,7 +23,8 @@
 // Design: one thread per ray with a private stack of STACK (node, entry
 // t) pairs (pack_nodes checks that depth + 1 <= STACK).  Nodes and
 // triangles stay in global memory and are read through the read-only
-// cache.  The root is pushed untested with entry t 0.  A pop whose entry t
+// cache.  The root (node 0, or the ray's own start node where `roots` is
+// given) is pushed untested with entry t 0.  A pop whose entry t
 // exceeds the ray's best t is skipped; an interior pop slab-tests both
 // children against (tnear, best t) and pushes the hit ones far child
 // first, so the near one pops first.  Near is the side the ray's own
@@ -72,7 +76,8 @@ closest_kernel(const float* __restrict__ nodes,
                const float* __restrict__ dir,
                const float* __restrict__ tnear,
                const float* __restrict__ tfar,
-               const float* __restrict__ time, int n_rays,
+               const float* __restrict__ time,
+               const int* __restrict__ roots, int n_rays,
                float* __restrict__ t_out, int* __restrict__ tri_out,
                float* __restrict__ u_out, float* __restrict__ v_out) {
     const int i = blockIdx.x * BINARY_BLOCK + threadIdx.x;
@@ -83,7 +88,7 @@ closest_kernel(const float* __restrict__ nodes,
     int st_n[STACK];
     float st_t[STACK];
     int sp = 0;
-    st_n[0] = 0;
+    st_n[0] = roots ? __ldg(roots + i) : 0;
     st_t[0] = 0.0f;
     float t_b = r.tfar, u_b = 0.0f, v_b = 0.0f;
     int tri_b = -1;
@@ -139,7 +144,8 @@ occluded_kernel(const float* __restrict__ nodes,
                 const float* __restrict__ org,
                 const float* __restrict__ dir,
                 const float* __restrict__ tnear,
-                const float* __restrict__ tfar, int n_rays,
+                const float* __restrict__ tfar,
+                const int* __restrict__ roots, int n_rays,
                 bool* __restrict__ occ_out) {
     const int i = blockIdx.x * BINARY_BLOCK + threadIdx.x;
     if (i >= n_rays) return;
@@ -149,7 +155,7 @@ occluded_kernel(const float* __restrict__ nodes,
         const Slab inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
         int st_n[STACK];
         int sp = 0;
-        st_n[0] = 0;
+        st_n[0] = roots ? __ldg(roots + i) : 0;
         while (sp >= 0 && !occ) {
             const int node = st_n[sp];
             --sp;
@@ -187,11 +193,13 @@ static int grid_of(int n_rays) {
     return (n_rays + BINARY_BLOCK - 1) / BINARY_BLOCK;
 }
 
+// roots: (n_rays,) int32 start nodes, or null for node 0
 extern "C" int yrt_intersect_binary(const void* nodes, const void* tris,
                                     const void* org, const void* dir,
                                     const void* tnear, const void* tfar,
-                                    int n_rays, void* t_out, void* tri_out,
-                                    void* u_out, void* v_out, void* stream) {
+                                    const void* roots, int n_rays,
+                                    void* t_out, void* tri_out, void* u_out,
+                                    void* v_out, void* stream) {
     if (n_rays > 0) {
         closest_kernel<false><<<grid_of(n_rays), BINARY_BLOCK, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
@@ -199,7 +207,8 @@ extern "C" int yrt_intersect_binary(const void* nodes, const void* tris,
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
-            static_cast<const float*>(tfar), nullptr, n_rays,
+            static_cast<const float*>(tfar), nullptr,
+            static_cast<const int*>(roots), n_rays,
             static_cast<float*>(t_out), static_cast<int*>(tri_out),
             static_cast<float*>(u_out), static_cast<float*>(v_out));
     }
@@ -209,7 +218,8 @@ extern "C" int yrt_intersect_binary(const void* nodes, const void* tris,
 extern "C" int yrt_occluded_binary(const void* nodes, const void* tris,
                                    const void* org, const void* dir,
                                    const void* tnear, const void* tfar,
-                                   int n_rays, void* occ_out, void* stream) {
+                                   const void* roots, int n_rays,
+                                   void* occ_out, void* stream) {
     if (n_rays > 0) {
         occluded_kernel<<<grid_of(n_rays), BINARY_BLOCK, 0,
                           static_cast<cudaStream_t>(stream)>>>(
@@ -217,7 +227,8 @@ extern "C" int yrt_occluded_binary(const void* nodes, const void* tris,
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
-            static_cast<const float*>(tfar), n_rays,
+            static_cast<const float*>(tfar),
+            static_cast<const int*>(roots), n_rays,
             static_cast<bool*>(occ_out));
     }
     return static_cast<int>(cudaGetLastError());
@@ -237,7 +248,7 @@ extern "C" int yrt_intersect_motion(const void* nodes, const void* tris_mb,
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
             static_cast<const float*>(tfar),
-            static_cast<const float*>(time), n_rays,
+            static_cast<const float*>(time), nullptr, n_rays,
             static_cast<float*>(t_out), static_cast<int*>(tri_out),
             static_cast<float*>(u_out), static_cast<float*>(v_out));
     }

@@ -14,16 +14,22 @@ so the kernels reject them at once; a motion scene's paths keep their
 camera ray's time.
 
 Ray binning on bounces >= 1 (the reference's `sort_rays`, off on bounce
-0): 'grid' runs a static BVH scene's closest and any-hit calls through the
-uniform grid (ops/grid.py: DDA rounds of the pair kernels, then the
-binary BVH kernels for the rays still marching); 'morton' and 'none'
-both trace unsorted, since whether ray sorting pays on the GPU is still
-to be measured.  A motion scene, and a dense one, never take the grid.
+0) runs a static BVH scene's closest and any-hit calls, in the
+reference's order, through: 'grid', the uniform grid (ops/grid.py: DDA
+rounds of the pair kernels, then the binary BVH kernels for the rays
+still marching); 'dense', rounds of the pair kernels over each ray's
+nearest treelet's tiles, then the binary kernels (ops/treelets.py
+intersect_dense_binned); 'treelet', rounds of the binary kernels from
+each ray's nearest treelet's root, then the whole tree
+(ops/treelets.py intersect_packet_binned).  Bounce 0 keeps the scene's
+accel.  'morton' and 'none' both trace unsorted: the reference's sort
+serves its 1024-ray packets, which one ray per thread does not have.  A
+motion scene, and a dense one, never take a binning.
 
-Not in this slice: ray sorting, the 'dense' and 'treelet' binnings,
-environment lights and backplates, the dome shadow cap (finite
-t_max_shadow_ray), the precomputed sampler, live-ray compaction
-(`trace_compacted`), the triangle-sharded mesh axis.
+Not in this slice: ray sorting under 'morton', environment lights and
+backplates, the dome shadow cap (finite t_max_shadow_ray), the
+precomputed sampler, live-ray compaction (`trace_compacted`), the
+triangle-sharded mesh axis.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from ..core import math as vm
 from ..core import rng
 from ..lights import lights as glights
 from ..ops import cuda_build as cb
-from ..ops import dense, traverse, wide
+from ..ops import dense, traverse, treelets, wide
 from ..ops import grid as ggrid
 from ..ops import intersect as ops_i
 from ..shading import lobes as lb
@@ -43,6 +49,8 @@ from ..shading import materials as gmat
 
 # the reference assigns ULP twice (pathtracer.py:44-46); this value wins
 ULP = 1.1920929e-7
+# PTParams.ray_binning: the reference's five
+BINNINGS = ('morton', 'none', 'grid', 'dense', 'treelet')
 
 
 @dataclass(frozen=True)
@@ -52,15 +60,15 @@ class PTParams:
     rr_depth: int = 5
     min_contribution: float = 0.02
     epsilon: float = 32.0 * ULP
-    # bounces >= 1: 'grid' traces through the uniform grid; 'morton' (the
-    # reference's default) and 'none' both trace unsorted
+    # bounces >= 1: 'grid', 'dense' and 'treelet' trace through the
+    # scene's grid or treelets; 'morton' (the reference's default) and
+    # 'none' both trace unsorted
     ray_binning: str = 'morton'
 
     def __post_init__(self):
-        if self.ray_binning not in ('morton', 'none', 'grid'):
-            raise NotImplementedError(
-                f"ray_binning={self.ray_binning!r} is not ported yet "
-                "('morton', 'none' or 'grid')")
+        if self.ray_binning not in BINNINGS:
+            raise ValueError(f"unknown ray_binning={self.ray_binning!r}: "
+                             f"expected one of {BINNINGS}")
 
 
 # RNG dimension layout per bounce d: base = stride + stride * d
@@ -84,25 +92,46 @@ def _bounce_dims(depth: int, stride: int = 16) -> int:
     return (stride + stride * depth) & rng._MASK
 
 
-def _use_grid(scene, sort_rays, binning):
-    return (sort_rays and binning == 'grid' and scene.grid is not None
-            and scene.nodes is not None)
+def _binned(scene, sort_rays, binning):
+    """The binning that traces a static scene's sorted rays ('grid',
+    'dense' or 'treelet' where the scene has its tables), or None."""
+    if not sort_rays or scene.nodes is None:
+        return None
+    if binning == 'grid' and scene.grid is not None:
+        return 'grid'
+    tl = scene.treelets
+    if binning == 'dense' and tl is not None and 'planes_rows' in tl:
+        return 'dense'
+    if binning == 'treelet' and tl is not None:
+        return 'treelet'
+    return None
 
 
 def _intersect(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
                binning='morton'):
     """Closest hits, in the reference's order: a motion scene traces at
-    each ray's time; sorted rays under binning 'grid' take the grid where
-    the scene has one; else the traversal scene.accel names."""
+    each ray's time; sorted rays under binning 'grid', 'dense' or
+    'treelet' take it where the scene has its tables; else the traversal
+    scene.accel names."""
     if scene.accel == 'bvh4mb':
         return traverse.intersect_packet_mb(scene.nodes, scene.tris_mb, org,
                                             dirn, tnear, tfar, time)
     if scene.motion is not None:
         return ops_i.intersect_brute(scene.motion, org, dirn, tnear, tfar,
                                      time=time)
-    if _use_grid(scene, sort_rays, binning):
+    how, tl = _binned(scene, sort_rays, binning), scene.treelets
+    if how == 'grid':
         return ggrid.intersect_grid(scene.grid, scene.nodes, scene.tris, org,
                                     dirn, tnear, tfar)
+    if how == 'dense':
+        return treelets.intersect_dense_binned(
+            scene.nodes, scene.tris, tl['planes_rows'], tl['treelet_boxes'],
+            tl['treelet_tile_lo'], tl['treelet_tile_hi'], org, dirn, tnear,
+            tfar)
+    if how == 'treelet':
+        return treelets.intersect_packet_binned(
+            scene.nodes, scene.tris, tl['treelet_roots'], tl['treelet_boxes'],
+            org, dirn, tnear, tfar)
     if scene.accel == 'bvh4':
         return wide.intersect_packet4(scene.nodes4, scene.tris, org, dirn,
                                       tnear, tfar)
@@ -121,9 +150,19 @@ def _occluded(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
     if scene.motion is not None:
         return ops_i.occluded_brute(scene.motion, org, dirn, tnear, tfar,
                                     time=time)
-    if _use_grid(scene, sort_rays, binning):
+    how, tl = _binned(scene, sort_rays, binning), scene.treelets
+    if how == 'grid':
         return ggrid.occluded_grid(scene.grid, scene.nodes, scene.tris, org,
                                    dirn, tnear, tfar)
+    if how == 'dense':
+        return treelets.occluded_dense_binned(
+            scene.nodes, scene.tris, tl['planes_rows'], tl['treelet_boxes'],
+            tl['treelet_tile_lo'], tl['treelet_tile_hi'], org, dirn, tnear,
+            tfar)
+    if how == 'treelet':
+        return treelets.occluded_packet_binned(
+            scene.nodes, scene.tris, tl['treelet_roots'], tl['treelet_boxes'],
+            org, dirn, tnear, tfar)
     if scene.accel == 'bvh4':
         return wide.occluded_packet4(scene.nodes4, scene.tris, org, dirn,
                                      tnear, tfar)

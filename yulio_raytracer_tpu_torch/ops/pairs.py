@@ -1,9 +1,12 @@
-"""Ranged sweeps over triangle tiles: the pair kernels of the grid path.
+"""Ranged sweeps over triangle tiles: the pair kernels of the grid path
+and of the 'dense' ray binning.
 
 Counterpart of `yulio_raytracer_tpu/ops/pallas_pairs.py` (`pack_planes`,
 `intersect_pairs_raw`, `occluded_pairs`, `recompute_uv` and
 `intersect_pairs`), which imports jax, so the packing is copied here.
-Triangles sit in tiles of TL = 128 slots; slot s holds the 16 constants
+The grid path (ops/grid.py) sweeps each ray's cell's tiles; the 'dense'
+binning (ops/treelets.py) sweeps its nearest treelet's tiles of a static
+BVH scene's own rows.  Triangles sit in tiles of TL = 128 slots; slot s holds the 16 constants
 [woop.T (12) | ng (3) | cull] of one triangle, and zero padding never
 hits.  The reference's kernels read them lane-major (`planes`,
 (Gt, 16, 128)), the layout of the TPU's vector unit; a thread that tests

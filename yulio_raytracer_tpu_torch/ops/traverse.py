@@ -11,6 +11,11 @@ stack); on a CPU tensor it runs the plain torch version, a vectorized
 per-ray stack traversal of the same tables in the same order, which the
 kernels are held against on the card.  Any ray count is accepted.
 
+`intersect_packet` / `occluded_packet` take an optional start node per
+ray (`roots`), where the reference takes one per 1024-ray packet: the
+'treelet' binning (ops/treelets.py) starts each ray at the root of its
+nearest unvisited treelet.
+
 Node rows, (N, 8) f32 [lo.x lo.y lo.z hi.x hi.y hi.z A tag] in
 depth-first order: tag > 0 is a leaf of `tag` triangles from packed
 triangle A; tag = -(axis + 1) an interior node whose left child is the
@@ -41,8 +46,8 @@ INF = float('inf')
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    'yrt_intersect_binary': [_V] * 6 + [_I] + [_V] * 5,
-    'yrt_occluded_binary': [_V] * 6 + [_I] + [_V] * 2,
+    'yrt_intersect_binary': [_V] * 7 + [_I] + [_V] * 5,
+    'yrt_occluded_binary': [_V] * 7 + [_I] + [_V] * 2,
     'yrt_intersect_motion': [_V] * 7 + [_I] + [_V] * 5,
 }
 
@@ -201,10 +206,12 @@ def _children(nodes, node, a, tag, org, dirn, inv, tnear, tfar):
 
 
 def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None,
-                   counts=None) -> Hit:
+                   roots=None, counts=None) -> Hit:
     r, dev = org.shape[0], org.device
     inv = wide._safe_inv(dirn)
     st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    if roots is not None:
+        st_n[:, 0] = roots
     st_t = torch.zeros((r, STACK), dtype=torch.float32, device=dev)
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
     t_b = tfar.clone()
@@ -248,10 +255,13 @@ def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None,
     return Hit(t, tri_b, u_b, v_b)
 
 
-def _any_plain(nodes, leaf, org, dirn, tnear, tfar, counts=None):
+def _any_plain(nodes, leaf, org, dirn, tnear, tfar, roots=None,
+              counts=None):
     r, dev = org.shape[0], org.device
     inv = wide._safe_inv(dirn)
     st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
+    if roots is not None:
+        st_n[:, 0] = roots
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
     occ = torch.zeros((r,), dtype=torch.bool, device=dev)
     act = torch.nonzero(tfar > tnear)[:, 0]
@@ -282,24 +292,27 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar, counts=None):
     return occ
 
 
-def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar,
+def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar, roots=None,
                            counts=None) -> Hit:
-    """Plain torch version of the binary closest-hit kernel.  counts, a
-    dict, gathers the kernel's triangle ('pair') and slab ('box')
-    tests."""
+    """Plain torch version of the binary closest-hit kernel, each ray
+    from its node of roots ((R,) int32; None: node 0).  counts, a dict,
+    gathers the kernel's triangle ('pair') and slab ('box') tests."""
     if org.is_cuda:
         intersect_binary_plain.cuda_calls += 1
     return wide._chunked(partial(_closest_plain, counts=counts),
-                         (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar)
+                         (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar,
+                         None, roots)
 
 
-def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar, counts=None):
+def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar, roots=None,
+                          counts=None):
     """Plain torch version of the binary any-hit kernel; rays with
-    tfar <= tnear report not occluded.  counts as above."""
+    tfar <= tnear report not occluded.  roots and counts as above."""
     if org.is_cuda:
         occluded_binary_plain.cuda_calls += 1
     return wide._chunked(partial(_any_plain, counts=counts),
-                         (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar)
+                         (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar,
+                         roots)
 
 
 def intersect_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar, time,
@@ -322,32 +335,51 @@ def _kernel_args(nodes, rows, *rays):
             cb.table_arg('tris', rows, rows.shape[1], dev), *rays)
 
 
+def _roots_arg(roots, r, dev):
+    """Check per-ray start nodes: an int32 (R,) tensor on dev, or None
+    (node 0; a null pointer to the kernel).  The kernel trusts them to
+    index the node rows, as it trusts the rows' own child indices."""
+    if roots is None:
+        return None
+    if (roots.dtype != torch.int32 or tuple(roots.shape) != (r,)
+            or roots.device != dev):
+        raise ValueError(f"roots: expected an int32 tensor of shape ({r},) "
+                         f"on {dev}, got {roots.dtype} "
+                         f"{tuple(roots.shape)} on {roots.device}")
+    return roots.contiguous()
+
+
 def _lib():
     return cb.library('binary', _SIGNATURES)
 
 
-def intersect_packet(nodes, tris, org, dirn, tnear, tfar) -> Hit:
-    """Closest hit of each ray (R, 3) through the binary BVH tables."""
+def intersect_packet(nodes, tris, org, dirn, tnear, tfar, roots=None) -> Hit:
+    """Closest hit of each ray (R, 3) through the binary BVH tables,
+    each ray walking the subtree of its node of roots ((R,) int32; None:
+    the whole tree)."""
     if org.device.type == 'cpu':
-        return intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar)
+        return intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar,
+                                      roots)
     args = _kernel_args(nodes, tris.reshape(-1, 16), org, dirn, tnear, tfar)
     r, dev = args[2].shape[0], args[2].device
     hit = cb.empty_hit(r, dev)
     cb.launch(_lib().yrt_intersect_binary, 'intersect_packet', dev, *args,
-              r, *hit)
+              _roots_arg(roots, r, dev), r, *hit)
     intersect_packet.launches += 1
     return Hit(*hit)
 
 
-def occluded_packet(nodes, tris, org, dirn, tnear, tfar):
-    """(R,) bool: is each ray segment (tnear, tfar) occluded."""
+def occluded_packet(nodes, tris, org, dirn, tnear, tfar, roots=None):
+    """(R,) bool: is each ray segment (tnear, tfar) occluded (within the
+    subtree of its node of roots, as intersect_packet)."""
     if org.device.type == 'cpu':
-        return occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar)
+        return occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar,
+                                     roots)
     args = _kernel_args(nodes, tris.reshape(-1, 16), org, dirn, tnear, tfar)
     r, dev = args[2].shape[0], args[2].device
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    cb.launch(_lib().yrt_occluded_binary, 'occluded_packet', dev, *args, r,
-              occ)
+    cb.launch(_lib().yrt_occluded_binary, 'occluded_packet', dev, *args,
+              _roots_arg(roots, r, dev), r, occ)
     occluded_packet.launches += 1
     return occ
 

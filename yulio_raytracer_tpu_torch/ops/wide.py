@@ -212,8 +212,10 @@ def _push(stacks, sp, rid, mask, values):
 
 def _chunked(fn, tables, *rays):
     """Run fn(*tables, *rays) over slices of at most _PLAIN_RAYS rays
-    (bounds the per-ray stacks' memory) and concatenate the results."""
-    outs = [fn(*tables, *(x[i:i + _PLAIN_RAYS] for x in rays))
+    (bounds the per-ray stacks' memory) and concatenate the results; a
+    ray argument may be None."""
+    outs = [fn(*tables, *(x if x is None else x[i:i + _PLAIN_RAYS]
+                          for x in rays))
             for i in range(0, rays[0].shape[0], _PLAIN_RAYS)] or [
         fn(*tables, *rays)]
     if isinstance(outs[0], torch.Tensor):

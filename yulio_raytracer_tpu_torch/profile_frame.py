@@ -4,8 +4,10 @@ torch.profiler on the card.
     python -m yulio_raytracer_tpu_torch.profile_frame [cell ...]
 
 The cells are the frames chip_smoke.py times (default: all of them).
-Each is committed on the card and rendered once to warm up, then once
-under the profiler.  One line per cell: the wall time of the profiled
+Each is committed on the card and rendered once to warm up, three times
+with the clock alone, then once under the profiler.  One line per cell:
+the commit's seconds and the device bytes the committed scene holds, the
+median wall time of the three frames, the wall time of the profiled
 frame, the device's busy time (the sum of the device activities' time;
 the port runs one stream, so they do not overlap) and its share of the
 wall, the device launches, each port kernel's calls and device time,
@@ -36,6 +38,10 @@ CELLS = {
         bs.colonnade_camera, 1024, 8, 4, 'morton'),
     'colonnade_1024_grid': (lambda: bs.colonnade().commit(leaf_size=32),
                             bs.colonnade_camera, 1024, 8, 4, 'grid'),
+    'colonnade_1024_treelet': (lambda: bs.colonnade().commit(leaf_size=32),
+                               bs.colonnade_camera, 1024, 8, 4, 'treelet'),
+    'colonnade_1024_dense': (lambda: bs.colonnade().commit(leaf_size=32),
+                             bs.colonnade_camera, 1024, 8, 4, 'dense'),
     'motion_field_512': (lambda: bs.motion_field().commit(),
                          bs.motion_field_camera, 512, 16, 4, 'morton'),
 }
@@ -43,7 +49,7 @@ CELLS = {
 KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
            'intersect_wide_kernel', 'occluded_wide_kernel', 'closest_kernel',
            'occluded_kernel', 'closest_pairs_kernel', 'occluded_pairs_kernel',
-           'march_kernel')
+           'march_kernel', 'split_kernel')
 
 
 def kernel_of(event_name: str):
@@ -57,10 +63,19 @@ def kernel_of(event_name: str):
 
 def profile_cell(name: str) -> dict:
     commit, camera, res, spp, depth, binning = CELLS[name]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     scene = commit()
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    scene_bytes = torch.cuda.memory_allocated() - held
     cam = camera(res, res)
     params = pt.PTParams(max_depth=depth, ray_binning=binning)
     renderer.render_frame(scene, cam, params, res, res, spp=spp, seed=42)
+    frames = sorted(renderer.render_frame(scene, cam, params, res, res,
+                                          spp=spp, seed=44 + i)[1].seconds
+                    for i in range(3))
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -82,7 +97,8 @@ def profile_cell(name: str) -> dict:
             calls, k_us = kernels.get(k, (0, 0.0))
             kernels[k] = (calls + evt.count, k_us + us)
     kernel_us = sum(us for _, us in kernels.values())
-    return {'cell': name, 'wall_ms': wall * 1e3, 'busy_ms': busy_us / 1e3,
+    return {'cell': name, 'commit_s': commit_s, 'scene_bytes': scene_bytes,
+            'frame_s': frames[1], 'wall_ms': wall * 1e3, 'busy_ms': busy_us / 1e3,
             'busy_share': busy_us / 1e3 / (wall * 1e3),
             'device_launches': launches, 'num_rays': stats.num_rays,
             'kernels': {k: {'calls': c, 'ms': us / 1e3}
@@ -106,7 +122,9 @@ def main(argv) -> int:
         rows.append(r)
         ks = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms"
                        for k, v in r['kernels'].items())
-        print(f"[profile] {name}: wall {r['wall_ms']:.1f} ms, device busy "
+        print(f"[profile] {name}: commit {r['commit_s']:.3f} s, scene "
+              f"{r['scene_bytes']} device bytes, frame_s {r['frame_s']:.4f} "
+              f"(median of 3); profiled wall {r['wall_ms']:.1f} ms, device busy "
               f"{r['busy_ms']:.1f} ms ({r['busy_share']:.1%}), "
               f"{r['device_launches']} device launches; {ks}; glue "
               f"{r['glue_ms']:.1f} ms; on {card}", flush=True)

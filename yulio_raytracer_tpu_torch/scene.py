@@ -11,21 +11,27 @@ for another:
   (ops/traverse.py) and, unless `accel='bvh2'` or the collapse fails its
   guards, its BVH4 collapse `nodes4` (the reference's default accel),
   with the uniform grid `grid` (ops/grid.py build_grid, GRID_RES^3
-  cells) for `ray_binning='grid'`, whose fallback walks `nodes`; smaller
-  scenes run the dense kernels;
+  cells) for `ray_binning='grid'`, whose fallback walks `nodes`, and the
+  treelet tables `treelets` (TREELET_KEYS: the cut of `nodes` into
+  MAX_TREELETS subtrees, ops/treelets.py, with each one's box and tile
+  range over the scene's pair rows `planes_rows`, ops/pairs.py
+  pack_planes) for `ray_binning='treelet'` and `'dense'`; smaller scenes
+  run the dense kernels;
 * for motion scenes, the vertex-edge arrays `motion` and, above
   BRUTE_FORCE_MAX_TRIS, binary rows over union bounds with the motion
   triangle rows `tris_mb`;
 * the shading table, material table, texture atlas and light list.
 
 The reference's TPU layout rules (SMEM leaf growth, the VMEM/HBM split,
-the zero rows after the packed triangles) and its ablation tables
-(treelets, planes) are not part of this package.  The reference builds
-the grid only where its planes fit a 15.3 MB VMEM budget; the port builds
-it for every static BVH scene, so a scene above that budget takes the
-grid path here and the sorted-BVH path in the reference, with the same
-hits up to ties.  Every other array equals the reference commit's
-(`from_numpy_scene` builds a TorchScene from those arrays).
+the zero rows after the packed triangles) and the lane-major `planes`
+its TPU kernels read are not part of this package.  The reference builds
+the grid, and the pair rows and tile ranges of the 'dense' binning, only
+where their planes fit a 15.3 MB VMEM budget; the port builds them for
+every static BVH scene, so a scene above that budget takes the grid or
+the dense rounds here and the sorted-BVH path (grid) or the treelet
+rounds (dense) in the reference, with the same hits up to ties.  Every
+other array equals the reference commit's (`from_numpy_scene` builds a
+TorchScene from those arrays).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from .geometry import mesh as gmesh
 from .geometry import primitives
 from .lights import lights as glights
 from .ops import grid as ggrid
-from .ops import traverse, wide
+from .ops import pairs, traverse, treelets, wide
 from .shading import materials as gmat
 from .shading import textures as gtex
 
@@ -133,6 +139,7 @@ class SceneBuilder:
             accel_used = 'dense'
             if use_bvh:
                 packet.update(_static_nodes(tree, accel))
+                packet.update(_treelet_tables(packet['nodes'], woop, host))
                 packet['grid'] = ggrid.build_grid(woop, host)
                 accel_used = 'bvh4' if 'nodes4' in packet else 'bvh2'
         lights = [glights.set_scene_bounds(l, packed.bbox_lo, packed.bbox_hi)
@@ -168,6 +175,21 @@ def _static_nodes(tree, accel: str) -> dict:
     return tables
 
 
+def _treelet_tables(nodes, woop, host) -> dict:
+    """The tables of the 'treelet' and 'dense' binnings, under the
+    reference packet's keys (TREELET_KEYS)."""
+    roots, boxes = treelets.treelet_cut(nodes, treelets.MAX_TREELETS)
+    lo, hi = treelets.treelet_tri_tiles(nodes, roots)
+    return {'treelet_roots': roots, 'treelet_boxes': boxes,
+            'planes_rows': pairs.pack_planes(woop, host)[1],
+            'treelet_tile_lo': lo, 'treelet_tile_hi': hi}
+
+
+# the treelet cut ('treelet' binning) and, where present, the pair rows
+# and tile ranges of the 'dense' binning
+TREELET_KEYS = ('treelet_roots', 'treelet_boxes', 'planes_rows',
+                'treelet_tile_lo', 'treelet_tile_hi')
+
 # the vertex-edge arrays a motion scene traces at each ray's time
 MOTION_KEYS = ('v0', 'e1', 'e2', 'mv0', 'me1', 'me2', 'cull', 'valid')
 
@@ -178,14 +200,16 @@ class TorchScene:
     runs: 'bvh4mb' (the motion kernel), 'bvh4', 'bvh2' (the binary
     kernels) or 'dense' (the dense kernels; for a motion scene, every
     triangle at each ray's time in torch ops).  A static BVH scene keeps
-    its binary rows and its grid beside its BVH4 rows; a motion scene
-    keeps its vertex-edge arrays (`motion`), which mark it as moving."""
+    its binary rows, its grid and its treelet tables beside its BVH4
+    rows; a motion scene keeps its vertex-edge arrays (`motion`), which
+    mark it as moving."""
     device: torch.device
     tris: Optional[torch.Tensor]    # (G, 128) f32 packed triangle rows
     nodes4: Optional[torch.Tensor]  # (N4, 32) f32 BVH4 rows
     nodes: Optional[torch.Tensor]   # (N, 8) f32 binary BVH rows
     tris_mb: Optional[torch.Tensor]  # (G, 128) f32 motion triangle rows
     grid: Optional[dict]          # ops/grid.py GRID_KEYS tables
+    treelets: Optional[dict]      # TREELET_KEYS tables
     motion: Optional[dict]        # MOTION_KEYS arrays of a motion scene
     geom: dict                    # {'shade_tab': (T, 28) f32}
     materials: dict               # material table (shading/materials.py)
@@ -217,9 +241,11 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
     arrays, as numpy: the fields of the reference's TpuScene (`geom`,
     `packet` ({} for none; its 'grid' a dict), `materials`, `textures`,
     `lights` as merged dicts, and the static fields, `accel` among
-    them).  It keeps the node, triangle and motion tables and the grid's
-    GRID_KEYS, and drops the ablation tables; a scene without node
-    tables is 'dense' whatever the reference's accel says.  Raises
+    them).  It keeps the node, triangle and motion tables, the grid's
+    GRID_KEYS and the packet's TREELET_KEYS (the reference keeps the
+    dense binning's only where they fit its VMEM budget), and drops the
+    lane-major planes; a scene without node tables is 'dense' whatever
+    the reference's accel says.  Raises
     NotImplementedError for what this package cannot shade (other lobe
     types, textures, non-triangle lights)."""
     device = resolve_device(device)
@@ -243,6 +269,8 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
         tris_mb=table('tris_mb'),
         grid=({k: dev(packet['grid'][k]) for k in ggrid.GRID_KEYS}
               if 'grid' in packet else None),
+        treelets=({k: dev(packet[k]) for k in TREELET_KEYS if k in packet}
+                  if 'treelet_roots' in packet else None),
         motion=({k: dev(geom[k]) for k in MOTION_KEYS} if 'mv0' in geom
                 else None),
         geom={'shade_tab': dev(geom['shade_tab'])},
