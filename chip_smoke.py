@@ -23,7 +23,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     and their any-hit forms) against the binary
     kernels on the same hemisphere and shadow rays, and K11 unsorted and
     sorted against K5 on the hemisphere rays, timed in turns.  The plain
-    versions count the pair and box tests their kernels make;
+    versions count the pair and box tests their kernels make, and the
+    BVH4 ones each ray's largest stack occupancy (printed as median, 99th
+    percentile and max);
  4. the pinned CPU goldens rendered through render_frame on the card, one
     path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
@@ -51,6 +53,7 @@ Exits nonzero without a result when no CUDA device is present.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,6 +97,23 @@ def smi_line():
         check=True).stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log):
+    """Each kernel's registers and stack frame (with its spills), from the
+    `-Xptxas -v` report in a kernel library's build log."""
+    rows, name, frame = [], None, ''
+    for line in open(log):
+        m = re.search(r'Function properties for _Z(\d+)(\w+)', line)
+        if m:
+            name = m.group(2)[:int(m.group(1))]
+        elif name and 'stack frame' in line:
+            frame = line.strip()
+        elif name and 'registers' in line:
+            regs = re.search(r'Used (\d+) registers', line).group(1)
+            rows.append(f"{name} {regs} registers, {frame}")
+            name = None
+    return rows
+
+
 def cuda_ms(fn, reps=5, warm=True):
     """Median milliseconds of fn() over reps runs (CUDA events), after
     one warm-up run unless warm is False."""
@@ -126,64 +146,6 @@ def nbytes(*xs):
 def psnr(img, ref):
     mse = float(((img - ref) ** 2).mean())
     return 10 * np.log10(max(float(img.max()), 1e-9) ** 2 / max(mse, 1e-20))
-
-
-def camera_rays(renderer, scene, cam, width, height, dev):
-    """One camera sample per pixel in tile order (sample 0, seed SEED):
-    (org, dir, time), time None unless the scene moves."""
-    order = torch.as_tensor(renderer._tile_order(width, height), device=dev)
-    sid = torch.zeros_like(order)
-    from yulio_raytracer_tpu_torch.sampling import patterns
-    return renderer._gen_rays(scene, cam, width, height,
-                              patterns.grid_scalars(1), order, sid, SEED)
-
-
-def scattered_rays(scene, n, gen, dev):
-    """n rays from uniform points of the scene's box in uniform
-    directions, at uniform times."""
-    lo = torch.tensor(scene.bbox_lo, device=dev)
-    hi = torch.tensor(scene.bbox_hi, device=dev)
-    org = lo + (hi - lo) * torch.rand(n, 3, generator=gen, device=dev)
-    d = torch.randn(n, 3, generator=gen, device=dev)
-    d = d / d.norm(dim=-1, keepdim=True)
-    return (org, d, torch.zeros(n, device=dev),
-            torch.full((n,), float('inf'), device=dev),
-            torch.rand(n, generator=gen, device=dev))
-
-
-def hemisphere_rays(scene, org, dirn, hit, gen, dev):
-    """Cosine-distributed rays leaving every hit point on the side facing
-    the incoming ray (the bounce's scattering geometry); missed rays
-    become dead lanes (tfar = -1).  Also returns the hit points' records."""
-    from yulio_raytracer_tpu_torch.ops import intersect as ops_i
-    from yulio_raytracer_tpu_torch.sampling import shapesampler as ss
-    dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
-    back = (dg['Ng'] * dirn).sum(-1) > 0
-    n = torch.where(back[:, None], -dg['Ng'], dg['Ng'])
-    u = torch.rand(org.shape[0], 2, generator=gen, device=dev)
-    wi, _ = ss.cosine_sample_hemisphere(u[:, 0], u[:, 1], n)
-    eps = dg['error'] * 32.0 * 1.1920929e-7
-    o = dg['P'] + wi * eps[:, None]
-    tf = torch.where(hit.valid, float('inf'), -1.0)
-    return o, wi, torch.zeros_like(tf), tf, dg, eps
-
-
-def shadow_rays(scene, dg, eps, valid, gen, dev):
-    """Rays from every hit point to a random point on every light, as the
-    NEE batch lays them out (light-major); missed rays are dead lanes."""
-    from yulio_raytracer_tpu_torch.sampling import shapesampler as ss
-    os_, ds, tns, tfs = [], [], [], []
-    for l in scene.lights:
-        u = torch.rand(dg['P'].shape[0], 2, generator=gen, device=dev)
-        p = ss.uniform_sample_triangle(u[:, 0], u[:, 1], l['v0'], l['v1'],
-                                       l['v2'])
-        d = p - dg['P']
-        dist = d.norm(dim=-1)
-        os_.append(dg['P'])
-        ds.append(d / dist.clamp(min=1e-20)[:, None])
-        tns.append(eps)
-        tfs.append(torch.where(valid, dist - eps, -1.0))
-    return (torch.cat(os_), torch.cat(ds), torch.cat(tns), torch.cat(tfs))
 
 
 def compare(name, kernel, plain, args, counts=None, labels=('kernel',
@@ -241,6 +203,25 @@ def compare(name, kernel, plain, args, counts=None, labels=('kernel',
             'bytes': moved}
 
 
+def wide_stack_depth(k3_counts, k4_counts):
+    """The BVH4 plain versions' largest stack occupancy per ray on the
+    colonnade's rays (median, 99th percentile, max)."""
+    from yulio_raytracer_tpu_torch.ops import wide
+    depth = []
+    for name, counts in (('intersect_packet4 (camera + hemisphere)',
+                          k3_counts), ('occluded_packet4 (shadow)',
+                                       [k4_counts])):
+        d = torch.cat([x for c in counts for x in c['stack']]).float()
+        q = torch.quantile(d, torch.tensor([0.5, 0.99], device=d.device))
+        depth.append(f"{name} median {float(q[0]):.0f}, 99th percentile "
+                     f"{float(q[1]):.0f}, max {float(d.max()):.0f}")
+    phase('kernels', "largest stack occupancy per ray of the plain BVH4 "
+          "versions, in entries: " + '; '.join(depth) + f"; the kernels "
+          f"keep STACK={wide.STACK} entries a thread in local memory (no "
+          f"part of the stack or the tree in shared memory) and take the "
+          f"nearest hit child without a push")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -255,6 +236,9 @@ def main():
                                                splitleaf, traverse,
                                                treelets, wide)
     from yulio_raytracer_tpu_torch import renderer
+    from yulio_raytracer_tpu_torch.raysets import (camera_rays,
+                                                   hemisphere_rays,
+                                                   scattered_rays, shadow_rays)
 
     dev = torch.device('cuda')
     card = smi_line()
@@ -269,9 +253,8 @@ def main():
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         libs = list(pool.map(cuda_build.build, names))
     for name, lib in zip(names, libs):
-        regs = [l.split(':', 1)[1].strip() for l in open(lib[:-3] + '.log')
-                if 'registers' in l]
-        phase('build', f"{name}.cu: {'; '.join(regs)}")
+        phase('build', f"{name}.cu: "
+              f"{'; '.join(ptxas_report(lib[:-3] + '.log'))}")
     phase('build', f"kernels built in {time.perf_counter() - t0:.2f} s")
 
     # every kernel: (wrapper, plain version, source, TPU kernel it replaces,
@@ -347,8 +330,8 @@ def main():
 
     t0 = time.perf_counter()
     cornell = bs.cornell_box().commit(device=dev)
-    org, dirn, _ = camera_rays(renderer, cornell, bs.cornell_camera(64, 64),
-                               64, 64, dev)
+    org, dirn, _ = camera_rays(cornell, bs.cornell_camera(64, 64), 64, 64,
+                               dev, SEED)
     zeros = torch.zeros(org.shape[0], device=dev)
     inf = torch.full_like(zeros, float('inf'))
     hit = dense.intersect_dense_plain(cornell.tris, org, dirn, zeros, inf)
@@ -391,9 +374,8 @@ def main():
           f"{int((per_cell > 0).sum())} cells non-empty")
     tables = (colonnade.nodes4, colonnade.tris)
     tables2 = (colonnade2.nodes, colonnade2.tris)
-    org, dirn, _ = camera_rays(renderer, colonnade,
-                               bs.colonnade_camera(1024, 1024), 1024, 1024,
-                               dev)
+    org, dirn, _ = camera_rays(colonnade, bs.colonnade_camera(1024, 1024),
+                               1024, 1024, dev, SEED)
     zeros = torch.zeros(org.shape[0], device=dev)
     inf = torch.full_like(zeros, float('inf'))
     cam_rays = (org, dirn, zeros, inf)
@@ -403,16 +385,19 @@ def main():
     hemi = (ho, hd, htn, htf)
     shadow = shadow_rays(colonnade, dg, eps, hit.valid, gen, dev)
     k5_tests = {}     # the tests the closest hits need, per ray set
+    k3_counts = []
     for what, rays in (('camera', cam_rays), ('hemisphere', hemi)):
-        check(wide.intersect_packet4, f'intersect_packet4 (colonnade {what})',
-              (*tables, *rays))
+        k3_counts.append(check(wide.intersect_packet4,
+                               f'intersect_packet4 (colonnade {what})',
+                               (*tables, *rays)))
         k5_tests[what] = check(traverse.intersect_packet,
                                f'intersect_packet (colonnade bvh2 {what})',
                                (*tables2, *rays))
-    check(wide.occluded_packet4, 'occluded_packet4 (colonnade shadow)',
-          (*tables, *shadow))
+    k4_counts = check(wide.occluded_packet4,
+                      'occluded_packet4 (colonnade shadow)', (*tables, *shadow))
     check(traverse.occluded_packet, 'occluded_packet (colonnade bvh2 shadow)',
           (*tables2, *shadow))
+    wide_stack_depth(k3_counts, k4_counts)
     # the grid's kernels: each ray over its entry cell's tiles, and the
     # whole march (the tables it reads)
     check(pairs.intersect_pairs_raw,
@@ -532,9 +517,8 @@ def main():
           f"{motion.nodes.shape[0]} binary nodes over union bounds, "
           f"accel {motion.accel}, committed in "
           f"{time.perf_counter() - t1:.2f} s")
-    org, dirn, tm = camera_rays(renderer, motion,
-                                bs.motion_field_camera(512, 512), 512, 512,
-                                dev)
+    org, dirn, tm = camera_rays(motion, bs.motion_field_camera(512, 512),
+                                512, 512, dev, SEED)
     zeros = torch.zeros(org.shape[0], device=dev)
     inf = torch.full_like(zeros, float('inf'))
     for what, rays in (('camera', (org, dirn, zeros, inf, tm)),

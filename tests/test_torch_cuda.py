@@ -21,7 +21,7 @@ from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 from yulio_raytracer_tpu_torch.ops import (dense, grid, pairs, splitleaf,
                                            traverse, treelets, wide)
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
-from yulio_raytracer_tpu_torch import renderer
+from yulio_raytracer_tpu_torch import raysets, renderer
 from yulio_raytracer_tpu_torch.film import accum
 
 torch.set_num_threads(2)
@@ -93,6 +93,114 @@ def test_kernels_match_plain_on_card(cuda, which):
         np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
     np.testing.assert_array_equal(ka(*tables, *rays).cpu().numpy(),
                                   pa(*tables, *rays).cpu().numpy())
+
+
+@pytest.fixture(scope='module')
+def colonnade_card():
+    """The full colonnade on the card (leaf 32: 1,803 BVH4 rows, leaves of
+    up to 32 triangles), or a skip without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return bs.colonnade().commit(device=torch.device('cuda'), leaf_size=32)
+
+
+def _edge_rays(lo, hi, n, seed):
+    """n rays from inside the box [lo, hi] (so inside the root's box and
+    most of the boxes they start in): a third along the axes and the
+    diagonals of a face (direction components of exactly 0), some with
+    tfar <= tnear (equal, and below), some with a finite tfar, the rest
+    to infinity."""
+    rs = np.random.RandomState(seed)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    org = (lo + (hi - lo) * rs.rand(n, 3)).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    axes = np.concatenate([np.eye(3), -np.eye(3), [[1, 1, 0], [0, -1, 1]]])
+    k = n // 3
+    d[:k] = axes[rs.randint(0, len(axes), k)]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = np.full((n,), 1e-4, np.float32)
+    tf = np.full((n,), np.inf, np.float32)
+    tf[1::11] = tn[1::11]                       # tfar == tnear
+    tf[2::11] = -1.0                            # tfar < tnear
+    tf[3::5] = rs.rand(len(tf[3::5])).astype(np.float32) * 8.0
+    return [torch.as_tensor(x).cuda() for x in (org, d, tn, tf)]
+
+
+def _assert_wide_matches_plain(nodes4, tris, rays):
+    hit = wide.intersect_packet4(nodes4, tris, *rays)
+    ref = wide.intersect_wide_plain(nodes4, tris, *rays)
+    occ = wide.occluded_packet4(nodes4, tris, *rays)
+    occ_ref = wide.occluded_wide_plain(nodes4, tris, *rays)
+    torch.cuda.synchronize()
+    for g, r in zip(hit, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    np.testing.assert_array_equal(occ.cpu().numpy(), occ_ref.cpu().numpy())
+    return ref, occ_ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [65_536, 65_537])
+def test_wide_kernels_match_plain_on_colonnade(colonnade_card, n):
+    """K3 and K4 bit-equal to their plain versions on the full colonnade
+    tree at ~64k rays (a block multiple and one past it), launched twice
+    in a row."""
+    sc = colonnade_card
+    rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 11)
+    launches = (wide.intersect_packet4.launches,
+                wide.occluded_packet4.launches)
+    ref, occ = _assert_wide_matches_plain(sc.nodes4, sc.tris, rays)
+    again = wide.intersect_packet4(sc.nodes4, sc.tris, *rays)
+    np.testing.assert_array_equal(again.tri.cpu().numpy(),
+                                  ref.tri.cpu().numpy())
+    assert (wide.intersect_packet4.launches,
+            wide.occluded_packet4.launches) == (launches[0] + 2,
+                                                launches[1] + 1)
+    hits = (ref.tri >= 0).float().mean()
+    assert 0.3 < float(hits) < 1.0 and bool(occ.any()) and not bool(occ.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['sphere', 'colonnade'])
+def test_wide_kernels_on_edge_rays(cuda, colonnade_card, scene):
+    """Rays that start inside boxes, run along the axes (direction
+    components of exactly 0) or have tfar <= tnear, on a tree of a few
+    rows and on the colonnade's: bit-equal to the plain versions, and the
+    empty segments neither hit nor are occluded."""
+    if scene == 'sphere':
+        tris, nodes, _ = _tables_and_rays(cuda)
+        nodes4, lo, hi = nodes['wide'], (-1.5, -1.5, -1.5), (1.5, 1.5, 1.5)
+    else:
+        sc = colonnade_card
+        tris, nodes4, lo, hi = sc.tris, sc.nodes4, sc.bbox_lo, sc.bbox_hi
+    rays = _edge_rays(lo, hi, 4000, 12)
+    ref, occ = _assert_wide_matches_plain(nodes4, tris, rays)
+    empty = (rays[3] <= rays[2]).cpu().numpy()
+    assert not occ.cpu().numpy()[empty].any()
+    assert (ref.tri.cpu().numpy()[rays[3].cpu().numpy() < 0] == -1).all()
+    assert bool((ref.tri >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['camera', 'every_fourth_live', 'fifteen'])
+def test_wide_leaf_schedules_agree(colonnade_card, rays):
+    """K3 and K4 bit-equal to their plain versions whichever way the warp
+    tests its lanes' leaves: coherent camera rays, whose lanes reach
+    leaves together, mostly take each lane's own leaf loop; with only
+    every fourth ray live (8 lanes a warp), or 15 rays in all, fewer than
+    16 lanes can hold a leaf, so every leaf is tested across the warp."""
+    sc, dev = colonnade_card, torch.device('cuda')
+    if rays == 'camera':
+        org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128),
+                                        128, 128, dev, 7)
+        zeros = torch.zeros(org.shape[0], device=dev)
+        batch = [org, d, zeros, torch.full_like(zeros, float('inf'))]
+    else:
+        n = 15 if rays == 'fifteen' else 20_000
+        batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 13)
+        if rays == 'every_fourth_live':
+            batch[3][torch.arange(n, device=dev) % 4 != 0] = -1.0
+    ref, _ = _assert_wide_matches_plain(sc.nodes4, sc.tris, batch)
+    assert bool((ref.tri >= 0).any())
 
 
 @pytest.mark.cuda

@@ -3,6 +3,9 @@ dense and BVH4 traversals against the Pallas kernels (interpret mode, as
 the JAX package's own tests run them), the Woop reference path and
 post_intersect.  The CUDA kernels are held against the plain versions on
 the card by tests/test_torch_cuda.py."""
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.ops import dense, wide, intersect as ops
 from yulio_raytracer_tpu_torch.ops import cuda_build as cb
+from yulio_raytracer_tpu_torch import raysets, wide_turns
 
 torch.set_num_threads(2)
 
@@ -137,6 +141,24 @@ def test_plain_wide_matches_pallas(tables, n):
     np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref)[:n])
 
 
+def test_plain_wide_records_its_stack_depth(tables):
+    """With counts, each plain version reports every ray's largest stack
+    occupancy: at least the root's entry, at most the bound _check_packed
+    enforces, and deeper for rays that walk the tree than for dead
+    lanes."""
+    rays = _torch_rays(tables['rays'])
+    for plain in (wide.intersect_wide_plain, wide.occluded_wide_plain):
+        counts = {}
+        plain(tables['nodes4'], tables['tris'], *rays, counts=counts)
+        deepest = torch.cat(counts['stack']).numpy()
+        assert deepest.shape == (R,)
+        assert deepest.min() >= 1 and deepest.max() <= wide.STACK
+        dead = tables['rays'][3] < tables['rays'][2]
+        assert deepest[~dead].max() > 1
+        if plain is wide.occluded_wide_plain:
+            assert np.all(deepest[dead] == 1)
+
+
 def test_plain_wide_matches_brute_on_colonnade():
     """The BVH4 traversal of a real (reduced colonnade) tree finds the
     dense sweep's closest hits and occlusion over the same rows."""
@@ -157,6 +179,63 @@ def test_plain_wide_matches_brute_on_colonnade():
     np.testing.assert_array_equal(
         wide.occluded_packet4(sc.nodes4, sc.tris, org, d, tn, tf).numpy(),
         dense.occluded_dense(sc.tris, org, d, tn, tf).numpy())
+
+
+@pytest.fixture(scope='module')
+def colonnade_nodes4():
+    """The full colonnade's BVH4 rows (leaf 32), as the card renders it."""
+    return bs.colonnade().commit(device='cpu', leaf_size=32).nodes4.numpy()
+
+
+@pytest.mark.parametrize('field', ['count', 'start', 'none'])
+def test_check_packed_guards_the_stack_words(tables, field):
+    """The kernels pack a stack entry as A | count << 24: a leaf of 256
+    triangles, or one starting at 2^24, does not fit and raises; the
+    table as packed passes."""
+    out = tables['nodes4'].numpy().copy()
+    slots = out.reshape(-1, 4, 8)
+    leaf = np.argwhere(slots[:, :, 7] > 0)[0]
+    if field == 'count':
+        slots[leaf[0], leaf[1], 7] = wide._COUNT_LIMIT
+    elif field == 'start':
+        slots[leaf[0], leaf[1], 6] = float(1 << 24)
+    if field == 'none':
+        assert wide._check_packed(out, 4) is out
+    else:
+        with pytest.raises(ValueError):
+            wide._check_packed(out, 4)
+
+
+def test_check_packed_accepts_the_colonnade(colonnade_nodes4):
+    tags = colonnade_nodes4.reshape(-1, 4, 8)[:, :, 7]
+    assert wide._check_packed(colonnade_nodes4, 4) is colonnade_nodes4
+    assert 0 < tags.max() < wide._COUNT_LIMIT
+
+
+@pytest.mark.parametrize('tree', ['pallas_scene', 'reduced_colonnade',
+                                  'colonnade'])
+def test_pack_nodes4_rows_are_breadth_first(tables, colonnade_nodes4, tree):
+    """pack_nodes4 emits a tree (one parent for every row but the root)
+    level by level: every interior child row after its parent, and no
+    row above a row of a shallower level."""
+    out = {'pallas_scene': lambda: tables['nodes4'].numpy(),
+           'reduced_colonnade': lambda: bs.colonnade(
+               cols_x=3, cols_z=2, tess=(8, 10)).commit(
+                   device='cpu', leaf_size=32).nodes4.numpy(),
+           'colonnade': lambda: colonnade_nodes4}[tree]()
+    slots = out.reshape(-1, 4, 8)
+    parent = np.full(out.shape[0], -1)
+    for w, k in np.argwhere(slots[:, :, 7] < 0):
+        child = int(slots[w, k, 6])
+        assert parent[child] == -1              # a tree: one parent each
+        parent[child] = w
+    assert out.shape[0] > 1
+    assert parent[0] == -1 and np.all(parent[1:] >= 0)
+    assert np.all(parent[1:] < np.arange(1, out.shape[0]))
+    depth = np.zeros(out.shape[0], int)
+    for w in range(1, out.shape[0]):
+        depth[w] = depth[parent[w]] + 1
+    assert np.all(np.diff(depth) >= 0)
 
 
 @pytest.mark.parametrize('which', ['dense', 'wide'])
@@ -210,3 +289,54 @@ def test_woop_reference_and_post_intersect_match():
         if k in jd:
             np.testing.assert_allclose(v.numpy(), np.asarray(jd[k]),
                                        atol=1e-5, rtol=1e-6, err_msg=k)
+
+
+def test_lib_path_follows_the_sources(tmp_path):
+    """A copy of the kernel sources in another directory maps to the same
+    library as the package's; an edited copy to a library of its own."""
+    for fn in os.listdir(cb.CSRC):
+        shutil.copy(os.path.join(cb.CSRC, fn), tmp_path / fn)
+    assert cb.lib_path('wide', str(tmp_path)) == cb.lib_path('wide')
+    with open(tmp_path / 'wide.cu', 'a') as f:
+        f.write('\n')
+    assert cb.lib_path('wide', str(tmp_path)) != cb.lib_path('wide')
+    assert cb.lib_path('dense', str(tmp_path)) == cb.lib_path('dense')
+
+
+def test_ray_sets_on_cornell():
+    """The ray sets the kernels are timed on: camera rays in tile order,
+    hemisphere rays leaving each hit on the incoming ray's side (dead
+    lanes where the camera ray missed), and shadow rays light-major,
+    each ending eps short of a point on its light."""
+    dev = torch.device('cpu')
+    sc = bs.cornell_box().commit(device=dev)
+    org, d, tm = raysets.camera_rays(sc, bs.cornell_camera(16, 16), 16, 16,
+                                     dev, 3)
+    assert org.shape == d.shape == (256, 3) and tm is None
+    zeros = torch.zeros(256)
+    hit = dense.intersect_dense(sc.tris, org, d, zeros,
+                                torch.full_like(zeros, float('inf')))
+    gen = torch.Generator().manual_seed(3)
+    ho, hd, htn, htf, dg, eps = raysets.hemisphere_rays(sc, org, d, hit,
+                                                        gen, dev)
+    valid = hit.valid
+    assert bool(valid.any()) and torch.equal(htf < 0, ~valid)
+    torch.testing.assert_close(hd.norm(dim=-1), torch.ones(256))
+    facing = torch.where(((dg['Ng'] * d).sum(-1) > 0)[:, None], -dg['Ng'],
+                         dg['Ng'])
+    assert bool(((hd * facing).sum(-1)[valid] >= 0).all())
+    so, sd, stn, stf = raysets.shadow_rays(sc, dg, eps, valid, gen, dev)
+    n_lights = len(sc.lights)
+    assert so.shape == (256 * n_lights, 3) and n_lights > 0
+    assert torch.equal(stf < 0, ~valid.repeat(n_lights))
+    assert torch.equal(stn, eps.repeat(n_lights))
+    occ = raysets.scattered_rays(sc, 100, gen, dev)
+    assert occ[0].shape == (100, 3) and occ[4].shape == (100,)
+
+
+def test_wide_turns_needs_a_card(tmp_path):
+    """The A/B timing script exits 1 without a CUDA device, before it
+    builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert wide_turns.main([str(tmp_path)]) == 1

@@ -13,28 +13,54 @@
 // its tag alone: an empty slot's +inf/-inf box still passes the min/max
 // slab test.
 //
-// Design: one thread per ray with a private stack of STACK entries
-// (pack_nodes4 checks that (4 - 1) * depth + 1 <= STACK).  Nodes and
-// triangles stay in global memory and are read through the read-only
-// cache.  The closest-hit kernel stores (payload, entry t, count) per
-// entry: a pop whose entry t exceeds the ray's best t is skipped; an
-// interior pop slab-tests its 4 slots against (tnear, best t) and pushes
-// the hit ones far to near (the reference's 4-element sort network), so
-// the nearest pops first; a leaf pop tests its triangles [A, A + count) in
-// ascending order with a strictly-nearer update.  The any-hit kernel
-// pushes in slot order and stops at the first hit; rays with
-// tfar <= tnear report not occluded without traversing.
+// What bounds them on the H100.  A colonnade ray visits ~12 nodes and two
+// or three leaves of up to 32 triangles (22 on average), a few percent of
+// the f32 peak in tests.  With one ray per thread, a lane in a leaf runs a
+// serial loop of up to 32 Woop tests while the warp's other lanes wait,
+// and nearly every step of the warp has some lane in a leaf: that
+// divergence is what the design below takes on.  The kernels run at about
+// a tenth of their f32 bound (PERF.md section 6); no profiler on the card
+// shows whether load latency or issue is what remains.
 //
-// What bounds it on the H100: each pop is a dependent chain of global
-// loads (one 128-byte node row or up to `leaf` 64-byte triangle rows)
-// followed by divergent control flow across the warp, so the kernel is
-// bound by memory latency and warp divergence rather than by f32 issue;
-// the per-thread stack lives in local memory.  Making it fast (caching the
-// top of the tree in shared memory, sorting rays for coherence, wide
-// loads, a short register stack) is later work.
+// Design (one ray per lane, 256-thread blocks):
+// - The warp steps together.  In each step every lane at an interior node
+//   does that node (two float4 loads per slot), then the warp tests the
+//   leaves its lanes hold.  When at least WIDE_SERIAL_MIN lanes hold one
+//   (rays that move together, such as camera rays), each lane tests its
+//   own leaf.  When fewer do, the warp takes those leaves one at a time
+//   across all 32 lanes: lane j tests triangle A + j against the owning
+//   lane's ray (shuffled to every lane), a coalesced read of the leaf's
+//   rows.  The any-hit test then ends with one vote; the closest hit takes
+//   the least t with one __reduce_min_sync on an order-preserving key,
+//   ties to the lowest triangle, which is what the sequential
+//   strictly-nearer loop in ascending order keeps.
+// - Each ray still visits its nodes and leaves in its own order, so the
+//   closest hit's t, tri, u and v stay bit-equal to the plain version
+//   (ops/wide.py): far-first sort network, pops skipped when their entry
+//   t exceeds the best t; the nearest hit child, which would pop next, is
+//   taken at once without a push.  The any-hit walk, whose result does not
+//   depend on the order, visits nearest first too (the plain version
+//   goes in slot order) and stops at the first hit.
+// - A stack entry is one word, A | count << 24 (count 0: an interior row;
+//   ops/wide.py _check_packed guards A < 2^24 and counts below 256), with
+//   its entry t beside it for the closest hit: 2 x 128 and 128 words a
+//   thread in local memory.  The plain versions reach 11 entries on the
+//   colonnade (chip_smoke.py prints the distribution), so a thread only
+//   touches the first lines of its stack.
+// ptxas: closest hit 56 registers and a 1024-byte stack frame, any hit 58
+// and 512 bytes, no spills (one ray per thread walking alone, before this
+// design: 48 and 1536 bytes, 39 and 1024; nvcc 12.9).
+// The node and Woop arithmetic is bvh.cuh's slab_box and woop.cuh's
+// woop_test, compiled with --fmad=false like every source here.
 #include "bvh.cuh"
 
-#define WIDE_BLOCK 128
+#define WIDE_BLOCK 256
+#define WIDE_FULL 0xffffffffu
+#define WIDE_COUNT_SHIFT 24
+#define WIDE_A_MASK 0xffffffu
+// the lanes of a warp holding a leaf from which on each lane tests its own
+// leaf (fewer: the warp tests them one at a time across its lanes)
+#define WIDE_SERIAL_MIN 16
 
 template <typename T>
 __device__ __forceinline__ void cswap(bool c, T& a, T& b) {
@@ -44,147 +70,322 @@ __device__ __forceinline__ void cswap(bool c, T& a, T& b) {
     b = y;
 }
 
+// a slot's (A, tag) as one stack word; interior and empty slots count 0
+__device__ __forceinline__ unsigned slot_word(float4 q) {
+    return static_cast<unsigned>(q.z)
+        | (static_cast<unsigned>(max(static_cast<int>(q.w), 0))
+           << WIDE_COUNT_SHIFT);
+}
+
+__device__ __forceinline__ bool is_leaf(unsigned w) {
+    return (w >> WIDE_COUNT_SHIFT) != 0;
+}
+
+// node row `row` as 8 float4s: slot k is q[2k] (lo.x lo.y lo.z hi.x) and
+// q[2k + 1] (hi.y hi.z A tag)
+__device__ __forceinline__ void load_node(const float4* __restrict__ nodes,
+                                          unsigned row, float4 (&q)[8]) {
+    #pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        q[k] = __ldg(nodes + 8 * static_cast<size_t>(row) + k);
+    }
+}
+
+// The 4 slots of node q against the segment (r.tnear, tfar), far first:
+// each slot's hit flag (a slab hit of a non-empty slot), entry t (-inf
+// where not hit) and stack word, in the order of the reference's
+// descending sort network (pallas_wide._SORT_NETS[4]).
+__device__ __forceinline__ void sort_slots(const float4 (&q)[8],
+                                           const Ray& r, const Slab& inv,
+                                           float tfar, bool (&has)[4],
+                                           float (&m)[4], unsigned (&w)[4]) {
+    #pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        float tmin;
+        has[k] = slab4(q[2 * k], q[2 * k + 1], r, inv, r.tnear, tfar, tmin)
+            && q[2 * k + 1].w != 0.0f;
+        m[k] = has[k] ? tmin : -CUDART_INF_F;
+        w[k] = slot_word(q[2 * k + 1]);
+    }
+    const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
+    #pragma unroll
+    for (int s = 0; s < 5; ++s) {
+        const int x = net[s][0], y = net[s][1];
+        const bool lt = m[x] < m[y];
+        cswap(lt, m[x], m[y]);
+        cswap(lt, w[x], w[y]);
+        cswap(lt, has[x], has[y]);
+    }
+}
+
+// Lane j's test of triangle a + j0 + j of a leaf of c triangles against
+// ray q over (q.tnear, tfar); false past the leaf's end.
+__device__ __forceinline__ bool lane_test(const float4* __restrict__ tris,
+                                          const Ray& q, float tfar, int a,
+                                          int c, int j0, float& th,
+                                          float& uh, float& vh) {
+    const int j = j0 + static_cast<int>(threadIdx.x & 31);
+    if (j >= c) return false;
+    float s[16];
+    load_row<4>(tris, 4, a + j, s);
+    return woop_test(s, q, q.tnear, tfar, th, uh, vh);
+}
+
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+    Ray q;
+    q.ox = __shfl_sync(WIDE_FULL, r.ox, src);
+    q.oy = __shfl_sync(WIDE_FULL, r.oy, src);
+    q.oz = __shfl_sync(WIDE_FULL, r.oz, src);
+    q.dx = __shfl_sync(WIDE_FULL, r.dx, src);
+    q.dy = __shfl_sync(WIDE_FULL, r.dy, src);
+    q.dz = __shfl_sync(WIDE_FULL, r.dz, src);
+    q.tnear = __shfl_sync(WIDE_FULL, r.tnear, src);
+    q.tfar = __shfl_sync(WIDE_FULL, r.tfar, src);
+    return q;
+}
+
+// t's bits as an unsigned that orders as t does (-0 taken as +0)
+__device__ __forceinline__ unsigned order_key(float t) {
+    const unsigned u = __float_as_uint(t + 0.0f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// a ray's closest hit so far: tri -1 and t its tfar before the first
+struct Best {
+    float t, u, v;
+    int tri;
+};
+
+// The closest of the warp's lane tests (lane j testing triangle first + j,
+// a hit h at th, uh, vh): the least t, ties to the lowest lane, as a
+// sequential strictly-nearer loop in ascending order keeps it.  tb (the
+// same on every lane) becomes that t, and lane src's best that hit.
+__device__ __forceinline__ void take_closest(bool h, float th, float uh,
+                                             float vh, int first, int src,
+                                             float& tb, Best& best) {
+    const unsigned key = h ? order_key(th) : WIDE_FULL;
+    const unsigned least = __reduce_min_sync(WIDE_FULL, key);
+    if (least == WIDE_FULL) return;
+    const int win = __ffs(__ballot_sync(WIDE_FULL, key == least)) - 1;
+    tb = __shfl_sync(WIDE_FULL, th, win);
+    const float ub = __shfl_sync(WIDE_FULL, uh, win);
+    const float vb = __shfl_sync(WIDE_FULL, vh, win);
+    if (static_cast<int>(threadIdx.x & 31) == src) {
+        best = {tb, ub, vb, first + win};
+    }
+}
+
 __global__ void __launch_bounds__(WIDE_BLOCK)
-intersect_wide_kernel(const float* __restrict__ nodes,
+intersect_wide_kernel(const float4* __restrict__ nodes,
                       const float4* __restrict__ tris,
                       const float* __restrict__ org,
                       const float* __restrict__ dir,
                       const float* __restrict__ tnear,
                       const float* __restrict__ tfar, int n_rays,
-                      float* __restrict__ t_out, int* __restrict__ tri_out,
-                      float* __restrict__ u_out, float* __restrict__ v_out) {
-    const int i = blockIdx.x * WIDE_BLOCK + threadIdx.x;
-    if (i >= n_rays) return;
-    const Ray r = load_ray(org, dir, tnear, tfar, i);
-    const Slab inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
-    int st_a[STACK];
+                      float* __restrict__ t_out,
+                      int* __restrict__ tri_out, float* __restrict__ u_out,
+                      float* __restrict__ v_out) {
+    int ray = blockIdx.x * WIDE_BLOCK + threadIdx.x;
+    Ray r = {};
+    Slab inv = {};
+    Best b = {0.0f, 0.0f, 0.0f, -1};
+    unsigned cur = 0;                           // the root, entry t 0
+    unsigned st_w[STACK];
     float st_t[STACK];
-    int st_c[STACK];
-    int sp = 0;
-    st_a[0] = 0;
-    st_t[0] = 0.0f;
-    st_c[0] = 0;
-    float t_b = r.tfar, u_b = 0.0f, v_b = 0.0f;
-    int tri_b = -1;
-    while (sp >= 0) {
-        const int a = st_a[sp];
-        const float tpop = st_t[sp];
-        const int c = st_c[sp];
-        --sp;
-        if (!(tpop <= t_b)) continue;
-        if (c > 0) {
-            for (int j = a; j < a + c; ++j) {
-                float w[16], th, uh, vh;
-                load_row<4>(tris, 4, j, w);
-                if (woop_test(w, r, r.tnear, t_b, th, uh, vh)) {
-                    t_b = th;
-                    tri_b = j;
-                    u_b = uh;
-                    v_b = vh;
+    int sp = -1;
+
+    auto finish = [&]() {
+        t_out[ray] = b.tri >= 0 ? b.t : CUDART_INF_F;
+        tri_out[ray] = b.tri;
+        u_out[ray] = b.u;
+        v_out[ray] = b.v;
+        ray = -1;
+    };
+    // the next entry whose entry t does not exceed the best t, or finish
+    auto next_entry = [&]() {
+        for (; sp >= 0; --sp) {
+            if (st_t[sp] <= b.t) {
+                cur = st_w[sp--];
+                return;
+            }
+        }
+        finish();
+    };
+
+    if (ray < n_rays) {
+        r = load_ray(org, dir, tnear, tfar, ray);
+        inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
+        b.t = r.tfar;
+        if (!(0.0f <= b.t)) finish();
+    } else {
+        ray = -1;
+    }
+    while (__ballot_sync(WIDE_FULL, ray >= 0)) {
+        if (ray >= 0 && !is_leaf(cur)) {
+            float4 q[8];
+            load_node(nodes, cur, q);
+            bool has[4];
+            float m[4];
+            unsigned w[4];
+            sort_slots(q, r, inv, b.t, has, m, w);
+            // push the hit slots in order; the last one pushed would pop
+            // next (its entry t passed the slab test against b.t), so it
+            // is taken at once
+            bool any = false;
+            unsigned nw = 0;
+            float nt = 0.0f;
+            #pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                if (has[k]) {
+                    if (any) {
+                        ++sp;
+                        st_w[sp] = nw;
+                        st_t[sp] = nt;
+                    }
+                    nw = w[k];
+                    nt = m[k];
+                    any = true;
                 }
             }
-            continue;
+            if (any) cur = nw;
+            else next_entry();
         }
-        float m[4];
-        int ca[4], cc[4];
-        bool has[4];
-        #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const float* s = nodes + 32 * a + 8 * k;
-            const int tag = static_cast<int>(__ldg(s + 7));
-            float tmin;
-            has[k] = slab(s, r, inv, r.tnear, t_b, tmin) && tag != 0;
-            m[k] = has[k] ? tmin : -CUDART_INF_F;
-            ca[k] = static_cast<int>(__ldg(s + 6));
-            cc[k] = max(tag, 0);
+        // the leaves the lanes hold: each lane its own when many hold one,
+        // else one at a time across the warp
+        const bool leaf = ray >= 0 && is_leaf(cur);
+        unsigned leaves = __ballot_sync(WIDE_FULL, leaf);
+        if (__popc(leaves) >= WIDE_SERIAL_MIN) {
+            if (leaf) {
+                const int a = cur & WIDE_A_MASK, c = cur >> WIDE_COUNT_SHIFT;
+                for (int j = a; j < a + c; ++j) {
+                    float s[16], th, uh, vh;
+                    load_row<4>(tris, 4, j, s);
+                    if (woop_test(s, r, r.tnear, b.t, th, uh, vh)) {
+                        b = {th, uh, vh, j};
+                    }
+                }
+            }
+            leaves = 0;
         }
-        // descending sort network (pallas_wide._SORT_NETS[4]): far first
-        const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
-        #pragma unroll
-        for (int q = 0; q < 5; ++q) {
-            const int x = net[q][0], y = net[q][1];
-            const bool lt = m[x] < m[y];
-            cswap(lt, m[x], m[y]);
-            cswap(lt, ca[x], ca[y]);
-            cswap(lt, cc[x], cc[y]);
-            cswap(lt, has[x], has[y]);
-        }
-        #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            if (has[k]) {
-                ++sp;
-                st_a[sp] = ca[k];
-                st_t[sp] = m[k];
-                st_c[sp] = cc[k];
+        while (leaves) {
+            const int src = __ffs(leaves) - 1;
+            leaves &= leaves - 1;
+            const Ray q = shfl_ray(r, src);
+            const unsigned w = __shfl_sync(WIDE_FULL, cur, src);
+            float tb = __shfl_sync(WIDE_FULL, b.t, src);
+            const int a = w & WIDE_A_MASK, c = w >> WIDE_COUNT_SHIFT;
+            for (int j0 = 0; j0 < c; j0 += 32) {
+                float th = 0.0f, uh = 0.0f, vh = 0.0f;
+                const bool h = lane_test(tris, q, tb, a, c, j0, th, uh, vh);
+                take_closest(h, th, uh, vh, a + j0, src, tb, b);
             }
         }
+        if (leaf) next_entry();
     }
-    t_out[i] = tri_b >= 0 ? t_b : CUDART_INF_F;
-    tri_out[i] = tri_b;
-    u_out[i] = u_b;
-    v_out[i] = v_b;
 }
 
 __global__ void __launch_bounds__(WIDE_BLOCK)
-occluded_wide_kernel(const float* __restrict__ nodes,
+occluded_wide_kernel(const float4* __restrict__ nodes,
                      const float4* __restrict__ tris,
                      const float* __restrict__ org,
                      const float* __restrict__ dir,
                      const float* __restrict__ tnear,
                      const float* __restrict__ tfar, int n_rays,
                      bool* __restrict__ occ_out) {
-    const int i = blockIdx.x * WIDE_BLOCK + threadIdx.x;
-    if (i >= n_rays) return;
-    const Ray r = load_ray(org, dir, tnear, tfar, i);
-    bool occ = false;
-    if (r.tfar > r.tnear) {
-        const Slab inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
-        int st_a[STACK];
-        int st_c[STACK];
-        int sp = 0;
-        st_a[0] = 0;
-        st_c[0] = 0;
-        while (sp >= 0 && !occ) {
-            const int a = st_a[sp];
-            const int c = st_c[sp];
-            --sp;
-            if (c > 0) {
-                for (int j = a; j < a + c; ++j) {
-                    float w[16], th, uh, vh;
-                    load_row<4>(tris, 4, j, w);
-                    if (woop_test(w, r, r.tnear, r.tfar, th, uh, vh)) {
-                        occ = true;
-                        break;
-                    }
-                }
-                continue;
-            }
+    const int lane = threadIdx.x & 31;
+    int ray = blockIdx.x * WIDE_BLOCK + threadIdx.x;
+    Ray r = {};
+    Slab inv = {};
+    unsigned cur = 0;                           // the root
+    unsigned st_w[STACK];
+    int sp = -1;
+
+    auto finish = [&](bool occ) {
+        occ_out[ray] = occ;
+        ray = -1;
+    };
+    auto next_entry = [&]() {
+        if (sp >= 0) cur = st_w[sp--];
+        else finish(false);
+    };
+
+    if (ray < n_rays) {
+        r = load_ray(org, dir, tnear, tfar, ray);
+        inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
+        if (!(r.tfar > r.tnear)) finish(false);
+    } else {
+        ray = -1;
+    }
+    while (__ballot_sync(WIDE_FULL, ray >= 0)) {
+        if (ray >= 0 && !is_leaf(cur)) {
+            float4 q[8];
+            load_node(nodes, cur, q);
+            // the nearest hit slot next, the others pushed far first
+            bool has[4];
+            float m[4];
+            unsigned w[4];
+            sort_slots(q, r, inv, r.tfar, has, m, w);
+            bool any = false;
+            unsigned nw = 0;
             #pragma unroll
             for (int k = 0; k < 4; ++k) {
-                const float* s = nodes + 32 * a + 8 * k;
-                const int tag = static_cast<int>(__ldg(s + 7));
-                float tmin;
-                if (slab(s, r, inv, r.tnear, r.tfar, tmin) && tag != 0) {
-                    ++sp;
-                    st_a[sp] = static_cast<int>(__ldg(s + 6));
-                    st_c[sp] = max(tag, 0);
+                if (has[k]) {
+                    if (any) st_w[++sp] = nw;
+                    nw = w[k];
+                    any = true;
                 }
             }
+            if (any) cur = nw;
+            else next_entry();
+        }
+        // the leaves the lanes hold: each lane its own (up to its first
+        // hit) when many hold one, else one at a time across the warp
+        const bool leaf = ray >= 0 && is_leaf(cur);
+        unsigned leaves = __ballot_sync(WIDE_FULL, leaf);
+        bool occ = false;
+        if (__popc(leaves) >= WIDE_SERIAL_MIN) {
+            if (leaf) {
+                const int a = cur & WIDE_A_MASK, c = cur >> WIDE_COUNT_SHIFT;
+                for (int j = a; j < a + c && !occ; ++j) {
+                    float s[16], th, uh, vh;
+                    load_row<4>(tris, 4, j, s);
+                    occ = woop_test(s, r, r.tnear, r.tfar, th, uh, vh);
+                }
+            }
+            leaves = 0;
+        }
+        while (leaves) {
+            const int src = __ffs(leaves) - 1;
+            leaves &= leaves - 1;
+            const Ray q = shfl_ray(r, src);
+            const unsigned w = __shfl_sync(WIDE_FULL, cur, src);
+            const int a = w & WIDE_A_MASK, c = w >> WIDE_COUNT_SHIFT;
+            bool hit = false;
+            for (int j0 = 0; j0 < c && !hit; j0 += 32) {
+                float th, uh, vh;
+                hit = __any_sync(WIDE_FULL, lane_test(tris, q, q.tfar, a, c,
+                                                      j0, th, uh, vh));
+            }
+            if (lane == src) occ = hit;
+        }
+        if (leaf) {
+            if (occ) finish(true);
+            else next_entry();
         }
     }
-    occ_out[i] = occ;
 }
 
 extern "C" int yrt_intersect_wide(const void* nodes, const void* tris,
                                   const void* org, const void* dir,
                                   const void* tnear, const void* tfar,
-                                  int n_rays, void* t_out, void* tri_out,
-                                  void* u_out, void* v_out, void* stream) {
+                                  int n_rays, void* t_out,
+                                  void* tri_out, void* u_out, void* v_out,
+                                  void* stream) {
     if (n_rays > 0) {
         const int grid = (n_rays + WIDE_BLOCK - 1) / WIDE_BLOCK;
         intersect_wide_kernel<<<grid, WIDE_BLOCK, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(nodes),
+            static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
@@ -198,12 +399,13 @@ extern "C" int yrt_intersect_wide(const void* nodes, const void* tris,
 extern "C" int yrt_occluded_wide(const void* nodes, const void* tris,
                                  const void* org, const void* dir,
                                  const void* tnear, const void* tfar,
-                                 int n_rays, void* occ_out, void* stream) {
+                                 int n_rays, void* occ_out,
+                                 void* stream) {
     if (n_rays > 0) {
         const int grid = (n_rays + WIDE_BLOCK - 1) / WIDE_BLOCK;
         occluded_wide_kernel<<<grid, WIDE_BLOCK, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(nodes),
+            static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),

@@ -38,28 +38,29 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu at its current
+def lib_path(name: str, csrc: str = CSRC) -> str:
+    """Path of the built library for <csrc>/<name>.cu at its current
     sources."""
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
-    for fn in sorted(os.listdir(CSRC)):
+    for fn in sorted(os.listdir(csrc)):
         if fn == name + '.cu' or fn.endswith('.cuh'):
-            with open(os.path.join(CSRC, fn), 'rb') as f:
+            with open(os.path.join(csrc, fn), 'rb') as f:
                 h.update(fn.encode() + f.read())
     return os.path.join(BUILD_DIR, f'lib{name}-{h.hexdigest()[:12]}.so')
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library exists; returns the path.
-    The compiler's output (with ptxas register counts) is kept beside
-    the library as a .log file."""
-    out = lib_path(name)
+def build(name: str, csrc: str = CSRC) -> str:
+    """Compile <csrc>/<name>.cu (the package's csrc unless another source
+    directory is given) unless its library exists; returns the path.  The
+    compiler's output (with ptxas register counts) is kept beside the
+    library as a .log file."""
+    out = lib_path(name, csrc)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{out}.{os.getpid()}.tmp'
     cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           os.path.join(CSRC, name + '.cu')]
+           os.path.join(csrc, name + '.cu')]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     with open(out[:-3] + '.log', 'w') as f:
         f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
@@ -69,17 +70,17 @@ def build(name: str) -> str:
     return out
 
 
-def library(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu (built on first use), with
+def library(name: str, signatures: dict, csrc: str = CSRC) -> ctypes.CDLL:
+    """The loaded library for <csrc>/<name>.cu (built on first use), with
     `signatures` {function: [argtypes]} declared; every function returns
     a C int (a cudaError_t)."""
-    lib = _LIBS.get(name)
+    lib = _LIBS.get((name, csrc))
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        lib = ctypes.CDLL(build(name, csrc))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[name, csrc] = lib
     return lib
 
 

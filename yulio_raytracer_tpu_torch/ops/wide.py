@@ -4,11 +4,12 @@ Counterpart of `yulio_raytracer_tpu/ops/pallas_wide.py`
 (`intersect_packet4` / `occluded_packet4`, with `pack_nodes4`) and of the
 table packing in `yulio_raytracer_tpu/ops/pallas_traverse.py`
 (`pack_tris`), which imports jax and so is copied here.  On a CUDA tensor
-each wrapper launches its kernel from `csrc/wide.cu` (one ray per
-thread, private stack); on a CPU tensor it runs the plain torch version,
-a vectorized per-ray stack traversal of the same tables in the same
-order (the counterpart of `ops/traverse.py`), which the kernels are held
-against on the card.  Any ray count is accepted.
+each wrapper launches its kernel from `csrc/wide.cu` (one ray per lane,
+leaves tested by each lane or across the warp; see its header); on a
+CPU tensor it runs the plain torch version, a vectorized per-ray stack
+traversal of the same tables in the same order (the counterpart of
+`ops/traverse.py`), which the kernels are held against on the card.  Any
+ray count is accepted.
 
 Node rows, (N4, 32) f32, 4 slots of [lo.x lo.y lo.z hi.x hi.y hi.z A tag]:
 tag > 0 leaf of `tag` triangles from packed triangle A; tag == -1
@@ -29,6 +30,9 @@ from .intersect import Hit, woop_test
 STACK = 128          # per-ray stack entries (pallas_traverse.STACK)
 INF = float('inf')
 _PLAIN_RAYS = 1 << 18  # rays per slice of the plain traversal
+# the kernels' stack words hold A below 2^24 and a leaf's triangle count
+# in the 8 bits above it
+_COUNT_LIMIT = 1 << 8
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -61,8 +65,9 @@ def pack_tris(woop: np.ndarray, geom_host: dict) -> np.ndarray:
 
 def _check_packed(out: np.ndarray, width: int) -> np.ndarray:
     """Raise ValueError unless the wide table is exact in f32 (node
-    indices and leaf ranges below 2^24) and its worst-case stack
-    occupancy, (width - 1) * depth + 1, fits STACK."""
+    indices and leaf ranges below 2^24), every leaf's triangle count fits
+    the 8 bits the kernels' stack words give it (_COUNT_LIMIT), and its
+    worst-case stack occupancy, (width - 1) * depth + 1, fits STACK."""
     tags = out.reshape(-1, width, 8)[:, :, 7]
     a = out.reshape(-1, width, 8)[:, :, 6]
     if out.shape[0] >= 1 << 24:
@@ -70,6 +75,9 @@ def _check_packed(out: np.ndarray, width: int) -> np.ndarray:
     leaf = tags > 0
     if np.any(leaf) and float(np.max(a[leaf] + tags[leaf])) >= float(1 << 24):
         raise ValueError("leaf triangle range exceeds f32-exact 2^24")
+    if np.any(tags >= _COUNT_LIMIT):
+        raise ValueError(f"a leaf of {int(tags.max())} triangles exceeds the "
+                         f"kernels' stack words ({_COUNT_LIMIT - 1} at most)")
     children = [[] for _ in range(out.shape[0])]
     interior = tags < 0
     for w in range(out.shape[0]):
@@ -227,7 +235,9 @@ def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar,
                          counts=None) -> Hit:
     """Plain torch version of the closest-hit kernel: every ray walks the
     tree with its own stack, in the kernel's order.  counts, a dict,
-    gathers the kernel's triangle ('pair') and slab ('box') tests."""
+    gathers the kernel's triangle ('pair') and slab ('box') tests, and
+    under 'stack' a list of (R,) tensors: each ray's largest stack
+    occupancy, in entries."""
     if org.is_cuda:
         intersect_wide_plain.cuda_calls += 1
     return _chunked(partial(_closest_plain, counts=counts), (nodes4, tris),
@@ -251,6 +261,7 @@ def _closest_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None) -> Hit:
     st_t = torch.zeros((r, STACK), dtype=torch.float32, device=dev)
     st_c = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    deepest = torch.ones((r,), dtype=torch.int64, device=dev)
     t_b = tfar.clone()
     tri_b = torch.full((r,), -1, dtype=torch.int32, device=dev)
     u_b = torch.zeros((r,), dtype=torch.float32, device=dev)
@@ -294,7 +305,11 @@ def _closest_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None) -> Hit:
             m, ca, cc, hs = cols
             for k in range(4):
                 _push((st_a, st_t, st_c), sp, rid, hs[k], (ca[k], m[k], cc[k]))
+            if counts is not None:
+                deepest[rid] = torch.maximum(deepest[rid], sp[rid] + 1)
         act = act[sp[act] >= 0]
+    if counts is not None:
+        counts.setdefault('stack', []).append(deepest)
     t = torch.where(tri_b >= 0, t_b, INF)
     return Hit(t, tri_b, u_b, v_b)
 
@@ -306,6 +321,7 @@ def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
     st_a = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
     st_c = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    deepest = torch.ones((r,), dtype=torch.int64, device=dev)
     occ = torch.zeros((r,), dtype=torch.bool, device=dev)
     act = torch.nonzero(tfar > tnear)[:, 0]
     while act.numel():
@@ -331,7 +347,11 @@ def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
             ca, cc = nd[..., 6].to(torch.int64), torch.clamp(tag, min=0)
             for k in range(4):
                 _push((st_a, st_c), sp, rid, push[:, k], (ca[:, k], cc[:, k]))
+            if counts is not None:
+                deepest[rid] = torch.maximum(deepest[rid], sp[rid] + 1)
         act = act[(sp[act] >= 0) & ~occ[act]]
+    if counts is not None:
+        counts.setdefault('stack', []).append(deepest)
     return occ
 
 

@@ -1,0 +1,146 @@
+"""The BVH4 kernels (csrc/wide.cu) of this checkout against another
+checkout's, timed in turns on the card.
+
+    python -m yulio_raytracer_tpu_torch.wide_turns OTHER_ROOT [--rounds N]
+
+OTHER_ROOT is the root of another checkout of the repository whose
+`csrc/wide.cu` has the same C interface (`ops/wide.py` `_SIGNATURES`).
+Both sources are built.  The colonnade (leaf 32) is committed on the card
+with the ray sets `chip_smoke.py` times K3 and K4 on, made from seed 42:
+its 1024^2 camera rays, 1M hemisphere rays from their hits, and the
+shadow rays from those hits to its 4 lights.  Each round times every set
+with both libraries (CUDA events, median of 5 launches after a warm-up),
+this checkout's first on even rounds and the other's first on odd ones.
+The two libraries' results must be bit-equal.  One line per set: each
+library's median over the rounds with its min, max and the distance
+between its quartiles, the ratio of the medians, and in how many rounds
+this checkout's kernel was the faster; the last line is the same as one
+JSON object.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from . import raysets
+from .io import builtin_scenes as bs
+from .ops import cuda_build as cb
+from .ops import wide
+from .ops.intersect import Hit
+
+SEED = 42
+
+
+def _ms(fn, reps=5):
+    """Median milliseconds of fn() over reps runs, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _quartile_spread(v):
+    """The distance between the first and third quartiles of v."""
+    if len(v) < 2:
+        return 0.0
+    q = statistics.quantiles(v, n=4)
+    return q[2] - q[0]
+
+
+def _launch(lib, anyhit, tables, rays):
+    """One launch of K4 (anyhit) or K3 from lib, as the wrappers make it;
+    returns its outputs as a tuple."""
+    args = wide._kernel_args(*tables, *rays)
+    r, dev = args[2].shape[0], args[2].device
+    if anyhit:
+        out = (torch.empty((r,), dtype=torch.bool, device=dev),)
+        cb.launch(lib.yrt_occluded_wide, 'occluded_wide', dev, *args, r,
+                  *out)
+    else:
+        out = cb.empty_hit(r, dev)
+        cb.launch(lib.yrt_intersect_wide, 'intersect_wide', dev, *args, r,
+                  *out)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('other_root')
+    ap.add_argument('--rounds', type=int, default=10)
+    opts = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("wide_turns: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device('cuda')
+    other = os.path.join(os.path.abspath(opts.other_root),
+                         'yulio_raytracer_tpu_torch', 'csrc')
+    libs = {'this': cb.library('wide', wide._SIGNATURES),
+            'other': cb.library('wide', wide._SIGNATURES, other)}
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+    sc = bs.colonnade().commit(device=dev, leaf_size=32)
+    tables = (sc.nodes4, sc.tris)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    org, dirn, _ = raysets.camera_rays(sc, bs.colonnade_camera(1024, 1024),
+                                       1024, 1024, dev, SEED)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    cam = (org, dirn, zeros, torch.full_like(zeros, float('inf')))
+    hit = Hit(*_launch(libs['this'], False, tables, cam))
+    *hemi, dg, eps = raysets.hemisphere_rays(sc, org, dirn, hit, gen, dev)
+    shadow = raysets.shadow_rays(sc, dg, eps, hit.valid, gen, dev)
+    sets = {'K3 camera': (False, cam), 'K3 hemisphere': (False, hemi),
+            'K4 shadow': (True, shadow)}
+
+    for what, (anyhit, rays) in sets.items():
+        a, b = (_launch(libs[k], anyhit, tables, rays) for k in libs)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: this checkout's kernel and the "
+                                 "other's disagree")
+    times = {what: {k: [] for k in libs} for what in sets}
+    for i in range(opts.rounds):
+        order = list(libs) if i % 2 == 0 else list(reversed(libs))
+        for what, (anyhit, rays) in sets.items():
+            for k in order:
+                times[what][k].append(_ms(
+                    lambda: _launch(libs[k], anyhit, tables, rays)))
+    summary = {}
+    for what, (_, rays) in sets.items():
+        t = times[what]
+        med = {k: statistics.median(v) for k, v in t.items()}
+        iqr = {k: _quartile_spread(v) for k, v in t.items()}
+        wins = sum(a < b for a, b in zip(t['this'], t['other']))
+        summary[what] = {'rays': rays[0].shape[0], **{
+            k: {'median_ms': med[k], 'min_ms': min(v), 'max_ms': max(v),
+                'quartile_spread_ms': iqr[k]} for k, v in t.items()},
+            'other_over_this': med['other'] / med['this'],
+            'this_faster_rounds': wins}
+        print(f"[turns] {what} on {rays[0].shape[0]} rays, {opts.rounds} "
+              f"rounds: " + ', '.join(
+                  f"{k} median {med[k]:.4f} ms (min {min(v):.4f}, max "
+                  f"{max(v):.4f}, quartile spread {iqr[k]:.4f})"
+                  for k, v in t.items())
+              + f"; other / this {med['other'] / med['this']:.3f}; this "
+              f"faster in {wins} of {opts.rounds} rounds; bit-equal results;"
+              f" {card}", flush=True)
+    print(json.dumps({'card': card, 'rounds': opts.rounds, 'sets': summary}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
