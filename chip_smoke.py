@@ -6,7 +6,7 @@
 Phases, one line each (a failure raises and the exit code is nonzero):
  1. toolchain: torch / CUDA / nvcc versions, the card's name and power limit;
  2. build: the CUDA kernels from yulio_raytracer_tpu_torch/csrc, one nvcc
-    per source, all started together;
+    per source (six), all started together;
  3. every kernel against its plain torch version on the card, at the main
     paths' shapes: the dense pair on cornell (64^2 camera rays plus
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
@@ -22,10 +22,18 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     ops/treelets.py intersect_packet_binned and intersect_dense_binned,
     and their any-hit forms) against the binary
     kernels on the same hemisphere and shadow rays, and K11 unsorted and
-    sorted against K5 on the hemisphere rays, timed in turns.  The plain
-    versions count the pair and box tests their kernels make, and the
-    BVH4 ones each ray's largest stack occupancy (printed as median, 99th
-    percentile and max);
+    sorted against K5 on the hemisphere rays, timed in turns; the BVH4
+    pair again on the colonnade at leaf 512 (leaves of up to 504
+    triangles; 256^2 camera rays, hemisphere rays from their hits, their
+    shadow rays), bit-equal; the sweep prototype's kernels K12
+    (proto_sublane_sweep.py) on the colonnade's 512 packed rows holding
+    the most closest hits of its camera rays against every fourth of those
+    rays (2^18), each bit-equal to its plain version and the two layouts
+    to each other, timed there (shape b) and at the script's own shapes
+    and random rows (shape a: run(which, 512, 64, 8)).
+    The plain versions count the pair and box tests their kernels make,
+    and the BVH4 ones each ray's largest stack occupancy (printed as
+    median, 99th percentile and max);
  4. the pinned CPU goldens rendered through render_frame on the card, one
     path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
@@ -34,16 +42,17 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     motion_64 through the motion kernel; and K11's entry points (sorted
     on the colonnade's 1M hemisphere rays, unsorted on its camera rays).
     Every launch counter is set to 0 before each run and read after it:
-    the path's kernels must have run, no other kernel, and no plain
-    version on a CUDA tensor;
+    the path's kernels must have run, no other kernel (so K12, which no
+    path runs, never), and no plain version on a CUDA tensor;
  5. timed full-size frames (cornell_512, colonnade_1024,
     colonnade_1024_bvh2, colonnade_1024_grid, colonnade_1024_treelet,
     colonnade_1024_dense, motion_field_512), with each kernel's launches
     per frame;
  6. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
-    its pair and box tests (counted by the plain versions in phase 3) times
-    their flops over 67 TFLOP/s f32, against its time in phase 3.  K11's
+    its pair and box tests (counted by the plain versions in phase 3; K12's
+    from its shapes) times their flops over 67 TFLOP/s f32, against its
+    time in phase 3.  K11's
     tests are those K5's plain version counts on the same rays, the tests
     their closest hits need; the tests K11's schedule makes (every lane of
     a block) are printed beside them as that schedule's waste.
@@ -84,6 +93,9 @@ MOTION_FLOPS = 87   # csrc/motion.cuh motion_test: edges at time s (12),
 #                     |det| test and 1/det (3), cull (2), window tests (6)
 SLAB_FLOPS = 25     # csrc/bvh.cuh slab: 6 subtracts, 6 multiplies, 12
 #                     min/max, 1 compare
+PROTO_FLOPS = 48    # csrc/sweep.cu proto_test: six dot products (33), |dwp|
+#                     and its test (2), 1/dwp (1), th (2), u and v (4),
+#                     u + v and five compares (6)
 
 
 def phase(name, msg):
@@ -150,19 +162,24 @@ def psnr(img, ref):
 
 def compare(name, kernel, plain, args, counts=None, labels=('kernel',
                                                               'plain'),
-            other_tie_rule=False):
+            other_tie_rule=False, exact=False):
     """Hold a kernel against its plain version; returns a result dict with
     the bytes the kernel must move (tensor arguments read once, results
     written once).  counts, a dict, is handed to the plain version's first
     call to gather its tests.  With other_tie_rule (two traversals that
     order equal-t triangles differently), a triangle that differs at a
-    bit-equal t is a tie: reported, not held to the bound."""
+    bit-equal t is a tie: reported, not held to the bound.  With exact,
+    every output must be bit-equal."""
     from yulio_raytracer_tpu_torch.ops.intersect import Hit
     k = kernel(*args)
     p = plain(*args) if counts is None else plain(*args, counts=counts)
     torch.cuda.synchronize()
     out = k if isinstance(k, tuple) else (k,)
     moved = nbytes(*args) + nbytes(*out)
+    if exact and not all(torch.equal(a, b) for a, b in zip(
+            out, p if isinstance(p, tuple) else (p,))):
+        raise AssertionError(f"{name}: the kernel's outputs are not "
+                             f"bit-equal to its {labels[1]} version's")
     if isinstance(k, tuple) and len(k) == 2:        # raw (t, slot)
         k, p = (Hit(*k, None, None), Hit(*p, None, None))
     if isinstance(k, torch.Tensor):
@@ -235,6 +252,7 @@ def main():
                                                grid, intersect, pairs,
                                                splitleaf, traverse,
                                                treelets, wide)
+    from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.raysets import (camera_rays,
                                                    hemisphere_rays,
@@ -249,7 +267,7 @@ def main():
           f"{nvcc.stdout.strip().splitlines()[-1]}; card: {card}")
 
     t0 = time.perf_counter()
-    names = ('dense', 'wide', 'binary', 'grid', 'splitleaf')
+    names = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep')
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         libs = list(pool.map(cuda_build.build, names))
     for name, lib in zip(names, libs):
@@ -287,6 +305,10 @@ def main():
         (splitleaf.intersect_packet_split, splitleaf.intersect_split_plain,
          'splitleaf.cu', 'yulio_raytracer_tpu/ops/pallas_splitleaf.py:349',
          WOOP_FLOPS),
+        (sweep.sweep_rows, sweep.sweep_rows_plain, 'sweep.cu',
+         'scripts/proto_sublane_sweep.py:36', PROTO_FLOPS),
+        (sweep.sweep_tiles, sweep.sweep_tiles_plain, 'sweep.cu',
+         'scripts/proto_sublane_sweep.py:99', PROTO_FLOPS),
     )
     counters = [k[0] for k in kernels]
     plains = [k[1] for k in kernels]
@@ -315,16 +337,16 @@ def main():
             acc[key] += int(tests.get(key, 0))
             acc['schedule_' + key] += int(schedule.get(key, 0))
 
-    def check(f, name, args, tests=None, schedule=False):
+    def check(f, name, args, tests=None, schedule=False, exact=False):
         """compare() kernel f against its plain version and record it;
         returns the tests the plain version counted.  `tests` gives the
         tests the function needs where that count is not it: the dense
-        kernels' follow from the shapes; with schedule (K11) the plain
-        version's count, the tests of the kernel's schedule, is kept
+        kernels' and K12's follow from the shapes; with schedule (K11) the
+        plain version's count, the tests of the kernel's schedule, is kept
         beside them."""
         counted = {} if tests is None or schedule else None
         record(f, compare(name, f, plains[counters.index(f)], args,
-                          counted), tests or counted,
+                          counted, exact=exact), tests or counted,
                counted if schedule else {})
         return counted
 
@@ -510,6 +532,92 @@ def main():
           "each way), ms: " + ', '.join(
               f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in turns.items())
           + f" on {card}")
+
+    # K12, the sweep prototype.  Shape b: the colonnade's 512 packed rows
+    # (4,096 triangles) that hold the most closest hits of its camera
+    # rays, in table order, against every fourth of those rays (2^18), one
+    # rep, both layouts on the same triangles
+    per_row = torch.bincount(hit.tri[hit.tri >= 0].long() // 8,
+                             minlength=colonnade.tris.shape[0])
+    top = torch.argsort(-per_row, stable=True)[:512].sort().values
+    rows = colonnade.tris[top]
+    tiles = sweep.supertiles(rows)
+    b_args = (cam_rays[0][::4].contiguous(), cam_rays[1][::4].contiguous(),
+              1)
+    b_pairs = b_args[0].shape[0] * rows.shape[0] * 8
+    phase('kernels', f"K12's rows: the colonnade's 512 packed rows holding "
+          f"the most closest hits of its camera rays (their "
+          f"{int(per_row[top].sum())} of {int((hit.tri >= 0).sum())})")
+    check(sweep.sweep_rows, 'sweep_rows (colonnade rows, shape b)',
+          (rows, *b_args), {'pair': b_pairs}, exact=True)
+    check(sweep.sweep_tiles, 'sweep_tiles (colonnade super-tiles, shape b)',
+          (tiles, *b_args, False), {'pair': b_pairs}, exact=True)
+    old = sweep.sweep_rows(rows, *b_args)
+    if not all(torch.equal(a, b) for sw in (False, True)
+               for a, b in zip(old, sweep.sweep_tiles(tiles, *b_args, sw))):
+        raise AssertionError("the sweep layouts disagree on the same "
+                             "triangles")
+    b_ms = {'old': results['sweep_rows']['ms'],
+            'new': results['sweep_tiles']['ms'],
+            'newsw': cuda_ms(lambda: sweep.sweep_tiles(tiles, *b_args, True))}
+    b_bound = b_pairs * PROTO_FLOPS / PEAK_FLOPS * 1e3
+    phase('kernels', f"K12 at shape b ({b_args[0].shape[0]} rays x 4,096 "
+          f"triangles, reps 1, "
+          f"{float((old[1] >= 0).float().mean()):.1%} of the rays hit; "
+          f"median of 5): " + ', '.join(
+              f"{k} {v:.4f} ms, {b_pairs / v / 1e6:.2f} Gpairs/s, "
+              f"{b_bound / v:.2%} of the bound" for k, v in b_ms.items())
+          + f"; new / old {b_ms['old'] / b_ms['new']:.3f}, newsw / old "
+          f"{b_ms['old'] / b_ms['newsw']:.3f} (in Gpairs/s); the layouts "
+          f"bit-equal with and without the switch; {card}")
+    # shape a: the script's own shapes, defaults and random rows
+    a_runs = {w: sweep.run(w, 512, 64, 8) for w in ('old', 'new', 'newsw')}
+    a_bound = 512 * 8 * 1024 * 64 * PROTO_FLOPS / PEAK_FLOPS * 1e3
+    phase('kernels', "K12 at shape a (the script's: 512 rows x 1024 rays, or "
+          "512 super-tiles x 128 rays, reps 64; median of 8): " + ', '.join(
+              f"{w} {gp:.2f} Gpairs/s ({ms:.3f} ms, {a_bound / ms:.2%} of "
+              f"the bound)" for w, (gp, ms) in a_runs.items())
+          + f"; new / old {a_runs['new'][0] / a_runs['old'][0]:.3f}, newsw / "
+          f"old {a_runs['newsw'][0] / a_runs['old'][0]:.3f}; {card}")
+    k12_extra = {
+        'sweep_rows': {'gpairs_per_s': b_pairs / b_ms['old'] / 1e6,
+                       'shape_a_ms': a_runs['old'][1],
+                       'shape_a_gpairs_per_s': a_runs['old'][0]},
+        'sweep_tiles': {'gpairs_per_s': b_pairs / b_ms['new'] / 1e6,
+                        'switch_ms': b_ms['newsw'],
+                        'shape_a_ms': a_runs['new'][1],
+                        'shape_a_gpairs_per_s': a_runs['new'][0],
+                        'shape_a_switch_ms': a_runs['newsw'][1]}}
+
+    # BVH4 with leaves of 128 triangles and more (which go on the stack by
+    # their slot): the colonnade at leaf 512, on rays of its own
+    t1 = time.perf_counter()
+    big = bs.colonnade().commit(device=dev, leaf_size=512)
+    tags = big.nodes4.reshape(-1, 4, 8)[:, :, 7]
+    phase('kernels', f"colonnade at leaf 512: accel {big.accel}, "
+          f"{big.nodes4.shape[0]} BVH4 nodes, largest leaf "
+          f"{float(tags.max()):.0f} triangles, {int((tags >= 128).sum())} "
+          f"leaves of 128 or more, committed in "
+          f"{time.perf_counter() - t1:.2f} s")
+    if big.accel != 'bvh4' or float(tags.max()) < 256:
+        raise AssertionError("the colonnade at leaf 512 did not commit BVH4 "
+                             "with leaves of 256 triangles or more")
+    gen512 = torch.Generator(device=dev).manual_seed(SEED)
+    org, dirn, _ = camera_rays(big, bs.colonnade_camera(256, 256), 256, 256,
+                               dev, SEED)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    big_cam = (org, dirn, zeros, torch.full_like(zeros, float('inf')))
+    big_hit = wide.intersect_packet4(big.nodes4, big.tris, *big_cam)
+    *big_hemi, dg, eps = hemisphere_rays(big, org, dirn, big_hit, gen512,
+                                         dev)
+    for what, f, rays in (
+            ('camera', wide.intersect_packet4, big_cam),
+            ('hemisphere', wide.intersect_packet4, big_hemi),
+            ('shadow', wide.occluded_packet4,
+             shadow_rays(big, dg, eps, big_hit.valid, gen512, dev))):
+        compare(f'{f.__name__} (colonnade leaf 512, {what})', f,
+                plains[counters.index(f)], (big.nodes4, big.tris, *rays),
+                exact=True)
 
     t1 = time.perf_counter()
     motion = bs.motion_field().commit(device=dev)
@@ -699,6 +807,7 @@ def main():
         if waste:
             summary[-1].update(schedule_pair_tests=res['schedule_pair'],
                                schedule_box_tests=res['schedule_box'])
+        summary[-1].update(k12_extra.get(f.__name__, {}))
     phase('done', f"all phases passed in {time.perf_counter() - t_start:.1f}"
           f" s")
     print(json.dumps({'kernels': summary}))

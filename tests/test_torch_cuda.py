@@ -1,7 +1,8 @@
 """The torch port's CUDA kernels on the card: each held against its plain
-torch version (the binary kernels also from per-ray treelet roots, and the
-split-leaf kernel K11), and the cornell, motion, grid, treelet and dense
-colonnade goldens rendered through them.
+torch version (the binary kernels also from per-ray treelet roots, the
+BVH4 kernels also on leaves of 128 triangles and more, the split-leaf
+kernel K11 and the sweep prototype's kernels K12), and the cornell,
+motion, grid, treelet and dense colonnade goldens rendered through them.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -22,6 +23,7 @@ from yulio_raytracer_tpu_torch.ops import (dense, grid, pairs, splitleaf,
                                            traverse, treelets, wide)
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
 from yulio_raytracer_tpu_torch import raysets, renderer
+from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
 from yulio_raytracer_tpu_torch.film import accum
 
 torch.set_num_threads(2)
@@ -201,6 +203,73 @@ def test_wide_leaf_schedules_agree(colonnade_card, rays):
             batch[3][torch.arange(n, device=dev) % 4 != 0] = -1.0
     ref, _ = _assert_wide_matches_plain(sc.nodes4, sc.tris, batch)
     assert bool((ref.tri >= 0).any())
+
+
+@pytest.fixture(scope='module')
+def colonnade_leaf512():
+    """The full colonnade on the card at leaf 512: BVH4 with leaves of up
+    to 504 triangles (a leaf of 128 or more goes on the stack by its
+    slot), or a skip without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sc = bs.colonnade().commit(device=torch.device('cuda'), leaf_size=512)
+    assert sc.accel == 'bvh4'
+    assert float(sc.nodes4.reshape(-1, 4, 8)[:, :, 7].max()) >= 256
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['camera', 'hemisphere', 'edge'])
+def test_wide_kernels_take_large_leaves(colonnade_leaf512, rays):
+    """K3 and K4 bit-equal to their plain versions on the colonnade at
+    leaf 512: coherent camera rays (each lane tests its own leaf),
+    hemisphere rays from their hits and edge rays, some with tfar <=
+    tnear (leaves tested across the warp); empty segments neither hit
+    nor are occluded."""
+    sc, dev = colonnade_leaf512, torch.device('cuda')
+    org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128), 128,
+                                    128, dev, 7)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    batch = [org, d, zeros, torch.full_like(zeros, float('inf'))]
+    if rays == 'hemisphere':
+        hit = wide.intersect_packet4(sc.nodes4, sc.tris, *batch)
+        batch = list(raysets.hemisphere_rays(
+            sc, org, d, hit, torch.Generator(device=dev).manual_seed(7),
+            dev)[:4])
+    elif rays == 'edge':
+        batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, 4000, 14)
+    ref, occ = _assert_wide_matches_plain(sc.nodes4, sc.tris, batch)
+    assert bool((ref.tri >= 0).any())
+    empty = (batch[3] <= batch[2]).cpu().numpy()
+    assert not occ.cpu().numpy()[empty].any()
+    assert (ref.tri.cpu().numpy()[empty] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1000, 65_537])
+def test_sweep_kernels_match_plain_on_card(cuda, n):
+    """K12: one ray per thread over rows of 8 triangles, and 8 lanes per
+    ray over their super-tiles (a group a step, or each super-tile's 8
+    unrolled), each bit-equal to its plain version, and the two layouts
+    to each other, on the sphere over a floor (2 reps)."""
+    tris, _, rays = _tables_and_rays(cuda, n)
+    org, d = rays[:2]
+    tiles = sweep.supertiles(tris)
+    before = (sweep.sweep_rows.launches, sweep.sweep_tiles.launches)
+    got = [sweep.sweep_rows(tris, org, d, 2),
+           sweep.sweep_tiles(tiles, org, d, 2, False),
+           sweep.sweep_tiles(tiles, org, d, 2, True)]
+    ref = sweep.sweep_rows_plain(tris, org, d, 2)
+    ref_tiles = sweep.sweep_tiles_plain(tiles, org, d, 2)
+    torch.cuda.synchronize()
+    assert (sweep.sweep_rows.launches, sweep.sweep_tiles.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert bool((ref[1] >= 0).any())
+    for (t, tri), (rt, rtri) in zip(got, (ref, ref_tiles, ref_tiles)):
+        np.testing.assert_array_equal(t.cpu().numpy(), rt.cpu().numpy())
+        np.testing.assert_array_equal(tri.cpu().numpy(), rtri.cpu().numpy())
+    assert torch.equal(ref[0], ref_tiles[0])
+    assert torch.equal(ref[1], ref_tiles[1])
 
 
 @pytest.mark.cuda

@@ -5,6 +5,7 @@ post_intersect.  The CUDA kernels are held against the plain versions on
 the card by tests/test_torch_cuda.py."""
 import os
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -189,14 +190,18 @@ def colonnade_nodes4():
 
 @pytest.mark.parametrize('field', ['count', 'start', 'none'])
 def test_check_packed_guards_the_stack_words(tables, field):
-    """The kernels pack a stack entry as A | count << 24: a leaf of 256
-    triangles, or one starting at 2^24, does not fit and raises; the
-    table as packed passes."""
+    """The kernels' stack words take a leaf of any count whose triangle
+    range ends below 2^24: a leaf of 256 triangles passes, and a range
+    reaching 2^24 by its count or by its start raises; the table as
+    packed passes."""
     out = tables['nodes4'].numpy().copy()
     slots = out.reshape(-1, 4, 8)
     leaf = np.argwhere(slots[:, :, 7] > 0)[0]
     if field == 'count':
-        slots[leaf[0], leaf[1], 7] = wide._COUNT_LIMIT
+        slots[leaf[0], leaf[1], 7] = 256.0
+        assert wide._check_packed(out, 4) is out
+        slots[leaf[0], leaf[1], 7] = float(1 << 24) - slots[leaf[0],
+                                                            leaf[1], 6]
     elif field == 'start':
         slots[leaf[0], leaf[1], 6] = float(1 << 24)
     if field == 'none':
@@ -206,10 +211,29 @@ def test_check_packed_guards_the_stack_words(tables, field):
             wide._check_packed(out, 4)
 
 
+def test_kernel_entry_follows_the_largest_leaf(monkeypatch,
+                                               colonnade_nodes4):
+    """The wrappers launch the kernels' *_slots forms for a table with a
+    leaf of SLOTS_MIN triangles or more, and notice a table changed in
+    place."""
+    monkeypatch.setattr(wide, '_lib', lambda: SimpleNamespace(
+        yrt_occluded_wide='words', yrt_occluded_wide_slots='slots'))
+    nodes4 = torch.as_tensor(colonnade_nodes4.copy())
+    assert wide._entry('yrt_occluded_wide', nodes4) == 'words'
+    nodes4.view(-1, 4, 8)[:, :, 7].clamp_(max=wide.SLOTS_MIN - 1)
+    assert wide._entry('yrt_occluded_wide', nodes4) == 'words'
+    leaf = torch.nonzero(nodes4.view(-1, 4, 8)[:, :, 7] > 0)[0]
+    nodes4.view(-1, 4, 8)[leaf[0], leaf[1], 7] = float(wide.SLOTS_MIN)
+    assert wide._entry('yrt_occluded_wide', nodes4) == 'slots'
+    big = bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(
+        device='cpu', leaf_size=512).nodes4
+    assert wide._entry('yrt_occluded_wide', big) == 'slots'
+
+
 def test_check_packed_accepts_the_colonnade(colonnade_nodes4):
     tags = colonnade_nodes4.reshape(-1, 4, 8)[:, :, 7]
     assert wide._check_packed(colonnade_nodes4, 4) is colonnade_nodes4
-    assert 0 < tags.max() < wide._COUNT_LIMIT
+    assert 0 < tags.max() <= 32
 
 
 @pytest.mark.parametrize('tree', ['pallas_scene', 'reduced_colonnade',

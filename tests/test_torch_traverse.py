@@ -16,6 +16,7 @@ from yulio_raytracer_tpu.io import builtin_scenes as jbs
 from yulio_raytracer_tpu.integrator import pathtracer as jpt
 from yulio_raytracer_tpu.ops import intersect as jops
 from yulio_raytracer_tpu.ops import pallas_traverse as ppt
+from yulio_raytracer_tpu.ops import pallas_wide as pw
 from yulio_raytracer_tpu import renderer as jrenderer
 from yulio_raytracer_tpu.film import accum as jaccum
 
@@ -202,6 +203,87 @@ def test_commit_default_falls_back_to_binary(monkeypatch):
         sb.commit(device='cpu', leaf_size=32, accel='bvh2').nodes.numpy())
     with pytest.raises(ValueError, match='too deep'):
         sb.commit(device='cpu', leaf_size=32, accel='bvh4')
+
+
+@pytest.mark.parametrize('accel', ['default', 'bvh4'])
+def test_commit_takes_bvh4_with_large_leaves(accel):
+    """At leaf 512 the reduced colonnade has leaves of 256 triangles and
+    more: the port commits the reference's accel (BVH4) with the
+    reference's rows."""
+    js = jbs.colonnade(**COLONNADE_SMALL).commit(leaf_size=512, accel=accel)
+    sc = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=512,
+                                                accel=accel)
+    assert sc.accel == js.accel == 'bvh4'
+    np.testing.assert_array_equal(sc.nodes4.numpy(),
+                                  np.asarray(js.packet['nodes4']))
+    assert sc.nodes4.numpy().reshape(-1, 4, 8)[:, :, 7].max() >= 256
+
+
+def _assert_hits_within_rounding(got, ref, rows, org, d):
+    """_assert_hits_agree, except that a t outside rtol 1e-6 of the
+    reference's passes where both lie within 4 float32 roundings of the
+    float64 distance to the triangle's plane in the Woop rows (row w:
+    -(o . w[2, 5, 8] + w[11]) / d . w[2, 5, 8]), a rounding there being
+    2^-24 of (sum |o_i w_i| + |w[11]|) / |d . w[2, 5, 8]|: XLA's CPU
+    backend contracts the Woop dot products into fused multiply-adds, so
+    where o'_w cancels strongly the two t differ by such roundings (on
+    this test's rays, the port's t lies within 2.4 of them everywhere and
+    within 0.7 where the two differ by more than 1e-6)."""
+    t0, tri0 = np.asarray(ref.t), np.asarray(ref.tri)
+    t1, tri1 = got.t.numpy(), got.tri.numpy()
+    np.testing.assert_array_equal(tri1 >= 0, tri0 >= 0)
+    assert (tri1 == tri0).mean() >= 0.999
+    assert np.isinf(t1[tri1 < 0]).all()
+    same = (tri1 == tri0) & (tri0 >= 0)
+    far = same & ~np.isclose(t1, t0, rtol=1e-6, atol=1e-7)
+    i = np.nonzero(far)[0]
+    w = rows[tri1[i]][:, [2, 5, 8, 11]]
+    o, dd = org[i].astype(np.float64), d[i].astype(np.float64)
+    dw = (dd * w[:, :3]).sum(1)
+    exact = -((o * w[:, :3]).sum(1) + w[:, 3]) / dw
+    ulp = 2.0 ** -24 * (np.abs(o * w[:, :3]).sum(1) + np.abs(w[:, 3])) \
+        / np.abs(dw)
+    assert (np.abs(t1[i] - exact) <= 4 * ulp).all()
+    assert (np.abs(t0[i] - exact) <= 4 * ulp).all()
+
+
+def test_plain_wide_large_leaves_match_binary_and_pallas():
+    """On the reduced colonnade at leaf 512 (leaves of up to 420
+    triangles) the BVH4 plain versions find the binary plain versions'
+    hits and occlusion bit for bit, and the reference's BVH4 kernels'
+    (interpret mode) within _assert_hits_within_rounding; dead lanes
+    neither hit nor are occluded."""
+    js = jbs.colonnade(**COLONNADE_SMALL).commit(leaf_size=512)
+    s4 = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=512)
+    s2 = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=512,
+                                                accel='bvh2')
+    rs = np.random.RandomState(4)
+    n = ppt.BLOCK
+    org = (rs.randn(n, 3) * 4 + [0, 2, 0]).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = np.full((n,), 1e-4, np.float32)
+    tf = np.full((n,), np.inf, np.float32)
+    tf[::7] = -1.0
+    rows = s4.tris.reshape(-1, 16).numpy().astype(np.float64)
+    for tfar in (tf, np.where(tf > 0, 3.0, tf).astype(np.float32)):
+        jr = tuple(jnp.asarray(x) for x in (org, d, tn, tfar))
+        tr = _torch_rays((org, d, tn, tfar))
+        got = wide.intersect_packet4(s4.nodes4, s4.tris, *tr)
+        two = traverse.intersect_packet(s2.nodes, s2.tris, *tr)
+        np.testing.assert_array_equal(got.tri.numpy(), two.tri.numpy())
+        np.testing.assert_array_equal(got.t.numpy(), two.t.numpy())
+        _assert_hits_within_rounding(got, pw.intersect_packet4(
+            js.packet['nodes4'], js.packet['tris'], *jr, max_leaf=512,
+            interpret=True), rows, org, d)
+        occ = wide.occluded_packet4(s4.nodes4, s4.tris, *tr).numpy()
+        np.testing.assert_array_equal(
+            occ, traverse.occluded_packet(s2.nodes, s2.tris, *tr).numpy())
+        np.testing.assert_array_equal(occ, np.asarray(pw.occluded_packet4(
+            js.packet['nodes4'], js.packet['tris'], *jr, max_leaf=512,
+            interpret=True)))
+        assert (got.tri.numpy()[::7] == -1).all() and not occ[::7].any()
+        assert 0 < (got.tri.numpy() >= 0).mean() < 1 and occ.any()
 
 
 @pytest.mark.parametrize('accel', ['bvh4mb', 'bvh8'])

@@ -41,15 +41,24 @@
 //   taken at once without a push.  The any-hit walk, whose result does not
 //   depend on the order, visits nearest first too (the plain version
 //   goes in slot order) and stops at the first hit.
-// - A stack entry is one word, A | count << 24 (count 0: an interior row;
-//   ops/wide.py _check_packed guards A < 2^24 and counts below 256), with
-//   its entry t beside it for the closest hit: 2 x 128 and 128 words a
-//   thread in local memory.  The plain versions reach 11 entries on the
-//   colonnade (chip_smoke.py prints the distribution), so a thread only
-//   touches the first lines of its stack.
-// ptxas: closest hit 56 registers and a 1024-byte stack frame, any hit 58
-// and 512 bytes, no spills (one ray per thread walking alone, before this
-// design: 48 and 1536 bytes, 39 and 1024; nvcc 12.9).
+// - A stack entry is one 32-bit word, with its entry t beside it for the
+//   closest hit: 2 x 128 and 128 words a thread in local memory.  The
+//   plain versions reach 11 entries on the colonnade (chip_smoke.py prints
+//   the distribution), so a thread only touches the first lines of its
+//   stack.  The word is the child row of an interior slot, or A | count
+//   << 24 for a leaf of count triangles from A.  A leaf of 256 or more
+//   does not fit: for a table that holds one, the wrapper (ops/wide.py)
+//   launches the SLOTS form of each kernel (the *_slots entry points),
+//   whose word for a leaf of 128 or more is 1 << 31 | k << 24 | row, slot
+//   k of node row `row`, whose A and count are read from the row when
+//   the leaf is tested.  Either way a leaf takes one entry, tested in the
+//   plain version's order.  Each word tried that carries such leaves in
+//   one walk (a compare and a select a slot, or a test a node, with a
+//   branch a leaf) made K3 and K4 2-11% slower at leaf 32 on an NVIDIA
+//   H100 80GB HBM3 at 700 W (PERF.md section 6, wide_turns against the
+//   walk without them), so a table without such a leaf keeps the walk
+//   without them.  ops/wide.py _check_packed guards what the words need:
+//   node rows, and A + count, below 2^24.
 // The node and Woop arithmetic is bvh.cuh's slab_box and woop.cuh's
 // woop_test, compiled with --fmad=false like every source here.
 #include "bvh.cuh"
@@ -58,6 +67,9 @@
 #define WIDE_FULL 0xffffffffu
 #define WIDE_COUNT_SHIFT 24
 #define WIDE_A_MASK 0xffffffu
+// under SLOTS, leaves of this many triangles or more are named by their slot
+#define WIDE_SLOT_MIN 128
+#define WIDE_SLOT_BIT 0x80000000u
 // the lanes of a warp holding a leaf from which on each lane tests its own
 // leaf (fewer: the warp tests them one at a time across its lanes)
 #define WIDE_SERIAL_MIN 16
@@ -70,15 +82,38 @@ __device__ __forceinline__ void cswap(bool c, T& a, T& b) {
     b = y;
 }
 
-// a slot's (A, tag) as one stack word; interior and empty slots count 0
-__device__ __forceinline__ unsigned slot_word(float4 q) {
+// slot k of node row `row`, whose (A, tag) is q.zw, as one stack word;
+// interior and empty slots count 0
+template <bool SLOTS>
+__device__ __forceinline__ unsigned slot_word(float4 q, unsigned row,
+                                              int k) {
+    const int tag = static_cast<int>(q.w);
+    if (SLOTS && tag >= WIDE_SLOT_MIN) {
+        return WIDE_SLOT_BIT | (static_cast<unsigned>(k) << WIDE_COUNT_SHIFT)
+            | row;
+    }
     return static_cast<unsigned>(q.z)
-        | (static_cast<unsigned>(max(static_cast<int>(q.w), 0))
-           << WIDE_COUNT_SHIFT);
+        | (static_cast<unsigned>(max(tag, 0)) << WIDE_COUNT_SHIFT);
 }
 
 __device__ __forceinline__ bool is_leaf(unsigned w) {
     return (w >> WIDE_COUNT_SHIFT) != 0;
+}
+
+// a leaf word's first triangle a and count c (under SLOTS, from its
+// slot's row for a leaf of WIDE_SLOT_MIN or more)
+template <bool SLOTS>
+__device__ __forceinline__ void leaf_range(const float4* __restrict__ nodes,
+                                           unsigned w, int& a, int& c) {
+    if (SLOTS && (w & WIDE_SLOT_BIT)) {
+        const float4 q = __ldg(nodes + 8 * static_cast<size_t>(w & WIDE_A_MASK)
+                               + 2 * ((w >> WIDE_COUNT_SHIFT) & 3) + 1);
+        a = static_cast<int>(q.z);
+        c = static_cast<int>(q.w);
+    } else {
+        a = static_cast<int>(w & WIDE_A_MASK);
+        c = static_cast<int>(w >> WIDE_COUNT_SHIFT);
+    }
 }
 
 // node row `row` as 8 float4s: slot k is q[2k] (lo.x lo.y lo.z hi.x) and
@@ -91,21 +126,23 @@ __device__ __forceinline__ void load_node(const float4* __restrict__ nodes,
     }
 }
 
-// The 4 slots of node q against the segment (r.tnear, tfar), far first:
-// each slot's hit flag (a slab hit of a non-empty slot), entry t (-inf
-// where not hit) and stack word, in the order of the reference's
+// The 4 slots of node q (row `row`) against the segment (r.tnear, tfar),
+// far first: each slot's hit flag (a slab hit of a non-empty slot), entry
+// t (-inf where not hit) and stack word, in the order of the reference's
 // descending sort network (pallas_wide._SORT_NETS[4]).
+template <bool SLOTS>
 __device__ __forceinline__ void sort_slots(const float4 (&q)[8],
-                                           const Ray& r, const Slab& inv,
-                                           float tfar, bool (&has)[4],
-                                           float (&m)[4], unsigned (&w)[4]) {
+                                           unsigned row, const Ray& r,
+                                           const Slab& inv, float tfar,
+                                           bool (&has)[4], float (&m)[4],
+                                           unsigned (&w)[4]) {
     #pragma unroll
     for (int k = 0; k < 4; ++k) {
         float tmin;
         has[k] = slab4(q[2 * k], q[2 * k + 1], r, inv, r.tnear, tfar, tmin)
             && q[2 * k + 1].w != 0.0f;
         m[k] = has[k] ? tmin : -CUDART_INF_F;
-        w[k] = slot_word(q[2 * k + 1]);
+        w[k] = slot_word<SLOTS>(q[2 * k + 1], row, k);
     }
     const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
     #pragma unroll
@@ -175,6 +212,7 @@ __device__ __forceinline__ void take_closest(bool h, float th, float uh,
     }
 }
 
+template <bool SLOTS>
 __global__ void __launch_bounds__(WIDE_BLOCK)
 intersect_wide_kernel(const float4* __restrict__ nodes,
                       const float4* __restrict__ tris,
@@ -227,7 +265,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
             bool has[4];
             float m[4];
             unsigned w[4];
-            sort_slots(q, r, inv, b.t, has, m, w);
+            sort_slots<SLOTS>(q, cur, r, inv, b.t, has, m, w);
             // push the hit slots in order; the last one pushed would pop
             // next (its entry t passed the slab test against b.t), so it
             // is taken at once
@@ -256,7 +294,8 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
         unsigned leaves = __ballot_sync(WIDE_FULL, leaf);
         if (__popc(leaves) >= WIDE_SERIAL_MIN) {
             if (leaf) {
-                const int a = cur & WIDE_A_MASK, c = cur >> WIDE_COUNT_SHIFT;
+                int a, c;
+                leaf_range<SLOTS>(nodes, cur, a, c);
                 for (int j = a; j < a + c; ++j) {
                     float s[16], th, uh, vh;
                     load_row<4>(tris, 4, j, s);
@@ -273,7 +312,8 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
             const Ray q = shfl_ray(r, src);
             const unsigned w = __shfl_sync(WIDE_FULL, cur, src);
             float tb = __shfl_sync(WIDE_FULL, b.t, src);
-            const int a = w & WIDE_A_MASK, c = w >> WIDE_COUNT_SHIFT;
+            int a, c;
+            leaf_range<SLOTS>(nodes, w, a, c);
             for (int j0 = 0; j0 < c; j0 += 32) {
                 float th = 0.0f, uh = 0.0f, vh = 0.0f;
                 const bool h = lane_test(tris, q, tb, a, c, j0, th, uh, vh);
@@ -284,6 +324,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
     }
 }
 
+template <bool SLOTS>
 __global__ void __launch_bounds__(WIDE_BLOCK)
 occluded_wide_kernel(const float4* __restrict__ nodes,
                      const float4* __restrict__ tris,
@@ -324,7 +365,7 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
             bool has[4];
             float m[4];
             unsigned w[4];
-            sort_slots(q, r, inv, r.tfar, has, m, w);
+            sort_slots<SLOTS>(q, cur, r, inv, r.tfar, has, m, w);
             bool any = false;
             unsigned nw = 0;
             #pragma unroll
@@ -345,7 +386,8 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
         bool occ = false;
         if (__popc(leaves) >= WIDE_SERIAL_MIN) {
             if (leaf) {
-                const int a = cur & WIDE_A_MASK, c = cur >> WIDE_COUNT_SHIFT;
+                int a, c;
+                leaf_range<SLOTS>(nodes, cur, a, c);
                 for (int j = a; j < a + c && !occ; ++j) {
                     float s[16], th, uh, vh;
                     load_row<4>(tris, 4, j, s);
@@ -359,7 +401,8 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
             leaves &= leaves - 1;
             const Ray q = shfl_ray(r, src);
             const unsigned w = __shfl_sync(WIDE_FULL, cur, src);
-            const int a = w & WIDE_A_MASK, c = w >> WIDE_COUNT_SHIFT;
+            int a, c;
+            leaf_range<SLOTS>(nodes, w, a, c);
             bool hit = false;
             for (int j0 = 0; j0 < c && !hit; j0 += 32) {
                 float th, uh, vh;
@@ -375,16 +418,15 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
     }
 }
 
-extern "C" int yrt_intersect_wide(const void* nodes, const void* tris,
-                                  const void* org, const void* dir,
-                                  const void* tnear, const void* tfar,
-                                  int n_rays, void* t_out,
-                                  void* tri_out, void* u_out, void* v_out,
-                                  void* stream) {
+template <bool SLOTS>
+int intersect_wide(const void* nodes, const void* tris, const void* org,
+                   const void* dir, const void* tnear, const void* tfar,
+                   int n_rays, void* t_out, void* tri_out, void* u_out,
+                   void* v_out, void* stream) {
     if (n_rays > 0) {
         const int grid = (n_rays + WIDE_BLOCK - 1) / WIDE_BLOCK;
-        intersect_wide_kernel<<<grid, WIDE_BLOCK, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+        intersect_wide_kernel<SLOTS><<<grid, WIDE_BLOCK, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
@@ -396,15 +438,14 @@ extern "C" int yrt_intersect_wide(const void* nodes, const void* tris,
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int yrt_occluded_wide(const void* nodes, const void* tris,
-                                 const void* org, const void* dir,
-                                 const void* tnear, const void* tfar,
-                                 int n_rays, void* occ_out,
-                                 void* stream) {
+template <bool SLOTS>
+int occluded_wide(const void* nodes, const void* tris, const void* org,
+                  const void* dir, const void* tnear, const void* tfar,
+                  int n_rays, void* occ_out, void* stream) {
     if (n_rays > 0) {
         const int grid = (n_rays + WIDE_BLOCK - 1) / WIDE_BLOCK;
-        occluded_wide_kernel<<<grid, WIDE_BLOCK, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+        occluded_wide_kernel<SLOTS><<<grid, WIDE_BLOCK, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
@@ -413,4 +454,41 @@ extern "C" int yrt_occluded_wide(const void* nodes, const void* tris,
             static_cast<bool*>(occ_out));
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int yrt_intersect_wide(const void* nodes, const void* tris,
+                                  const void* org, const void* dir,
+                                  const void* tnear, const void* tfar,
+                                  int n_rays, void* t_out,
+                                  void* tri_out, void* u_out, void* v_out,
+                                  void* stream) {
+    return intersect_wide<false>(nodes, tris, org, dir, tnear, tfar, n_rays,
+                                 t_out, tri_out, u_out, v_out, stream);
+}
+
+extern "C" int yrt_intersect_wide_slots(const void* nodes, const void* tris,
+                                        const void* org, const void* dir,
+                                        const void* tnear, const void* tfar,
+                                        int n_rays, void* t_out,
+                                        void* tri_out, void* u_out,
+                                        void* v_out, void* stream) {
+    return intersect_wide<true>(nodes, tris, org, dir, tnear, tfar, n_rays,
+                                t_out, tri_out, u_out, v_out, stream);
+}
+
+extern "C" int yrt_occluded_wide(const void* nodes, const void* tris,
+                                 const void* org, const void* dir,
+                                 const void* tnear, const void* tfar,
+                                 int n_rays, void* occ_out, void* stream) {
+    return occluded_wide<false>(nodes, tris, org, dir, tnear, tfar, n_rays,
+                                occ_out, stream);
+}
+
+extern "C" int yrt_occluded_wide_slots(const void* nodes, const void* tris,
+                                       const void* org, const void* dir,
+                                       const void* tnear, const void* tfar,
+                                       int n_rays, void* occ_out,
+                                       void* stream) {
+    return occluded_wide<true>(nodes, tris, org, dir, tnear, tfar, n_rays,
+                               occ_out, stream);
 }

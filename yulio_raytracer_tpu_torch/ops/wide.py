@@ -5,7 +5,8 @@ Counterpart of `yulio_raytracer_tpu/ops/pallas_wide.py`
 table packing in `yulio_raytracer_tpu/ops/pallas_traverse.py`
 (`pack_tris`), which imports jax and so is copied here.  On a CUDA tensor
 each wrapper launches its kernel from `csrc/wide.cu` (one ray per lane,
-leaves tested by each lane or across the warp; see its header); on a
+leaves tested by each lane or across the warp; see its header), in its
+*_slots form for a table with a leaf of SLOTS_MIN triangles or more; on a
 CPU tensor it runs the plain torch version, a vectorized per-ray stack
 traversal of the same tables in the same order (the counterpart of
 `ops/traverse.py`), which the kernels are held against on the card.  Any
@@ -23,6 +24,7 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import cuda_build as cb
 from .intersect import Hit, woop_test
@@ -30,15 +32,20 @@ from .intersect import Hit, woop_test
 STACK = 128          # per-ray stack entries (pallas_traverse.STACK)
 INF = float('inf')
 _PLAIN_RAYS = 1 << 18  # rays per slice of the plain traversal
-# the kernels' stack words hold A below 2^24 and a leaf's triangle count
-# in the 8 bits above it
-_COUNT_LIMIT = 1 << 8
+# a leaf of this many triangles or more does not fit the 8 count bits of
+# the kernels' stack words: a table with one takes their *_slots forms
+SLOTS_MIN = 1 << 8
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'yrt_intersect_wide': [_V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _V, _V],
     'yrt_occluded_wide': [_V, _V, _V, _V, _V, _V, _I, _V, _V],
 }
+_SIGNATURES.update({name + '_slots': args
+                    for name, args in _SIGNATURES.items()})
+# the largest leaf of each BVH4 table given to a kernel, with the
+# tensor's version then: one read from the card per table
+_LARGEST_LEAF = WeakIdKeyDictionary()
 # descending compare-exchange network over the 4 slots (far first)
 _SORT_NET4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
@@ -65,9 +72,10 @@ def pack_tris(woop: np.ndarray, geom_host: dict) -> np.ndarray:
 
 def _check_packed(out: np.ndarray, width: int) -> np.ndarray:
     """Raise ValueError unless the wide table is exact in f32 (node
-    indices and leaf ranges below 2^24), every leaf's triangle count fits
-    the 8 bits the kernels' stack words give it (_COUNT_LIMIT), and its
-    worst-case stack occupancy, (width - 1) * depth + 1, fits STACK."""
+    indices and leaf ranges below 2^24, which is also what the kernels'
+    stack words hold: a node row, or a leaf's A and count or its slot;
+    csrc/wide.cu) and its worst-case stack occupancy, (width - 1) * depth
+    + 1, fits STACK."""
     tags = out.reshape(-1, width, 8)[:, :, 7]
     a = out.reshape(-1, width, 8)[:, :, 6]
     if out.shape[0] >= 1 << 24:
@@ -75,9 +83,6 @@ def _check_packed(out: np.ndarray, width: int) -> np.ndarray:
     leaf = tags > 0
     if np.any(leaf) and float(np.max(a[leaf] + tags[leaf])) >= float(1 << 24):
         raise ValueError("leaf triangle range exceeds f32-exact 2^24")
-    if np.any(tags >= _COUNT_LIMIT):
-        raise ValueError(f"a leaf of {int(tags.max())} triangles exceeds the "
-                         f"kernels' stack words ({_COUNT_LIMIT - 1} at most)")
     children = [[] for _ in range(out.shape[0])]
     interior = tags < 0
     for w in range(out.shape[0]):
@@ -368,6 +373,17 @@ def _lib():
     return cb.library('wide', _SIGNATURES)
 
 
+def _entry(name, nodes4):
+    """The C entry point `name` of the kernels' library for the table
+    nodes4: its *_slots form where a leaf has SLOTS_MIN triangles or
+    more."""
+    seen = _LARGEST_LEAF.get(nodes4)
+    if seen is None or seen[0] != nodes4._version:
+        seen = (nodes4._version, int(nodes4.reshape(-1, 4, 8)[:, :, 7].max()))
+        _LARGEST_LEAF[nodes4] = seen
+    return getattr(_lib(), name + '_slots' if seen[1] >= SLOTS_MIN else name)
+
+
 def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
     """Closest hit of each ray (R, 3) through the BVH4 tables."""
     if org.device.type == 'cpu':
@@ -375,8 +391,8 @@ def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
     args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar)
     r, dev = args[2].shape[0], args[2].device
     hit = cb.empty_hit(r, dev)
-    cb.launch(_lib().yrt_intersect_wide, 'intersect_packet4', dev, *args, r,
-              *hit)
+    cb.launch(_entry('yrt_intersect_wide', args[0]), 'intersect_packet4', dev,
+              *args, r, *hit)
     intersect_packet4.launches += 1
     return Hit(*hit)
 
@@ -388,8 +404,8 @@ def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar):
     args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar)
     r, dev = args[2].shape[0], args[2].device
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    cb.launch(_lib().yrt_occluded_wide, 'occluded_packet4', dev, *args, r,
-              occ)
+    cb.launch(_entry('yrt_occluded_wide', args[0]), 'occluded_packet4', dev,
+              *args, r, occ)
     occluded_packet4.launches += 1
     return occ
 

@@ -4,8 +4,11 @@ checkout's, timed in turns on the card.
     python -m yulio_raytracer_tpu_torch.wide_turns OTHER_ROOT [--rounds N]
 
 OTHER_ROOT is the root of another checkout of the repository whose
-`csrc/wide.cu` has the same C interface (`ops/wide.py` `_SIGNATURES`).
-Both sources are built.  The colonnade (leaf 32) is committed on the card
+`csrc/wide.cu` has the entry points `yrt_intersect_wide` and
+`yrt_occluded_wide` with this checkout's C interface (`ops/wide.py`
+`_SIGNATURES`): those are timed, the forms the wrappers launch for a
+table whose leaves fit the stack words' 8 count bits, as the colonnade's
+at leaf 32 do.  Both sources are built.  The colonnade (leaf 32) is committed on the card
 with the ray sets `chip_smoke.py` times K3 and K4 on, made from seed 42:
 its 1024^2 camera rays, 1M hemisphere rays from their hits, and the
 shadow rays from those hits to its 4 lights.  Each round times every set
@@ -14,14 +17,16 @@ this checkout's first on even rounds and the other's first on odd ones.
 The two libraries' results must be bit-equal.  One line per set: each
 library's median over the rounds with its min, max and the distance
 between its quartiles, the ratio of the medians, and in how many rounds
-this checkout's kernel was the faster; the last line is the same as one
-JSON object.  Needs a CUDA device.
+this checkout's kernel was the faster; then each library's machine
+instructions per kernel (`cuobjdump -sass`, beside nvcc); the last line
+is the same as one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -37,7 +42,7 @@ from .ops.intersect import Hit
 SEED = 42
 
 
-def _ms(fn, reps=5):
+def median_ms(fn, reps=5):
     """Median milliseconds of fn() over reps runs, after one warm-up."""
     fn()
     times = []
@@ -58,6 +63,23 @@ def _quartile_spread(v):
         return 0.0
     q = statistics.quantiles(v, n=4)
     return q[2] - q[0]
+
+
+def _sass_sizes(lib_path):
+    """Machine instructions per kernel of a built library, from
+    `cuobjdump -sass` (the CUDA toolkit's, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(cb._nvcc()), 'cuobjdump')
+    out = subprocess.run([tool, '-sass', lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    sizes, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            name = m.group(1)
+            sizes[name] = 0
+        elif name and re.search(r'/\*[0-9a-f]{4,}\*/', line):
+            sizes[name] += 1
+    return sizes
 
 
 def _launch(lib, anyhit, tables, rays):
@@ -87,8 +109,9 @@ def main(argv=None):
     dev = torch.device('cuda')
     other = os.path.join(os.path.abspath(opts.other_root),
                          'yulio_raytracer_tpu_torch', 'csrc')
-    libs = {'this': cb.library('wide', wide._SIGNATURES),
-            'other': cb.library('wide', wide._SIGNATURES, other)}
+    timed = {k: wide._SIGNATURES[k]
+             for k in ('yrt_intersect_wide', 'yrt_occluded_wide')}
+    libs = {'this': wide._lib(), 'other': cb.library('wide', timed, other)}
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -117,7 +140,7 @@ def main(argv=None):
         order = list(libs) if i % 2 == 0 else list(reversed(libs))
         for what, (anyhit, rays) in sets.items():
             for k in order:
-                times[what][k].append(_ms(
+                times[what][k].append(median_ms(
                     lambda: _launch(libs[k], anyhit, tables, rays)))
     summary = {}
     for what, (_, rays) in sets.items():
@@ -138,7 +161,13 @@ def main(argv=None):
               + f"; other / this {med['other'] / med['this']:.3f}; this "
               f"faster in {wins} of {opts.rounds} rounds; bit-equal results;"
               f" {card}", flush=True)
-    print(json.dumps({'card': card, 'rounds': opts.rounds, 'sets': summary}))
+    sass = {'this': _sass_sizes(cb.lib_path('wide')),
+            'other': _sass_sizes(cb.lib_path('wide', other))}
+    for k, sizes in sass.items():
+        print(f"[sass] {k}: " + ', '.join(f"{n} {v} instructions"
+                                          for n, v in sizes.items()))
+    print(json.dumps({'card': card, 'rounds': opts.rounds, 'sets': summary,
+                      'sass': sass}))
     return 0
 
 
