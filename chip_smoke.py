@@ -14,8 +14,10 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     hemisphere rays from their hits, the shadow rays to its 4 triangle
     lights; the binary pair also with each ray started at its nearest
     treelet's root), the pair kernels on the colonnade's grid (the
-    hemisphere and shadow rays, each over its entry cell's tiles) and the
-    grid march (the hemisphere rays), the split-leaf kernel K11 (the
+    hemisphere and shadow rays, each over its entry cell's tiles), bit-
+    equal on every call of one bounce-1 trace through 'grid' and 'dense'
+    (1024^2 rays, raysets.frame_pair_calls), and the grid march (the
+    hemisphere rays), the split-leaf kernel K11 (the
     sorted hemisphere rays and the camera rays), the motion kernel on the
     motion field (512^2 camera rays with their times, 1M scattered rays at
     random times); then the grid, treelet and dense paths (ops/grid.py,
@@ -43,7 +45,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     on the colonnade's 1M hemisphere rays, unsorted on its camera rays).
     Every launch counter is set to 0 before each run and read after it:
     the path's kernels must have run, no other kernel (so K12, which no
-    path runs, never), and no plain version on a CUDA tensor;
+    path runs, never), and no plain version on a CUDA tensor; the pair
+    kernels' binning (ops/pairs.py bin_rays) ran once for each of their
+    ranged calls and on no other path;
  5. timed full-size frames (cornell_512, colonnade_1024,
     colonnade_1024_bvh2, colonnade_1024_grid, colonnade_1024_treelet,
     colonnade_1024_dense, motion_field_512), with each kernel's launches
@@ -255,6 +259,7 @@ def main():
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.raysets import (camera_rays,
+                                                   frame_pair_calls,
                                                    hemisphere_rays,
                                                    scattered_rays, shadow_rays)
 
@@ -314,7 +319,7 @@ def main():
     plains = [k[1] for k in kernels]
 
     def zero_counters():
-        for f in counters:
+        for f in (*counters, pairs.bin_rays):
             f.launches = 0
         for f in plains:
             f.cuda_calls = 0
@@ -428,6 +433,16 @@ def main():
     check(pairs.occluded_pairs,
           'occluded_pairs (colonnade grid, shadow, entry cells)',
           (g['rows'], *shadow, *grid.entry_ranges(g, *shadow)))
+    # K8/K9 on every call of one bounce-1 trace through the grid's and the
+    # treelets' rounds (a pass of 2^20 rays), bit-equal
+    for how in ('grid', 'dense'):
+        calls = frame_pair_calls(colonnade, bs.colonnade_camera(1024, 1024),
+                                 how, 1024, 1024, seed=SEED)
+        for n, c in enumerate(calls):
+            f = getattr(pairs, c['kernel'])
+            check(f, f"{c['kernel']} (colonnade {how} frame, call {n + 1} "
+                  f"of {len(calls)})", c['args'], exact=True)
+        del calls
     march_tables = {k: g[k] for k in ('rows', 'cell_tile_lo', 'cell_tile_hi',
                                       'grid_lo', 'grid_hi')}
     check(grid.march_raw, 'march_raw (colonnade grid, hemisphere)',
@@ -676,12 +691,17 @@ def main():
         phase('golden', f"{name} (accel {scene.accel}, ray_binning "
               f"{binning}): PSNR {db:.2f} dB vs {name}_cpu.npz (gate "
               f"{PSNR_MIN}), {stats.num_rays:.0f} rays, kernel launches "
-              f"{counts}")
+              f"{counts}, pair binnings {pairs.bin_rays.launches}")
         if db < PSNR_MIN:
             raise AssertionError(f"{name}: PSNR {db:.2f} < {PSNR_MIN}")
         if any((ran[i] > 0) != (i in used) for i in range(len(counters))):
             raise AssertionError(f"{name} (accel {scene.accel}): its path's "
                                  "kernels did not run, or others did")
+        # every pair call of the rounds has ranges, so is binned first
+        if pairs.bin_rays.launches != ran[k8] + ran[k9]:
+            raise AssertionError(f"{name}: {pairs.bin_rays.launches} pair "
+                                 f"binnings for {ran[k8] + ran[k9]} pair "
+                                 "kernel calls")
         # the grid path: BVH4 on bounce 0 only; on each later bounce 8
         # closest rounds and 4 any-hit rounds, each with one fallback
         if binning == 'grid' and not (
@@ -761,7 +781,7 @@ def main():
         per_frame = {f.__name__: (f.launches // len(runs)
                                   if f.launches % len(runs) == 0
                                   else f.launches / len(runs))
-                     for f in counters if f.launches}
+                     for f in (*counters, pairs.bin_rays) if f.launches}
         mrps = sorted(s.mrps for s in runs)
         secs = sorted(s.seconds for s in runs)
         phase('frame', f"{name} ({res}^2, {spp} spp, depth {depth}, accel "

@@ -1,7 +1,8 @@
 """The torch port's CUDA kernels on the card: each held against its plain
 torch version (the binary kernels also from per-ray treelet roots, the
-BVH4 kernels also on leaves of 128 triangles and more, the split-leaf
-kernel K11 and the sweep prototype's kernels K12), and the cornell,
+BVH4 kernels also on leaves of 128 triangles and more, the pair kernels
+K8/K9 also on a frame's own calls and on edge cases of their binning, the
+split-leaf kernel K11 and the sweep prototype's kernels K12), and the cornell,
 motion, grid, treelet and dense colonnade goldens rendered through them.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
@@ -295,6 +296,81 @@ def test_grid_kernels_match_plain_on_card(cuda):
     for got, ref in outs:
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+_PLAIN_PAIRS = {'intersect_pairs_raw': pairs.intersect_pairs_raw_plain,
+                'occluded_pairs': pairs.occluded_pairs_plain}
+
+
+def _assert_outputs_equal(got, ref):
+    got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('binning', ['grid', 'dense'])
+def test_pair_kernels_match_plain_on_frame_calls(colonnade_card, binning):
+    """K8 and K9 bit-equal to their plain versions on every call of one
+    bounce-1 trace (256^2 rays) through the grid's rounds (over the
+    grid's rows) or the dense rounds (over the treelets' rows)."""
+    calls = raysets.frame_pair_calls(colonnade_card,
+                                     bs.colonnade_camera(256, 256), binning,
+                                     256, 256)
+    assert len(calls) == (12 if binning == 'grid' else 4)
+    for c in calls:
+        _assert_outputs_equal(c['out'], _PLAIN_PAIRS[c['kernel']](*c['args']))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['rays_1', 'rays_127', 'rays_128',
+                                  'rays_65537', 'one_bin', 'no_range',
+                                  'empty_and_dead', 'mixed_ge'])
+@pytest.mark.parametrize('table', ['grid', 'dense'])
+def test_pair_kernels_on_edge_cases(colonnade_card, table, case):
+    """K8 and K9 (and their binning) bit-equal to their plain versions
+    over the colonnade's grid rows or treelet rows: random cells' or
+    treelets' ranges at 1, 127, 128 and 65,537 rays; every ray in one
+    bin; no ranges; empty ranges and dead rays; one gs with mixed ge."""
+    sc = colonnade_card
+    if table == 'grid':
+        rows, lo, hi = (sc.grid[k] for k in ('rows', 'cell_tile_lo',
+                                             'cell_tile_hi'))
+    else:
+        rows, lo, hi = (sc.treelets[k] for k in (
+            'planes_rows', 'treelet_tile_lo', 'treelet_tile_hi'))
+    n_tiles = rows.shape[0] // pairs.TL
+    n = int(case.split('_')[1]) if case.startswith('rays_') else 4096
+    rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 13)
+    rs = np.random.RandomState(17)
+    pick = torch.as_tensor(rs.randint(0, lo.shape[0], n)).cuda()
+    gs, ge = lo[pick].int(), hi[pick].int()
+    widest = int(torch.argmax(hi - lo))
+    if case in ('one_bin', 'mixed_ge'):
+        gs = torch.full_like(gs, int(lo[widest]))
+        ge = torch.full_like(ge, int(hi[widest]))
+    if case == 'mixed_ge':
+        ge = torch.clamp(gs + torch.as_tensor(rs.randint(0, 6, n)).cuda(),
+                         max=n_tiles).int()
+    if case == 'empty_and_dead':
+        ge = torch.where(torch.arange(n).cuda() % 3 == 0, gs, ge)
+        rays[3] = torch.where(torch.arange(n).cuda() % 5 == 1, rays[2],
+                              rays[3])
+    ranges = () if case == 'no_range' else (gs, ge)
+    before = (pairs.intersect_pairs_raw.launches,
+              pairs.occluded_pairs.launches, pairs.bin_rays.launches)
+    outs = [(f(rows, *rays, *ranges), _PLAIN_PAIRS[f.__name__](
+        rows, *rays, *ranges)) for f in (pairs.intersect_pairs_raw,
+                                         pairs.occluded_pairs)]
+    torch.cuda.synchronize()
+    assert (pairs.intersect_pairs_raw.launches, pairs.occluded_pairs.launches,
+            pairs.bin_rays.launches) == (before[0] + 1, before[1] + 1,
+                                         before[2] + 2 * bool(ranges))
+    for got, ref in outs:
+        _assert_outputs_equal(got, ref)
+    if n > 1000:
+        assert bool((outs[0][1][1] >= 0).any()) and bool(outs[1][1].any())
 
 
 @pytest.mark.cuda

@@ -26,7 +26,8 @@ from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 from yulio_raytracer_tpu_torch.ops import dense, traverse, wide
 from yulio_raytracer_tpu_torch.ops import grid, pairs
-from yulio_raytracer_tpu_torch import renderer
+from yulio_raytracer_tpu_torch.ops.pairs import TL
+from yulio_raytracer_tpu_torch import raysets, renderer
 from yulio_raytracer_tpu_torch import scene as tscene
 from yulio_raytracer_tpu_torch.film import accum
 
@@ -36,6 +37,10 @@ torch.set_num_threads(2)
 COLONNADE_SMALL = dict(cols_x=3, cols_z=2, tess=(8, 10))
 R = ppt.BLOCK          # the reference's packet kernels take 1024s
 R_ODD = 1000           # the port takes any count
+
+
+PLAIN = {'intersect_pairs_raw': pairs.intersect_pairs_raw_plain,
+         'occluded_pairs': pairs.occluded_pairs_plain}
 
 
 def _grid_scene(m, b, p, **tree_kw):
@@ -316,6 +321,76 @@ def test_entry_ranges_are_the_first_round(grid_setup):
     one = grid.intersect_grid(s['grid'], nodes, s['tris'], *tr, res=4,
                               rounds=1)
     np.testing.assert_array_equal(t.numpy(), one.t.numpy())
+
+
+@pytest.mark.parametrize('ranged', [False, True])
+def test_plain_pairs_commute_with_a_ray_permutation(pair_setup, ranged):
+    """Permuting the rays (with their ranges) permutes both plain
+    versions' outputs exactly, ties included: the pair kernels' binning
+    reorders rays and relies on it.  The table starts with a copy of its
+    first tile whose lanes are rotated by 64, so every hit there ties at
+    a bit-equal t between lanes l + 64 and l of the first two tiles, and
+    the later tile's lesser lane wins."""
+    s = pair_setup
+    rows = s['rows']
+    rows = torch.cat([rows[:TL].roll(TL // 2, dims=0), rows])
+    n_tiles = rows.shape[0] // TL
+    rs = np.random.RandomState(7)
+    tr = [torch.as_tensor(x) for x in s['rays']]
+    tfo = torch.where(tr[3] < 0, -1.0, 3.0)
+    ranges = ()
+    if ranged:
+        gs = torch.as_tensor(rs.randint(0, n_tiles, len(tfo)),
+                             dtype=torch.int32)
+        gs[::3] = 0
+        ge = torch.clamp(gs + torch.as_tensor(rs.randint(0, n_tiles + 1,
+                                                         len(tfo))),
+                         max=n_tiles).to(torch.int32)
+        ge[::3] = n_tiles
+        ranges = (gs, ge)
+    perm = torch.as_tensor(rs.permutation(len(tfo)))
+    for plain, tf in ((pairs.intersect_pairs_raw_plain, tr[3]),
+                      (pairs.occluded_pairs_plain, tfo)):
+        args = (*tr[:3], tf, *ranges)
+        ref = plain(rows, *args)
+        got = plain(rows, *(x[perm] for x in args))
+        ref, got = (x if isinstance(x, tuple) else (x,) for x in (ref, got))
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a.numpy(), b[perm].numpy())
+    _, slot = pairs.intersect_pairs_raw_plain(rows, *tr, *ranges)
+    assert bool(((slot >= TL) & (slot < TL + TL // 2)).any())  # ties
+
+
+def test_frame_pair_calls_record_the_grid_rounds():
+    """raysets.frame_pair_calls on the reduced colonnade through 'grid':
+    bounce 1's 8 K8 and 4 K9 calls, round 1 over the cells entry_ranges
+    gives; the rounds run again on the recorded round-1 rays make the
+    same calls, and the plain versions reproduce every call's results."""
+    sc = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32)
+    calls = raysets.frame_pair_calls(sc, bs.colonnade_camera(16, 16), 'grid',
+                                     16, 16)
+    assert [c['kernel'] for c in calls] == (['intersect_pairs_raw'] * 8
+                                            + ['occluded_pairs'] * 4)
+    k8, k9 = calls[0]['args'], calls[8]['args']
+    for args in (k8, k9):
+        assert args[0] is sc.grid['rows']
+        for got, ref in zip(args[5:], grid.entry_ranges(sc.grid, *args[1:5])):
+            np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert bool((k8[6] > k8[5]).any()) and bool((k9[6] > k9[5]).any())
+    with raysets.recorded_pair_calls() as again:
+        grid.intersect_grid(sc.grid, sc.nodes, sc.tris, *k8[1:5])
+        grid.occluded_grid(sc.grid, sc.nodes, sc.tris, *k9[1:5])
+    assert len(again) == len(calls)
+    for rec, rerun in zip(calls, again):
+        assert rec['kernel'] == rerun['kernel']
+        for a, b in zip(rec['args'][1:], rerun['args'][1:]):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        out = PLAIN[rec['kernel']](*rec['args'])
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (out, rec['out']))):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # the wrappers are back in place
+    assert all(getattr(pairs, k).__name__ == k for k in PLAIN)
 
 
 # ------------------------------------------------------------- dispatch

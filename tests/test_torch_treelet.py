@@ -25,10 +25,11 @@ from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 from yulio_raytracer_tpu_torch.ops import (binning, dense, grid, pairs,
                                            traverse, treelets, wide)
-from yulio_raytracer_tpu_torch import renderer
+from yulio_raytracer_tpu_torch import raysets, renderer
 from yulio_raytracer_tpu_torch.film import accum
 
-from test_torch_grid import COLONNADE_SMALL, _grid_scene, _record, _render
+from test_torch_grid import (COLONNADE_SMALL, PLAIN, _grid_scene, _record,
+                             _render)
 
 torch.set_num_threads(2)
 R = ppt.BLOCK          # the reference's packet kernels take 1024s
@@ -292,6 +293,43 @@ def test_binned_dispatch(monkeypatch, which, binning_):
 
 
 # ----------------------------------------------------------- whole slice
+
+def test_frame_pair_calls_record_the_dense_rounds():
+    """raysets.frame_pair_calls on the reduced colonnade through 'dense':
+    bounce 1's 2 K8 and 2 K9 calls over the treelets' rows, round 1 over
+    the tiles of each ray's first treelet choice; the rounds run again on
+    the recorded round-1 rays make the same calls, and the plain versions
+    reproduce every call's results."""
+    sc = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32)
+    tl = sc.treelets
+    tables = (tl['planes_rows'], tl['treelet_boxes'], tl['treelet_tile_lo'],
+              tl['treelet_tile_hi'])
+    calls = raysets.frame_pair_calls(sc, bs.colonnade_camera(16, 16),
+                                     'dense', 16, 16)
+    assert [c['kernel'] for c in calls] == (['intersect_pairs_raw'] * 2
+                                            + ['occluded_pairs'] * 2)
+    k8, k9 = calls[0]['args'], calls[2]['args']
+    for args in (k8, k9):
+        assert args[0] is tl['planes_rows']
+        sel, has = treelets.treelet_assign(
+            tl['treelet_boxes'], *args[1:5], treelets.no_treelets_visited(
+                args[1].shape[0], tl['treelet_boxes'].shape[0], 'cpu'))
+        assert bool(has.any()) and not bool((args[4][~has] >= 0).any())
+        for got, ref in zip(args[5:], treelets._tiles(*tables[2:], sel)):
+            np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    with raysets.recorded_pair_calls() as again:
+        treelets.intersect_dense_binned(sc.nodes, sc.tris, *tables, *k8[1:5])
+        treelets.occluded_dense_binned(sc.nodes, sc.tris, *tables, *k9[1:5])
+    assert len(again) == len(calls)
+    for rec, rerun in zip(calls, again):
+        assert rec['kernel'] == rerun['kernel']
+        for a, b in zip(rec['args'], rerun['args']):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        out = PLAIN[rec['kernel']](*rec['args'])
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (out, rec['out']))):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
 
 @pytest.fixture(scope='module')
 def colonnade_refs():

@@ -2,16 +2,17 @@
 // the whole-DDA grid march.
 //
 // Replaces the TPU kernels of yulio_raytracer_tpu:
-//   yrt_intersect_pairs <- ops/pallas_pairs.py _kernel
-//                          (intersect_pairs_raw, K8)
-//   yrt_occluded_pairs  <- ops/pallas_pairs.py _kernel_any
-//                          (occluded_pairs, K9)
+//   yrt_intersect_pairs <- ops/pallas_pairs.py:248 intersect_pairs_raw's
+//                          pallas_call, _kernel :113 (K8)
+//   yrt_occluded_pairs  <- ops/pallas_pairs.py:320 occluded_pairs's
+//                          pallas_call, _kernel_any :158 (K9)
 //   yrt_grid_march      <- ops/grid.py _kernel_march
 //                          (_march_raw / intersect_march, K10)
 // The reference runs K8 and K9 in the DDA rounds of ray_binning='grid'
-// (ops/grid.py intersect_grid / occluded_grid), each round sweeping every
-// active ray's current cell; K10 is the same march in one kernel, reached
-// by the reference's scripts and tests.
+// (ops/grid.py intersect_grid / occluded_grid) and in the 'dense' rounds
+// (ops/pallas_traverse.py intersect_dense_binned), each round sweeping
+// every active ray's current cell or treelet; K10 is the same march in one
+// kernel, reached by the reference's scripts and tests.
 //
 // Triangle rows: (Tp, 16) f32, Tp a multiple of 128 (pairs.cuh).  K8 and
 // K9 take per-ray tile ranges [gs, ge) (null: the whole table); K8
@@ -21,68 +22,398 @@
 // (t, slot) like K8; the caller maps slots to triangles (tri_orig) and
 // rebuilds u/v (ops/pairs.py recompute_uv), as the reference does.
 //
-// Design: one thread per ray, sweeping its slots in ascending order with
-// the TPU kernel's tie rule (pairs.cuh).  K10 marches each ray through its
-// own cells (Amanatides-Woo) with the constants of _kernel_march: the
-// entry cell holds the point at the box entry plus an absolute 1e-6; a
-// tie in the next crossing steps x before y before z; the ray stays live
-// while the next cell's entry is <= min(tfar, best t).  The TPU's 16-ray
-// groups, visited-cell mask and entry-cell sort are packet machinery that
-// a single ray does not need: it visits each of its cells once, near to
-// far.
+// What bounds K8/K9 on the H100: pair-test flops (55 f32 operations per
+// slot, woop_test) and the instructions around them.  The rounds hand the
+// kernels every ray of a pass, incoherent bounce rays each with its own
+// cell's or treelet's range (2.3 tiles of 128 slots on average on the
+// colonnade's grid, 13 over its treelets): with one ray per thread over
+// the rays in call order a warp holds up to 32 ranges, runs as long as
+// its longest, and fetches 32 different rows from global memory per step.
 //
-// What bounds it on the H100: pair-test flops.  A ray sweeps whole cells
-// (a mean of 2.3 tiles of 128 slots on the colonnade at res 8), 55 f32
-// operations per slot (woop_test), and the rows of one cell are read by
-// every ray in it, so the loads broadcast within a warp whose rays share
-// a cell.  Divergent ranges across a warp run at the longest range; K10's
-// rays march different numbers of cells, so its warps diverge most.  On
-// an H100 (700 W) K8 and K9 ran at 22-25% of the f32 peak on their
-// counted tests and K10 at 7% (PERF.md, chip_smoke.py).  Later work:
-// staging a cell's rows in shared memory for the warp, sorting rays by
-// cell (ROADMAP B7), --fmad=true once bit-equality with the torch version
-// is no longer the contract.
+// Design of K8/K9, the reference's grouping made for this card:
+// - Binning (yrt_bin_pairs, three kernels): the active rays (ge > gs and
+//   tfar > tnear; the others get inf / -1 or false at once) are keyed by
+//   gs in a counting sort: a histogram over the n_tiles bins, privatised
+//   in shared memory for the first BIN_SMEM bins; an exclusive scan of
+//   the bins in one block, which also lays out the work list, one chunk
+//   of up to PAIR_BLOCK rays of one bin per sweep block; and a scatter of
+//   ray indices into the permutation, whose first ray of each chunk
+//   writes the chunk's bin.  The order within a bin is free: each ray's
+//   result depends only on its own sweep.
+// - Sweep (128 threads, one ray each): a block takes one chunk, so its
+//   rays share gs; it sweeps the tiles [gs, max ge) of its rays, each
+//   tile staged once in shared memory (8 KB, double-buffered with
+//   cp.async) and read by all threads one row at a time (a broadcast), and
+//   each thread tests only the tiles of its own range, in ascending slot
+//   order with pairs.cuh's test and tie rule, so the results are
+//   bit-equal to the one-ray sweep.  K9's thread stops at its first hit,
+//   and its block leaves the tile loop once every thread is done
+//   (__syncthreads_and: the reference's per-block early exit).  Without
+//   ranges no binning runs: each block takes 128 consecutive rays over the
+//   whole table.
+// On an H100 (700 W) this runs K8/K9 at 23-30% of their f32 bound on the
+// calls of a frame's rounds, where one ray per thread in call order ran
+// at 5-18%, and the binning takes 2-8% of a call; two rays per thread,
+// and blocks of 64 or 256 rays, were slower (PERF.md, pairs_turns).
+// K10 marches each ray through its own cells (Amanatides-Woo) with the
+// constants of _kernel_march: the entry cell holds the point at the box
+// entry plus an absolute 1e-6; a tie in the next crossing steps x before y
+// before z; the ray stays live while the next cell's entry is <= min(tfar,
+// best t).  The TPU's 16-ray groups, visited-cell mask and entry-cell sort
+// are packet machinery that a single ray does not need.  Its rays march
+// different numbers of cells, so its warps diverge most (7% of the f32
+// bound on an H100 at 700 W; PERF.md).
 #include "pairs.cuh"
 
 #define GRID_BLOCK 128
+#define PAIR_BLOCK 128        // threads of a sweep block: one chunk of
+                              // up to 128 rays of one bin
+#define BIN_THREADS 256       // threads of a binning block
+#define BIN_RAYS 16           // rays per binning thread
+#define BIN_SMEM 4096         // bins counted in shared memory (16 KB)
+#define SCAN_THREADS 1024
+#define FULL_MASK 0xffffffffu
 
-__global__ void __launch_bounds__(GRID_BLOCK)
+// The binning's scratch, carved from one int32 buffer of
+// yrt_pairs_scratch(n_tiles, n_rays) ints: each bin's cursor (its count,
+// then its next free position), its first ray (n_tiles + 1) and its first
+// chunk (n_tiles + 1), the chunk count, the permutation, and each chunk's
+// bin.
+struct Bins {
+    int* cursor;
+    int* offs;
+    int* cstart;
+    int* total;
+    int* perm;
+    int* chunk;
+};
+
+static int max_chunks(int n_tiles, int n_rays) {
+    return (n_rays + PAIR_BLOCK - 1) / PAIR_BLOCK
+        + (n_tiles < n_rays ? n_tiles : n_rays);
+}
+
+static Bins carve(void* scratch, int n_tiles, int n_rays) {
+    int* p = static_cast<int*>(scratch);
+    Bins b;
+    b.cursor = p;
+    b.offs = b.cursor + n_tiles;
+    b.cstart = b.offs + n_tiles + 1;
+    b.total = b.cstart + n_tiles + 1;
+    b.perm = b.total + 1;
+    b.chunk = b.perm + n_rays;
+    return b;
+}
+
+// ------------------------------------------------------------- binning
+
+// ray i's bin (its gs), or -1 for a ray that sweeps nothing (and for a
+// gs outside the table, which keeps the counters in bounds)
+__device__ __forceinline__ int ray_bin(const int* __restrict__ gs,
+                                       const int* __restrict__ ge,
+                                       const float* __restrict__ tnear,
+                                       const float* __restrict__ tfar,
+                                       int n_tiles, int i) {
+    const int s = __ldg(gs + i);
+    const bool in_table = static_cast<unsigned>(s)
+        < static_cast<unsigned>(n_tiles);
+    return __ldg(ge + i) > s && in_table
+        && __ldg(tfar + i) > __ldg(tnear + i) ? s : -1;
+}
+
+__device__ __forceinline__ int local_bins(int n_tiles, int* local) {
+    const int nb = n_tiles < BIN_SMEM ? n_tiles : BIN_SMEM;
+    for (int k = threadIdx.x; k < nb; k += BIN_THREADS) local[k] = 0;
+    __syncthreads();
+    return nb;
+}
+
+// each block counts BIN_THREADS * BIN_RAYS rays into the bins' cursors,
+// and writes the result of every inactive ray (occ_out for K9, else
+// t_out / slot_out)
+__global__ void __launch_bounds__(BIN_THREADS)
+bin_count_kernel(const int* __restrict__ gs, const int* __restrict__ ge,
+                 const float* __restrict__ tnear,
+                 const float* __restrict__ tfar, int n_tiles, int n_rays,
+                 int* __restrict__ cursor, float* __restrict__ t_out,
+                 int* __restrict__ slot_out, bool* __restrict__ occ_out) {
+    __shared__ int local[BIN_SMEM];
+    const int nb = local_bins(n_tiles, local);
+    const int base = blockIdx.x * (BIN_THREADS * BIN_RAYS) + threadIdx.x;
+    #pragma unroll 4
+    for (int j = 0; j < BIN_RAYS; ++j) {
+        const int i = base + j * BIN_THREADS;
+        if (i >= n_rays) break;
+        const int bin = ray_bin(gs, ge, tnear, tfar, n_tiles, i);
+        if (bin < 0) {
+            if (occ_out) {
+                occ_out[i] = false;
+            } else {
+                t_out[i] = CUDART_INF_F;
+                slot_out[i] = -1;
+            }
+        } else if (bin < nb) {
+            atomicAdd(local + bin, 1);
+        } else {
+            atomicAdd(cursor + bin, 1);
+        }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < nb; k += BIN_THREADS) {
+        if (local[k]) atomicAdd(cursor + k, local[k]);
+    }
+}
+
+// one block: the exclusive scans of the bins' ray counts (offs) and chunk
+// counts (cstart); each cursor becomes its bin's first position
+__global__ void __launch_bounds__(SCAN_THREADS)
+bin_scan_kernel(int n_tiles, Bins b) {
+    __shared__ int warp_r[32], warp_c[32];
+    __shared__ int carry_r, carry_c;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    if (threadIdx.x == 0) carry_r = carry_c = 0;
+    __syncthreads();
+    for (int base = 0; base < n_tiles; base += SCAN_THREADS) {
+        const int k = base + threadIdx.x;
+        const int c = k < n_tiles ? b.cursor[k] : 0;
+        const int ch = (c + PAIR_BLOCK - 1) / PAIR_BLOCK;
+        int r = c, q = ch;
+        #pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int a = __shfl_up_sync(FULL_MASK, r, o);
+            const int d = __shfl_up_sync(FULL_MASK, q, o);
+            if (lane >= o) {
+                r += a;
+                q += d;
+            }
+        }
+        if (lane == 31) {
+            warp_r[w] = r;
+            warp_c[w] = q;
+        }
+        __syncthreads();
+        if (w == 0) {
+            int a = warp_r[lane], d = warp_c[lane];
+            #pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int x = __shfl_up_sync(FULL_MASK, a, o);
+                const int y = __shfl_up_sync(FULL_MASK, d, o);
+                if (lane >= o) {
+                    a += x;
+                    d += y;
+                }
+            }
+            warp_r[lane] = a;
+            warp_c[lane] = d;
+        }
+        __syncthreads();
+        const int pre_r = carry_r + (w ? warp_r[w - 1] : 0) + r - c;
+        const int pre_c = carry_c + (w ? warp_c[w - 1] : 0) + q - ch;
+        if (k < n_tiles) {
+            b.offs[k] = pre_r;
+            b.cstart[k] = pre_c;
+            b.cursor[k] = pre_r;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            carry_r += warp_r[31];
+            carry_c += warp_c[31];
+        }
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+        b.offs[n_tiles] = carry_r;
+        b.cstart[n_tiles] = carry_c;
+        *b.total = carry_c;
+    }
+}
+
+// each block places its rays in the permutation: ranks within the block
+// from shared counters, one reservation per bin and block; the ray at the
+// start of a chunk writes the chunk's bin
+__global__ void __launch_bounds__(BIN_THREADS)
+bin_scatter_kernel(const int* __restrict__ gs, const int* __restrict__ ge,
+                   const float* __restrict__ tnear,
+                   const float* __restrict__ tfar, int n_tiles, int n_rays,
+                   Bins b) {
+    __shared__ int local[BIN_SMEM];
+    const int nb = local_bins(n_tiles, local);
+    const int base = blockIdx.x * (BIN_THREADS * BIN_RAYS) + threadIdx.x;
+    int bin[BIN_RAYS], pos[BIN_RAYS];
+    #pragma unroll
+    for (int j = 0; j < BIN_RAYS; ++j) {
+        const int i = base + j * BIN_THREADS;
+        bin[j] = i < n_rays ? ray_bin(gs, ge, tnear, tfar, n_tiles, i)
+                            : -1;
+        pos[j] = bin[j] < 0 ? -1
+            : bin[j] < nb ? atomicAdd(local + bin[j], 1)
+                          : atomicAdd(b.cursor + bin[j], 1);
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < nb; k += BIN_THREADS) {
+        if (local[k]) local[k] = atomicAdd(b.cursor + k, local[k]);
+    }
+    __syncthreads();
+    #pragma unroll
+    for (int j = 0; j < BIN_RAYS; ++j) {
+        if (bin[j] < 0) continue;
+        const int p = bin[j] < nb ? local[bin[j]] + pos[j] : pos[j];
+        b.perm[p] = base + j * BIN_THREADS;
+        const int r = p - b.offs[bin[j]];
+        if (r % PAIR_BLOCK == 0) {
+            b.chunk[b.cstart[bin[j]] + r / PAIR_BLOCK] = bin[j];
+        }
+    }
+}
+
+// --------------------------------------------------------------- sweep
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// start copying tile g (128 rows, 512 float4s) into dst, the block's
+// threads taking consecutive float4s, as one cp.async group
+__device__ __forceinline__ void stage_tile(float4* dst,
+                                           const float4* __restrict__ rows,
+                                           int g) {
+    const float4* src = rows + static_cast<size_t>(g) * (PAIR_TILE * 4);
+    #pragma unroll
+    for (int q = threadIdx.x; q < PAIR_TILE * 4; q += PAIR_BLOCK) {
+        cp_async16(dst + q, src + q);
+    }
+    cp_async_commit();
+}
+
+// K8 (ANY false) and K9 (ANY true).  With ge null: no ranges, block c
+// takes rays [128 c, 128 c + 128) over the whole table.  Otherwise block
+// c takes chunk c of the binning's work list (blocks past its end leave
+// at once).  Outputs are written at each ray's own index.
+template <bool ANY>
+__device__ __forceinline__ void sweep_pairs(
+        const float4* __restrict__ rows, const float* __restrict__ org,
+        const float* __restrict__ dir, const float* __restrict__ tnear,
+        const float* __restrict__ tfar, const int* __restrict__ ge,
+        const Bins& b, int n_tiles, int n_rays, float* __restrict__ t_out,
+        int* __restrict__ slot_out, bool* __restrict__ occ_out) {
+    __shared__ float4 tile[2][PAIR_TILE * 4];
+    __shared__ int warp_end[PAIR_BLOCK / 32];
+    const int c = blockIdx.x;
+    int i, g0, end;
+    if (ge) {
+        if (c >= *b.total) return;
+        const int bin = b.chunk[c];
+        const int j = b.offs[bin] + (c - b.cstart[bin]) * PAIR_BLOCK
+            + threadIdx.x;
+        i = j < b.offs[bin + 1] ? b.perm[j] : -1;
+        g0 = bin;
+        end = i >= 0 ? __ldg(ge + i) : g0;
+    } else {
+        i = c * PAIR_BLOCK + threadIdx.x;
+        i = i < n_rays ? i : -1;
+        g0 = 0;
+        end = i >= 0 ? n_tiles : 0;
+    }
+    Ray r = {};
+    if (i >= 0) r = load_ray(org, dir, tnear, tfar, i);
+    if (!(r.tfar > r.tnear)) end = g0;    // dead (unbinned calls only)
+    int g1 = __reduce_max_sync(FULL_MASK, end);
+    if ((threadIdx.x & 31) == 0) warp_end[threadIdx.x >> 5] = g1;
+    __syncthreads();
+    #pragma unroll
+    for (int w = 0; w < PAIR_BLOCK / 32; ++w) g1 = max(g1, warp_end[w]);
+
+    float best_t = CUDART_INF_F;
+    int best_slot = -1;
+    bool occ = false;
+    if (g0 < g1) stage_tile(tile[0], rows, g0);
+    for (int g = g0; g < g1; ++g) {
+        const int cur = (g - g0) & 1;
+        if (g + 1 < g1) {
+            stage_tile(tile[cur ^ 1], rows, g + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float4* t4 = tile[cur];
+        if (g < end) {
+            for (int k = 0; k < PAIR_TILE; ++k) {
+                float w[16];
+                #pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const float4 x = t4[4 * k + q];
+                    w[4 * q + 0] = x.x;
+                    w[4 * q + 1] = x.y;
+                    w[4 * q + 2] = x.z;
+                    w[4 * q + 3] = x.w;
+                }
+                float th, uh, vh;
+                const bool hit = woop_test(w, r, r.tnear, r.tfar, th, uh, vh);
+                if (ANY) {
+                    if (hit) {
+                        occ = true;
+                        break;
+                    }
+                } else {
+                    take_closer(hit, th, g * PAIR_TILE + k, best_t,
+                                best_slot);
+                }
+            }
+        }
+        if (ANY) {
+            if (__syncthreads_and(occ || g + 1 >= end)) break;
+        } else {
+            __syncthreads();
+        }
+    }
+    cp_async_wait<0>();
+    if (i < 0) return;
+    if (ANY) {
+        occ_out[i] = occ;
+    } else {
+        t_out[i] = best_t;
+        slot_out[i] = best_slot;
+    }
+}
+
+__global__ void __launch_bounds__(PAIR_BLOCK)
 closest_pairs_kernel(const float4* __restrict__ rows,
                      const float* __restrict__ org,
                      const float* __restrict__ dir,
                      const float* __restrict__ tnear,
                      const float* __restrict__ tfar,
-                     const int* __restrict__ gs, const int* __restrict__ ge,
-                     int n_tiles, int n_rays, float* __restrict__ t_out,
+                     const int* __restrict__ ge, Bins b, int n_tiles,
+                     int n_rays, float* __restrict__ t_out,
                      int* __restrict__ slot_out) {
-    const int i = blockIdx.x * GRID_BLOCK + threadIdx.x;
-    if (i >= n_rays) return;
-    const Ray r = load_ray(org, dir, tnear, tfar, i);
-    const int s0 = gs ? __ldg(gs + i) * PAIR_TILE : 0;
-    const int s1 = ge ? __ldg(ge + i) * PAIR_TILE : n_tiles * PAIR_TILE;
-    float best_t = CUDART_INF_F;
-    int best_slot = -1;
-    sweep_closest(rows, s0, s1, r, best_t, best_slot);
-    t_out[i] = best_t;
-    slot_out[i] = best_slot;
+    sweep_pairs<false>(rows, org, dir, tnear, tfar, ge, b, n_tiles, n_rays,
+                       t_out, slot_out, nullptr);
 }
 
-__global__ void __launch_bounds__(GRID_BLOCK)
+__global__ void __launch_bounds__(PAIR_BLOCK)
 occluded_pairs_kernel(const float4* __restrict__ rows,
                       const float* __restrict__ org,
                       const float* __restrict__ dir,
                       const float* __restrict__ tnear,
                       const float* __restrict__ tfar,
-                      const int* __restrict__ gs,
-                      const int* __restrict__ ge, int n_tiles, int n_rays,
-                      bool* __restrict__ occ_out) {
-    const int i = blockIdx.x * GRID_BLOCK + threadIdx.x;
-    if (i >= n_rays) return;
-    const Ray r = load_ray(org, dir, tnear, tfar, i);
-    const int s0 = gs ? __ldg(gs + i) * PAIR_TILE : 0;
-    const int s1 = ge ? __ldg(ge + i) * PAIR_TILE : n_tiles * PAIR_TILE;
-    occ_out[i] = r.tfar > r.tnear && sweep_any(rows, s0, s1, r);
+                      const int* __restrict__ ge, Bins b, int n_tiles,
+                      int n_rays, bool* __restrict__ occ_out) {
+    sweep_pairs<true>(rows, org, dir, tnear, tfar, ge, b, n_tiles, n_rays,
+                      nullptr, nullptr, occ_out);
 }
+
+// ---------------------------------------------------------------- march
 
 __global__ void __launch_bounds__(GRID_BLOCK)
 march_kernel(const float4* __restrict__ rows,
@@ -148,42 +479,93 @@ march_kernel(const float4* __restrict__ rows,
     slot_out[i] = best_slot;
 }
 
-static int grid_of(int n_rays) {
-    return (n_rays + GRID_BLOCK - 1) / GRID_BLOCK;
+// ------------------------------------------------------------ entry points
+
+static int blocks(long long n, int per_block) {
+    return static_cast<int>((n + per_block - 1) / per_block);
 }
 
+// ints of the binning's scratch for n_rays rays over n_tiles tiles
+extern "C" int yrt_pairs_scratch(int n_tiles, int n_rays) {
+    return 3 * n_tiles + 3 + n_rays + max_chunks(n_tiles, n_rays);
+}
+
+// Bin the rays with a range of K8 (occ_out null) or K9 (t_out and
+// slot_out null) into scratch, and write the results of the rays that
+// sweep nothing.
+extern "C" int yrt_bin_pairs(const void* gs, const void* ge,
+                             const void* tnear, const void* tfar, int n_tiles,
+                             int n_rays, void* scratch, void* t_out,
+                             void* slot_out, void* occ_out, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Bins b = carve(scratch, n_tiles, n_rays);
+    cudaMemsetAsync(b.cursor, 0, sizeof(int) * n_tiles, s);
+    const int nb = blocks(n_rays, BIN_THREADS * BIN_RAYS);
+    const int* gsi = static_cast<const int*>(gs);
+    const int* gei = static_cast<const int*>(ge);
+    const float* tn = static_cast<const float*>(tnear);
+    const float* tf = static_cast<const float*>(tfar);
+    if (nb > 0) {
+        bin_count_kernel<<<nb, BIN_THREADS, 0, s>>>(
+            gsi, gei, tn, tf, n_tiles, n_rays, b.cursor,
+            static_cast<float*>(t_out), static_cast<int*>(slot_out),
+            static_cast<bool*>(occ_out));
+    }
+    bin_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(n_tiles, b);
+    if (nb > 0) {
+        bin_scatter_kernel<<<nb, BIN_THREADS, 0, s>>>(gsi, gei, tn, tf,
+                                                      n_tiles, n_rays, b);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// the sweep's blocks, and the binning's scratch (ge null: none)
+static int sweep_blocks(const void* ge, int n_tiles, int n_rays) {
+    return ge ? max_chunks(n_tiles, n_rays) : blocks(n_rays, PAIR_BLOCK);
+}
+
+static Bins sweep_bins(const void* ge, void* scratch, int n_tiles,
+                       int n_rays) {
+    return ge ? carve(scratch, n_tiles, n_rays) : Bins{};
+}
+
+// K8: ge and scratch (yrt_bin_pairs' on the same rays) both null, or both
+// given
 extern "C" int yrt_intersect_pairs(const void* rows, const void* org,
                                    const void* dir, const void* tnear,
-                                   const void* tfar, const void* gs,
-                                   const void* ge, int n_tiles, int n_rays,
+                                   const void* tfar, const void* ge,
+                                   void* scratch, int n_tiles, int n_rays,
                                    void* t_out, void* slot_out,
                                    void* stream) {
-    if (n_rays > 0) {
-        closest_pairs_kernel<<<grid_of(n_rays), GRID_BLOCK, 0,
+    const int nb = sweep_blocks(ge, n_tiles, n_rays);
+    if (nb > 0) {
+        closest_pairs_kernel<<<nb, PAIR_BLOCK, 0,
                                static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(rows),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
-            static_cast<const float*>(tfar), static_cast<const int*>(gs),
-            static_cast<const int*>(ge), n_tiles, n_rays,
+            static_cast<const float*>(tfar), static_cast<const int*>(ge),
+            sweep_bins(ge, scratch, n_tiles, n_rays), n_tiles, n_rays,
             static_cast<float*>(t_out), static_cast<int*>(slot_out));
     }
     return static_cast<int>(cudaGetLastError());
 }
 
+// K9: as K8
 extern "C" int yrt_occluded_pairs(const void* rows, const void* org,
                                   const void* dir, const void* tnear,
-                                  const void* tfar, const void* gs,
-                                  const void* ge, int n_tiles, int n_rays,
+                                  const void* tfar, const void* ge,
+                                  void* scratch, int n_tiles, int n_rays,
                                   void* occ_out, void* stream) {
-    if (n_rays > 0) {
-        occluded_pairs_kernel<<<grid_of(n_rays), GRID_BLOCK, 0,
+    const int nb = sweep_blocks(ge, n_tiles, n_rays);
+    if (nb > 0) {
+        occluded_pairs_kernel<<<nb, PAIR_BLOCK, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(rows),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
-            static_cast<const float*>(tfar), static_cast<const int*>(gs),
-            static_cast<const int*>(ge), n_tiles, n_rays,
+            static_cast<const float*>(tfar), static_cast<const int*>(ge),
+            sweep_bins(ge, scratch, n_tiles, n_rays), n_tiles, n_rays,
             static_cast<bool*>(occ_out));
     }
     return static_cast<int>(cudaGetLastError());
@@ -196,7 +578,7 @@ extern "C" int yrt_grid_march(const void* rows, const void* cell_lo,
                               const void* tfar, int res, int n_rays,
                               void* t_out, void* slot_out, void* stream) {
     if (n_rays > 0) {
-        march_kernel<<<grid_of(n_rays), GRID_BLOCK, 0,
+        march_kernel<<<blocks(n_rays, GRID_BLOCK), GRID_BLOCK, 0,
                        static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(rows),
             static_cast<const int*>(cell_lo),

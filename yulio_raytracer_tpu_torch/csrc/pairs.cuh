@@ -1,5 +1,6 @@
-// Shared device code of the port's grid kernels (grid.cu): the sweep of
-// one ray over a range of triangle slots, closest hit or any hit.
+// Shared device code of the port's grid kernels (grid.cu): the closest-hit
+// update rule, and the sweep of one ray over a range of triangle slots
+// from global memory (K10's march).
 //
 // Triangles sit in tiles of PAIR_TILE slots; slot s is the 64-byte row
 // [woop.T (12) | ng (3) | cull] of one triangle (ops/pairs.py pack_planes,
@@ -19,11 +20,23 @@
 
 #define PAIR_TILE 128
 
+// Let a hit (hit, th) at slot s replace (best_t, best_slot), slots taken
+// in ascending order.  Ties follow the TPU kernel, which keeps a best t
+// per lane (slot % PAIR_TILE), updated on a strictly nearer hit, then
+// takes the least lane among the minima: among equal t the least lane
+// wins, then the earliest slot.
+__device__ __forceinline__ void take_closer(bool hit, float th, int s,
+                                            float& best_t, int& best_slot) {
+    if (hit && (th < best_t
+                || (th == best_t
+                    && s % PAIR_TILE < best_slot % PAIR_TILE))) {
+        best_t = th;
+        best_slot = s;
+    }
+}
+
 // Closest hit over slots [s0, s1), ascending, carried in (best_t,
-// best_slot).  Ties follow the TPU kernel, which keeps a best t per lane
-// (slot % PAIR_TILE), updated on a strictly nearer hit, then takes the
-// least lane among the minima: among equal t the least lane wins, then
-// the earliest slot.
+// best_slot).
 __device__ __forceinline__ void sweep_closest(
         const float4* __restrict__ rows, int s0, int s1, const Ray& r,
         float& best_t, int& best_slot) {
@@ -31,24 +44,7 @@ __device__ __forceinline__ void sweep_closest(
         float w[16];
         load_row<4>(rows, 4, s, w);
         float th, uh, vh;
-        if (woop_test(w, r, r.tnear, r.tfar, th, uh, vh)
-            && (th < best_t
-                || (th == best_t
-                    && s % PAIR_TILE < best_slot % PAIR_TILE))) {
-            best_t = th;
-            best_slot = s;
-        }
+        take_closer(woop_test(w, r, r.tnear, r.tfar, th, uh, vh), th, s,
+                    best_t, best_slot);
     }
-}
-
-// Any hit over slots [s0, s1): stops at the first.
-__device__ __forceinline__ bool sweep_any(const float4* __restrict__ rows,
-                                          int s0, int s1, const Ray& r) {
-    for (int s = s0; s < s1; ++s) {
-        float w[16];
-        load_row<4>(rows, 4, s, w);
-        float th, uh, vh;
-        if (woop_test(w, r, r.tnear, r.tfar, th, uh, vh)) return true;
-    }
-    return false;
 }

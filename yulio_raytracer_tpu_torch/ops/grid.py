@@ -17,8 +17,9 @@ cell on; after the last round the rays still marching finish in the
 binary BVH kernels (ops/traverse.py, K5/K6), bounded by their best t, so
 the result is exact.  The reference groups a round's rays into 64-ray
 blocks of one cell (`_binned_layout` / `_dense_ranges`) so that a TPU
-program shares one range, and sorts the fallback's rays: a kernel with
-one ray per thread needs neither, so the port does neither.
+program shares one range, and sorts the fallback's rays.  The port's
+pair kernels group each call's rays by range themselves (ops/pairs.py
+bin_rays), and the fallback's rays stay unsorted.
 
 `march_raw` is K10 (the reference's `_march_raw`): each ray's whole
 march in one kernel (csrc/grid.cu), no fallback; `intersect_march` maps

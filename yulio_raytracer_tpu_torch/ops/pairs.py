@@ -21,11 +21,14 @@ lane (slot % TL), updated only on a strictly nearer hit, then takes the
 least lane among the minima: among equal t the least slot % TL wins,
 then the least tile.
 
-On a CUDA tensor each wrapper launches its kernel from `csrc/grid.cu`
-(one ray per thread); on a CPU tensor it runs the plain torch version:
-the pair test (`ops/intersect.py` woop_test, which is `_pair_tile`'s
-operation order) over one tile of every ray at a time.  Any ray count is
-accepted.
+On a CUDA tensor each wrapper launches its kernel from `csrc/grid.cu`:
+with ranges, `bin_rays` first groups the rays by their first tile (the
+reference's grouping), then the sweep gives each 128-ray block rays of
+one group and stages each of their tiles once in shared memory; without
+ranges each block takes 128 consecutive rays over the whole table.  On a
+CPU tensor it runs the plain torch version: the pair test
+(`ops/intersect.py` woop_test, which is `_pair_tile`'s operation order)
+over one tile of every ray at a time.  Any ray count is accepted.
 """
 from __future__ import annotations
 
@@ -46,6 +49,8 @@ _PLAIN_RAYS = 1 << 15
 _V, _I = ctypes.c_void_p, ctypes.c_int
 # every entry point of csrc/grid.cu (ops/grid.py launches the march)
 _SIGNATURES = {
+    'yrt_pairs_scratch': [_I] * 2,
+    'yrt_bin_pairs': [_V] * 4 + [_I] * 2 + [_V] * 5,
     'yrt_intersect_pairs': [_V] * 7 + [_I] * 2 + [_V] * 3,
     'yrt_occluded_pairs': [_V] * 7 + [_I] * 2 + [_V] * 2,
     'yrt_grid_march': [_V] * 9 + [_I] * 2 + [_V] * 3,
@@ -201,18 +206,36 @@ def _kernel_args(rows, org, dirn, tnear, tfar, gs, ge):
             rows.shape[0] // TL, r)
 
 
+def bin_rays(gs, ge, tnear, tfar, n_tiles, t=None, slot=None, occ=None):
+    """Group the rays that sweep something (ge > gs, tfar > tnear) by
+    their first tile gs on the card (csrc/grid.cu yrt_bin_pairs: a count,
+    a scan and a scatter), and write the results of the others: inf and
+    -1 into t and slot (K8), or false into occ (K9).  Returns the int32
+    scratch (the permutation and the work list) that the sweep reads.
+    The arguments are checked by the sweep's wrapper."""
+    scratch = torch.empty((lib().yrt_pairs_scratch(n_tiles, gs.shape[0]),),
+                          dtype=torch.int32, device=gs.device)
+    cb.launch(lib().yrt_bin_pairs, 'bin_rays', gs.device, gs, ge, tnear,
+              tfar, n_tiles, gs.shape[0], scratch, t, slot, occ)
+    bin_rays.launches += 1
+    return scratch
+
+
 def intersect_pairs_raw(rows, org, dirn, tnear, tfar, gs=None, ge=None):
     """(t, slot): each ray's closest hit over the slots of its tiles
     [gs, ge) (the whole table without ranges); inf and -1 on a miss."""
     if org.device.type == 'cpu':
         return intersect_pairs_raw_plain(rows, org, dirn, tnear, tfar, gs,
                                          ge)
-    args = _kernel_args(rows, org, dirn, tnear, tfar, gs, ge)
-    r, dev = args[-1], args[1].device
+    rows, *rays, gs, ge, n_tiles, r = _kernel_args(rows, org, dirn, tnear,
+                                                   tfar, gs, ge)
+    dev = rows.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     slot = torch.empty((r,), dtype=torch.int32, device=dev)
-    cb.launch(lib().yrt_intersect_pairs, 'intersect_pairs_raw', dev, *args,
-              t, slot)
+    scratch = None if gs is None else bin_rays(gs, ge, *rays[2:], n_tiles,
+                                               t=t, slot=slot)
+    cb.launch(lib().yrt_intersect_pairs, 'intersect_pairs_raw', dev, rows,
+              *rays, ge, scratch, n_tiles, r, t, slot)
     intersect_pairs_raw.launches += 1
     return t, slot
 
@@ -222,10 +245,14 @@ def occluded_pairs(rows, org, dirn, tnear, tfar, gs=None, ge=None):
     segment (tnear, tfar); false where tfar <= tnear."""
     if org.device.type == 'cpu':
         return occluded_pairs_plain(rows, org, dirn, tnear, tfar, gs, ge)
-    args = _kernel_args(rows, org, dirn, tnear, tfar, gs, ge)
-    r, dev = args[-1], args[1].device
+    rows, *rays, gs, ge, n_tiles, r = _kernel_args(rows, org, dirn, tnear,
+                                                   tfar, gs, ge)
+    dev = rows.device
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    cb.launch(lib().yrt_occluded_pairs, 'occluded_pairs', dev, *args, occ)
+    scratch = None if gs is None else bin_rays(gs, ge, *rays[2:], n_tiles,
+                                               occ=occ)
+    cb.launch(lib().yrt_occluded_pairs, 'occluded_pairs', dev, rows, *rays,
+              ge, scratch, n_tiles, r, occ)
     occluded_pairs.launches += 1
     return occ
 
@@ -237,8 +264,10 @@ def intersect_pairs(rows, org, dirn, tnear, tfar, gs=None, ge=None) -> Hit:
     return Hit(t, slot, *recompute_uv(rows, org, dirn, t, slot))
 
 
-# launch counts: kernels launched, and plain versions run on CUDA tensors
+# launch counts: kernels launched (bin_rays: the binning before a ranged
+# sweep), and plain versions run on CUDA tensors
 intersect_pairs_raw.launches = 0
 occluded_pairs.launches = 0
+bin_rays.launches = 0
 intersect_pairs_raw_plain.cuda_calls = 0
 occluded_pairs_plain.cuda_calls = 0

@@ -15,8 +15,10 @@ kernels (ops/traverse.py, K5/K6) from each ray's treelet root for
 treelet's tiles for 'dense'.  The reference groups each round's rays so
 that a TPU packet starts at one root or sweeps one range
 (`_binned_layout`, `_packet_roots`, `_dense_ranges`) and sorts the
-fallback's rays: a kernel with one ray per thread takes each ray's own
-root or range and needs neither, so the port does neither.
+fallback's rays.  The port's binary kernels take each ray's own root
+(one ray per thread), its pair kernels group each call's rays by range
+themselves (ops/pairs.py bin_rays), and the fallback's rays stay
+unsorted.
 
 A ray's visited treelets are a bit mask of (R, W) int64 words of 32 bits
 each (W = ceil(T / 32)), the reference's uint32 layout widened to a type

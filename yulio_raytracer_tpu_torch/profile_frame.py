@@ -49,6 +49,7 @@ CELLS = {
 KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
            'intersect_wide_kernel', 'occluded_wide_kernel', 'closest_kernel',
            'occluded_kernel', 'closest_pairs_kernel', 'occluded_pairs_kernel',
+           'bin_count_kernel', 'bin_scan_kernel', 'bin_scatter_kernel',
            'march_kernel', 'split_kernel')
 
 

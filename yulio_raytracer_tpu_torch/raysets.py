@@ -1,14 +1,19 @@
 """The ray sets the kernels are held and timed on: camera rays, the
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
-light, and rays scattered through a scene's box.  `chip_smoke.py` and
-`wide_turns` make them with these functions.
+light, rays scattered through a scene's box, and the pair kernels' own
+calls in a frame.  `chip_smoke.py`, `wide_turns` and `pairs_turns` make
+them with these functions.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from . import renderer
+from .integrator import pathtracer as pt
 from .ops import intersect as ops_i
+from .ops import pairs
 from .sampling import patterns
 from .sampling import shapesampler as ss
 
@@ -65,3 +70,48 @@ def shadow_rays(scene, dg, eps, valid, gen, dev):
         tns.append(eps)
         tfs.append(torch.where(valid, dist - eps, -1.0))
     return (torch.cat(os_), torch.cat(ds), torch.cat(tns), torch.cat(tfs))
+
+
+@contextlib.contextmanager
+def recorded_pair_calls():
+    """Record every call of the pair kernels' wrappers (ops/pairs.py
+    intersect_pairs_raw, K8, and occluded_pairs, K9) made inside the
+    block, in order: a list of dicts {'kernel': the wrapper's name,
+    'args': (rows, org, dirn, tnear, tfar, gs, ge), 'out': its result}.
+    The wrappers run as they would; the list holds their tensors.  A
+    wrapper counts its launches on the module's attribute of its name,
+    the recorder while it stands in: the count carries over both ways."""
+    calls = []
+    wrapped = {name: getattr(pairs, name)
+               for name in ('intersect_pairs_raw', 'occluded_pairs')}
+
+    def recorder(name, fn):
+        def call(rows, org, dirn, tnear, tfar, gs=None, ge=None):
+            out = fn(rows, org, dirn, tnear, tfar, gs, ge)
+            calls.append({'kernel': name,
+                          'args': (rows, org, dirn, tnear, tfar, gs, ge),
+                          'out': out})
+            return out
+        call.launches = fn.launches
+        return call
+    for name, fn in wrapped.items():
+        setattr(pairs, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in wrapped.items():
+            fn.launches = getattr(pairs, name).launches
+            setattr(pairs, name, fn)
+
+
+def frame_pair_calls(scene, camera, binning, width, height, spp=1, seed=42):
+    """The K8/K9 calls of one bounce-1 trace: a frame of max_depth 2
+    rendered with ray_binning `binning` ('grid' or 'dense'), whose
+    bounce 0 runs the BVH4 kernels and whose bounce 1 the binning's
+    rounds over a pass of width * height * spp rays (up to the renderer's
+    MAX_RAYS_PER_PASS).  Returns recorded_pair_calls' list."""
+    with recorded_pair_calls() as calls:
+        renderer.render_frame(scene, camera, pt.PTParams(
+            max_depth=2, ray_binning=binning), width, height, spp=spp,
+            seed=seed)
+    return calls
