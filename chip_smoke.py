@@ -13,7 +13,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     pair and the binary pair on the full colonnade (1024^2 camera rays, 1M
     hemisphere rays from their hits, the shadow rays to its 4 triangle
     lights; the binary pair also with each ray started at its nearest
-    treelet's root), the pair kernels on the colonnade's grid (the
+    treelet's root, and bit-equal on every call of one bounce-1 trace
+    with accel 'bvh2' and through 'treelet', raysets.frame_binary_calls),
+    the pair kernels on the colonnade's grid (the
     hemisphere and shadow rays, each over its entry cell's tiles), bit-
     equal on every call of one bounce-1 trace through 'grid' and 'dense'
     (1024^2 rays, raysets.frame_pair_calls), and the grid march (the
@@ -25,17 +27,17 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     and their any-hit forms) against the binary
     kernels on the same hemisphere and shadow rays, and K11 unsorted and
     sorted against K5 on the hemisphere rays, timed in turns; the BVH4
-    pair again on the colonnade at leaf 512 (leaves of up to 504
-    triangles; 256^2 camera rays, hemisphere rays from their hits, their
-    shadow rays), bit-equal; the sweep prototype's kernels K12
+    and binary pairs again on the colonnade at leaf 512 (leaves of up to
+    504 triangles; 256^2 camera rays, hemisphere rays from their hits,
+    their shadow rays), bit-equal; the sweep prototype's kernels K12
     (proto_sublane_sweep.py) on the colonnade's 512 packed rows holding
     the most closest hits of its camera rays against every fourth of those
     rays (2^18), each bit-equal to its plain version and the two layouts
     to each other, timed there (shape b) and at the script's own shapes
     and random rows (shape a: run(which, 512, 64, 8)).
     The plain versions count the pair and box tests their kernels make,
-    and the BVH4 ones each ray's largest stack occupancy (printed as
-    median, 99th percentile and max);
+    and the BVH4 and binary ones each ray's largest stack occupancy
+    (printed as median, 99th percentile and max);
  4. the pinned CPU goldens rendered through render_frame on the card, one
     path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
@@ -224,23 +226,17 @@ def compare(name, kernel, plain, args, counts=None, labels=('kernel',
             'bytes': moved}
 
 
-def wide_stack_depth(k3_counts, k4_counts):
-    """The BVH4 plain versions' largest stack occupancy per ray on the
-    colonnade's rays (median, 99th percentile, max)."""
-    from yulio_raytracer_tpu_torch.ops import wide
+def stack_depth(what, counts):
+    """The plain versions' largest stack occupancy per ray on the sets of
+    one table (median, 99th percentile, max), from each set's counts."""
     depth = []
-    for name, counts in (('intersect_packet4 (camera + hemisphere)',
-                          k3_counts), ('occluded_packet4 (shadow)',
-                                       [k4_counts])):
-        d = torch.cat([x for c in counts for x in c['stack']]).float()
+    for name, cs in counts:
+        d = torch.cat([x for c in cs for x in c['stack']]).float()
         q = torch.quantile(d, torch.tensor([0.5, 0.99], device=d.device))
         depth.append(f"{name} median {float(q[0]):.0f}, 99th percentile "
                      f"{float(q[1]):.0f}, max {float(d.max()):.0f}")
-    phase('kernels', "largest stack occupancy per ray of the plain BVH4 "
-          "versions, in entries: " + '; '.join(depth) + f"; the kernels "
-          f"keep STACK={wide.STACK} entries a thread in local memory (no "
-          f"part of the stack or the tree in shared memory) and take the "
-          f"nearest hit child without a push")
+    phase('kernels', f"largest stack occupancy per ray of the plain {what} "
+          "versions, in entries: " + '; '.join(depth))
 
 
 def main():
@@ -258,10 +254,9 @@ def main():
                                                treelets, wide)
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
-    from yulio_raytracer_tpu_torch.raysets import (camera_rays,
-                                                   frame_pair_calls,
-                                                   hemisphere_rays,
-                                                   scattered_rays, shadow_rays)
+    from yulio_raytracer_tpu_torch.raysets import (
+        camera_rays, frame_binary_calls, frame_pair_calls, from_treelet_roots,
+        hemisphere_rays, scattered_rays, shadow_rays)
 
     dev = torch.device('cuda')
     card = smi_line()
@@ -422,9 +417,14 @@ def main():
                                (*tables2, *rays))
     k4_counts = check(wide.occluded_packet4,
                       'occluded_packet4 (colonnade shadow)', (*tables, *shadow))
-    check(traverse.occluded_packet, 'occluded_packet (colonnade bvh2 shadow)',
-          (*tables2, *shadow))
-    wide_stack_depth(k3_counts, k4_counts)
+    k6_counts = check(traverse.occluded_packet,
+                      'occluded_packet (colonnade bvh2 shadow)',
+                      (*tables2, *shadow))
+    stack_depth(f"BVH4 (the kernels keep STACK={wide.STACK} entries a "
+                "thread in local memory and take the nearest hit child "
+                "without a push)", (
+                    ('intersect_packet4 (camera + hemisphere)', k3_counts),
+                    ('occluded_packet4 (shadow)', [k4_counts])))
     # the grid's kernels: each ray over its entry cell's tiles, and the
     # whole march (the tables it reads)
     check(pairs.intersect_pairs_raw,
@@ -471,18 +471,34 @@ def main():
           f"tiles of {pairs.TL} slots per treelet mean "
           f"{float(span.mean()):.2f}, max {float(span.max()):.0f}")
 
-    def first_round(rays):
-        sel, has = treelets.treelet_assign(
-            tl['treelet_boxes'], *rays, treelets.no_treelets_visited(
-                rays[0].shape[0], tl['treelet_boxes'].shape[0], dev))
-        return (*rays[:3], torch.where(has, rays[3], -1.0),
-                tl['treelet_roots'][torch.clamp(sel, min=0).long()])
-    check(traverse.intersect_packet, 'intersect_packet (colonnade bvh2 '
-          'hemisphere, from round-1 treelet roots)',
-          (*tables2, *first_round(hemi)))
-    check(traverse.occluded_packet, 'occluded_packet (colonnade bvh2 '
-          'shadow, from round-1 treelet roots)',
-          (*tables2, *first_round(shadow)))
+    k5_rooted = check(traverse.intersect_packet, 'intersect_packet (colonnade '
+                      'bvh2 hemisphere, from round-1 treelet roots)',
+                      (*tables2, *from_treelet_roots(colonnade, *hemi)))
+    k6_rooted = check(traverse.occluded_packet, 'occluded_packet (colonnade '
+                      'bvh2 shadow, from round-1 treelet roots)',
+                      (*tables2, *from_treelet_roots(colonnade, *shadow)))
+    stack_depth(f"binary (the kernels keep STACK={traverse.STACK} entries a "
+                "thread in local memory and take the child that would pop "
+                "next without a push)", (
+                    ('intersect_packet (camera + hemisphere)',
+                     list(k5_tests.values())),
+                    ('occluded_packet (shadow)', [k6_counts]),
+                    ('intersect_packet (hemisphere from treelet roots)',
+                     [k5_rooted]),
+                    ('occluded_packet (shadow from treelet roots)',
+                     [k6_rooted])))
+    # K5/K6 on every call of one bounce-1 trace (a pass of 2^20 rays) with
+    # accel 'bvh2' (both bounces) and through the 'treelet' rounds (two
+    # from treelet roots, then the fallback), bit-equal
+    for how in ('bvh2', 'treelet'):
+        calls = frame_binary_calls(colonnade, bs.colonnade_camera(1024, 1024),
+                                   how, 1024, 1024, seed=SEED)
+        for n, c in enumerate(calls):
+            f = getattr(traverse, c['kernel'])
+            rooted = ', from roots' if c['args'][6] is not None else ''
+            check(f, f"{c['kernel']} (colonnade {how} frame, call {n + 1} "
+                  f"of {len(calls)}{rooted})", c['args'], exact=True)
+        del calls
     # K11 on the sorted bounce-1 rays and on the camera rays
     # (scripts/bench_incoherent.py's 'split' runs), max_leaf the leaf size;
     # its closest hits need the tests K5 made on the same rays (a per-ray
@@ -612,8 +628,8 @@ def main():
     phase('kernels', f"colonnade at leaf 512: accel {big.accel}, "
           f"{big.nodes4.shape[0]} BVH4 nodes, largest leaf "
           f"{float(tags.max()):.0f} triangles, {int((tags >= 128).sum())} "
-          f"leaves of 128 or more, committed in "
-          f"{time.perf_counter() - t1:.2f} s")
+          f"leaves of 128 or more, {big.nodes.shape[0]} binary nodes, "
+          f"committed in {time.perf_counter() - t1:.2f} s")
     if big.accel != 'bvh4' or float(tags.max()) < 256:
         raise AssertionError("the colonnade at leaf 512 did not commit BVH4 "
                              "with leaves of 256 triangles or more")
@@ -625,14 +641,19 @@ def main():
     big_hit = wide.intersect_packet4(big.nodes4, big.tris, *big_cam)
     *big_hemi, dg, eps = hemisphere_rays(big, org, dirn, big_hit, gen512,
                                          dev)
-    for what, f, rays in (
-            ('camera', wide.intersect_packet4, big_cam),
-            ('hemisphere', wide.intersect_packet4, big_hemi),
-            ('shadow', wide.occluded_packet4,
-             shadow_rays(big, dg, eps, big_hit.valid, gen512, dev))):
-        compare(f'{f.__name__} (colonnade leaf 512, {what})', f,
-                plains[counters.index(f)], (big.nodes4, big.tris, *rays),
-                exact=True)
+    # the binary table at leaf 512 (the commit's binary rows, as
+    # accel='bvh2' commits them) under K5/K6 on the same rays
+    for what, rays, fs in (
+            ('camera', big_cam, (wide.intersect_packet4,
+                                 traverse.intersect_packet)),
+            ('hemisphere', big_hemi, (wide.intersect_packet4,
+                                      traverse.intersect_packet)),
+            ('shadow', shadow_rays(big, dg, eps, big_hit.valid, gen512, dev),
+             (wide.occluded_packet4, traverse.occluded_packet))):
+        for f, table in zip(fs, (big.nodes4, big.nodes)):
+            compare(f'{f.__name__} (colonnade leaf 512, {what})', f,
+                    plains[counters.index(f)], (table, big.tris, *rays),
+                    exact=True)
 
     t1 = time.perf_counter()
     motion = bs.motion_field().commit(device=dev)

@@ -1,5 +1,6 @@
 """The torch port's CUDA kernels on the card: each held against its plain
-torch version (the binary kernels also from per-ray treelet roots, the
+torch version (the binary kernels also from per-ray roots, under both
+leaf schedules, on a frame's own calls and at leaf 512, the
 BVH4 kernels also on leaves of 128 triangles and more, the pair kernels
 K8/K9 also on a frame's own calls and on edge cases of their binning, the
 split-leaf kernel K11 and the sweep prototype's kernels K12), and the cornell,
@@ -429,6 +430,143 @@ def test_rooted_binary_kernels_match_plain_on_card(cuda):
     np.testing.assert_array_equal(
         traverse.occluded_packet(*args).cpu().numpy(),
         traverse.occluded_binary_plain(*args).cpu().numpy())
+
+
+def _assert_binary_matches_plain(nodes, tris, rays, roots=None):
+    """K5 and K6 bit-equal to their plain versions on rays (from roots),
+    each launched once; returns the plain results."""
+    launches = (traverse.intersect_packet.launches,
+                traverse.occluded_packet.launches)
+    hit = traverse.intersect_packet(nodes, tris, *rays, roots)
+    ref = traverse.intersect_binary_plain(nodes, tris, *rays, roots)
+    occ = traverse.occluded_packet(nodes, tris, *rays, roots)
+    occ_ref = traverse.occluded_binary_plain(nodes, tris, *rays, roots)
+    torch.cuda.synchronize()
+    assert (traverse.intersect_packet.launches,
+            traverse.occluded_packet.launches) == (launches[0] + 1,
+                                                   launches[1] + 1)
+    for g, r in zip(hit, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    np.testing.assert_array_equal(occ.cpu().numpy(), occ_ref.cpu().numpy())
+    return ref, occ_ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['camera', 'every_fourth_live', 'fifteen'])
+def test_binary_leaf_schedules_agree(colonnade_card, rays):
+    """K5 and K6 bit-equal to their plain versions whichever way the warp
+    tests its lanes' leaves: coherent camera rays mostly take each lane's
+    own leaf loop; with only every fourth ray live (8 lanes a warp), or 15
+    rays in all, every leaf is tested across the warp."""
+    sc, dev = colonnade_card, torch.device('cuda')
+    if rays == 'camera':
+        org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128),
+                                        128, 128, dev, 7)
+        zeros = torch.zeros(org.shape[0], device=dev)
+        batch = [org, d, zeros, torch.full_like(zeros, float('inf'))]
+    else:
+        n = 15 if rays == 'fifteen' else 20_000
+        batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 13)
+        if rays == 'every_fourth_live':
+            batch[3][torch.arange(n, device=dev) % 4 != 0] = -1.0
+    ref, occ = _assert_binary_matches_plain(sc.nodes, sc.tris, batch)
+    assert bool((ref.tri >= 0).any())
+    if rays != 'fifteen':
+        assert bool(occ.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 127, 128, 65_537, 4000])
+def test_binary_kernels_on_edge_rays(colonnade_card, n):
+    """K5 and K6 bit-equal to their plain versions on the colonnade's
+    tree at 1, 127, 128 and 65,537 rays (a block's edges) and 4,000: rays
+    from inside boxes, along the axes, dead (tfar < tnear) or empty
+    (tfar == tnear), which neither hit nor are occluded."""
+    sc = colonnade_card
+    rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 21)
+    ref, occ = _assert_binary_matches_plain(sc.nodes, sc.tris, rays)
+    empty = (rays[3] <= rays[2]).cpu().numpy()
+    assert not occ.cpu().numpy()[empty].any()
+    assert (ref.tri.cpu().numpy()[empty] == -1).all()
+    if n >= 4000:
+        assert empty.any() and bool((ref.tri >= 0).any()) and bool(occ.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('roots', ['treelets', 'mixed'])
+def test_rooted_binary_kernels_on_colonnade(colonnade_card, roots):
+    """K5 and K6 bit-equal to their plain versions with each ray started
+    at the root of its nearest treelet (as the treelet binning's first
+    round), or at a random node of the tree: every third ray at a leaf,
+    every third at an interior node, the rest at the root."""
+    sc, dev = colonnade_card, torch.device('cuda')
+    rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, 20_000, 22)
+    if roots == 'treelets':
+        *rays, start = raysets.from_treelet_roots(sc, *rays)
+    else:
+        rs = np.random.RandomState(23)
+        tag = sc.nodes[:, 7].cpu().numpy()
+        leaves, inner = np.nonzero(tag > 0)[0], np.nonzero(tag < 0)[0]
+        pick = np.zeros(20_000, np.int32)
+        pick[0::3] = rs.choice(leaves, len(pick[0::3]))
+        pick[1::3] = rs.choice(inner, len(pick[1::3]))
+        start = torch.as_tensor(pick, device=dev)
+    ref, occ = _assert_binary_matches_plain(sc.nodes, sc.tris, rays, start)
+    assert bool((ref.tri >= 0).any()) and bool(occ.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('how', ['bvh2', 'treelet'])
+def test_binary_kernels_match_plain_on_frame_calls(colonnade_card, how):
+    """K5 and K6 bit-equal to their plain versions on every call of one
+    bounce-1 trace (256^2 rays): both bounces with accel 'bvh2', or
+    bounce 1's two rounds from treelet roots and the fallback of
+    ray_binning 'treelet'."""
+    calls = raysets.frame_binary_calls(colonnade_card,
+                                       bs.colonnade_camera(256, 256), how,
+                                       256, 256)
+    assert len(calls) == (4 if how == 'bvh2' else 6)
+    plain = {'intersect_packet': traverse.intersect_binary_plain,
+             'occluded_packet': traverse.occluded_binary_plain}
+    for c in calls:
+        _assert_outputs_equal(c['out'], plain[c['kernel']](*c['args']))
+
+
+@pytest.fixture(scope='module')
+def colonnade_bvh2_leaf512():
+    """The full colonnade on the card at leaf 512 with accel='bvh2' (binary
+    leaves of up to 504 triangles), or a skip without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sc = bs.colonnade().commit(device=torch.device('cuda'), leaf_size=512,
+                               accel='bvh2')
+    assert sc.accel == 'bvh2' and float(sc.nodes[:, 7].max()) >= 256
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['camera', 'hemisphere', 'edge'])
+def test_binary_kernels_take_large_leaves(colonnade_bvh2_leaf512, rays):
+    """K5 and K6 bit-equal to their plain versions on the binary colonnade
+    at leaf 512: coherent camera rays (each lane tests its own leaf),
+    hemisphere rays from their hits and edge rays (leaves of hundreds of
+    triangles tested across the warp 32 at a time)."""
+    sc, dev = colonnade_bvh2_leaf512, torch.device('cuda')
+    org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128), 128,
+                                    128, dev, 7)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    batch = [org, d, zeros, torch.full_like(zeros, float('inf'))]
+    if rays == 'hemisphere':
+        hit = traverse.intersect_packet(sc.nodes, sc.tris, *batch)
+        batch = list(raysets.hemisphere_rays(
+            sc, org, d, hit, torch.Generator(device=dev).manual_seed(7),
+            dev)[:4])
+    elif rays == 'edge':
+        batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, 4000, 14)
+    ref, occ = _assert_binary_matches_plain(sc.nodes, sc.tris, batch)
+    assert bool((ref.tri >= 0).any())
+    empty = (batch[3] <= batch[2]).cpu().numpy()
+    assert not occ.cpu().numpy()[empty].any()
 
 
 @pytest.mark.cuda

@@ -364,3 +364,50 @@ def test_wide_turns_needs_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert wide_turns.main([str(tmp_path)]) == 1
+
+
+def test_run_turns_alternates_and_holds_the_libraries_equal(monkeypatch,
+                                                             capsys):
+    """The turns driver of wide_turns, pairs_turns and binary_turns: it
+    first requires both libraries' outputs bit-equal on every set, then
+    times this checkout's first on even rounds and the other's first on
+    odd ones, then each extra timed step; a set's summary has each
+    library's median and spread, the rounds this one won, the extra
+    steps' medians and extra()'s keys, and one [turns] line is printed
+    per set."""
+    order = []
+    times = {'this': iter([1.0, 3.0, 1.0]), 'other': iter([2.0, 2.0, 2.0]),
+             'step': iter([0.5, 0.25, 0.75])}
+
+    def fake_median_ms(fn):
+        fn()
+        return next(times[order[-1]])
+    monkeypatch.setattr(wide_turns, 'median_ms', fake_median_ms)
+
+    def run(k, calls):
+        order.append(k)
+        return [(torch.arange(3) * c,) for c in calls]
+
+    def extra(what, calls, outs, med):
+        assert torch.equal(outs[1][0], torch.arange(3) * 2)
+        return {'note': med['other'] / med['this']}, '; a note'
+    summary, outs = wide_turns.run_turns(
+        {'set': [1, 2]}, run, 3, 'a card', len,
+        also={'step': lambda calls: order.append('step')}, extra=extra)
+    assert order == ['this', 'other'] + ['this', 'other', 'step',
+                                         'other', 'this', 'step',
+                                         'this', 'other', 'step']
+    s = summary['set']
+    assert (s['calls'], s['rays'], s['this_faster_rounds']) == (2, 2, 2)
+    assert s['this']['median_ms'] == 1.0 and s['this']['max_ms'] == 3.0
+    assert s['other']['median_ms'] == 2.0 and s['other_over_this'] == 2.0
+    assert s['step_ms'] == 0.5 and s['note'] == 2.0
+    assert len(outs['set']) == 2
+    line = capsys.readouterr().out.strip()
+    assert line.startswith('[turns] set on 2 rays, 3 rounds: this median')
+    assert line.endswith('; step alone 0.5000 ms; a note; a card')
+
+    def disagree(k, calls):
+        return [(torch.tensor([k == 'this']),)]
+    with pytest.raises(AssertionError, match='disagree'):
+        wide_turns.run_turns({'set': [1]}, disagree, 1, 'a card', len)

@@ -1,7 +1,10 @@
 // Shared device code of the port's BVH traversal kernels (wide.cu,
 // binary.cu, splitleaf.cu): the per-ray stack size, the slab test of one
-// node box (read from global memory, or held as two float4s) and the load
-// of one packed triangle row.
+// node box (read from global memory, or held as two float4s), the load
+// of one packed triangle row, and the warp's leaf schedule of K3-K6: a
+// leaf's triangles tested across the warp's lanes against one lane's ray
+// (lane_test, shfl_ray), the closest of those tests taken in the order a
+// sequential strictly-nearer loop keeps (order_key, Best, take_closest).
 //
 // A node box is 8 floats [lo.x lo.y lo.z hi.x hi.y hi.z A tag] (a BVH4
 // slot of ops/wide.py pack_nodes4, or a binary node row of
@@ -15,6 +18,8 @@
 // per-ray stack entries: pack_nodes4 / pack_nodes check that the tree's
 // worst-case occupancy fits
 #define STACK 128
+// every lane of a warp
+#define FULL_MASK 0xffffffffu
 
 struct Slab {
     float ix, iy, iz;
@@ -72,5 +77,62 @@ __device__ __forceinline__ void load_row(const float4* __restrict__ tris,
         w[4 * q + 1] = x.y;
         w[4 * q + 2] = x.z;
         w[4 * q + 3] = x.w;
+    }
+}
+
+// Lane j's test of triangle a + j0 + j of a leaf of c triangles against
+// ray q over (q.tnear, tfar); false past the leaf's end.
+__device__ __forceinline__ bool lane_test(const float4* __restrict__ tris,
+                                          const Ray& q, float tfar, int a,
+                                          int c, int j0, float& th,
+                                          float& uh, float& vh) {
+    const int j = j0 + static_cast<int>(threadIdx.x & 31);
+    if (j >= c) return false;
+    float s[16];
+    load_row<4>(tris, 4, a + j, s);
+    return woop_test(s, q, q.tnear, tfar, th, uh, vh);
+}
+
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+    Ray q;
+    q.ox = __shfl_sync(FULL_MASK, r.ox, src);
+    q.oy = __shfl_sync(FULL_MASK, r.oy, src);
+    q.oz = __shfl_sync(FULL_MASK, r.oz, src);
+    q.dx = __shfl_sync(FULL_MASK, r.dx, src);
+    q.dy = __shfl_sync(FULL_MASK, r.dy, src);
+    q.dz = __shfl_sync(FULL_MASK, r.dz, src);
+    q.tnear = __shfl_sync(FULL_MASK, r.tnear, src);
+    q.tfar = __shfl_sync(FULL_MASK, r.tfar, src);
+    return q;
+}
+
+// t's bits as an unsigned that orders as t does (-0 taken as +0)
+__device__ __forceinline__ unsigned order_key(float t) {
+    const unsigned u = __float_as_uint(t + 0.0f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// a ray's closest hit so far: tri -1 and t its tfar before the first
+struct Best {
+    float t, u, v;
+    int tri;
+};
+
+// The closest of the warp's lane tests (lane j testing triangle first + j,
+// a hit h at th, uh, vh): the least t, ties to the lowest lane, as a
+// sequential strictly-nearer loop in ascending order keeps it.  tb (the
+// same on every lane) becomes that t, and lane src's best that hit.
+__device__ __forceinline__ void take_closest(bool h, float th, float uh,
+                                             float vh, int first, int src,
+                                             float& tb, Best& best) {
+    const unsigned key = h ? order_key(th) : FULL_MASK;
+    const unsigned least = __reduce_min_sync(FULL_MASK, key);
+    if (least == FULL_MASK) return;
+    const int win = __ffs(__ballot_sync(FULL_MASK, key == least)) - 1;
+    tb = __shfl_sync(FULL_MASK, th, win);
+    const float ub = __shfl_sync(FULL_MASK, uh, win);
+    const float vb = __shfl_sync(FULL_MASK, vh, win);
+    if (static_cast<int>(threadIdx.x & 31) == src) {
+        best = {tb, ub, vb, first + win};
     }
 }

@@ -72,7 +72,6 @@
 #define BIN_RAYS 16           // rays per binning thread
 #define BIN_SMEM 4096         // bins counted in shared memory (16 KB)
 #define SCAN_THREADS 1024
-#define FULL_MASK 0xffffffffu
 
 // The binning's scratch, carved from one int32 buffer of
 // yrt_pairs_scratch(n_tiles, n_rays) ints: each bin's cursor (its count,

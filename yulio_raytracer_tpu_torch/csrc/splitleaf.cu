@@ -51,7 +51,6 @@
 #define SPLIT_WARPS 8
 #define SPLIT_BLOCK (32 * SPLIT_WARPS)
 #define LISTCAP 48
-#define FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ float warp_sum(float v) {
     #pragma unroll

@@ -64,7 +64,6 @@
 #include "bvh.cuh"
 
 #define WIDE_BLOCK 256
-#define WIDE_FULL 0xffffffffu
 #define WIDE_COUNT_SHIFT 24
 #define WIDE_A_MASK 0xffffffu
 // under SLOTS, leaves of this many triangles or more are named by their slot
@@ -155,63 +154,6 @@ __device__ __forceinline__ void sort_slots(const float4 (&q)[8],
     }
 }
 
-// Lane j's test of triangle a + j0 + j of a leaf of c triangles against
-// ray q over (q.tnear, tfar); false past the leaf's end.
-__device__ __forceinline__ bool lane_test(const float4* __restrict__ tris,
-                                          const Ray& q, float tfar, int a,
-                                          int c, int j0, float& th,
-                                          float& uh, float& vh) {
-    const int j = j0 + static_cast<int>(threadIdx.x & 31);
-    if (j >= c) return false;
-    float s[16];
-    load_row<4>(tris, 4, a + j, s);
-    return woop_test(s, q, q.tnear, tfar, th, uh, vh);
-}
-
-__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
-    Ray q;
-    q.ox = __shfl_sync(WIDE_FULL, r.ox, src);
-    q.oy = __shfl_sync(WIDE_FULL, r.oy, src);
-    q.oz = __shfl_sync(WIDE_FULL, r.oz, src);
-    q.dx = __shfl_sync(WIDE_FULL, r.dx, src);
-    q.dy = __shfl_sync(WIDE_FULL, r.dy, src);
-    q.dz = __shfl_sync(WIDE_FULL, r.dz, src);
-    q.tnear = __shfl_sync(WIDE_FULL, r.tnear, src);
-    q.tfar = __shfl_sync(WIDE_FULL, r.tfar, src);
-    return q;
-}
-
-// t's bits as an unsigned that orders as t does (-0 taken as +0)
-__device__ __forceinline__ unsigned order_key(float t) {
-    const unsigned u = __float_as_uint(t + 0.0f);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// a ray's closest hit so far: tri -1 and t its tfar before the first
-struct Best {
-    float t, u, v;
-    int tri;
-};
-
-// The closest of the warp's lane tests (lane j testing triangle first + j,
-// a hit h at th, uh, vh): the least t, ties to the lowest lane, as a
-// sequential strictly-nearer loop in ascending order keeps it.  tb (the
-// same on every lane) becomes that t, and lane src's best that hit.
-__device__ __forceinline__ void take_closest(bool h, float th, float uh,
-                                             float vh, int first, int src,
-                                             float& tb, Best& best) {
-    const unsigned key = h ? order_key(th) : WIDE_FULL;
-    const unsigned least = __reduce_min_sync(WIDE_FULL, key);
-    if (least == WIDE_FULL) return;
-    const int win = __ffs(__ballot_sync(WIDE_FULL, key == least)) - 1;
-    tb = __shfl_sync(WIDE_FULL, th, win);
-    const float ub = __shfl_sync(WIDE_FULL, uh, win);
-    const float vb = __shfl_sync(WIDE_FULL, vh, win);
-    if (static_cast<int>(threadIdx.x & 31) == src) {
-        best = {tb, ub, vb, first + win};
-    }
-}
-
 template <bool SLOTS>
 __global__ void __launch_bounds__(WIDE_BLOCK)
 intersect_wide_kernel(const float4* __restrict__ nodes,
@@ -258,7 +200,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
     } else {
         ray = -1;
     }
-    while (__ballot_sync(WIDE_FULL, ray >= 0)) {
+    while (__ballot_sync(FULL_MASK, ray >= 0)) {
         if (ray >= 0 && !is_leaf(cur)) {
             float4 q[8];
             load_node(nodes, cur, q);
@@ -291,7 +233,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
         // the leaves the lanes hold: each lane its own when many hold one,
         // else one at a time across the warp
         const bool leaf = ray >= 0 && is_leaf(cur);
-        unsigned leaves = __ballot_sync(WIDE_FULL, leaf);
+        unsigned leaves = __ballot_sync(FULL_MASK, leaf);
         if (__popc(leaves) >= WIDE_SERIAL_MIN) {
             if (leaf) {
                 int a, c;
@@ -310,8 +252,8 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
             const int src = __ffs(leaves) - 1;
             leaves &= leaves - 1;
             const Ray q = shfl_ray(r, src);
-            const unsigned w = __shfl_sync(WIDE_FULL, cur, src);
-            float tb = __shfl_sync(WIDE_FULL, b.t, src);
+            const unsigned w = __shfl_sync(FULL_MASK, cur, src);
+            float tb = __shfl_sync(FULL_MASK, b.t, src);
             int a, c;
             leaf_range<SLOTS>(nodes, w, a, c);
             for (int j0 = 0; j0 < c; j0 += 32) {
@@ -357,7 +299,7 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
     } else {
         ray = -1;
     }
-    while (__ballot_sync(WIDE_FULL, ray >= 0)) {
+    while (__ballot_sync(FULL_MASK, ray >= 0)) {
         if (ray >= 0 && !is_leaf(cur)) {
             float4 q[8];
             load_node(nodes, cur, q);
@@ -382,7 +324,7 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
         // the leaves the lanes hold: each lane its own (up to its first
         // hit) when many hold one, else one at a time across the warp
         const bool leaf = ray >= 0 && is_leaf(cur);
-        unsigned leaves = __ballot_sync(WIDE_FULL, leaf);
+        unsigned leaves = __ballot_sync(FULL_MASK, leaf);
         bool occ = false;
         if (__popc(leaves) >= WIDE_SERIAL_MIN) {
             if (leaf) {
@@ -400,13 +342,13 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
             const int src = __ffs(leaves) - 1;
             leaves &= leaves - 1;
             const Ray q = shfl_ray(r, src);
-            const unsigned w = __shfl_sync(WIDE_FULL, cur, src);
+            const unsigned w = __shfl_sync(FULL_MASK, cur, src);
             int a, c;
             leaf_range<SLOTS>(nodes, w, a, c);
             bool hit = false;
             for (int j0 = 0; j0 < c && !hit; j0 += 32) {
                 float th, uh, vh;
-                hit = __any_sync(WIDE_FULL, lane_test(tris, q, q.tfar, a, c,
+                hit = __any_sync(FULL_MASK, lane_test(tris, q, q.tfar, a, c,
                                                       j0, th, uh, vh));
             }
             if (lane == src) occ = hit;

@@ -6,10 +6,12 @@ Counterpart of `yulio_raytracer_tpu/ops/pallas_traverse.py`
 `motion_bounds`), which imports jax, so the table packing is copied here.
 The plain versions are also the counterpart of the per-ray BVH walk of
 `yulio_raytracer_tpu/ops/traverse.py`.  On a CUDA tensor each wrapper
-launches its kernel from `csrc/binary.cu` (one ray per thread, private
-stack); on a CPU tensor it runs the plain torch version, a vectorized
-per-ray stack traversal of the same tables in the same order, which the
-kernels are held against on the card.  Any ray count is accepted.
+launches its kernel from `csrc/binary.cu` (one ray per lane with a
+private stack; K5/K6 test leaves by each lane or across the warp, K7 one
+ray per thread alone; see its header); on a CPU tensor it runs the plain
+torch version, a vectorized per-ray stack traversal of the same tables in
+the same order, which the kernels are held against on the card.  Any ray
+count is accepted.
 
 `intersect_packet` / `occluded_packet` take an optional start node per
 ray (`roots`), where the reference takes one per 1024-ray packet: the
@@ -19,9 +21,11 @@ nearest unvisited treelet.
 Node rows, (N, 8) f32 [lo.x lo.y lo.z hi.x hi.y hi.z A tag] in
 depth-first order: tag > 0 is a leaf of `tag` triangles from packed
 triangle A; tag = -(axis + 1) an interior node whose left child is the
-next row and whose right child is row A.  A ray pops first the child on
-the side its own direction points to along `axis` (the reference's
-packets use the packet's summed direction).
+next row and whose right child is row A.  A closest-hit ray pops first
+the child on the side its own direction points to along `axis` (the
+reference's packets use the packet's summed direction); an any-hit ray,
+whose mask does not depend on the order, the hit child of least entry t,
+that side on a tie, as its kernel does.
 
 Motion triangle rows, (G, 128) f32: 4 triangles of 32 floats
 [v0 e1 e2 mv0 me1 me2 cull | pad]; at time s in [0, 1] the triangle is
@@ -87,15 +91,23 @@ def _check_nodes(nodes: np.ndarray) -> np.ndarray:
     leaf = tag > 0
     if np.any(leaf) and float(np.max(a[leaf] + tag[leaf])) >= float(1 << 24):
         raise ValueError("leaf triangle range exceeds f32-exact 2^24")
-    depth = np.ones(nodes.shape[0], np.int64)
-    for i in np.nonzero(tag < 0)[0]:      # parents precede their children
-        depth[i + 1] = depth[int(a[i])] = depth[i] + 1
-    worst = int(depth.max()) + 1
+    worst = stack_bound(nodes)
     if worst > STACK:
         raise ValueError(
             f"binary tree depth {worst - 1} could occupy {worst} stack "
             f"slots (> STACK={STACK}); rebuild with a shallower tree")
     return nodes
+
+
+def stack_bound(nodes: np.ndarray) -> int:
+    """The most stack entries a walk of the binary table from its root
+    can hold: the tree's depth + 1 (a walk holds at most one entry a
+    level, plus the near child just pushed)."""
+    a, tag = nodes[:, 6], nodes[:, 7]
+    depth = np.ones(nodes.shape[0], np.int64)
+    for i in np.nonzero(tag < 0)[0]:      # parents precede their children
+        depth[i + 1] = depth[int(a[i])] = depth[i] + 1
+    return int(depth.max()) + 1
 
 
 def pack_tris_mb(geom_host: dict) -> np.ndarray:
@@ -193,15 +205,22 @@ def _motion_leaf(tris_mb):
     return test
 
 
-def _children(nodes, node, a, tag, org, dirn, inv, tnear, tfar):
-    """Both children of interior nodes, far child first: (kids, hit,
-    tmin), each (n, 2).  The near child is the left one when the ray's
-    direction along the node's axis is >= 0."""
+def _children(nodes, node, a, tag, org, dirn, inv, tnear, tfar,
+              by_entry=False):
+    """Both children of interior nodes, the one to visit second first:
+    (kids, hit, tmin), each (n, 2).  The near child, visited first, is the
+    left one when the ray's direction along the node's axis is >= 0; with
+    by_entry, where both are hit and the far one's entry t is strictly
+    less, the far one."""
     kids = torch.stack([node + 1, a], dim=1)
     left_near = dirn.gather(1, -tag[:, None] - 1) >= 0.0
     kids = torch.where(left_near, kids.flip(1), kids)
     hit, tmin = wide._slab(nodes[kids], org[:, None, :], inv[:, None, :],
                            tnear[:, None], tfar[:, None])
+    if by_entry:
+        swap = (hit.all(dim=1) & (tmin[:, 0] < tmin[:, 1]))[:, None]
+        kids, hit, tmin = (torch.where(swap, x.flip(1), x)
+                           for x in (kids, hit, tmin))
     return kids, hit, tmin
 
 
@@ -214,6 +233,7 @@ def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None,
         st_n[:, 0] = roots
     st_t = torch.zeros((r, STACK), dtype=torch.float32, device=dev)
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    deepest = torch.ones((r,), dtype=torch.int64, device=dev)
     t_b = tfar.clone()
     tri_b = torch.full((r,), -1, dtype=torch.int32, device=dev)
     u_b = torch.zeros((r,), dtype=torch.float32, device=dev)
@@ -250,7 +270,11 @@ def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None,
             for k in range(2):
                 wide._push((st_n, st_t), sp, rid, hit[:, k],
                            (kids[:, k], tmin[:, k]))
+            if counts is not None:
+                deepest[rid] = torch.maximum(deepest[rid], sp[rid] + 1)
         act = act[sp[act] >= 0]
+    if counts is not None:
+        counts.setdefault('stack', []).append(deepest)
     t = torch.where(tri_b >= 0, t_b, INF)
     return Hit(t, tri_b, u_b, v_b)
 
@@ -263,6 +287,7 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar, roots=None,
     if roots is not None:
         st_n[:, 0] = roots
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    deepest = torch.ones((r,), dtype=torch.int64, device=dev)
     occ = torch.zeros((r,), dtype=torch.bool, device=dev)
     act = torch.nonzero(tfar > tnear)[:, 0]
     while act.numel():
@@ -285,10 +310,15 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar, roots=None,
             cb.count(counts, 'box', 2 * rid.numel())
             kids, hit, _ = _children(nodes, node[inner], a[inner],
                                      tag[inner], org[rid], dirn[rid],
-                                     inv[rid], tnear[rid], tfar[rid])
+                                     inv[rid], tnear[rid], tfar[rid],
+                                     by_entry=True)
             for k in range(2):
                 wide._push((st_n,), sp, rid, hit[:, k], (kids[:, k],))
+            if counts is not None:
+                deepest[rid] = torch.maximum(deepest[rid], sp[rid] + 1)
         act = act[(sp[act] >= 0) & ~occ[act]]
+    if counts is not None:
+        counts.setdefault('stack', []).append(deepest)
     return occ
 
 
@@ -296,7 +326,9 @@ def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar, roots=None,
                            counts=None) -> Hit:
     """Plain torch version of the binary closest-hit kernel, each ray
     from its node of roots ((R,) int32; None: node 0).  counts, a dict,
-    gathers the kernel's triangle ('pair') and slab ('box') tests."""
+    gathers the kernel's triangle ('pair') and slab ('box') tests, and
+    under 'stack' a list of (R,) tensors: each ray's largest stack
+    occupancy, in entries, the root's included."""
     if org.is_cuda:
         intersect_binary_plain.cuda_calls += 1
     return wide._chunked(partial(_closest_plain, counts=counts),
@@ -307,7 +339,10 @@ def intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar, roots=None,
 def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar, roots=None,
                           counts=None):
     """Plain torch version of the binary any-hit kernel; rays with
-    tfar <= tnear report not occluded.  roots and counts as above."""
+    tfar <= tnear report not occluded.  Its walk is the kernel's: the hit
+    child of least entry t first (the near one on a tie), up to the first
+    hit, so that its counts are the kernel's tests.  roots and counts as
+    above."""
     if org.is_cuda:
         occluded_binary_plain.cuda_calls += 1
     return wide._chunked(partial(_any_plain, counts=counts),

@@ -23,27 +23,23 @@ seed 42:
   all its calls in a row.
 Each round times every set with both libraries (CUDA events, median of 5
 after a warm-up), this checkout's first on even rounds and the other's
-first on odd ones, then this checkout's binning kernels alone.  A timed
-call includes its binning kernels.  The two libraries' results must be
-bit-equal on every call.  One line per set: each library's median over
-the rounds with its min, max and quartile spread, the ratio of the
-medians and in how many rounds this checkout's kernels were the faster,
-the median of this checkout's binning alone; with --bounds also the
-set's pair tests (the
-plain versions' count), bytes, bound (the larger of the bytes at 3.35
-TB/s and 55 flops a test at 67 TFLOP/s f32) and each library's share of
-it.  Then each library's machine instructions per kernel (`cuobjdump
--sass`); the last line is the same as one JSON object.  Needs a CUDA
-device.
+first on odd ones, then this checkout's binning kernels alone
+(wide_turns.run_turns).  A timed call includes its binning kernels.  The
+two libraries' results must be bit-equal on every call.  One line per
+set: each library's median over the rounds with its min, max and
+quartile spread, the ratio of the medians and in how many rounds this
+checkout's kernels were the faster, the median of this checkout's
+binning alone; with --bounds also the set's pair tests (the plain
+versions' count), bytes, bound (the larger of the bytes at 3.35 TB/s and
+55 flops a test at 67 TFLOP/s f32) and each library's share of it.
+Then each library's machine instructions per kernel (`cuobjdump -sass`);
+the last line is the same as one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import json
 import os
-import statistics
-import subprocess
 import sys
 
 import torch
@@ -166,70 +162,30 @@ def main(argv=None):
     other = os.path.join(os.path.abspath(opts.other_root),
                          'yulio_raytracer_tpu_torch', 'csrc')
     libs = {'this': (pairs.lib(), True), 'other': load(other)}
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = wide_turns.card_name()
     sets = make_sets(opts.spp)
 
     def run(k, calls, sweep=True):
         return [launch(*libs[k], kernel, args, sweep)
                 for kernel, args in calls]
 
-    for what, calls in sets.items():
-        a, b = run('this', calls), run('other', calls)
-        if not all(torch.equal(x, y) for ca, cb_ in zip(a, b)
-                   for x, y in zip(ca, cb_)):
-            raise AssertionError(f"{what}: this checkout's kernels and the "
-                                 "other's disagree")
-    times = {what: {k: [] for k in libs} for what in sets}
-    binning = {what: [] for what in sets}
-    for i in range(opts.rounds):
-        order = list(libs) if i % 2 == 0 else list(reversed(libs))
-        for what, calls in sets.items():
-            for k in order:
-                times[what][k].append(wide_turns.median_ms(
-                    lambda: run(k, calls)))
-            binning[what].append(wide_turns.median_ms(
-                lambda: run('this', calls, sweep=False)))
-    summary = {}
-    for what, calls in sets.items():
-        t = times[what]
-        med = {k: statistics.median(v) for k, v in t.items()}
-        iqr = {k: wide_turns._quartile_spread(v) for k, v in t.items()}
-        wins = sum(a < b for a, b in zip(t['this'], t['other']))
-        rays = sum(args[1].shape[0] for _, args in calls)
-        summary[what] = {'calls': len(calls), 'rays': rays, **{
-            k: {'median_ms': med[k], 'min_ms': min(v), 'max_ms': max(v),
-                'quartile_spread_ms': iqr[k]} for k, v in t.items()},
-            'other_over_this': med['other'] / med['this'],
-            'this_faster_rounds': wins,
-            'this_binning_ms': statistics.median(binning[what])}
-        extra = ''
-        if opts.bounds:
-            tests, moved, bound = bound_of(calls)
-            summary[what].update(pair_tests=tests, bytes=moved,
-                                 bound_ms=bound, **{
-                                     f'{k}_share': bound / med[k]
-                                     for k in libs})
-            extra = (f"; {tests} pair tests, {moved} bytes, bound "
-                     f"{bound:.4f} ms: this {bound / med['this']:.2%}, other "
-                     f"{bound / med['other']:.2%} of it")
-        print(f"[turns] {what} on {rays} rays, {opts.rounds} rounds: "
-              + ', '.join(f"{k} median {med[k]:.4f} ms (min {min(v):.4f}, "
-                          f"max {max(v):.4f}, quartile spread {iqr[k]:.4f})"
-                          for k, v in t.items())
-              + f"; other / this {med['other'] / med['this']:.3f}; this "
-              f"faster in {wins} of {opts.rounds} rounds; bit-equal results;"
-              f" this's binning alone {summary[what]['this_binning_ms']:.4f}"
-              f" ms{extra}; {card}", flush=True)
-    sass = {'this': wide_turns._sass_sizes(cb.lib_path('grid')),
-            'other': wide_turns._sass_sizes(cb.lib_path('grid', other))}
-    for k, sizes in sass.items():
-        print(f"[sass] {k}: " + ', '.join(f"{n} {v} instructions"
-                                          for n, v in sizes.items()))
-    print(json.dumps({'card': card, 'rounds': opts.rounds, 'spp': opts.spp,
-                      'sets': summary, 'sass': sass}))
+    def bounds(what, calls, outs, med):
+        tests, moved, bound = bound_of(calls)
+        return ({'pair_tests': tests, 'bytes': moved, 'bound_ms': bound,
+                 **{f'{k}_share': bound / med[k] for k in libs}},
+                f"; {tests} pair tests, {moved} bytes, bound {bound:.4f} "
+                f"ms: this {bound / med['this']:.2%}, other "
+                f"{bound / med['other']:.2%} of it")
+
+    summary, _ = wide_turns.run_turns(
+        sets, run, opts.rounds, card,
+        lambda calls: sum(args[1].shape[0] for _, args in calls),
+        also={'this_binning': lambda calls: run('this', calls, sweep=False)},
+        extra=bounds if opts.bounds else None)
+    wide_turns.report(
+        {'this': wide_turns._sass_sizes(cb.lib_path('grid')),
+         'other': wide_turns._sass_sizes(cb.lib_path('grid', other))},
+        card=card, rounds=opts.rounds, spp=opts.spp, sets=summary)
     return 0
 
 

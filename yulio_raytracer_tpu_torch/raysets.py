@@ -1,19 +1,21 @@
 """The ray sets the kernels are held and timed on: camera rays, the
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
-light, rays scattered through a scene's box, and the pair kernels' own
-calls in a frame.  `chip_smoke.py`, `wide_turns` and `pairs_turns` make
-them with these functions.
+light, rays scattered through a scene's box, rays started at treelet
+roots, and the pair kernels' and the binary kernels' own calls in a
+frame.  `chip_smoke.py`, `wide_turns`, `pairs_turns` and `binary_turns`
+make them with these functions.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
 from . import renderer
 from .integrator import pathtracer as pt
 from .ops import intersect as ops_i
-from .ops import pairs
+from .ops import pairs, traverse, treelets
 from .sampling import patterns
 from .sampling import shapesampler as ss
 
@@ -72,46 +74,102 @@ def shadow_rays(scene, dg, eps, valid, gen, dev):
     return (torch.cat(os_), torch.cat(ds), torch.cat(tns), torch.cat(tfs))
 
 
+def from_treelet_roots(scene, org, dirn, tnear, tfar):
+    """The rays as the 'treelet' binning's first round gives them to
+    K5/K6: each started at the root of its nearest treelet ((R,) int32),
+    a ray whose segment enters no treelet dead (tfar -1).  Returns
+    (org, dirn, tnear, tfar, roots)."""
+    tl = scene.treelets
+    sel, has = treelets.treelet_assign(
+        tl['treelet_boxes'], org, dirn, tnear, tfar,
+        treelets.no_treelets_visited(org.shape[0],
+                                     tl['treelet_boxes'].shape[0],
+                                     org.device))
+    return (org, dirn, tnear, torch.where(has, tfar, -1.0),
+            tl['treelet_roots'][torch.clamp(sel, min=0).long()])
+
+
 @contextlib.contextmanager
-def recorded_pair_calls():
-    """Record every call of the pair kernels' wrappers (ops/pairs.py
-    intersect_pairs_raw, K8, and occluded_pairs, K9) made inside the
-    block, in order: a list of dicts {'kernel': the wrapper's name,
-    'args': (rows, org, dirn, tnear, tfar, gs, ge), 'out': its result}.
-    The wrappers run as they would; the list holds their tensors.  A
-    wrapper counts its launches on the module's attribute of its name,
-    the recorder while it stands in: the count carries over both ways."""
+def _recorded(module, names, arity):
+    """Record every call of the wrappers `names` of `module` made inside
+    the block, in order: a list of dicts {'kernel': the wrapper's name,
+    'args': its arity positional arguments, omitted ones None, 'out': its
+    result}.  The wrappers run as they would; the list holds their
+    tensors.  A wrapper counts its launches on the module's attribute of
+    its name, the recorder while it stands in: the count carries over
+    both ways."""
     calls = []
-    wrapped = {name: getattr(pairs, name)
-               for name in ('intersect_pairs_raw', 'occluded_pairs')}
+    wrapped = {name: getattr(module, name) for name in names}
 
     def recorder(name, fn):
-        def call(rows, org, dirn, tnear, tfar, gs=None, ge=None):
-            out = fn(rows, org, dirn, tnear, tfar, gs, ge)
-            calls.append({'kernel': name,
-                          'args': (rows, org, dirn, tnear, tfar, gs, ge),
-                          'out': out})
+        def call(*args):
+            args = args + (None,) * (arity - len(args))
+            out = fn(*args)
+            calls.append({'kernel': name, 'args': args, 'out': out})
             return out
         call.launches = fn.launches
         return call
     for name, fn in wrapped.items():
-        setattr(pairs, name, recorder(name, fn))
+        setattr(module, name, recorder(name, fn))
     try:
         yield calls
     finally:
         for name, fn in wrapped.items():
-            fn.launches = getattr(pairs, name).launches
-            setattr(pairs, name, fn)
+            fn.launches = getattr(module, name).launches
+            setattr(module, name, fn)
+
+
+def recorded_pair_calls():
+    """Record every call of the pair kernels' wrappers (ops/pairs.py
+    intersect_pairs_raw, K8, and occluded_pairs, K9) made inside the
+    block, as _recorded does; 'args' is (rows, org, dirn, tnear, tfar,
+    gs, ge)."""
+    return _recorded(pairs, ('intersect_pairs_raw', 'occluded_pairs'), 7)
+
+
+def recorded_binary_calls():
+    """Record every call of the binary kernels' wrappers (ops/traverse.py
+    intersect_packet, K5, and occluded_packet, K6) made inside the block,
+    as _recorded does; 'args' is (nodes, tris, org, dirn, tnear, tfar,
+    roots), roots None for a whole-tree call."""
+    return _recorded(traverse, ('intersect_packet', 'occluded_packet'), 7)
+
+
+def _bounce_one(scene, camera, binning, width, height, spp, seed):
+    """Render a frame of max_depth 2 with ray_binning `binning`: bounce 0
+    and bounce 1 over a pass of width * height * spp rays (up to the
+    renderer's MAX_RAYS_PER_PASS)."""
+    renderer.render_frame(scene, camera, pt.PTParams(
+        max_depth=2, ray_binning=binning), width, height, spp=spp,
+        seed=seed)
 
 
 def frame_pair_calls(scene, camera, binning, width, height, spp=1, seed=42):
     """The K8/K9 calls of one bounce-1 trace: a frame of max_depth 2
     rendered with ray_binning `binning` ('grid' or 'dense'), whose
     bounce 0 runs the BVH4 kernels and whose bounce 1 the binning's
-    rounds over a pass of width * height * spp rays (up to the renderer's
-    MAX_RAYS_PER_PASS).  Returns recorded_pair_calls' list."""
+    rounds.  Returns recorded_pair_calls' list."""
     with recorded_pair_calls() as calls:
-        renderer.render_frame(scene, camera, pt.PTParams(
-            max_depth=2, ray_binning=binning), width, height, spp=spp,
-            seed=seed)
+        _bounce_one(scene, camera, binning, width, height, spp, seed)
+    return calls
+
+
+def frame_binary_calls(scene, camera, accel_or_binning, width, height,
+                       spp=1, seed=42):
+    """The K5/K6 calls of one bounce-1 trace, as frame_pair_calls: with
+    'bvh2' the scene's binary tables trace both bounces (the scene as
+    committed with accel='bvh2', whatever its own accel), with 'grid',
+    'dense' or 'treelet' bounce 1 runs that binning's rounds and the
+    K5/K6 fallback ('treelet': two rounds from treelet roots, then the
+    fallback).  Returns recorded_binary_calls' list."""
+    binning = accel_or_binning
+    if accel_or_binning == 'bvh2':
+        if scene.nodes is None:
+            raise ValueError("the scene has no binary BVH tables")
+        scene, binning = dataclasses.replace(scene, accel='bvh2'), 'morton'
+    elif binning not in ('grid', 'dense', 'treelet'):
+        raise ValueError(f"unknown accel_or_binning {accel_or_binning!r}: "
+                         "expected 'bvh2', 'grid', 'dense' or 'treelet'")
+    with recorded_binary_calls() as calls:
+        _bounce_one(scene, camera, binning, width, height, spp, seed)
     return calls

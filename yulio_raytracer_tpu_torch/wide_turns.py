@@ -19,7 +19,8 @@ library's median over the rounds with its min, max and the distance
 between its quartiles, the ratio of the medians, and in how many rounds
 this checkout's kernel was the faster; then each library's machine
 instructions per kernel (`cuobjdump -sass`, beside nvcc); the last line
-is the same as one JSON object.  Needs a CUDA device.
+is the same as one JSON object.  Needs a CUDA device.  Its run_turns,
+card_name and report drive pairs_turns and binary_turns too.
 """
 from __future__ import annotations
 
@@ -82,6 +83,88 @@ def _sass_sizes(lib_path):
     return sizes
 
 
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _equal(a, b):
+    """Whether two lists of per-call output tuples are bit-equal."""
+    return all(torch.equal(x, y) for ca, cb_ in zip(a, b)
+               for x, y in zip(ca, cb_))
+
+
+def run_turns(sets, run, rounds, card, rays_of, also=None, extra=None):
+    """Time this checkout's kernels against another checkout's in turns
+    and print one [turns] line per set; returns (summary, outputs), each
+    {set name: ...}, outputs this checkout's.
+
+    sets is {name: calls}; run(k, calls) launches a set's calls with
+    library k ('this' or 'other') and returns their outputs, a list of
+    tuples, which must be bit-equal between the two.  Each round times
+    every set with both libraries (median_ms), this checkout's first on
+    even rounds and the other's first on odd ones, then each of also's
+    {key: fn(calls)} alone.  rays_of(calls) is a set's ray count;
+    extra(name, calls, outputs, medians), where given, returns a dict
+    for the set's summary and text for its line."""
+    also = also or {}
+    libs = ('this', 'other')
+    outs = {}
+    for what, calls in sets.items():
+        outs[what] = run('this', calls)
+        if not _equal(outs[what], run('other', calls)):
+            raise AssertionError(f"{what}: this checkout's kernels and the "
+                                 "other's disagree")
+    times = {what: {k: [] for k in (*libs, *also)} for what in sets}
+    for i in range(rounds):
+        order = libs if i % 2 == 0 else libs[::-1]
+        for what, calls in sets.items():
+            for k in order:
+                times[what][k].append(median_ms(lambda: run(k, calls)))
+            for k, fn in also.items():
+                times[what][k].append(median_ms(lambda: fn(calls)))
+    summary = {}
+    for what, calls in sets.items():
+        t = times[what]
+        med = {k: statistics.median(v) for k, v in t.items()}
+        iqr = {k: _quartile_spread(t[k]) for k in libs}
+        wins = sum(a < b for a, b in zip(t['this'], t['other']))
+        rays = rays_of(calls)
+        summary[what] = {'calls': len(calls), 'rays': rays, **{
+            k: {'median_ms': med[k], 'min_ms': min(t[k]),
+                'max_ms': max(t[k]), 'quartile_spread_ms': iqr[k]}
+            for k in libs},
+            'other_over_this': med['other'] / med['this'],
+            'this_faster_rounds': wins,
+            **{f'{k}_ms': med[k] for k in also}}
+        text = ''.join(f"; {k} alone {med[k]:.4f} ms" for k in also)
+        if extra is not None:
+            more, more_text = extra(what, calls, outs[what], med)
+            summary[what].update(more)
+            text += more_text
+        print(f"[turns] {what} on {rays} rays, {rounds} rounds: "
+              + ', '.join(f"{k} median {med[k]:.4f} ms (min "
+                          f"{min(t[k]):.4f}, max {max(t[k]):.4f}, quartile "
+                          f"spread {iqr[k]:.4f})" for k in libs)
+              + f"; other / this {med['other'] / med['this']:.3f}; this "
+              f"faster in {wins} of {rounds} rounds; bit-equal results"
+              f"{text}; {card}", flush=True)
+    return summary, outs
+
+
+def report(sass, **record):
+    """Print each library's machine instructions per kernel (sass:
+    {'this': sizes, 'other': sizes}), then record with them as one JSON
+    object, the last line."""
+    for k, sizes in sass.items():
+        print(f"[sass] {k}: " + ', '.join(f"{n} {v} instructions"
+                                          for n, v in sizes.items()))
+    print(json.dumps({**record, 'sass': sass}))
+
+
 def _launch(lib, anyhit, tables, rays):
     """One launch of K4 (anyhit) or K3 from lib, as the wrappers make it;
     returns its outputs as a tuple."""
@@ -112,10 +195,7 @@ def main(argv=None):
     timed = {k: wide._SIGNATURES[k]
              for k in ('yrt_intersect_wide', 'yrt_occluded_wide')}
     libs = {'this': wide._lib(), 'other': cb.library('wide', timed, other)}
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
 
     sc = bs.colonnade().commit(device=dev, leaf_size=32)
     tables = (sc.nodes4, sc.tris)
@@ -127,47 +207,19 @@ def main(argv=None):
     hit = Hit(*_launch(libs['this'], False, tables, cam))
     *hemi, dg, eps = raysets.hemisphere_rays(sc, org, dirn, hit, gen, dev)
     shadow = raysets.shadow_rays(sc, dg, eps, hit.valid, gen, dev)
-    sets = {'K3 camera': (False, cam), 'K3 hemisphere': (False, hemi),
-            'K4 shadow': (True, shadow)}
+    sets = {'K3 camera': [(False, cam)], 'K3 hemisphere': [(False, hemi)],
+            'K4 shadow': [(True, shadow)]}
 
-    for what, (anyhit, rays) in sets.items():
-        a, b = (_launch(libs[k], anyhit, tables, rays) for k in libs)
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{what}: this checkout's kernel and the "
-                                 "other's disagree")
-    times = {what: {k: [] for k in libs} for what in sets}
-    for i in range(opts.rounds):
-        order = list(libs) if i % 2 == 0 else list(reversed(libs))
-        for what, (anyhit, rays) in sets.items():
-            for k in order:
-                times[what][k].append(median_ms(
-                    lambda: _launch(libs[k], anyhit, tables, rays)))
-    summary = {}
-    for what, (_, rays) in sets.items():
-        t = times[what]
-        med = {k: statistics.median(v) for k, v in t.items()}
-        iqr = {k: _quartile_spread(v) for k, v in t.items()}
-        wins = sum(a < b for a, b in zip(t['this'], t['other']))
-        summary[what] = {'rays': rays[0].shape[0], **{
-            k: {'median_ms': med[k], 'min_ms': min(v), 'max_ms': max(v),
-                'quartile_spread_ms': iqr[k]} for k, v in t.items()},
-            'other_over_this': med['other'] / med['this'],
-            'this_faster_rounds': wins}
-        print(f"[turns] {what} on {rays[0].shape[0]} rays, {opts.rounds} "
-              f"rounds: " + ', '.join(
-                  f"{k} median {med[k]:.4f} ms (min {min(v):.4f}, max "
-                  f"{max(v):.4f}, quartile spread {iqr[k]:.4f})"
-                  for k, v in t.items())
-              + f"; other / this {med['other'] / med['this']:.3f}; this "
-              f"faster in {wins} of {opts.rounds} rounds; bit-equal results;"
-              f" {card}", flush=True)
-    sass = {'this': _sass_sizes(cb.lib_path('wide')),
-            'other': _sass_sizes(cb.lib_path('wide', other))}
-    for k, sizes in sass.items():
-        print(f"[sass] {k}: " + ', '.join(f"{n} {v} instructions"
-                                          for n, v in sizes.items()))
-    print(json.dumps({'card': card, 'rounds': opts.rounds, 'sets': summary,
-                      'sass': sass}))
+    def run(k, calls):
+        return [_launch(libs[k], anyhit, tables, rays)
+                for anyhit, rays in calls]
+
+    summary, _ = run_turns(
+        sets, run, opts.rounds, card,
+        lambda calls: sum(rays[0].shape[0] for _, rays in calls))
+    report({'this': _sass_sizes(cb.lib_path('wide')),
+            'other': _sass_sizes(cb.lib_path('wide', other))},
+           card=card, rounds=opts.rounds, sets=summary)
     return 0
 
 
