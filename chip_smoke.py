@@ -20,9 +20,15 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     equal on every call of one bounce-1 trace through 'grid' and 'dense'
     (1024^2 rays, raysets.frame_pair_calls), and the grid march (the
     hemisphere rays), the split-leaf kernel K11 (the
-    sorted hemisphere rays and the camera rays), the motion kernel on the
-    motion field (512^2 camera rays with their times, 1M scattered rays at
-    random times); then the grid, treelet and dense paths (ops/grid.py,
+    sorted hemisphere rays and the camera rays), the motion kernel K7 on
+    the motion field (its closest form on 512^2 camera rays with their
+    times and 1M scattered rays at random times; both forms bit-equal on
+    every call of one bounce-1 trace at 512^2 and 16 spp,
+    raysets.frame_motion_calls), the dense kernels K1/K2 on cornell's own
+    calls at the pass size (one bounce-1 trace at 512^2 and 16 spp: 2^22
+    closest and 2^23 shadow rays a bounce, raysets.frame_dense_calls),
+    bit-equal, with their tests and bound; then the grid, treelet and
+    dense paths (ops/grid.py,
     ops/treelets.py intersect_packet_binned and intersect_dense_binned,
     and their any-hit forms) against the binary
     kernels on the same hemisphere and shadow rays, and K11 unsorted and
@@ -43,7 +49,8 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
     the binary kernels and again with ray_binning 'grid', 'treelet' and
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
-    motion_64 through the motion kernel; and K11's entry points (sorted
+    motion_64 through the motion kernel's two forms; and K11's entry
+    points (sorted
     on the colonnade's 1M hemisphere rays, unsorted on its camera rays).
     Every launch counter is set to 0 before each run and read after it:
     the path's kernels must have run, no other kernel (so K12, which no
@@ -255,7 +262,8 @@ def main():
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.raysets import (
-        camera_rays, frame_binary_calls, frame_pair_calls, from_treelet_roots,
+        camera_rays, frame_binary_calls, frame_dense_calls,
+        frame_motion_calls, frame_pair_calls, from_treelet_roots,
         hemisphere_rays, scattered_rays, shadow_rays)
 
     dev = torch.device('cuda')
@@ -295,6 +303,9 @@ def main():
         (traverse.intersect_packet_mb, traverse.intersect_motion_plain,
          'binary.cu', 'yulio_raytracer_tpu/ops/pallas_traverse.py:1570',
          MOTION_FLOPS),
+        (traverse.occluded_packet_mb, traverse.occluded_motion_plain,
+         'binary.cu', 'yulio_raytracer_tpu/ops/pallas_traverse.py:1596',
+         MOTION_FLOPS),
         (pairs.intersect_pairs_raw, pairs.intersect_pairs_raw_plain,
          'grid.cu', 'yulio_raytracer_tpu/ops/pallas_pairs.py:248',
          WOOP_FLOPS),
@@ -318,6 +329,17 @@ def main():
             f.launches = 0
         for f in plains:
             f.cuda_calls = 0
+
+    def first_hit_tests(tris, org, dirn, tnear, tfar):
+        """The tests K2 makes: every ray against the rows of tris in
+        order, up to its first hit (slices of 2^18 rays)."""
+        rows, k = tris.reshape(-1, 16), 1 << 18
+        return sum(int(wide.tests_to_first_hit(
+            intersect._woop_block(rows, *(x[i:i + k] for x in (
+                org, dirn, tnear, tfar)))[3],
+            torch.full((min(k, org.shape[0] - i),), rows.shape[0],
+                       dtype=torch.int64, device=org.device)).sum())
+            for i in range(0, org.shape[0], k))
 
     # ---- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -366,13 +388,10 @@ def main():
     # first hit
     check(dense.intersect_dense, 'intersect_dense (cornell)', args,
           {'pair': args[1].shape[0] * rows.shape[0]})
-    so, sd, stn, stf = shadow_rays(cornell, dg, eps, hit.valid, gen, dev)
-    ok = intersect._woop_block(rows, so, sd, stn, stf)[3]
-    check(dense.occluded_dense, 'occluded_dense (cornell)',
-          (cornell.tris, so, sd, stn, stf),
-          {'pair': wide.tests_to_first_hit(
-              ok, torch.full_like(stn, rows.shape[0], dtype=torch.int64)
-          ).sum()})
+    cshadow = (cornell.tris, *shadow_rays(cornell, dg, eps, hit.valid, gen,
+                                           dev))
+    check(dense.occluded_dense, 'occluded_dense (cornell)', cshadow,
+          {'pair': first_hit_tests(*cshadow)})
 
     t1 = time.perf_counter()
     colonnade = bs.colonnade().commit(device=dev, leaf_size=32)
@@ -671,6 +690,46 @@ def main():
         check(traverse.intersect_packet_mb,
               f'intersect_packet_mb (motion_field {what})',
               (motion.nodes, motion.tris_mb, *rays))
+    # K7's two forms on every call of one bounce-1 trace at the
+    # motion_field_512 frame's pass (2^22 rays, 2^23 shadow rays), bit-equal
+    calls = frame_motion_calls(motion, bs.motion_field_camera(512, 512), 512,
+                               512, spp=16, seed=SEED)
+    for n, c in enumerate(calls):
+        check(getattr(traverse, c['kernel']), f"{c['kernel']} (motion_field "
+              f"frame, call {n + 1} of {len(calls)})", c['args'], exact=True)
+    del calls
+    # K1/K2 on cornell's own calls at the pass size (one bounce-1 trace at
+    # 512^2 and 16 spp: 2^22 closest rays, 2^23 shadow rays a bounce),
+    # bit-equal; K1 tests every row, K2 up to each ray's first hit
+    dense_pass = {}
+    calls = frame_dense_calls(cornell, bs.cornell_camera(512, 512), 512, 512,
+                              spp=16, seed=SEED)
+    for n, c in enumerate(calls):
+        f = getattr(dense, c['kernel'])
+        res = compare(f"{c['kernel']} (cornell frame, call {n + 1} of "
+                      f"{len(calls)})", f, plains[counters.index(f)],
+                      c['args'], exact=True)
+        tris, org = c['args'][:2]
+        tests = (org.shape[0] * tris.reshape(-1, 16).shape[0]
+                 if f is dense.intersect_dense
+                 else first_hit_tests(*c['args']))
+        acc = dense_pass.setdefault(f.__name__, {
+            'pass_calls': 0, 'pass_rays': 0, 'pass_ms': 0.0,
+            'pass_pair_tests': 0, 'pass_bytes': 0})
+        for key, v in (('pass_calls', 1), ('pass_rays', res['rays']),
+                       ('pass_ms', res['ms']), ('pass_pair_tests', tests),
+                       ('pass_bytes', res['bytes'])):
+            acc[key] += v
+    del calls
+    for name, acc in dense_pass.items():
+        acc['pass_bound_ms'] = max(
+            acc['pass_bytes'] / PEAK_BYTES,
+            acc['pass_pair_tests'] * WOOP_FLOPS / PEAK_FLOPS) * 1e3
+        phase('kernels', f"{name} at cornell's pass size: "
+              f"{acc['pass_calls']} calls, {acc['pass_rays']} rays, "
+              f"{acc['pass_pair_tests']} pair tests, {acc['pass_ms']:.3f} "
+              f"ms, bound {acc['pass_bound_ms']:.4f} ms: "
+              f"{acc['pass_bound_ms'] / acc['pass_ms']:.2%} of it; {card}")
     phase('kernels', f"all kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -694,7 +753,7 @@ def main():
         ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
          'dense', (k3, k4, k5, k6, k8, k9)),
         ('motion_64', motion, bs.motion_field_camera(64, 64), 2, 16,
-         'morton', (ix['intersect_packet_mb'],)),
+         'morton', (ix['intersect_packet_mb'], ix['occluded_packet_mb'])),
     )
     for name, scene, cam, depth, spp, binning, used in goldens:
         zero_counters()
@@ -848,7 +907,8 @@ def main():
         if waste:
             summary[-1].update(schedule_pair_tests=res['schedule_pair'],
                                schedule_box_tests=res['schedule_box'])
-        summary[-1].update(k12_extra.get(f.__name__, {}))
+        summary[-1].update(k12_extra.get(f.__name__, {}),
+                           **dense_pass.get(f.__name__, {}))
     phase('done', f"all phases passed in {time.perf_counter() - t_start:.1f}"
           f" s")
     print(json.dumps({'kernels': summary}))

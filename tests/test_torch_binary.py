@@ -1,11 +1,15 @@
-"""The binary-BVH kernels' (K5/K6) tooling on the CPU: the plain versions'
-stack occupancy against the tree's depth bound, the recorder of a
-frame's K5/K6 calls (raysets.frame_binary_calls) on the reduced colonnade
-through accel 'bvh2' and ray_binning 'grid', 'dense' and 'treelet', and
-the timing script's refusal to run without a card.  The plain versions
-are held against the JAX package's kernels by tests/test_torch_traverse.py
-and tests/test_torch_treelet.py, the CUDA kernels against the plain
-versions on the card by tests/test_torch_cuda.py."""
+"""The binary-BVH kernels' (K5/K6, and the motion kernel K7) tooling on
+the CPU: the plain versions' stack occupancy against the tree's depth
+bound, the any-hit plain versions' test counts against a walk written out
+in the kernels' order, the recorders of a frame's K5/K6 calls
+(raysets.frame_binary_calls) on the reduced colonnade through accel
+'bvh2' and ray_binning 'grid', 'dense' and 'treelet' and of its K7 calls
+(raysets.frame_motion_calls) on the reduced motion field, and the timing
+script's refusal to run without a card.  The plain versions are held
+against the JAX package's kernels by tests/test_torch_traverse.py,
+tests/test_torch_treelet.py and tests/test_torch_motion.py, the CUDA
+kernels against the plain versions on the card by
+tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
@@ -143,13 +147,14 @@ def test_binary_turns_needs_a_card(tmp_path):
     assert binary_turns.main([str(tmp_path), '--bounds']) == 1
 
 
-def _walk_nearest_first(nodes, rows, org, dirn, tnear, tfar, root):
-    """One ray's any-hit walk written out as K6 makes it: (occluded,
-    triangle tests, box tests).  From the untested root, an interior node
-    slab-tests both children and visits the hit ones, the one of least
-    entry t first (the side the direction points to on a tie); a leaf
-    tests its triangles in order up to the first hit, which ends the
-    walk."""
+def _walk_nearest_first(nodes, leaf_ok, org, dirn, tnear, tfar, root):
+    """One ray's any-hit walk written out as K6 (and K7's any-hit form)
+    makes it: (occluded, triangle tests, box tests).  From the untested
+    root, an interior node slab-tests both children and visits the hit
+    ones, the one of least entry t first (the side the direction points to
+    on a tie); a leaf tests its triangles in order up to the first hit,
+    which ends the walk.  leaf_ok(a, tag) gives which of the leaf's
+    triangles [a, a + tag) the ray hits."""
     if not bool(tfar > tnear):
         return False, 0, 0
     inv = wide._safe_inv(dirn[None])
@@ -158,10 +163,7 @@ def _walk_nearest_first(nodes, rows, org, dirn, tnear, tfar, root):
         node = stack.pop()
         a, tag = int(nodes[node, 6]), int(nodes[node, 7])
         if tag > 0:
-            ok = wide._leaf_test(rows, torch.tensor([a]), torch.tensor([tag]),
-                                 org[None], dirn[None], tnear[None],
-                                 tfar[None])[3][0, :tag]
-            hits = torch.nonzero(ok)[:, 0]
+            hits = torch.nonzero(leaf_ok(a, tag))[:, 0]
             if hits.numel():
                 return True, pair + int(hits[0]) + 1, box
             pair += tag
@@ -196,9 +198,93 @@ def test_plain_any_hit_counts_the_kernels_walk(colonnade, rooted):
                                          roots if rooted else None,
                                          counts=counts)
     rows = sc.tris.reshape(-1, 16)
-    walks = [_walk_nearest_first(sc.nodes, rows, *(x[i] for x in rays),
-                                 int(roots[i])) for i in range(300)]
+
+    def walk(i):
+        ray = [x[i] for x in rays]
+
+        def leaf_ok(a, tag):
+            return wide._leaf_test(rows, torch.tensor([a]),
+                                   torch.tensor([tag]),
+                                   *(x[None] for x in ray))[3][0, :tag]
+        return _walk_nearest_first(sc.nodes, leaf_ok, *ray, int(roots[i]))
+    walks = [walk(i) for i in range(300)]
     assert occ.tolist() == [w[0] for w in walks]
     assert 0 < sum(occ.tolist()) < 300
     assert int(counts['pair']) == sum(w[1] for w in walks)
     assert int(counts['box']) == sum(w[2] for w in walks)
+
+
+@pytest.fixture(scope='module')
+def motion_field():
+    """The reduced motion field (4 spheres) with its tree on the CPU
+    (leaf 64: leaves of up to 54 motion rows)."""
+    sc = bs.motion_field(n_spheres=4).commit(device='cpu', force_bvh=True)
+    assert sc.accel == 'bvh4mb' and float(sc.nodes[:, 7].max()) > 32
+    return sc
+
+
+def test_plain_motion_any_hit_counts_the_kernels_walk(motion_field):
+    """The motion any-hit plain version walks as K7's any-hit form does,
+    nearest child first by entry t over the motion rows at each ray's
+    time, so the motion and box tests it counts for that form's bound are
+    the kernel's: they equal a ray-by-ray walk written out in that order,
+    and so does its mask."""
+    sc = motion_field
+    rays = _rays(sc, 300, 6)
+    time = torch.as_tensor(np.random.RandomState(7).rand(300)
+                           .astype(np.float32))
+    counts = {}
+    occ = traverse.occluded_motion_plain(sc.nodes, sc.tris_mb, *rays, time,
+                                         counts=counts)
+    leaf = traverse._motion_leaf(sc.tris_mb)
+
+    def walk(i):
+        ray = [x[i] for x in rays]
+
+        def leaf_ok(a, tag):
+            return leaf(torch.tensor([a]), torch.tensor([tag]),
+                        *(x[None] for x in ray), time[i:i + 1])[3][0, :tag]
+        return _walk_nearest_first(sc.nodes, leaf_ok, *ray, 0)
+    walks = [walk(i) for i in range(300)]
+    assert occ.tolist() == [w[0] for w in walks]
+    assert 0 < sum(occ.tolist()) < 300
+    assert int(counts['pair']) == sum(w[1] for w in walks)
+    assert int(counts['box']) == sum(w[2] for w in walks)
+
+
+def test_frame_motion_calls_record_every_call(motion_field):
+    """raysets.frame_motion_calls on the reduced motion field records one
+    entry per K7 call of one bounce-1 trace, in order: each bounce's
+    closest call on the pass's rays at their times, then the any-hit call
+    of its NEE on every light's shadow rays.  The plain versions reproduce
+    each call's results, the wrappers are back after the block, and on
+    the CPU no launch is counted.  A scene without the motion tree is
+    refused."""
+    sc = motion_field
+    launches = (traverse.intersect_packet_mb.launches,
+                traverse.occluded_packet_mb.launches)
+    calls = raysets.frame_motion_calls(sc, bs.motion_field_camera(16, 16),
+                                       16, 16)
+    assert [c['kernel'] for c in calls] == [
+        'intersect_packet_mb', 'occluded_packet_mb'] * 2
+    plain = {'intersect_packet_mb': traverse.intersect_motion_plain,
+             'occluded_packet_mb': traverse.occluded_motion_plain}
+    for c in calls:
+        nodes, tris_mb, org, dirn, tnear, tfar, time = c['args']
+        n = 256 * (len(sc.lights) if c['kernel'] == 'occluded_packet_mb'
+                   else 1)
+        assert nodes is sc.nodes and tris_mb is sc.tris_mb
+        assert org.shape == (n, 3) and time.shape == (n,)
+        assert bool((tfar > tnear).any())
+        assert float(time.min()) >= 0.0 and float(time.max()) <= 1.0
+        ref = plain[c['kernel']](*c['args'])
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (ref, c['out']))):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert all(getattr(traverse, k).__name__ == k for k in plain)
+    assert (traverse.intersect_packet_mb.launches,
+            traverse.occluded_packet_mb.launches) == launches
+    with pytest.raises(ValueError, match='bvh4mb'):
+        raysets.frame_motion_calls(
+            bs.motion_field(n_spheres=4).commit(device='cpu'),
+            bs.motion_field_camera(8, 8), 8, 8)

@@ -3,8 +3,11 @@ torch version (the binary kernels also from per-ray roots, under both
 leaf schedules, on a frame's own calls and at leaf 512, the
 BVH4 kernels also on leaves of 128 triangles and more, the pair kernels
 K8/K9 also on a frame's own calls and on edge cases of their binning, the
-split-leaf kernel K11 and the sweep prototype's kernels K12), and the cornell,
-motion, grid, treelet and dense colonnade goldens rendered through them.
+split-leaf kernel K11 and the sweep prototype's kernels K12, the motion
+kernel K7's closest and any-hit forms also on the motion field's entry
+sets, leaves of 33-64 rows, dead lanes, 65,537 rays and a frame's own
+calls), and the cornell, motion, grid, treelet and dense colonnade
+goldens rendered through them.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -393,18 +396,90 @@ def test_motion_kernel_matches_plain_on_card(cuda):
     rays[0] = rays[0] * (2 / 3) + torch.tensor([0.0, 3.0, 0.0], device=cuda)
     time = torch.rand(rays[0].shape[0], generator=torch.Generator(
         device=cuda).manual_seed(9), device=cuda)
-    launches = traverse.intersect_packet_mb.launches
-    got = traverse.intersect_packet_mb(sc.nodes, sc.tris_mb, *rays, time)
-    ref = traverse.intersect_motion_plain(sc.nodes, sc.tris_mb, *rays, time)
-    torch.cuda.synchronize()
-    assert traverse.intersect_packet_mb.launches == launches + 1
+    ref, _ = _assert_motion_matches_plain(sc.nodes, sc.tris_mb, rays, time)
     assert bool((ref.tri >= 0).any())
-    for g, r in zip(got, ref):
+
+
+def _assert_motion_matches_plain(nodes, tris_mb, rays, time):
+    """K7's closest form bit-equal to its plain version and its any-hit
+    form to its own and to the closest form's tri >= 0, each launched
+    once; returns the plain results."""
+    launches = (traverse.intersect_packet_mb.launches,
+                traverse.occluded_packet_mb.launches)
+    hit = traverse.intersect_packet_mb(nodes, tris_mb, *rays, time)
+    ref = traverse.intersect_motion_plain(nodes, tris_mb, *rays, time)
+    occ = traverse.occluded_packet_mb(nodes, tris_mb, *rays, time)
+    occ_ref = traverse.occluded_motion_plain(nodes, tris_mb, *rays, time)
+    torch.cuda.synchronize()
+    assert (traverse.intersect_packet_mb.launches,
+            traverse.occluded_packet_mb.launches) == (launches[0] + 1,
+                                                      launches[1] + 1)
+    for g, r in zip(hit, ref):
         np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
-    np.testing.assert_array_equal(
-        traverse.occluded_packet_mb(sc.nodes, sc.tris_mb, *rays,
-                                    time).cpu().numpy(),
-        (ref.tri >= 0).cpu().numpy())
+    np.testing.assert_array_equal(occ.cpu().numpy(), occ_ref.cpu().numpy())
+    np.testing.assert_array_equal(occ.cpu().numpy(),
+                                  (ref.tri >= 0).cpu().numpy())
+    return ref, occ_ref
+
+
+@pytest.fixture(scope='module')
+def motion_card():
+    """The motion field on the card (173 binary nodes over union bounds,
+    leaves of up to 64 motion rows), or a skip without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sc = bs.motion_field().commit(device=torch.device('cuda'))
+    assert sc.accel == 'bvh4mb' and float(sc.nodes[:, 7].max()) > 32
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['camera', 'scattered', 'every_fourth_live',
+                                  'edge_65537'])
+def test_motion_kernels_on_motion_field(motion_card, rays):
+    """K7's two forms bit-equal to their plain versions on the motion
+    field: chip_smoke.py's entry sets (512^2 camera rays with their
+    times, 1M scattered rays) where most lanes test their own leaves;
+    with only every fourth ray live (8 lanes a warp), where the warp tests
+    each leaf across its lanes, two rounds of 32 for a leaf of 33-64 rows;
+    and 65,537 edge rays (a block's edge; dead, empty and finite
+    segments), where neither form reports a hit on an empty segment."""
+    sc, dev = motion_card, torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(31)
+    if rays == 'camera':
+        org, d, time = raysets.camera_rays(
+            sc, bs.motion_field_camera(512, 512), 512, 512, dev, 42)
+        zeros = torch.zeros(org.shape[0], device=dev)
+        batch = [org, d, zeros, torch.full_like(zeros, float('inf'))]
+    elif rays == 'scattered':
+        *batch, time = raysets.scattered_rays(sc, 1 << 20, gen, dev)
+    else:
+        n = 20_000 if rays == 'every_fourth_live' else 65_537
+        batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 32)
+        time = torch.rand(n, generator=gen, device=dev)
+        if rays == 'every_fourth_live':
+            batch[3][torch.arange(n, device=dev) % 4 != 0] = -1.0
+    ref, occ = _assert_motion_matches_plain(sc.nodes, sc.tris_mb, batch,
+                                            time)
+    assert bool((ref.tri >= 0).any()) and bool(occ.any())
+    empty = (batch[3] <= batch[2]).cpu().numpy()
+    assert not occ.cpu().numpy()[empty].any()
+
+
+@pytest.mark.cuda
+def test_motion_kernels_match_plain_on_frame_calls(motion_card):
+    """K7's two forms bit-equal to their plain versions on every call of
+    one bounce-1 trace of the motion field (256^2, 4 spp): each bounce's
+    closest call and its shadow rays' any-hit call."""
+    calls = raysets.frame_motion_calls(motion_card,
+                                       bs.motion_field_camera(256, 256),
+                                       256, 256, spp=4)
+    assert [c['kernel'] for c in calls] == ['intersect_packet_mb',
+                                            'occluded_packet_mb'] * 2
+    plain = {'intersect_packet_mb': traverse.intersect_motion_plain,
+             'occluded_packet_mb': traverse.occluded_motion_plain}
+    for c in calls:
+        _assert_outputs_equal(c['out'], plain[c['kernel']](*c['args']))
 
 
 @pytest.mark.cuda
@@ -617,9 +692,12 @@ def test_cornell_golden_on_card(cuda):
 
 @pytest.mark.cuda
 def test_motion_golden_on_card(cuda):
-    """motion_64 (depth 2, 16 spp, seed 42) through the motion kernel."""
+    """motion_64 (depth 2, 16 spp, seed 42) through the motion kernel's
+    closest and any-hit forms, and no plain version."""
     before = (traverse.intersect_packet_mb.launches,
-              traverse.intersect_motion_plain.cuda_calls)
+              traverse.occluded_packet_mb.launches,
+              traverse.intersect_motion_plain.cuda_calls,
+              traverse.occluded_motion_plain.cuda_calls)
     film, _ = renderer.render_frame(
         bs.motion_field().commit(device=cuda), bs.motion_field_camera(64, 64),
         pt.PTParams(max_depth=2), 64, 64, spp=16, seed=42)
@@ -628,7 +706,9 @@ def test_motion_golden_on_card(cuda):
     mse = ((img - golden) ** 2).mean()
     assert 10 * np.log10(img.max() ** 2 / max(mse, 1e-20)) >= 40.0
     assert traverse.intersect_packet_mb.launches > before[0]
-    assert traverse.intersect_motion_plain.cuda_calls == before[1]
+    assert traverse.occluded_packet_mb.launches > before[1]
+    assert (traverse.intersect_motion_plain.cuda_calls,
+            traverse.occluded_motion_plain.cuda_calls) == before[2:]
 
 
 @pytest.mark.cuda

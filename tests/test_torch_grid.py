@@ -422,12 +422,13 @@ def test_grid_dispatch(monkeypatch, which):
     """With ray_binning='grid', the reduced colonnade runs BVH4 on bounce 0
     and the grid on bounce 1; cornell (dense) runs the dense kernels on
     every bounce; a motion scene (BVH over union bounds) runs the motion
-    kernel: neither takes the grid."""
+    kernel's closest and any-hit forms: neither takes the grid."""
     calls = []
     for mod, name in ((grid, 'intersect_grid'), (grid, 'occluded_grid'),
                       (wide, 'intersect_packet4'), (wide, 'occluded_packet4'),
                       (dense, 'intersect_dense'), (dense, 'occluded_dense'),
-                      (traverse, 'intersect_packet_mb')):
+                      (traverse, 'intersect_packet_mb'),
+                      (traverse, 'occluded_packet_mb')):
         _record(monkeypatch, calls, mod, name)
     if which == 'colonnade':
         sc = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu',
@@ -444,7 +445,7 @@ def test_grid_dispatch(monkeypatch, which):
         sc = bs.motion_field(n_spheres=4).commit(device='cpu', force_bvh=True)
         assert sc.accel == 'bvh4mb' and sc.grid is None
         _render(sc, bs.motion_field_camera(8, 8), 8, 2, 'grid')
-        assert calls == ['intersect_packet_mb'] * 4
+        assert calls == ['intersect_packet_mb', 'occluded_packet_mb'] * 2
 
 
 # ----------------------------------------------------------- whole slice

@@ -1,9 +1,10 @@
 """The torch port's motion-blur path held against the JAX package: motion
 vertex buffers, union bounds, the numpy SAH builder over them and the
-motion tables; the plain motion traversal against the Pallas kernel
-(interpret mode) and the brute-force reference; the committed scenes; and
-the motion field rendered end to end.  The CUDA kernel is held against the
-plain version on the card by tests/test_torch_cuda.py."""
+motion tables; the plain motion traversal, closest and any hit, against
+the Pallas kernel (interpret mode) and the brute-force reference; the
+committed scenes; and the motion field rendered end to end.  The CUDA
+kernel's two forms are held against the plain versions on the card by
+tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
@@ -153,6 +154,68 @@ def test_plain_motion_matches_pallas_and_brute(moving, n):
     np.testing.assert_array_equal(
         ops.occluded_brute(sc.motion, *tr[:3], tf4, time=time).numpy(),
         occ.numpy())
+
+
+def _both_trees(which):
+    """The JAX and port commits of a motion scene with its tree: the
+    test_motion.py scene at leaf 8, or the reduced motion field at the
+    default leaf 64 (leaves of 33-64 rows)."""
+    jsb, sb, kw = _both(which)
+    kw = dict(kw, force_bvh=True)
+    js, sc = jsb.commit(**kw), sb.commit(device='cpu', **kw)
+    assert sc.accel == 'bvh4mb'
+    return js, sc
+
+
+def _segments(sc, n, seed):
+    """n rays from the scene's box in random directions at random times
+    (numpy RandomState(seed)), tnear 1e-4: every seventh dead (tfar -1),
+    every eleventh empty (tfar == tnear), every fifth of the others ending
+    at a random t below 3, the rest to infinity.  Returns (rays, time) as
+    numpy arrays."""
+    rs = np.random.RandomState(seed)
+    lo, hi = np.asarray(sc.bbox_lo), np.asarray(sc.bbox_hi)
+    org = (lo + (hi - lo) * rs.rand(n, 3)).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = np.full((n,), 1e-4, np.float32)
+    tf = np.full((n,), np.inf, np.float32)
+    tf[3::5] = rs.rand(len(tf[3::5])).astype(np.float32) * 3.0
+    tf[::7] = -1.0
+    tf[1::11] = tn[1::11]
+    return (org, d, tn, tf), rs.rand(n).astype(np.float32)
+
+
+@pytest.mark.parametrize('which', ['test_motion', 'motion_field_4'])
+def test_motion_any_hit_is_the_closest_hit_mask(which):
+    """The motion any-hit plain version (occluded_packet_mb on the CPU)
+    equals intersect_motion_plain's tri >= 0 on every ray, dead and empty
+    segments and segments behind the origin included (all false there);
+    and it equals the JAX occluded_packet_mb (interpret mode) and both
+    packages' brute-force occlusion, as tests/test_motion.py holds them."""
+    js, sc = _both_trees(which)
+    rays, time = _segments(sc, R, 4)
+    tr = [torch.as_tensor(x) for x in rays]
+    ttime = torch.as_tensor(time)
+    occ = traverse.occluded_packet_mb(sc.nodes, sc.tris_mb, *tr, ttime)
+    hit = traverse.intersect_motion_plain(sc.nodes, sc.tris_mb, *tr, ttime)
+    np.testing.assert_array_equal(occ.numpy(), (hit.tri >= 0).numpy())
+    empty = rays[3] <= rays[2]
+    assert empty.any() and not occ.numpy()[empty].any()
+    assert 0 < occ.numpy().sum() < (~empty).sum()
+    jr, jtime = [jnp.asarray(x) for x in rays], jnp.asarray(time)
+    for ref in (ppt.occluded_packet_mb(js.packet['nodes'],
+                                       js.packet['tris_mb'], *jr, jtime,
+                                       max_leaf=js.leaf_size, interpret=True),
+                jops.occluded_brute(js.geom, *jr, time=jtime),
+                ops.occluded_brute(sc.motion, *tr, time=ttime)):
+        np.testing.assert_array_equal(occ.numpy(), np.asarray(ref))
+    # segments behind their origins (tnear < tfar < 0): the closest walk
+    # takes its root at entry t 0, so neither form reports a hit
+    tr[2], tr[3] = torch.full((R,), -2.0), torch.full((R,), -0.5)
+    hit = traverse.intersect_motion_plain(sc.nodes, sc.tris_mb, *tr, ttime)
+    occ = traverse.occluded_packet_mb(sc.nodes, sc.tris_mb, *tr, ttime)
+    assert not bool(occ.any()) and not bool((hit.tri >= 0).any())
 
 
 def test_brute_matches_jax_with_and_without_time(moving):

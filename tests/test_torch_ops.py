@@ -358,6 +358,39 @@ def test_ray_sets_on_cornell():
     assert occ[0].shape == (100, 3) and occ[4].shape == (100,)
 
 
+def test_frame_dense_calls_record_every_call():
+    """raysets.frame_dense_calls on cornell records one entry per K1/K2
+    call of one bounce-1 trace, in order: each bounce's closest call on
+    the pass's rays, then the any-hit call on every light's shadow rays;
+    the plain versions reproduce each call's results, the wrappers are
+    back after the block, and no launch is counted on the CPU.  A scene
+    traced otherwise is refused."""
+    sc = bs.cornell_box().commit(device='cpu')
+    launches = (dense.intersect_dense.launches,
+                dense.occluded_dense.launches)
+    calls = raysets.frame_dense_calls(sc, bs.cornell_camera(16, 16), 16, 16,
+                                      spp=2)
+    assert [c['kernel'] for c in calls] == ['intersect_dense',
+                                            'occluded_dense'] * 2
+    plain = {'intersect_dense': dense.intersect_dense_plain,
+             'occluded_dense': dense.occluded_dense_plain}
+    for c in calls:
+        tris, org, dirn, tnear, tfar = c['args']
+        n = 512 * (len(sc.lights) if c['kernel'] == 'occluded_dense' else 1)
+        assert tris is sc.tris and org.shape == (n, 3) and tfar.shape == (n,)
+        ref = plain[c['kernel']](*c['args'])
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (ref, c['out']))):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert all(getattr(dense, k).__name__ == k for k in plain)
+    assert (dense.intersect_dense.launches,
+            dense.occluded_dense.launches) == launches
+    with pytest.raises(ValueError, match="'dense'"):
+        raysets.frame_dense_calls(
+            bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(
+                device='cpu'), bs.colonnade_camera(8, 8), 8, 8)
+
+
 def test_wide_turns_needs_a_card(tmp_path):
     """The A/B timing script exits 1 without a CUDA device, before it
     builds anything."""

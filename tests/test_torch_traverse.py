@@ -147,9 +147,9 @@ def test_plain_binary_wrappers_bound_the_ray_count(tables):
     for fn in (traverse.intersect_packet, traverse.occluded_packet):
         with pytest.raises(ValueError, match='exceed one launch'):
             fn(*tabs, *rays)
-    with pytest.raises(ValueError, match='exceed one launch'):
-        traverse.intersect_packet_mb(*tabs, *rays,
-                                     torch.empty((n,), device='meta'))
+    for fn in (traverse.intersect_packet_mb, traverse.occluded_packet_mb):
+        with pytest.raises(ValueError, match='exceed one launch'):
+            fn(*tabs, *rays, torch.empty((n,), device='meta'))
 
 
 def test_plain_binary_matches_bvh4_on_colonnade():

@@ -263,14 +263,15 @@ _BINNED = tuple((treelets, f'{kind}_{how}_binned')
 def test_binned_dispatch(monkeypatch, which, binning_):
     """With ray_binning 'treelet' or 'dense' the reduced colonnade runs
     BVH4 on bounce 0 and the binned calls on bounce 1; cornell (dense)
-    runs the dense kernels and a motion scene the motion kernel on every
-    bounce: neither takes a binning."""
+    runs the dense kernels and a motion scene the motion kernel's closest
+    and any-hit forms on every bounce: neither takes a binning."""
     calls = []
     for mod, name in _BINNED + (
             (grid, 'intersect_grid'), (grid, 'occluded_grid'),
             (wide, 'intersect_packet4'), (wide, 'occluded_packet4'),
             (dense, 'intersect_dense'), (dense, 'occluded_dense'),
-            (traverse, 'intersect_packet_mb')):
+            (traverse, 'intersect_packet_mb'),
+            (traverse, 'occluded_packet_mb')):
         _record(monkeypatch, calls, mod, name)
     if which == 'colonnade':
         sc = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu',
@@ -289,7 +290,7 @@ def test_binned_dispatch(monkeypatch, which, binning_):
         sc = bs.motion_field(n_spheres=4).commit(device='cpu', force_bvh=True)
         assert sc.accel == 'bvh4mb' and sc.treelets is None
         _render(sc, bs.motion_field_camera(8, 8), 8, 2, binning_)
-        assert calls == ['intersect_packet_mb'] * 4
+        assert calls == ['intersect_packet_mb', 'occluded_packet_mb'] * 2
 
 
 # ----------------------------------------------------------- whole slice

@@ -1,18 +1,20 @@
 // Binary-BVH traversal kernels: closest hit, any hit, and the
-// motion-blur closest hit.
+// motion-blur closest and any hit.
 //
 // Replaces the TPU kernels of yulio_raytracer_tpu/ops/pallas_traverse.py:
 //   yrt_intersect_binary <- _kernel    (intersect_packet, closest hit)
 //   yrt_occluded_binary  <- _kernel_any (occluded_packet, any hit)
 //   yrt_intersect_motion <- _kernel_mb (intersect_packet_mb, motion blur)
+//   yrt_occluded_motion  <- _kernel_mb (occluded_packet_mb, its hit mask)
 // The first two take an optional start node per ray (the reference's
 // `roots`, one per 1024-ray packet), which the treelet binning's rounds
 // give.  The reference runs them where the BVH4 collapse fails its
 // guards or accel='bvh2' asks for them, under the 'treelet' and 'dense'
-// binnings on bounces >= 1, and the third on motion scenes
-// (its occluded_packet_mb is this kernel's hit mask, and so is the
-// port's: there is no motion any-hit kernel).  In the port the first two
-// are also the fallback of the 'grid' binning, and the whole 'bvh2' path.
+// binnings on bounces >= 1, and the last two on motion scenes.  Its
+// occluded_packet_mb is the closest kernel's hit mask (tri >= 0); the
+// port's any-hit form computes that mask with an early exit.  In the
+// port the first two are also the fallback of the 'grid' binning, and
+// the whole 'bvh2' path.
 //
 // Node rows (ops/traverse.py pack_nodes): (N, 8) f32
 // [lo.x lo.y lo.z hi.x hi.y hi.z A tag] in depth-first order; tag > 0 is
@@ -83,10 +85,24 @@
 // compacted before the launch in torch ops (slower on 11 of 13 sets,
 // 1.03-1.07x faster only on the grid's and dense's any-hit calls).
 //
-// K7 (motion_kernel below) keeps the one-ray-per-thread walk of the
-// earlier port: its motion test (87 flops against the Woop test's 55) and
-// its leaves of up to 64 triangles change what a warp schedule would buy,
-// and it is timed on its own cell, so its redesign is separate work.
+// K7 (motion_walk below, the kernels intersect_motion_kernel and
+// occluded_motion_kernel) is K5's and K6's design over the motion rows of
+// the motion field's tree (173 nodes, leaves of up to 64 rows), each
+// test the 87-flop motion test at the owning lane's ray and time: a leaf
+// of 33-64 rows tested across the warp takes two rounds of 32.  Before,
+// it walked one ray per thread with scalar loads and both children
+// pushed, each leaf a serial loop while the warp's other lanes waited
+// (2.1% of its f32 bound), and the shadow rays of a motion scene walked
+// to their closest hit, as the reference's occluded_packet_mb does; the
+// any-hit form stops at the first.  On the motion frame's own calls
+// (binary_turns against the one-ray-per-thread walk, NVIDIA H100 80GB
+// HBM3 at 700 W; PERF.md section 6) the closest form is 1.8x and the
+// any-hit form 2.2x faster (the early exit alone 1.09x), at 9.7% and
+// 10.8% of the bound.  The threshold is 8 lanes: every other one tried
+// (1, 4, 12, 16, 24, 32) was slower on both frame sets, by 3% (12) to
+// 95% (1).  Not kept either: node rows staged in shared memory (within
+// 2.2% of __ldg on the frame's calls), blocks of 64 (level) or 256
+// threads (1-7% slower).
 #include "bvh.cuh"
 #include "motion.cuh"
 
@@ -94,6 +110,8 @@
 // the lanes of a warp holding a leaf from which on each lane tests its own
 // leaf (fewer: the warp tests them one at a time across its lanes)
 #define BINARY_SERIAL_MIN 16
+// the same for K7's two forms, whose leaves hold up to 64 motion rows
+#define MOTION_SERIAL_MIN 8
 
 // the current node of a lane's walk: its row, and that row's A and tag
 struct Cur {
@@ -329,81 +347,162 @@ occluded_binary_kernel(const float4* __restrict__ nodes,
     }
 }
 
-// K7: the earlier port's walk, one thread per ray with a private stack of
-// STACK (node, entry t) pairs, nodes and triangles read with scalar loads
-// through the read-only cache, each leaf a serial loop of motion tests at
-// the ray's time.  The best t starts at tfar, so the motion test's window
-// th < min(tfar, best) is th < best.  `roots` is always null (node 0):
-// it stays so that K7 compiles to the earlier port's instructions (424;
-// without it 416) until K7 is redesigned.
-__global__ void __launch_bounds__(BINARY_BLOCK)
-motion_kernel(const float* __restrict__ nodes,
-              const float4* __restrict__ tris,
-              const float* __restrict__ org,
-              const float* __restrict__ dir,
-              const float* __restrict__ tnear,
-              const float* __restrict__ tfar,
-              const float* __restrict__ time,
-              const int* __restrict__ roots, int n_rays,
-              float* __restrict__ t_out, int* __restrict__ tri_out,
-              float* __restrict__ u_out, float* __restrict__ v_out) {
-    const int i = blockIdx.x * BINARY_BLOCK + threadIdx.x;
-    if (i >= n_rays) return;
-    const Ray r = load_ray(org, dir, tnear, tfar, i);
-    const float tm = __ldg(time + i);
-    const Slab inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
+// K7, the motion-blur walk: K5's and K6's design over the motion rows,
+// each lane's ray tested at its own time.  ANY selects the any-hit form
+// (K6's order, up to the first hit); else the closest form (K5's walk,
+// bit for bit).  The closest form's root is taken when its entry t 0
+// does not exceed tfar; the any-hit form also needs tfar > tnear, so its
+// mask is the closest form's tri >= 0 on every ray.  The best t starts
+// at tfar, so a motion test's window th < best is th < min(tfar, best).
+template <bool ANY>
+__device__ __forceinline__ void motion_walk(
+    const float4* __restrict__ nodes, const float4* __restrict__ tris,
+    const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ tnear, const float* __restrict__ tfar,
+    const float* __restrict__ time, int n_rays, float* __restrict__ t_out,
+    int* __restrict__ tri_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, bool* __restrict__ occ_out) {
+    const int lane = threadIdx.x & 31;
+    int ray = blockIdx.x * BINARY_BLOCK + threadIdx.x;
+    Ray r = {};
+    Slab inv = {};
+    float tm = 0.0f;
+    Best b = {0.0f, 0.0f, 0.0f, -1};
+    Cur cur = {0, 0, 0};
     int st_n[STACK];
     float st_t[STACK];
-    int sp = 0;
-    st_n[0] = roots ? __ldg(roots + i) : 0;
-    st_t[0] = 0.0f;
-    float t_b = r.tfar, u_b = 0.0f, v_b = 0.0f;
-    int tri_b = -1;
-    while (sp >= 0) {
-        const int node = st_n[sp];
-        const float tpop = st_t[sp];
-        --sp;
-        if (!(tpop <= t_b)) continue;
-        const float* nd = nodes + 8 * static_cast<size_t>(node);
-        const int a = static_cast<int>(__ldg(nd + 6));
-        const int tag = static_cast<int>(__ldg(nd + 7));
-        if (tag >= 0) {
-            for (int j = a; j < a + tag; ++j) {
-                float w[20], th, uh, vh;
-                load_row<5>(tris, 8, j, w);
-                if (motion_test(w, r, tm, r.tnear, t_b, th, uh, vh)) {
-                    t_b = th;
-                    tri_b = j;
-                    u_b = uh;
-                    v_b = vh;
+    int sp = -1;
+
+    auto finish = [&](bool occ) {
+        if constexpr (ANY) {
+            occ_out[ray] = occ;
+        } else {
+            t_out[ray] = b.tri >= 0 ? b.t : CUDART_INF_F;
+            tri_out[ray] = b.tri;
+            u_out[ray] = b.u;
+            v_out[ray] = b.v;
+        }
+        ray = -1;
+    };
+    // the next entry whose entry t does not exceed the best t (any entry
+    // for the any-hit form, whose best t stays tfar), or finish
+    auto next_entry = [&]() {
+        for (; sp >= 0; --sp) {
+            if (ANY || st_t[sp] <= b.t) {
+                cur = node_at(nodes, st_n[sp--]);
+                return;
+            }
+        }
+        finish(false);
+    };
+
+    if (ray < n_rays) {
+        r = load_ray(org, dir, tnear, tfar, ray);
+        tm = __ldg(time + ray);
+        inv = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
+        b.t = r.tfar;
+        // the root, entry t 0
+        if (0.0f <= b.t && (!ANY || r.tfar > r.tnear)) {
+            cur = node_at(nodes, 0);
+        } else {
+            finish(false);
+        }
+    } else {
+        ray = -1;
+    }
+    while (__ballot_sync(FULL_MASK, ray >= 0)) {
+        if (ray >= 0 && cur.tag < 0) {
+            // the child that would pop next, the other (if hit) pushed:
+            // the near one (closest), the one of least entry t (any hit)
+            Cur near, far;
+            bool hn, hf;
+            float tn, tf;
+            children(nodes, cur, r, inv, b.t, near, hn, tn, far, hf, tf);
+            if (hn && hf) {
+                const bool far_first = ANY && tf < tn;
+                ++sp;
+                st_n[sp] = far_first ? near.node : far.node;
+                if constexpr (!ANY) st_t[sp] = tf;
+                cur = far_first ? far : near;
+            } else if (hn || hf) {
+                cur = hn ? near : far;
+            } else {
+                next_entry();
+            }
+        }
+        // the leaves the lanes hold: each lane its own when many hold one,
+        // else one at a time across the warp, each of its rows at the
+        // owning lane's ray and time
+        const bool leaf = ray >= 0 && cur.tag >= 0;
+        unsigned leaves = __ballot_sync(FULL_MASK, leaf);
+        bool occ = false;
+        if (__popc(leaves) >= MOTION_SERIAL_MIN) {
+            if (leaf) {
+                for (int j = cur.a; j < cur.a + cur.tag && !occ; ++j) {
+                    float w[20], th, uh, vh;
+                    load_row<5>(tris, 8, j, w);
+                    if (motion_test(w, r, tm, r.tnear, b.t, th, uh, vh)) {
+                        if constexpr (ANY) occ = true;
+                        else b = {th, uh, vh, j};
+                    }
                 }
             }
-            continue;
+            leaves = 0;
         }
-        const int left = node + 1;
-        float tl, tr;
-        const bool hl = slab(nodes + 8 * static_cast<size_t>(left), r, inv,
-                             r.tnear, t_b, tl);
-        const bool hr = slab(nodes + 8 * static_cast<size_t>(a), r, inv,
-                             r.tnear, t_b, tr);
-        const int axis = -tag - 1;
-        const float d = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-        const bool left_near = d >= 0.0f;
-        if (left_near ? hr : hl) {              // far child first
-            ++sp;
-            st_n[sp] = left_near ? a : left;
-            st_t[sp] = left_near ? tr : tl;
+        while (leaves) {
+            const int src = __ffs(leaves) - 1;
+            leaves &= leaves - 1;
+            const Ray q = shfl_ray(r, src);
+            const float qt = __shfl_sync(FULL_MASK, tm, src);
+            const int a = __shfl_sync(FULL_MASK, cur.a, src);
+            const int c = __shfl_sync(FULL_MASK, cur.tag, src);
+            float tb = __shfl_sync(FULL_MASK, b.t, src);
+            bool hit = false;
+            for (int j0 = 0; j0 < c && !hit; j0 += 32) {
+                float th = 0.0f, uh = 0.0f, vh = 0.0f;
+                const bool h = lane_test_mb(tris, q, qt, tb, a, c, j0, th,
+                                            uh, vh);
+                if constexpr (ANY) {
+                    hit = __any_sync(FULL_MASK, h);
+                } else {
+                    take_closest(h, th, uh, vh, a + j0, src, tb, b);
+                }
+            }
+            if (lane == src) occ = hit;
         }
-        if (left_near ? hl : hr) {
-            ++sp;
-            st_n[sp] = left_near ? left : a;
-            st_t[sp] = left_near ? tl : tr;
+        if (leaf) {
+            if (occ) finish(true);
+            else next_entry();
         }
     }
-    t_out[i] = tri_b >= 0 ? t_b : CUDART_INF_F;
-    tri_out[i] = tri_b;
-    u_out[i] = u_b;
-    v_out[i] = v_b;
+}
+
+__global__ void __launch_bounds__(BINARY_BLOCK)
+intersect_motion_kernel(const float4* __restrict__ nodes,
+                        const float4* __restrict__ tris,
+                        const float* __restrict__ org,
+                        const float* __restrict__ dir,
+                        const float* __restrict__ tnear,
+                        const float* __restrict__ tfar,
+                        const float* __restrict__ time, int n_rays,
+                        float* __restrict__ t_out, int* __restrict__ tri_out,
+                        float* __restrict__ u_out,
+                        float* __restrict__ v_out) {
+    motion_walk<false>(nodes, tris, org, dir, tnear, tfar, time, n_rays,
+                       t_out, tri_out, u_out, v_out, nullptr);
+}
+
+__global__ void __launch_bounds__(BINARY_BLOCK)
+occluded_motion_kernel(const float4* __restrict__ nodes,
+                       const float4* __restrict__ tris,
+                       const float* __restrict__ org,
+                       const float* __restrict__ dir,
+                       const float* __restrict__ tnear,
+                       const float* __restrict__ tfar,
+                       const float* __restrict__ time, int n_rays,
+                       bool* __restrict__ occ_out) {
+    motion_walk<true>(nodes, tris, org, dir, tnear, tfar, time, n_rays,
+                      nullptr, nullptr, nullptr, nullptr, occ_out);
 }
 
 static int grid_of(int n_rays) {
@@ -458,16 +557,35 @@ extern "C" int yrt_intersect_motion(const void* nodes, const void* tris_mb,
                                     void* t_out, void* tri_out, void* u_out,
                                     void* v_out, void* stream) {
     if (n_rays > 0) {
-        motion_kernel<<<grid_of(n_rays), BINARY_BLOCK, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(nodes),
+        intersect_motion_kernel<<<grid_of(n_rays), BINARY_BLOCK, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris_mb),
             static_cast<const float*>(org), static_cast<const float*>(dir),
             static_cast<const float*>(tnear),
             static_cast<const float*>(tfar),
-            static_cast<const float*>(time), nullptr, n_rays,
+            static_cast<const float*>(time), n_rays,
             static_cast<float*>(t_out), static_cast<int*>(tri_out),
             static_cast<float*>(u_out), static_cast<float*>(v_out));
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int yrt_occluded_motion(const void* nodes, const void* tris_mb,
+                                   const void* org, const void* dir,
+                                   const void* tnear, const void* tfar,
+                                   const void* time, int n_rays,
+                                   void* occ_out, void* stream) {
+    if (n_rays > 0) {
+        occluded_motion_kernel<<<grid_of(n_rays), BINARY_BLOCK, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(nodes),
+            static_cast<const float4*>(tris_mb),
+            static_cast<const float*>(org), static_cast<const float*>(dir),
+            static_cast<const float*>(tnear),
+            static_cast<const float*>(tfar),
+            static_cast<const float*>(time), n_rays,
+            static_cast<bool*>(occ_out));
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// The motion-blur triangle test of the port's motion kernel (binary.cu).
+// The motion-blur triangle test of the port's motion kernel K7
+// (binary.cu), and its lane test for the warp's leaf schedule.
 //
 // A motion triangle is a packed row of 32 floats
 // [v0 (3) e1 (3) e2 (3) mv0 (3) me1 (3) me2 (3) cull | pad]
@@ -11,7 +12,7 @@
 // (invalid triangles, padding) give det == 0 and never hit.
 #pragma once
 
-#include "woop.cuh"
+#include "bvh.cuh"
 
 // w: the first 19 floats of a motion row; hit strictly inside
 // (tnear, tfar).  th/uh/vh receive the hit distance and barycentrics.
@@ -48,4 +49,19 @@ __device__ __forceinline__ bool motion_test(const float* w, const Ray& r,
     return nz && (uh >= -YRT_BARY_EPS) && (vh >= -YRT_BARY_EPS)
         && (uh + vh <= YRT_ONE_PLUS_BARY_EPS) && cull_ok
         && (th > tnear) && (th < tfar);
+}
+
+// Lane j's test of motion row a + j0 + j of a leaf of c rows against ray
+// q at time tm over (q.tnear, tfar); false past the leaf's end (bvh.cuh
+// lane_test over the motion rows, 8 float4s wide).
+__device__ __forceinline__ bool lane_test_mb(const float4* __restrict__ tris,
+                                             const Ray& q, float tm,
+                                             float tfar, int a, int c, int j0,
+                                             float& th, float& uh,
+                                             float& vh) {
+    const int j = j0 + static_cast<int>(threadIdx.x & 31);
+    if (j >= c) return false;
+    float w[20];
+    load_row<5>(tris, 8, a + j, w);
+    return motion_test(w, q, tm, q.tnear, tfar, th, uh, vh);
 }

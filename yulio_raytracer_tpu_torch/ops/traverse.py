@@ -7,11 +7,10 @@ Counterpart of `yulio_raytracer_tpu/ops/pallas_traverse.py`
 The plain versions are also the counterpart of the per-ray BVH walk of
 `yulio_raytracer_tpu/ops/traverse.py`.  On a CUDA tensor each wrapper
 launches its kernel from `csrc/binary.cu` (one ray per lane with a
-private stack; K5/K6 test leaves by each lane or across the warp, K7 one
-ray per thread alone; see its header); on a CPU tensor it runs the plain
-torch version, a vectorized per-ray stack traversal of the same tables in
-the same order, which the kernels are held against on the card.  Any ray
-count is accepted.
+private stack, the leaves tested by each lane or across the warp; see its
+header); on a CPU tensor it runs the plain torch version, a vectorized
+per-ray stack traversal of the same tables in the same order, which the
+kernels are held against on the card.  Any ray count is accepted.
 
 `intersect_packet` / `occluded_packet` take an optional start node per
 ray (`roots`), where the reference takes one per 1024-ray packet: the
@@ -53,6 +52,7 @@ _SIGNATURES = {
     'yrt_intersect_binary': [_V] * 7 + [_I] + [_V] * 5,
     'yrt_occluded_binary': [_V] * 7 + [_I] + [_V] * 2,
     'yrt_intersect_motion': [_V] * 7 + [_I] + [_V] * 5,
+    'yrt_occluded_motion': [_V] * 7 + [_I] + [_V] * 2,
 }
 
 
@@ -279,8 +279,10 @@ def _closest_plain(nodes, leaf, org, dirn, tnear, tfar, time=None,
     return Hit(t, tri_b, u_b, v_b)
 
 
-def _any_plain(nodes, leaf, org, dirn, tnear, tfar, roots=None,
-              counts=None):
+def _any_plain(nodes, leaf, org, dirn, tnear, tfar, time=None, roots=None,
+               counts=None, root_entry=False):
+    """The any-hit walk of the rays with tfar > tnear (with root_entry
+    also 0 <= tfar, as the closest walk takes its root at entry t 0)."""
     r, dev = org.shape[0], org.device
     inv = wide._safe_inv(dirn)
     st_n = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
@@ -289,7 +291,10 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar, roots=None,
     sp = torch.zeros((r,), dtype=torch.int64, device=dev)
     deepest = torch.ones((r,), dtype=torch.int64, device=dev)
     occ = torch.zeros((r,), dtype=torch.bool, device=dev)
-    act = torch.nonzero(tfar > tnear)[:, 0]
+    live = tfar > tnear
+    if root_entry:
+        live &= tfar >= 0.0
+    act = torch.nonzero(live)[:, 0]
     while act.numel():
         top = sp[act]
         node = st_n[act, top]
@@ -300,7 +305,7 @@ def _any_plain(nodes, leaf, org, dirn, tnear, tfar, roots=None,
         if bool(lf.any()):
             rid = act[lf]
             ok = leaf(a[lf], tag[lf], org[rid], dirn[rid], tnear[rid],
-                      tfar[rid], None)[3]
+                      tfar[rid], None if time is None else time[rid])[3]
             occ[rid] = torch.any(ok, dim=1)
             cb.count(counts, 'pair',
                      wide.tests_to_first_hit(ok, tag[lf]).sum())
@@ -347,7 +352,7 @@ def occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar, roots=None,
         occluded_binary_plain.cuda_calls += 1
     return wide._chunked(partial(_any_plain, counts=counts),
                          (nodes, _woop_leaf(tris)), org, dirn, tnear, tfar,
-                         roots)
+                         None, roots)
 
 
 def intersect_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar, time,
@@ -357,6 +362,22 @@ def intersect_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar, time,
     if org.is_cuda:
         intersect_motion_plain.cuda_calls += 1
     return wide._chunked(partial(_closest_plain, counts=counts),
+                         (nodes, _motion_leaf(tris_mb)), org, dirn, tnear,
+                         tfar, time)
+
+
+def occluded_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar, time,
+                          counts=None):
+    """Plain torch version of the motion-blur any-hit kernel: the binary
+    any-hit walk (hit child of least entry t first, up to the first hit)
+    over the motion rows at each ray's time.  Its mask is
+    intersect_motion_plain's tri >= 0 on every ray: a ray walks where
+    tfar > tnear and 0 <= tfar (the closest walk's root, entry t 0), and a
+    hit inside (tnear, tfar) exists exactly where the closest walk finds
+    one.  counts as above, in this walk's order."""
+    if org.is_cuda:
+        occluded_motion_plain.cuda_calls += 1
+    return wide._chunked(partial(_any_plain, counts=counts, root_entry=True),
                          (nodes, _motion_leaf(tris_mb)), org, dirn, tnear,
                          tfar, time)
 
@@ -437,16 +458,29 @@ def intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
 
 
 def occluded_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar, time):
-    """(R,) bool: the motion closest-hit kernel's hit mask, as the
-    reference's occluded_packet_mb (no dedicated any-hit kernel)."""
-    return intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
-                               time).tri >= 0
+    """(R,) bool: is each ray segment (tnear, tfar) occluded at its time:
+    the reference's occluded_packet_mb, intersect_packet_mb's hit mask,
+    computed by the motion kernel's any-hit form, which stops at the
+    first hit."""
+    if org.device.type == 'cpu':
+        return occluded_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar,
+                                     time)
+    args = _kernel_args(nodes, tris_mb.reshape(-1, MB_STRIDE), org, dirn,
+                        tnear, tfar, time)
+    r, dev = args[2].shape[0], args[2].device
+    occ = torch.empty((r,), dtype=torch.bool, device=dev)
+    cb.launch(_lib().yrt_occluded_motion, 'occluded_packet_mb', dev, *args,
+              r, occ)
+    occluded_packet_mb.launches += 1
+    return occ
 
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 intersect_packet.launches = 0
 occluded_packet.launches = 0
 intersect_packet_mb.launches = 0
+occluded_packet_mb.launches = 0
 intersect_binary_plain.cuda_calls = 0
 occluded_binary_plain.cuda_calls = 0
 intersect_motion_plain.cuda_calls = 0
+occluded_motion_plain.cuda_calls = 0

@@ -49,7 +49,8 @@ CELLS = {
 KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
            'intersect_wide_kernel', 'occluded_wide_kernel',
            'intersect_binary_kernel', 'occluded_binary_kernel',
-           'motion_kernel', 'closest_pairs_kernel', 'occluded_pairs_kernel',
+           'intersect_motion_kernel', 'occluded_motion_kernel',
+           'closest_pairs_kernel', 'occluded_pairs_kernel',
            'bin_count_kernel', 'bin_scan_kernel', 'bin_scatter_kernel',
            'march_kernel', 'split_kernel')
 

@@ -1,7 +1,7 @@
 """The ray sets the kernels are held and timed on: camera rays, the
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
-roots, and the pair kernels' and the binary kernels' own calls in a
+roots, and the dense, pair, binary and motion kernels' own calls in a
 frame.  `chip_smoke.py`, `wide_turns`, `pairs_turns` and `binary_turns`
 make them with these functions.
 """
@@ -15,7 +15,7 @@ import torch
 from . import renderer
 from .integrator import pathtracer as pt
 from .ops import intersect as ops_i
-from .ops import pairs, traverse, treelets
+from .ops import dense, pairs, traverse, treelets
 from .sampling import patterns
 from .sampling import shapesampler as ss
 
@@ -135,6 +135,22 @@ def recorded_binary_calls():
     return _recorded(traverse, ('intersect_packet', 'occluded_packet'), 7)
 
 
+def recorded_motion_calls():
+    """Record every call of the motion kernel's wrappers (ops/traverse.py
+    intersect_packet_mb, K7's closest form, and occluded_packet_mb, its
+    any-hit form) made inside the block, as _recorded does; 'args' is
+    (nodes, tris_mb, org, dirn, tnear, tfar, time)."""
+    return _recorded(traverse, ('intersect_packet_mb', 'occluded_packet_mb'),
+                     7)
+
+
+def recorded_dense_calls():
+    """Record every call of the dense kernels' wrappers (ops/dense.py
+    intersect_dense, K1, and occluded_dense, K2) made inside the block, as
+    _recorded does; 'args' is (tris, org, dirn, tnear, tfar)."""
+    return _recorded(dense, ('intersect_dense', 'occluded_dense'), 5)
+
+
 def _bounce_one(scene, camera, binning, width, height, spp, seed):
     """Render a frame of max_depth 2 with ray_binning `binning`: bounce 0
     and bounce 1 over a pass of width * height * spp rays (up to the
@@ -172,4 +188,30 @@ def frame_binary_calls(scene, camera, accel_or_binning, width, height,
                          "expected 'bvh2', 'grid', 'dense' or 'treelet'")
     with recorded_binary_calls() as calls:
         _bounce_one(scene, camera, binning, width, height, spp, seed)
+    return calls
+
+
+def frame_motion_calls(scene, camera, width, height, spp=1, seed=42):
+    """The K7 calls of one bounce-1 trace of a motion scene committed with
+    its tree (accel 'bvh4mb'), as frame_pair_calls: each bounce's closest
+    call and the shadow call of its NEE.  Returns recorded_motion_calls'
+    list."""
+    return _frame_calls(scene, 'bvh4mb', recorded_motion_calls, camera,
+                        width, height, spp, seed)
+
+
+def frame_dense_calls(scene, camera, width, height, spp=1, seed=42):
+    """The K1/K2 calls of one bounce-1 trace of a scene traced densely
+    (accel 'dense'), as frame_motion_calls.  Returns recorded_dense_calls'
+    list."""
+    return _frame_calls(scene, 'dense', recorded_dense_calls, camera, width,
+                        height, spp, seed)
+
+
+def _frame_calls(scene, accel, recorder, camera, width, height, spp, seed):
+    if scene.accel != accel:
+        raise ValueError(f"the scene's accel is {scene.accel!r}, not "
+                         f"{accel!r}")
+    with recorder() as calls:
+        _bounce_one(scene, camera, 'morton', width, height, spp, seed)
     return calls
