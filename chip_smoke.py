@@ -27,9 +27,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     raysets.frame_motion_calls), the dense kernels K1/K2 on cornell's own
     calls at the pass size (one bounce-1 trace at 512^2 and 16 spp: 2^22
     closest and 2^23 shadow rays a bounce, raysets.frame_dense_calls),
-    bit-equal, with their tests and bound; then the grid, treelet and
-    dense paths (ops/grid.py,
-    ops/treelets.py intersect_packet_binned and intersect_dense_binned,
+    bit-equal, with their tests and bound on the table's live rows; then
+    the grid, treelet and dense paths (ops/grid.py, ops/treelets.py
+    intersect_packet_binned and intersect_dense_binned,
     and their any-hit forms) against the binary
     kernels on the same hemisphere and shadow rays, and K11 unsorted and
     sorted against K5 on the hemisphere rays, timed in turns; the BVH4
@@ -64,8 +64,8 @@ Phases, one line each (a failure raises and the exit code is nonzero):
  6. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3; K12's
-    from its shapes) times their flops over 67 TFLOP/s f32, against its
-    time in phase 3.  K11's
+    from its shapes; K1/K2's by stage, as they run the Woop test) times
+    their flops over 67 TFLOP/s f32, against its time in phase 3.  K11's
     tests are those K5's plain version counts on the same rays, the tests
     their closest hits need; the tests K11's schedule makes (every lane of
     a block) are printed beside them as that schedule's waste.
@@ -100,7 +100,9 @@ PEAK_FLOPS = 67e12
 # subtract, negate, divide, abs and compare (selects are free)
 WOOP_FLOPS = 55     # csrc/woop.cuh woop_test: six 3-term dot products
 #                     (33), |dwp| test (2), 1/dwp (1), th (2), u and v (4),
-#                     ng.d (5), cull (2), window tests (6)
+#                     ng.d (5), cull (2), window tests (6); the dense
+#                     kernels run it in stages, counted per stage by their
+#                     plain versions (ops/dense.py staged_flops)
 MOTION_FLOPS = 87   # csrc/motion.cuh motion_test: edges at time s (12),
 #                     p, ng, q crosses (27), det, ng.d, u, v, th (28), tv (9),
 #                     |det| test and 1/det (3), cull (2), window tests (6)
@@ -256,15 +258,14 @@ def main():
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
     from yulio_raytracer_tpu_torch.ops import (binning, cuda_build, dense,
-                                               grid, intersect, pairs,
-                                               splitleaf, traverse,
-                                               treelets, wide)
+                                               grid, pairs, splitleaf,
+                                               traverse, treelets, wide)
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.raysets import (
-        camera_rays, frame_binary_calls, frame_dense_calls,
-        frame_motion_calls, frame_pair_calls, from_treelet_roots,
-        hemisphere_rays, scattered_rays, shadow_rays)
+        camera_rays, dense_entry_rays, frame_binary_calls,
+        frame_dense_calls, frame_motion_calls, frame_pair_calls,
+        from_treelet_roots, hemisphere_rays, scattered_rays, shadow_rays)
 
     dev = torch.device('cuda')
     card = smi_line()
@@ -284,12 +285,13 @@ def main():
     phase('build', f"kernels built in {time.perf_counter() - t0:.2f} s")
 
     # every kernel: (wrapper, plain version, source, TPU kernel it replaces,
-    # flops of its pair test)
+    # flops of its pair test: stage 1's for the dense kernels, whose later
+    # stages are counted apart)
     kernels = (
         (dense.intersect_dense, dense.intersect_dense_plain, 'dense.cu',
-         'yulio_raytracer_tpu/ops/pallas_dense.py:94', WOOP_FLOPS),
+         'yulio_raytracer_tpu/ops/pallas_dense.py:94', dense.PLANE_FLOPS),
         (dense.occluded_dense, dense.occluded_dense_plain, 'dense.cu',
-         'yulio_raytracer_tpu/ops/pallas_dense.py:167', WOOP_FLOPS),
+         'yulio_raytracer_tpu/ops/pallas_dense.py:167', dense.PLANE_FLOPS),
         (wide.intersect_packet4, wide.intersect_wide_plain, 'wide.cu',
          'yulio_raytracer_tpu/ops/pallas_wide.py:507', WOOP_FLOPS),
         (wide.occluded_packet4, wide.occluded_wide_plain, 'wide.cu',
@@ -330,31 +332,23 @@ def main():
         for f in plains:
             f.cuda_calls = 0
 
-    def first_hit_tests(tris, org, dirn, tnear, tfar):
-        """The tests K2 makes: every ray against the rows of tris in
-        order, up to its first hit (slices of 2^18 rays)."""
-        rows, k = tris.reshape(-1, 16), 1 << 18
-        return sum(int(wide.tests_to_first_hit(
-            intersect._woop_block(rows, *(x[i:i + k] for x in (
-                org, dirn, tnear, tfar)))[3],
-            torch.full((min(k, org.shape[0] - i),), rows.shape[0],
-                       dtype=torch.int64, device=org.device)).sum())
-            for i in range(0, org.shape[0], k))
-
     # ---- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
     def record(f, res, tests, schedule):
         """Add one compared set of kernel f: res from compare(), tests
-        and schedule {'pair': n, 'box': n} (ints or device tensors)."""
+        and schedule {'pair': n, 'box': n} (ints or device tensors; the
+        dense kernels' tests also 'stage2' and 'stage3' n)."""
         acc = results.setdefault(f.__name__, {
             'rays': 0, 'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
-            'bytes': 0, 'pair': 0, 'box': 0, 'schedule_pair': 0,
-            'schedule_box': 0})
+            'bytes': 0, 'pair': 0, 'box': 0, 'stage2': 0, 'stage3': 0,
+            'schedule_pair': 0, 'schedule_box': 0})
         for key in ('rays', 'ms', 'plain_ms', 'bytes'):
             acc[key] += res[key]
         acc['max_abs_err'] = max(acc['max_abs_err'], res['max_abs_err'])
+        for key in ('stage2', 'stage3'):
+            acc[key] += int(tests.get(key, 0))
         for key in ('pair', 'box'):
             acc[key] += int(tests.get(key, 0))
             acc['schedule_' + key] += int(schedule.get(key, 0))
@@ -362,10 +356,9 @@ def main():
     def check(f, name, args, tests=None, schedule=False, exact=False):
         """compare() kernel f against its plain version and record it;
         returns the tests the plain version counted.  `tests` gives the
-        tests the function needs where that count is not it: the dense
-        kernels' and K12's follow from the shapes; with schedule (K11) the
-        plain version's count, the tests of the kernel's schedule, is kept
-        beside them."""
+        tests the function needs where that count is not it: K12's follow
+        from the shapes; with schedule (K11) the plain version's count,
+        the tests of the kernel's schedule, is kept beside them."""
         counted = {} if tests is None or schedule else None
         record(f, compare(name, f, plains[counters.index(f)], args,
                           counted, exact=exact), tests or counted,
@@ -374,24 +367,19 @@ def main():
 
     t0 = time.perf_counter()
     cornell = bs.cornell_box().commit(device=dev)
-    org, dirn, _ = camera_rays(cornell, bs.cornell_camera(64, 64), 64, 64,
-                               dev, SEED)
-    zeros = torch.zeros(org.shape[0], device=dev)
-    inf = torch.full_like(zeros, float('inf'))
-    hit = dense.intersect_dense_plain(cornell.tris, org, dirn, zeros, inf)
-    ho, hd, htn, htf, dg, eps = hemisphere_rays(cornell, org, dirn, hit, gen,
-                                                dev)
-    args = (cornell.tris, torch.cat([org, ho]), torch.cat([dirn, hd]),
-            torch.cat([zeros, htn]), torch.cat([inf, htf]))
-    rows = cornell.tris.reshape(-1, 16)
-    # the dense kernels test every row, the any-hit one up to each ray's
-    # first hit
-    check(dense.intersect_dense, 'intersect_dense (cornell)', args,
-          {'pair': args[1].shape[0] * rows.shape[0]})
-    cshadow = (cornell.tris, *shadow_rays(cornell, dg, eps, hit.valid, gen,
-                                           dev))
-    check(dense.occluded_dense, 'occluded_dense (cornell)', cshadow,
-          {'pair': first_hit_tests(*cshadow)})
+    live, table_rows = (dense.live_rows(cornell.tris),
+                        cornell.tris.reshape(-1, 16).shape[0])
+    phase('kernels', f"cornell: {live} live triangle rows (up to the last "
+          f"non-zero row) of the packed table's {table_rows}: the dense "
+          f"kernels test those, K1 every one, K2 up to each ray's first hit, "
+          f"in stages (u, v only past the plane test), as the plain versions "
+          f"count")
+    closest, cshadow = dense_entry_rays(cornell, bs.cornell_camera(64, 64),
+                                        64, dev, gen, SEED)
+    check(dense.intersect_dense, 'intersect_dense (cornell)',
+          (cornell.tris, *closest))
+    check(dense.occluded_dense, 'occluded_dense (cornell)',
+          (cornell.tris, *cshadow))
 
     t1 = time.perf_counter()
     colonnade = bs.colonnade().commit(device=dev, leaf_size=32)
@@ -700,35 +688,42 @@ def main():
     del calls
     # K1/K2 on cornell's own calls at the pass size (one bounce-1 trace at
     # 512^2 and 16 spp: 2^22 closest rays, 2^23 shadow rays a bounce),
-    # bit-equal; K1 tests every row, K2 up to each ray's first hit
+    # bit-equal; their staged tests on the live rows as the plain versions
+    # count
     dense_pass = {}
     calls = frame_dense_calls(cornell, bs.cornell_camera(512, 512), 512, 512,
                               spp=16, seed=SEED)
     for n, c in enumerate(calls):
         f = getattr(dense, c['kernel'])
+        counts = {}
         res = compare(f"{c['kernel']} (cornell frame, call {n + 1} of "
                       f"{len(calls)})", f, plains[counters.index(f)],
-                      c['args'], exact=True)
-        tris, org = c['args'][:2]
-        tests = (org.shape[0] * tris.reshape(-1, 16).shape[0]
-                 if f is dense.intersect_dense
-                 else first_hit_tests(*c['args']))
+                      c['args'], counts, exact=True)
         acc = dense_pass.setdefault(f.__name__, {
             'pass_calls': 0, 'pass_rays': 0, 'pass_ms': 0.0,
-            'pass_pair_tests': 0, 'pass_bytes': 0})
+            'pass_pair_tests': 0, 'pass_stage2_tests': 0,
+            'pass_stage3_tests': 0, 'pass_bytes': 0, 'pass_live_rows': live,
+            'pass_table_rows': table_rows})
         for key, v in (('pass_calls', 1), ('pass_rays', res['rays']),
-                       ('pass_ms', res['ms']), ('pass_pair_tests', tests),
+                       ('pass_ms', res['ms']),
+                       ('pass_pair_tests', int(counts['pair'])),
+                       ('pass_stage2_tests', int(counts['stage2'])),
+                       ('pass_stage3_tests', int(counts['stage3'])),
                        ('pass_bytes', res['bytes'])):
             acc[key] += v
     del calls
     for name, acc in dense_pass.items():
         acc['pass_bound_ms'] = max(
             acc['pass_bytes'] / PEAK_BYTES,
-            acc['pass_pair_tests'] * WOOP_FLOPS / PEAK_FLOPS) * 1e3
+            dense.staged_flops({k: acc[f'pass_{k}_tests'] for k in (
+                'pair', 'stage2', 'stage3')}) / PEAK_FLOPS) * 1e3
         phase('kernels', f"{name} at cornell's pass size: "
               f"{acc['pass_calls']} calls, {acc['pass_rays']} rays, "
-              f"{acc['pass_pair_tests']} pair tests, {acc['pass_ms']:.3f} "
-              f"ms, bound {acc['pass_bound_ms']:.4f} ms: "
+              f"{acc['pass_pair_tests']} pair tests on the {live} live rows "
+              f"of {table_rows} ({acc['pass_stage2_tests']} past stage 1, "
+              f"{acc['pass_stage3_tests']} to stage 3), "
+              f"{acc['pass_ms']:.3f} ms, bound "
+              f"{acc['pass_bound_ms']:.4f} ms: "
               f"{acc['pass_bound_ms'] / acc['pass_ms']:.2%} of it; {card}")
     phase('kernels', f"all kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -876,7 +871,13 @@ def main():
     summary = []
     for (f, _, src, replaces, pair_flops), n in zip(kernels, main_launches):
         res = results[f.__name__]
-        flops = res['pair'] * pair_flops + res['box'] * SLAB_FLOPS
+        flops = (res['pair'] * pair_flops + res['box'] * SLAB_FLOPS
+                 + res['stage2'] * dense.INSIDE_FLOPS
+                 + res['stage3'] * dense.CULL_FLOPS)
+        staged = (f" + {res['stage2']} past stage 1 x {dense.INSIDE_FLOPS} "
+                  f"+ {res['stage3']} to stage 3 x {dense.CULL_FLOPS}"
+                  if f in (dense.intersect_dense, dense.occluded_dense)
+                  else '')
         bytes_ms = res['bytes'] / PEAK_BYTES * 1e3
         flops_ms = flops / PEAK_FLOPS * 1e3
         bound_ms = max(bytes_ms, flops_ms)
@@ -889,7 +890,7 @@ def main():
                      f"{res['schedule_box'] / max(res['box'], 1):.2f}x "
                      f"those the function needs")
         phase('bounds', f"{f.__name__} on {res['rays']} rays: "
-              f"{res['pair']} pair tests x {pair_flops} flops + "
+              f"{res['pair']} pair tests x {pair_flops} flops{staged} + "
               f"{res['box']} box tests x {SLAB_FLOPS} flops = {flops:.4g} "
               f"flops ({flops_ms:.4f} ms), {res['bytes']} bytes "
               f"({bytes_ms:.4f} ms); bound {bound_ms:.4f} ms by {bound_by}, "
@@ -904,6 +905,9 @@ def main():
             'bound_by': bound_by, 'library_ms': None, 'rays': res['rays'],
             'pair_tests': res['pair'], 'box_tests': res['box'],
             'bytes': res['bytes']})
+        if staged:
+            summary[-1].update(stage2_tests=res['stage2'],
+                               stage3_tests=res['stage3'])
         if waste:
             summary[-1].update(schedule_pair_tests=res['schedule_pair'],
                                schedule_box_tests=res['schedule_box'])

@@ -667,6 +667,109 @@ def test_splitleaf_kernel_matches_plain_on_card(cuda, n):
                                       k5.tri.cpu().numpy())
 
 
+def _woop_table(v0, e1, e2, cull, n_rows):
+    """(n_rows / 8, 128) packed rows of the triangles (v0, e1, e2) with
+    their cull flags, then zero rows."""
+    woop = mesh.woop_matrices(v0, e1, e2, np.ones(len(v0), bool))
+    ng = np.cross(e1, e2)
+    ng /= np.linalg.norm(ng, axis=1, keepdims=True)
+    rows = wide.pack_tris(woop, {'ng': ng, 'cull': cull}).reshape(-1, 16)
+    out = np.zeros((n_rows, 16), np.float32)
+    out[:len(v0)] = rows[:len(v0)]
+    return torch.as_tensor(out.reshape(-1, 128))
+
+
+def _random_table(n_live, n_rows, seed, cull_every=0):
+    """n_live random triangles in [-2, 2]^3 (every cull_every-th with cull
+    flag 1), then zero rows up to n_rows."""
+    rs = np.random.RandomState(seed)
+    v0 = rs.uniform(-2, 2, (n_live, 3)).astype(np.float32)
+    e1, e2 = (rs.uniform(-0.7, 0.7, (n_live, 3)).astype(np.float32)
+              for _ in range(2))
+    cull = np.zeros(n_live, np.float32)
+    if cull_every:
+        cull[::cull_every] = mesh.CULL_BACK
+    return _woop_table(v0, e1, e2, cull, n_rows)
+
+
+def _dense_case(case, dev):
+    """(tris, closest-hit rays, any-hit rays, live rows) of one case of
+    test_dense_kernels_on_tables, on the card."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    if case in ('cornell', 'rays_65537'):
+        sc = bs.cornell_box().commit(device=dev)
+        size = 64 if case == 'cornell' else 256
+        closest, shadow = raysets.dense_entry_rays(
+            sc, bs.cornell_camera(size, size), size, dev, gen, 42)
+        if case == 'cornell':      # the table trimmed to its 32 live rows
+            return (dense._rows(sc.tris)[:32].reshape(4, 128).contiguous(),
+                    closest, shadow, 32)
+        return (sc.tris, tuple(x[:65_537] for x in closest),
+                tuple(x[:65_537] for x in shadow), 32)
+    tris, _, rays = _tables_and_rays(dev, 4000)
+    rows = dense._rows(tris)
+    if case == 'last_live':        # a large triangle over the floor, last
+        last = _woop_table(np.float32([[-4, -1.0, -4]]),
+                           np.float32([[8, 0, 0]]), np.float32([[0, 0, 8]]),
+                           np.float32([0]), 8).to(dev)
+        table = rows.clone()
+        table[-1] = dense._rows(last)[0]
+        return table.reshape(-1, 128), rays, rays, table.shape[0]
+    if case == 'ties':             # every row twice, 448 rows apart
+        live = dense.live_rows(tris)
+        table = torch.cat([rows, rows]).reshape(-1, 128)
+        return table, rays, rays, rows.shape[0] + live
+    if case == 'all_zero':
+        return torch.zeros((4, 128), device=dev), rays, rays, 0
+    box = _edge_rays([-3, -3, -3], [3, 3, 3], 4000, 7)
+    if case == 'tris_2048':
+        return _random_table(1917, 2048, 5).to(dev), box, box, 1917
+    assert case == 'culled'
+    return _random_table(300, 320, 6, cull_every=2).to(dev), box, box, 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['cornell', 'last_live', 'tris_2048',
+                                  'culled', 'all_zero', 'ties', 'rays_65537'])
+def test_dense_kernels_on_tables(cuda, case):
+    """K1/K2 over a table's live rows bit-equal to their plain versions
+    over every row: cornell trimmed to its 32 live rows, a table whose
+    last row is live, 2,048 triangles of which 1,917 live (16 tiles, the
+    last one partly live), cull-flagged rows with rays from both sides
+    (stage 3), an all-zero table (no launch; misses and no occlusion),
+    every row twice (exact t ties across tiles: the lower index), and
+    65,537 rays."""
+    tris, closest, shadow, live = _dense_case(case, cuda)
+    assert dense.live_rows(tris) == live
+    before = (dense.intersect_dense.launches, dense.occluded_dense.launches)
+    got = dense.intersect_dense(tris, *closest)
+    occ = dense.occluded_dense(tris, *shadow)
+    torch.cuda.synchronize()
+    ran = int(live > 0)
+    assert (dense.intersect_dense.launches,
+            dense.occluded_dense.launches) == (before[0] + ran,
+                                               before[1] + ran)
+    ref = dense.intersect_dense_plain(tris, *closest)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    ref_occ = dense.occluded_dense_plain(tris, *shadow)
+    np.testing.assert_array_equal(occ.cpu().numpy(), ref_occ.cpu().numpy())
+    if case == 'all_zero':
+        assert not bool((ref.tri >= 0).any()) and not bool(ref_occ.any())
+        return
+    assert bool((ref.tri >= 0).any()) and bool(ref_occ.any())
+    if case == 'ties':
+        half = dense._rows(tris).shape[0] // 2
+        assert bool((ref.tri[ref.tri >= 0] < half).all())
+    if case == 'culled':           # the cull flags reject some hits
+        flat = dense._rows(tris).clone()
+        flat[:, 15] = 0
+        open_ = dense.intersect_dense_plain(flat.reshape(-1, 128), *closest)
+        assert not torch.equal(open_.tri, ref.tri)
+    if case == 'last_live':
+        assert bool((ref.tri == live - 1).any())
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_tables_off_the_card(cuda):
     tris, _, rays = _tables_and_rays(cuda)

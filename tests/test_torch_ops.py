@@ -24,7 +24,7 @@ from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.ops import dense, wide, intersect as ops
 from yulio_raytracer_tpu_torch.ops import cuda_build as cb
-from yulio_raytracer_tpu_torch import raysets, wide_turns
+from yulio_raytracer_tpu_torch import dense_turns, raysets, wide_turns
 
 torch.set_num_threads(2)
 
@@ -111,19 +111,32 @@ def _assert_hits_agree(got, ref, n=None):
     assert (tri1 == tri0).mean() >= 0.999      # ties may pick another tri
 
 
-@pytest.mark.parametrize('n', [R, R_ODD])
-def test_plain_dense_matches_pallas(tables, n):
+@pytest.mark.parametrize('n,rows', [(R, 'all'), (R_ODD, 'all'),
+                                    (R, 'live'), (R_ODD, 'live')],
+                         ids=[str(R), str(R_ODD), f'{R}-live', f'{R_ODD}-live'])
+def test_plain_dense_matches_pallas(tables, n, rows):
+    """The plain dense versions against the reference's kernels over its
+    full table; with rows 'live' the port's plain sweeps over the table's
+    live rows alone (what the kernels test): tri and the mask exactly."""
     jr = _jax_rays(tables['rays'])
     ref = ppd.intersect_dense(tables['jtris'], *jr, interpret=True)
-    got = dense.intersect_dense(tables['tris'], *_torch_rays(tables['rays'],
-                                                             n))
-    _assert_hits_agree(got, ref, n)
-    np.testing.assert_allclose(got.u.numpy()[got.tri.numpy() >= 0],
-                               np.asarray(ref.u)[:n][got.tri.numpy() >= 0],
-                               atol=1e-5)
     occ_ref = ppd.occluded_dense(tables['jtris'], *jr, interpret=True)
-    occ = dense.occluded_dense(tables['tris'], *_torch_rays(tables['rays'],
-                                                            n))
+    tr = _torch_rays(tables['rays'], n)
+    if rows == 'all':
+        got = dense.intersect_dense(tables['tris'], *tr)
+        occ = dense.occluded_dense(tables['tris'], *tr)
+    else:
+        live = dense._rows(tables['tris'])[:dense.live_rows(tables['tris'])]
+        assert live.shape[0] < dense._rows(tables['tris']).shape[0]
+        got, occ = ops.closest_rows(live, *tr), ops.any_rows(live, *tr)
+        np.testing.assert_array_equal(got.tri.numpy(),
+                                      np.asarray(ref.tri)[:n])
+    _assert_hits_agree(got, ref, n)
+    hit = got.tri.numpy() >= 0
+    for key in ('u', 'v') if rows == 'live' else ('u',):
+        np.testing.assert_allclose(getattr(got, key).numpy()[hit],
+                                   np.asarray(getattr(ref, key))[:n][hit],
+                                   atol=1e-5)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref)[:n])
 
 
@@ -389,6 +402,146 @@ def test_frame_dense_calls_record_every_call():
         raysets.frame_dense_calls(
             bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(
                 device='cpu'), bs.colonnade_camera(8, 8), 8, 8)
+
+
+@pytest.fixture(scope='module')
+def cornell_sets():
+    """Cornell on the CPU and its dense entry sets at 16^2 (seed 3):
+    {'camera', 'hemisphere', 'shadow'} ray tuples."""
+    sc = bs.cornell_box().commit(device='cpu')
+    closest, shadow = raysets.dense_entry_rays(
+        sc, bs.cornell_camera(16, 16), 16, torch.device('cpu'),
+        torch.Generator().manual_seed(3), 3)
+    return sc, {'camera': tuple(x[:256] for x in closest),
+                'hemisphere': tuple(x[256:] for x in closest),
+                'shadow': shadow}
+
+
+def _table_with_rows(live):
+    """A (4, 128) table (32 rows) whose rows `live` hold cornell's first
+    triangles and whose other rows are zero."""
+    src = dense._rows(bs.cornell_box().commit(device='cpu').tris)
+    out = torch.zeros((32, 16))
+    out[live] = src[:len(live)]
+    return out.reshape(4, 128)
+
+
+@pytest.mark.parametrize('case', ['cornell', 'last_live', 'interior_zero',
+                                  'all_zero'])
+def test_live_rows_count_up_to_the_last_live_row(case):
+    """live_rows, the rows the dense kernels test: up to the last row that
+    is not all zero (cornell: 32 of 128), every row where the last is
+    live, past a zero row inside the table, none of an all-zero table;
+    counted again after the table changes in place."""
+    if case == 'cornell':
+        tris, want = bs.cornell_box().commit(device='cpu').tris, 32
+        assert dense._rows(tris).shape[0] == 128
+    elif case == 'last_live':
+        tris, want = _table_with_rows([0, 5, 31]), 32
+    elif case == 'interior_zero':
+        tris, want = _table_with_rows([0, 1, 2, 4, 9]), 10
+        assert not bool(dense._rows(tris)[3].any())
+    else:
+        tris, want = torch.zeros((4, 128)), 0
+    assert dense.live_rows(tris) == want
+    dense._rows(tris)[want:] = 0
+    tris.view(-1)[-1] = -0.0           # a -0.0 field is zero too
+    assert dense.live_rows(tris) == want
+    tris.view(-1)[-1] = 1.0
+    assert dense.live_rows(tris) == dense._rows(tris).shape[0]
+
+
+@pytest.mark.parametrize('rays', ['camera', 'hemisphere', 'shadow'])
+def test_plain_dense_over_live_rows_equals_all_rows(cornell_sets, rays):
+    """On cornell's camera, hemisphere and shadow rays the plain sweeps
+    over the live rows alone give the same closest hits (t, tri, u, v)
+    and occlusion as over every row: the rows left out never hit."""
+    sc, sets = cornell_sets
+    rows = dense._rows(sc.tris)
+    live = rows[:dense.live_rows(sc.tris)]
+    got, ref = (ops.closest_rows(live, *sets[rays]),
+                ops.closest_rows(rows, *sets[rays]))
+    assert bool((ref.tri >= 0).any())
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    occ = ops.any_rows(rows, *sets[rays])
+    if rays == 'shadow':
+        assert 0 < int(occ.sum()) < occ.numel()
+    np.testing.assert_array_equal(ops.any_rows(live, *sets[rays]).numpy(),
+                                  occ.numpy())
+
+
+def _kernel_stages(rows, rays, closest):
+    """The stages of the Woop tests a dense kernel makes over rows (T, 16)
+    in order, a row at a time for every ray: {'pair': stage 1, 'stage2':
+    its plane distance in (tnear, limit), 'stage3': inside the triangle on
+    a row with cull flag 1}.  The limit is the best t so far (closest;
+    tfar before the first hit) or tfar, and an any-hit ray stops at its
+    first hit."""
+    org, dirn, tnear, tfar = rays
+    limit = tfar.clone()
+    done = torch.zeros(org.shape[0], dtype=torch.bool)
+    counts = {'pair': 0, 'stage2': 0, 'stage3': 0}
+    for row in rows:
+        th, uh, vh, hit = ops.woop_test(row, org, dirn, tnear, limit)
+        dwp = dirn[:, 0] * row[2] + dirn[:, 1] * row[5] + dirn[:, 2] * row[8]
+        plane = ~done & (dwp.abs() > 1e-12) & (th > tnear) & (th < limit)
+        inside = plane & (uh >= -ops.BARY_EPS) & (vh >= -ops.BARY_EPS) & (
+            uh + vh <= 1.0 + ops.BARY_EPS)
+        counts['pair'] += int((~done).sum())
+        counts['stage2'] += int(plane.sum())
+        counts['stage3'] += int(inside.sum()) if row[15] == 1.0 else 0
+        if closest:
+            limit = torch.where(hit, th, limit)
+        else:
+            done |= hit
+    return counts
+
+
+@pytest.mark.parametrize('rays,cull', [('camera', False),
+                                       ('hemisphere', False),
+                                       ('shadow', False), ('hemisphere', True),
+                                       ('shadow', True)],
+                         ids=['camera', 'hemisphere', 'shadow',
+                              'hemisphere-culled', 'shadow-culled'])
+def test_plain_dense_counts_the_kernels_tests(cornell_sets, rays, cull):
+    """With counts, the plain versions give the staged tests the kernels
+    make on the live rows (a row-by-row loop here): K1 (camera and
+    hemisphere rays) every ray against every live row, K2 (shadow rays)
+    each ray up to its first hit; with every other row's cull flag set,
+    stage 3 runs.  An all-zero table makes none."""
+    sc, sets = cornell_sets
+    tris = sc.tris.clone()
+    live = dense.live_rows(tris)
+    if cull:
+        dense._rows(tris)[:live:2, 15] = 1.0
+    closest = rays != 'shadow'
+    plain = (dense.intersect_dense_plain if closest
+             else dense.occluded_dense_plain)
+    counts = {}
+    out = plain(tris, *sets[rays], counts=counts)
+    want = _kernel_stages(dense._rows(tris)[:live], sets[rays], closest)
+    assert {k: int(v) for k, v in counts.items()} == want
+    n = sets[rays][0].shape[0]
+    if closest:
+        assert want['pair'] == n * live
+    else:
+        assert 0 < int(out.sum()) and want['pair'] < n * live
+    assert 0 < want['stage2'] < want['pair']
+    assert (want['stage3'] > 0) == cull
+    assert dense.staged_flops(counts) == (
+        want['pair'] * 18 + want['stage2'] * 31 + want['stage3'] * 6)
+    counts = {}
+    plain(torch.zeros((2, 128)), *sets[rays], counts=counts)
+    assert counts == {}
+
+
+def test_dense_turns_needs_a_card(tmp_path):
+    """The dense turns tool exits 1 without a CUDA device, before it
+    builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert dense_turns.main([str(tmp_path), '--bounds']) == 1
 
 
 def test_wide_turns_needs_a_card(tmp_path):

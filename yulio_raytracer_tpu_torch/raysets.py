@@ -1,9 +1,10 @@
 """The ray sets the kernels are held and timed on: camera rays, the
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
-roots, and the dense, pair, binary and motion kernels' own calls in a
-frame.  `chip_smoke.py`, `wide_turns`, `pairs_turns` and `binary_turns`
-make them with these functions.
+roots, the dense kernels' entry sets, and the dense, pair, binary and
+motion kernels' own calls in a frame.  `chip_smoke.py`, `wide_turns`,
+`pairs_turns`, `binary_turns` and `dense_turns` make them with these
+functions.
 """
 from __future__ import annotations
 
@@ -72,6 +73,23 @@ def shadow_rays(scene, dg, eps, valid, gen, dev):
         tns.append(eps)
         tfs.append(torch.where(valid, dist - eps, -1.0))
     return (torch.cat(os_), torch.cat(ds), torch.cat(tns), torch.cat(tfs))
+
+
+def dense_entry_rays(scene, camera, size, dev, gen, seed):
+    """The dense kernels' entry sets on a scene traced densely: its
+    size^2 camera rays (sample 0) followed by the hemisphere rays from
+    their closest hits (the plain version's), one closest-hit batch; and
+    the shadow rays from those hits to every light.  Returns (closest,
+    shadow), each (org, dirn, tnear, tfar)."""
+    org, dirn, _ = camera_rays(scene, camera, size, size, dev, seed)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    inf = torch.full_like(zeros, float('inf'))
+    hit = dense.intersect_dense_plain(scene.tris, org, dirn, zeros, inf)
+    ho, hd, htn, htf, dg, eps = hemisphere_rays(scene, org, dirn, hit, gen,
+                                                dev)
+    closest = (torch.cat([org, ho]), torch.cat([dirn, hd]),
+               torch.cat([zeros, htn]), torch.cat([inf, htf]))
+    return closest, shadow_rays(scene, dg, eps, hit.valid, gen, dev)
 
 
 def from_treelet_roots(scene, org, dirn, tnear, tfar):
