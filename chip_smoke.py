@@ -18,8 +18,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     the pair kernels on the colonnade's grid (the
     hemisphere and shadow rays, each over its entry cell's tiles), bit-
     equal on every call of one bounce-1 trace through 'grid' and 'dense'
-    (1024^2 rays, raysets.frame_pair_calls), and the grid march (the
-    hemisphere rays), the split-leaf kernel K11 (the
+    (1024^2 rays, raysets.frame_pair_calls), and the grid march K10 (the
+    hemisphere rays in call order and sorted as grid.intersect_march
+    sorts them), the split-leaf kernel K11 (the
     sorted hemisphere rays and the camera rays), the motion kernel K7 on
     the motion field (its closest form on 512^2 camera rays with their
     times and 1M scattered rays at random times; both forms bit-equal on
@@ -49,9 +50,10 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
     the binary kernels and again with ray_binning 'grid', 'treelet' and
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
-    motion_64 through the motion kernel's two forms; and K11's entry
-    points (sorted
-    on the colonnade's 1M hemisphere rays, unsorted on its camera rays).
+    motion_64 through the motion kernel's two forms; K10's entry point
+    (grid.intersect_march on the colonnade's 1M hemisphere rays) and
+    K11's (sorted on those rays, unsorted on its camera rays), whose t
+    and hit mask must equal K5's.
     Every launch counter is set to 0 before each run and read after it:
     the path's kernels must have run, no other kernel (so K12, which no
     path runs, never), and no plain version on a CUDA tensor; the pair
@@ -67,8 +69,12 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     from its shapes; K1/K2's by stage, as they run the Woop test) times
     their flops over 67 TFLOP/s f32, against its time in phase 3.  K11's
     tests are those K5's plain version counts on the same rays, the tests
-    their closest hits need; the tests K11's schedule makes (every lane of
-    a block) are printed beside them as that schedule's waste.
+    their closest hits need; the tests K11's schedule makes (a lane per
+    box of its packet's walk, 8 a row for the rays that hit its leaf) are
+    printed beside them as that schedule's waste.  Beside K10's bound, the
+    rows its kernel loads (a cell's rows once a round for each warp's
+    rays in it, as its plain version counts) in GB, and those one ray per
+    thread would load (a 64-byte row for every test).
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -343,11 +349,11 @@ def main():
         acc = results.setdefault(f.__name__, {
             'rays': 0, 'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
             'bytes': 0, 'pair': 0, 'box': 0, 'stage2': 0, 'stage3': 0,
-            'schedule_pair': 0, 'schedule_box': 0})
+            'rows': 0, 'schedule_pair': 0, 'schedule_box': 0})
         for key in ('rays', 'ms', 'plain_ms', 'bytes'):
             acc[key] += res[key]
         acc['max_abs_err'] = max(acc['max_abs_err'], res['max_abs_err'])
-        for key in ('stage2', 'stage3'):
+        for key in ('stage2', 'stage3', 'rows'):
             acc[key] += int(tests.get(key, 0))
         for key in ('pair', 'box'):
             acc[key] += int(tests.get(key, 0))
@@ -452,8 +458,12 @@ def main():
         del calls
     march_tables = {k: g[k] for k in ('rows', 'cell_tile_lo', 'cell_tile_hi',
                                       'grid_lo', 'grid_hi')}
+    march_perm = torch.argsort(grid.march_sort_key(march_tables, *hemi),
+                               stable=True)
     check(grid.march_raw, 'march_raw (colonnade grid, hemisphere)',
-          (march_tables, *hemi))
+          (march_tables, *hemi), exact=True)
+    check(grid.march_raw, 'march_raw (colonnade grid, hemisphere, sorted)',
+          (march_tables, *(x[march_perm] for x in hemi)), exact=True)
     # the grid path end to end (K8/K9 rounds, K5/K6 fallback) against
     # the binary kernels alone
     compare('intersect_grid vs intersect_packet (colonnade hemisphere)',
@@ -827,6 +837,22 @@ def main():
         raise AssertionError("the split-leaf entry points did not run K11 "
                              "alone, or disagree with K5")
     main_launches = [a + b for a, b in zip(main_launches, ran)]
+    # K10's entry point, the reference's bench_incoherent.py 'march' run,
+    # on the 1M bounce-1 rays (sorted inside); its hits are K5's
+    zero_counters()
+    march_hit = grid.intersect_march(g, *hemi)
+    ran = [f.launches for f in counters]
+    counts = {f.__name__: n for f, n in zip(counters, ran) if n}
+    same = (torch.equal(march_hit.t, k5_hits[0].t)
+            and torch.equal(march_hit.tri >= 0, k5_hits[0].tri >= 0))
+    phase('golden', f"grid march entry point on the colonnade's "
+          f"{hemi[0].shape[0]} hemisphere rays: t and hit mask equal to "
+          f"K5's: {same}, kernel launches {counts}")
+    if not same or counts != {'march_raw': 1} or any(
+            f.cuda_calls for f in plains):
+        raise AssertionError("the grid march entry point did not run K10 "
+                             "alone, or disagrees with K5")
+    main_launches = [a + b for a, b in zip(main_launches, ran)]
 
     # ---- 5. timed full-size frames ----------------------------------------
     frames = (
@@ -883,6 +909,10 @@ def main():
         bound_ms = max(bytes_ms, flops_ms)
         bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
         waste = ''
+        if res['rows']:
+            waste = (f"; its kernel loaded {res['rows'] * 64 / 1e9:.2f} GB "
+                     f"of rows ({res['rows']} rows; one ray per thread: "
+                     f"{res['pair'] * 64 / 1e9:.2f} GB)")
         if res['schedule_pair'] or res['schedule_box']:
             waste = (f"; its schedule made {res['schedule_pair']} pair and "
                      f"{res['schedule_box']} box tests, "
@@ -908,7 +938,10 @@ def main():
         if staged:
             summary[-1].update(stage2_tests=res['stage2'],
                                stage3_tests=res['stage3'])
-        if waste:
+        if res['rows']:
+            summary[-1].update(rows_loaded=res['rows'],
+                               rows_gb=res['rows'] * 64 / 1e9)
+        if res['schedule_pair'] or res['schedule_box']:
             summary[-1].update(schedule_pair_tests=res['schedule_pair'],
                                schedule_box_tests=res['schedule_box'])
         summary[-1].update(k12_extra.get(f.__name__, {}),

@@ -24,8 +24,9 @@ import torch
 from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
-from yulio_raytracer_tpu_torch.ops import (dense, grid, pairs, splitleaf,
-                                           traverse, treelets, wide)
+from yulio_raytracer_tpu_torch.ops import (binning, dense, grid, pairs,
+                                           splitleaf, traverse, treelets,
+                                           wide)
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
 from yulio_raytracer_tpu_torch import raysets, renderer
 from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
@@ -277,10 +278,81 @@ def test_sweep_kernels_match_plain_on_card(cuda, n):
     assert torch.equal(ref[1], ref_tiles[1])
 
 
+def _march_case(case, request):
+    """(grid, rays) of one K10 case on the card: the colonnade's grid and
+    65,537 edge rays (a third along the axes and face diagonals, with
+    dead and finite-tfar rays), those sorted by march_sort_key, rays from
+    inside its widest cell (15 tiles), rays along the axes alone; or a
+    grid with a large tilted quad whose two triangles each span most
+    cells and rays at a shallow angle to it, which test its triangles in
+    several cells before and after the cell of the hit."""
+    if case == 'spanning':
+        packed = mesh.pack_meshes([
+            primitives.quad([-4, -4, -4], [4, -4, -4], [4, 3, 4],
+                            [-4, 3, 4]),
+            primitives.tessellate_sphere([0, 0, 0], 1.0, 8, 10)],
+            pad_multiple=64)
+        host = {k: getattr(packed, k) for k in ('v0', 'e1', 'e2', 'ng',
+                                                 'cull', 'valid')}
+        woop = mesh.woop_matrices(host['v0'], host['e1'], host['e2'],
+                                  host['valid'])
+        g = {k: torch.as_tensor(v).cuda()
+             for k, v in grid.build_grid(woop, host).items()}
+        # the quad's plane is y = -4 + 0.875 (z + 4); the rays start below
+        # it at z = -4.5 and climb a little more steeply
+        rs = np.random.RandomState(21)
+        n = 4096
+        org = np.stack([rs.uniform(-4, 4, n),
+                        -4.4375 - rs.uniform(0.2, 2.0, n),
+                        np.full(n, -4.5)], 1).astype(np.float32)
+        d = np.stack([rs.uniform(-0.3, 0.3, n), rs.uniform(0.95, 1.3, n),
+                      np.ones(n)], 1).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rays = [torch.as_tensor(x).cuda() for x in (
+            org, d, np.full(n, 1e-4, np.float32),
+            np.full(n, np.inf, np.float32))]
+        return g, rays
+    sc = request.getfixturevalue('colonnade_card')
+    g = sc.grid
+    rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, 65_537, 19)
+    if case == 'sorted':
+        perm = torch.argsort(grid.march_sort_key(g, *rays), stable=True)
+        rays = [x[perm] for x in rays]
+    elif case == 'widest_cell':
+        c = int(torch.argmax(g['cell_tile_hi'] - g['cell_tile_lo']))
+        assert int(g['cell_tile_hi'][c] - g['cell_tile_lo'][c]) == 15
+        cs = (g['grid_hi'] - g['grid_lo']) / grid.GRID_RES
+        ijk = torch.tensor([c // 64, c // 8 % 8, c % 8], device='cuda')
+        u = torch.as_tensor(np.random.RandomState(20).rand(8192, 3),
+                            dtype=torch.float32).cuda()
+        rays[0] = g['grid_lo'] + (ijk + u) * cs
+        rays = [x[:8192] for x in rays]
+    elif case == 'axis_dirs':
+        axes = torch.cat([torch.eye(3), -torch.eye(3)]).cuda()
+        rays[1] = axes[torch.arange(rays[1].shape[0], device='cuda') % 6]
+    return g, rays
+
+
 @pytest.mark.cuda
-def test_grid_kernels_match_plain_on_card(cuda):
+@pytest.mark.parametrize('case', ['scene', 'rays_65537', 'sorted',
+                                  'widest_cell', 'axis_dirs', 'spanning'])
+def test_grid_kernels_match_plain_on_card(cuda, request, case):
     """K8 and K9 over the whole table and over each ray's entry cell, and
-    the grid march K10, bit-equal to their plain versions."""
+    the grid march K10, bit-equal to their plain versions on a small
+    scene; K10 and its sorted entry point also on the cases of
+    _march_case."""
+    if case != 'scene':
+        g, rays = _march_case(case, request)
+        before = grid.march_raw.launches
+        got, ref = grid.march_raw(g, *rays), grid.march_raw_plain(g, *rays)
+        hit = grid.intersect_march(g, *rays)
+        torch.cuda.synchronize()
+        assert grid.march_raw.launches == before + 2
+        assert bool((ref[1] >= 0).any())
+        _assert_outputs_equal(got, ref)
+        _assert_outputs_equal(tuple(hit), tuple(grid._to_hit(g, *rays[:2],
+                                                             *ref)))
+        return
     _, tables, rays = _tables_and_rays(cuda)
     g = tables['grid']
     before = (pairs.intersect_pairs_raw.launches,
@@ -645,17 +717,33 @@ def test_binary_kernels_take_large_leaves(colonnade_bvh2_leaf512, rays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1000, 1024])
-def test_splitleaf_kernel_matches_plain_on_card(cuda, n):
+@pytest.mark.parametrize('n', ['1000', '1024', 'colonnade_65537',
+                               'colonnade_sorted'])
+def test_splitleaf_kernel_matches_plain_on_card(cuda, request, n):
     """K11 bit-equal to its plain version, the tail packet (1000 rays) and
-    the sorted form among them; its hits are K5's."""
-    tris, nodes, rays = _tables_and_rays(cuda, n)
+    the sorted form among them, and on the colonnade (leaf 32, with
+    leaves of max_leaf = 32 triangles) at 65,537 edge rays in call order
+    and in octant/Morton order; its t and hit mask are K5's."""
+    if n.startswith('colonnade'):
+        sc = request.getfixturevalue('colonnade_card')
+        nodes, tris = sc.nodes, sc.tris
+        assert int(nodes[:, 7].max()) == sc.leaf_size == 32
+        rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, 65_537, 23)
+        if n == 'colonnade_sorted':
+            perm = binning.sort_perm(*rays, sc.bbox_lo, sc.bbox_hi)
+            rays = [x[perm] for x in rays]
+        box = (sc.bbox_lo, sc.bbox_hi)
+    else:
+        tris, tables, rays = _tables_and_rays(cuda, int(n))
+        nodes = tables['binary']
+        box = ((-5.0, -1.2, -5.0), (5.0, 1.0, 5.0))
     launches = splitleaf.intersect_packet_split.launches
-    got = splitleaf.intersect_packet_split(nodes['binary'], tris, *rays)
-    ref = splitleaf.intersect_split_plain(nodes['binary'], tris, *rays)
-    srt = splitleaf.intersect_packet_split_sorted(
-        nodes['binary'], tris, *rays, (-5.0, -1.2, -5.0), (5.0, 1.0, 5.0))
-    k5 = traverse.intersect_packet(nodes['binary'], tris, *rays)
+    got = splitleaf.intersect_packet_split(nodes, tris, *rays, 32
+                                           if n.startswith('col') else None)
+    ref = splitleaf.intersect_split_plain(nodes, tris, *rays, 32
+                                          if n.startswith('col') else None)
+    srt = splitleaf.intersect_packet_split_sorted(nodes, tris, *rays, *box)
+    k5 = traverse.intersect_packet(nodes, tris, *rays)
     torch.cuda.synchronize()
     assert splitleaf.intersect_packet_split.launches == launches + 2
     assert bool((ref.tri >= 0).any())
@@ -663,8 +751,10 @@ def test_splitleaf_kernel_matches_plain_on_card(cuda, n):
         np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
     for g in (got, srt):
         np.testing.assert_array_equal(g.t.cpu().numpy(), k5.t.cpu().numpy())
-        np.testing.assert_array_equal(g.tri.cpu().numpy(),
-                                      k5.tri.cpu().numpy())
+        # the colonnade's rays may hit two triangles at one t (a tie)
+        tri = (g.tri, k5.tri) if n in ('1000', '1024') else (
+            g.tri >= 0, k5.tri >= 0)
+        np.testing.assert_array_equal(*(x.cpu().numpy() for x in tri))
 
 
 def _woop_table(v0, e1, e2, cull, n_rows):

@@ -307,6 +307,139 @@ def test_plain_march_matches_jax_and_binary(grid_setup, n):
         s['nodes'], s['tris'], *tr), n)
 
 
+def test_sorted_march_matches_the_unsorted_plain_march(grid_setup):
+    """intersect_march runs the rays sorted by entry cell and origin and
+    returns them in the caller's order: bit-equal in t, tri, u and v to
+    the plain march of the unsorted rays, with a tail warp (1,000 rays),
+    dead rays and rays that miss the grid among them."""
+    s = grid_setup
+    tr = tuple(torch.as_tensor(x[:R_ODD]) for x in s['rays'])
+    key = grid.march_sort_key(s['grid'], *tr, res=4)
+    assert (key >> 18 == 4 ** 3).sum() > (tr[3] <= tr[2]).sum() > 0
+    assert not torch.equal(torch.argsort(key, stable=True),
+                           torch.arange(R_ODD))
+    got = grid.intersect_march(s['grid'], *tr, res=4)
+    ref = grid._to_hit(s['grid'], *tr[:2],
+                       *grid.march_raw_plain(s['grid'], *tr, res=4))
+    assert (ref.tri >= 0).any() and (ref.tri < 0).any()
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+def test_march_sort_key_is_the_references(grid_setup):
+    """march_sort_key equals the key of the reference's _march_sorted,
+    built from the JAX _dda_init, _cell_id and _ray_sort_key over the
+    grid's box, so the port sorts the rays in the reference's order."""
+    s = grid_setup
+    jg, (org, d, tn, tf) = s['jgrid'], s['jr']
+    ci, _, _, _, _, inside = gridm._dda_init(jg['grid_lo'], jg['grid_hi'], 4,
+                                             org, d, tn)
+    cid = gridm._cell_id(ci, 4)
+    jkey = ppt._ray_sort_key(org, d, jnp.asarray(jg['grid_lo']),
+                             jnp.asarray(jg['grid_hi']))
+    ref = (jnp.where(inside & (tf > tn), cid.astype(jnp.uint32),
+                     jnp.uint32(4 ** 3)) << jnp.uint32(18)) \
+        | (jkey & jnp.uint32(0x3FFFF))
+    got = grid.march_sort_key(s['grid'], *(torch.as_tensor(x)
+                                           for x in s['rays']), res=4)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref).astype(np.int64))
+
+
+def _march_triples(g, org, d, tn, tf, res):
+    """The (ray // 32, round, cell) triples of the march kernel's rounds,
+    from a numpy float32 DDA in the kernel's constants, each round's
+    cells swept by the plain pair sweep (K8's) to retire rays at their
+    best hit; also the final (t, slot)."""
+    f = np.float32
+    org, d, tn, tf = (np.asarray(x, np.float32) for x in (org, d, tn, tf))
+    lo = g['grid_lo'].numpy()
+    cs = (g['grid_hi'].numpy() - lo) / f(res)
+    hi = (lo.astype(np.float64) + res * cs.astype(np.float64)).astype(f)
+    inv = f(1) / np.where(np.abs(d) > f(1e-30), d,
+                          np.where(d >= 0, f(1e-30), f(-1e-30)))
+    t0a, t1a = (lo - org) * inv, (hi - org) * inv
+    tmin = np.minimum(t0a, t1a).max(axis=1)
+    tmax = np.maximum(t0a, t1a).min(axis=1)
+    t0 = np.maximum(tmin, tn)
+    live = (t0 <= tmax) & (tf > tn) & (t0 <= tf)
+    p = org + d * (t0 + f(1e-6))[:, None]
+    ci = np.clip((p - lo) / cs, 0, res - 1).astype(np.int64)
+    step = np.where(d >= 0, 1, -1)
+    moving = np.abs(d) > f(1e-30)
+    tnx = np.where(moving, (lo + (ci + (step > 0)).astype(f) * cs - org)
+                   * inv, f(np.inf))
+    tdl = np.where(moving, np.abs(cs * inv), f(np.inf))
+    best_t = np.full(len(org), np.inf, f)
+    best_s = np.full(len(org), -1, np.int32)
+    triples, rnd = set(), 0
+    while live.any():
+        idx = np.nonzero(live)[0]
+        cell = (ci[idx, 0] * res + ci[idx, 1]) * res + ci[idx, 2]
+        triples |= {(i // 32, rnd, c) for i, c in zip(idx.tolist(),
+                                                     cell.tolist())}
+        t_s, s_s = pairs.intersect_pairs_raw_plain(
+            g['rows'], *(torch.as_tensor(x[idx]) for x in (org, d, tn, tf)),
+            g['cell_tile_lo'][cell], g['cell_tile_hi'][cell])
+        take = pairs.better(t_s, s_s, torch.as_tensor(best_t[idx]),
+                            torch.as_tensor(best_s[idx])).numpy()
+        best_t[idx] = np.where(take, t_s.numpy(), best_t[idx])
+        best_s[idx] = np.where(take, s_s.numpy(), best_s[idx])
+        entry = tnx.min(axis=1)
+        a = np.where(tnx[:, 0] <= entry, 0, np.where(tnx[:, 1] <= entry, 1,
+                                                     2))
+        r = np.arange(len(org))
+        ci[r, a] += step[r, a]
+        tnx[r, a] += tdl[r, a]
+        live &= ((ci[r, a] >= 0) & (ci[r, a] < res)
+                 & (entry <= np.minimum(tf, best_t)))
+        rnd += 1
+    return triples, best_t, best_s
+
+
+def test_plain_march_counts_the_rows_a_warp_loads(grid_setup):
+    """march_raw_plain's 'rows' count is the kernel's loads: each cell's
+    rows once for every (warp of 32 consecutive rays, round, cell) of
+    the march, counted here from an independent numpy march, whose
+    results are the plain march's too."""
+    s = grid_setup
+    tr = tuple(torch.as_tensor(x[:R_ODD]) for x in s['rays'])
+    counts = {}
+    t, slot = grid.march_raw_plain(s['grid'], *tr, res=4, counts=counts)
+    triples, t_ref, s_ref = _march_triples(
+        s['grid'], *(x[:R_ODD] for x in s['rays']), 4)
+    np.testing.assert_array_equal(t.numpy(), t_ref)
+    np.testing.assert_array_equal(slot.numpy(), s_ref)
+    g = s['grid']
+    per_cell = (g['cell_tile_hi'] - g['cell_tile_lo']).numpy() * pairs.TL
+    assert len({r for _, r, _ in triples}) > 2
+    assert int(counts['rows']) == sum(int(per_cell[c])
+                                      for _, _, c in triples) > 0
+
+
+def test_sorted_rays_load_no_more_rows_on_the_reduced_colonnade():
+    """On the reduced colonnade's hemisphere rays (from the hits of its
+    32^2 camera rays), the rays sorted by march_sort_key load no more
+    rows than in call order, with the same pair tests and results."""
+    sc = bs.colonnade(**COLONNADE_SMALL).commit(device='cpu', leaf_size=32)
+    dev = torch.device('cpu')
+    org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(32, 32), 32, 32,
+                                    dev, 42)
+    zeros = torch.zeros(org.shape[0])
+    cam = (org, d, zeros, torch.full_like(zeros, float('inf')))
+    hit = traverse.intersect_binary_plain(sc.nodes, sc.tris, *cam)
+    hemi = raysets.hemisphere_rays(sc, org, d, hit, torch.Generator(
+        device=dev).manual_seed(42), dev)[:4]
+    perm = torch.argsort(grid.march_sort_key(sc.grid, *hemi), stable=True)
+    counts = [{}, {}]
+    outs = [grid.march_raw_plain(sc.grid, *rays, counts=c) for rays, c in
+            zip((hemi, tuple(x[perm] for x in hemi)), counts)]
+    for a, b in zip(outs[0], outs[1]):
+        np.testing.assert_array_equal(a[perm].numpy(), b.numpy())
+    assert int(counts[0]['pair']) == int(counts[1]['pair']) > 0
+    assert 0 < int(counts[1]['rows']) <= int(counts[0]['rows'])
+
+
 def test_entry_ranges_are_the_first_round(grid_setup):
     """entry_ranges gives the first round's cells: one K8 sweep over them
     finds the first round's hits."""

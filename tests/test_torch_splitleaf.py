@@ -17,6 +17,7 @@ from yulio_raytracer_tpu.ops import pallas_traverse as ppt
 
 from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.ops import splitleaf, traverse, wide
+from yulio_raytracer_tpu_torch import incoherent_turns
 
 torch.set_num_threads(2)
 R = psl.BLOCK          # the reference kernel takes 1024s
@@ -94,8 +95,9 @@ def _rays(s, n):
 
 @pytest.mark.parametrize('n', [R, R_ODD])
 def test_plain_split_matches_pallas(split_setup, n):
-    """The plain K11 (256-ray packets of 8 warps) against the Pallas
-    kernel (1024-ray packets of 8 sub-blocks of 128)."""
+    """The plain K11 (32-ray packets, one warp each, a row tested only by
+    the rays that hit its leaf) against the Pallas kernel (1024-ray
+    packets of 8 sub-blocks of 128)."""
     s = split_setup
     got = splitleaf.intersect_packet_split(s['nodes'], s['tris'],
                                            *_rays(s, n), max_leaf=8)
@@ -113,14 +115,20 @@ def test_plain_split_sorted_matches_pallas(split_setup, n):
     _assert_split_hits(got, s['ref_sorted'], n)
 
 
-@pytest.mark.parametrize('listcap', [splitleaf.LISTCAP, 6])
+@pytest.mark.parametrize('listcap', [48, 6])
 def test_plain_split_matches_binary(split_setup, monkeypatch, listcap):
     """The plain K11 equals the port's plain K5 in t, tri, u and v (one
-    Woop test, nearest hit kept); with 6-row lists it flushes after
-    nearly every leaf, so its pop culling runs on fresh bounds.  Its
-    counted tests: every lane of a packet per box and per row."""
+    Woop test, nearest hit kept) with lists of `listcap` rows flushed
+    when full, as the reference flushes (LISTCAP - max_groups rows): 48
+    rows defer many leaves, 6 rows flush after nearly every leaf, so its
+    pop culling runs on fresh bounds (the default FLUSH_ROWS, a flush at
+    3 rows, is held to the Pallas kernel above).  Its counted tests:
+    every lane of a packet per box; per row swept, 8 for each lane whose
+    ray hit the row's leaf box, fewer than a flush that tests every row
+    for every lane of the packet would make."""
     s = split_setup
     monkeypatch.setattr(splitleaf, 'LISTCAP', listcap)
+    monkeypatch.setattr(splitleaf, 'FLUSH_ROWS', listcap)
     rays = _rays(s, R_ODD)
     counts = {}
     got = splitleaf.intersect_split_plain(s['nodes'], s['tris'], *rays,
@@ -131,7 +139,8 @@ def test_plain_split_matches_binary(split_setup, monkeypatch, listcap):
     packets = -(-R_ODD // splitleaf.PACKET)
     assert counts['box'] % splitleaf.PACKET == 0
     assert counts['box'] >= 3 * packets * splitleaf.PACKET
-    assert counts['pair'] % (8 * splitleaf.WARP) == 0 and counts['pair'] > 0
+    assert counts['pair'] % 8 == 0 and counts['pair'] > 0
+    assert counts['pair'] < 8 * splitleaf.WARP * counts['row']
 
 
 def test_split_rejects_leaves_past_max_leaf(split_setup):
@@ -146,3 +155,12 @@ def test_split_rejects_leaves_past_max_leaf(split_setup):
         splitleaf.intersect_packet_split(s['nodes'], s['tris'], *rays,
                                          max_leaf=256)
     assert splitleaf.max_groups(8) == 2 and splitleaf.max_groups(32) == 5
+
+
+def test_incoherent_turns_needs_a_card(tmp_path):
+    """The K10/K11 turns tool exits 1 without a CUDA device, before it
+    builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert incoherent_turns.main([str(tmp_path), '--bounds']) == 1
+

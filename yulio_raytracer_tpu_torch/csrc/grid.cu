@@ -59,13 +59,24 @@
 // constants of _kernel_march: the entry cell holds the point at the box
 // entry plus an absolute 1e-6; a tie in the next crossing steps x before y
 // before z; the ray stays live while the next cell's entry is <= min(tfar,
-// best t).  The TPU's 16-ray groups, visited-cell mask and entry-cell sort
-// are packet machinery that a single ray does not need.  Its rays march
-// different numbers of cells, so its warps diverge most (7% of the f32
-// bound on an H100 at 700 W; PERF.md).
+// best t).  What bounds it on the H100: a ray makes ~2,000 pair tests in
+// ~6 cells, and one ray per thread reads every slot's 64-byte row for
+// every ray (~134 GB from L2 for 1M hemisphere rays over a 9.73 MB table)
+// while its lanes wait on the warp's longest cell range (27% lane use).
+// Design (march_kernel): a warp holds 32 rays and marches them in
+// lockstep rounds, one cell per live ray a round; the rays in one cell
+// share that cell's tiles, each loaded once for the warp and staged in
+// shared memory, and the cell's (ray, slot) pairs are spread over all 32
+// lanes.  A ray still tests only its own cells, so the tests are the
+// one-ray march's and so are the results, bit for bit.  The caller
+// (ops/grid.py intersect_march) sorts the rays by entry cell and origin,
+// as the reference's _march_sorted does, so that a warp's rays share
+// cells; the reference's group-wide sweep of every visited cell for every
+// ray of its 16 is not ported (4-10x the tests).
 #include "pairs.cuh"
 
-#define GRID_BLOCK 128
+#define MARCH_WARPS 4         // warps of a march block
+#define MARCH_RAYS 32         // rays a march warp holds (at most 32)
 #define PAIR_BLOCK 128        // threads of a sweep block: one chunk of
                               // up to 128 rays of one bin
 #define BIN_THREADS 256       // threads of a binning block
@@ -414,7 +425,106 @@ occluded_pairs_kernel(const float4* __restrict__ rows,
 
 // ---------------------------------------------------------------- march
 
-__global__ void __launch_bounds__(GRID_BLOCK)
+// What one warp of the march keeps in shared memory: the tile being swept
+// (its rows swizzled, swz), and the rays of the cell being swept with
+// their best (t, slot) key so far, both by rank among those rays.
+struct MarchWarp {
+    float4 tile[PAIR_TILE * 4];
+    float4 ray_a[32];         // ox, oy, oz, tnear
+    float4 ray_b[32];         // dx, dy, dz, tfar
+    unsigned long long key[32];
+};
+
+// float4 q of row s of a staged tile: each row's quarters permuted by
+// (s / 2) % 4, so that the rows of 8 consecutive slots (a quarter warp's
+// 16-byte loads) fall in 8 different bank groups
+__device__ __forceinline__ int swz(int s, int q) {
+    return 4 * s + (q ^ ((s >> 1) & 3));
+}
+
+// slot s of the staged tile
+__device__ __forceinline__ void march_row(const MarchWarp& w, int s,
+                                          float* v) {
+    #pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const float4 x = w.tile[swz(s, q)];
+        v[4 * q + 0] = x.x;
+        v[4 * q + 1] = x.y;
+        v[4 * q + 2] = x.z;
+        v[4 * q + 3] = x.w;
+    }
+}
+
+// ray r of the cell being swept
+__device__ __forceinline__ Ray cell_ray(const MarchWarp& w, int r) {
+    const float4 a = w.ray_a[r], b = w.ray_b[r];
+    return {a.x, a.y, a.z, b.x, b.y, b.z, a.w, b.w};
+}
+
+// ray r (q) against slot s of tile g: a hit lowers the ray's key
+__device__ __forceinline__ void march_pair(MarchWarp& w, int g, int s, int r,
+                                           const Ray& q) {
+    float v[16];
+    march_row(w, s, v);
+    float th, uh, vh;
+    if (woop_test(v, q, q.tnear, q.tfar, th, uh, vh)) {
+        atomicMin(&w.key[r],
+                  static_cast<unsigned long long>(order_key(th)) << 32
+                  | static_cast<unsigned>(s) << 24
+                  | static_cast<unsigned>(g));
+    }
+}
+
+// The warp's sweep of one cell, tiles [lo, hi), for its nr rays (whose
+// ray_a / ray_b / key entries are set): the nr x 128 (ray, slot)
+// pairs of a tile spread over the 32 lanes, pair p = ray p % nr, slot
+// p / nr, 4 nr pairs a lane; where nr divides 32 a lane keeps one ray.
+// A hit lowers its ray's key to (t, slot % 128, tile): the least key is
+// the hit the parent's ascending take_closer sweep keeps within the cell.
+__device__ __forceinline__ void march_cell(MarchWarp& w,
+                                           const float4* __restrict__ rows,
+                                           int lo, int hi, int nr) {
+    const int lane = threadIdx.x & 31;
+    const int dr = 32 % nr, ds = 32 / nr;
+    const Ray mine = cell_ray(w, lane % nr);
+    for (int g = lo; g < hi; ++g) {
+        __syncwarp();             // every lane is done with the last tile
+        const float4* src = rows + static_cast<size_t>(g) * (PAIR_TILE * 4);
+        #pragma unroll
+        for (int k = 0; k < PAIR_TILE * 4 / 32; ++k) {
+            const int j = lane + 32 * k;
+            cp_async16(&w.tile[swz(j >> 2, j & 3)], src + j);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncwarp();
+        if (dr == 0) {
+            for (int s = lane / nr; s < PAIR_TILE; s += ds) {
+                march_pair(w, g, s, lane % nr, mine);
+            }
+            continue;
+        }
+        int r = lane % nr, s = lane / nr;
+        for (int it = 0; it < 4 * nr; ++it) {
+            march_pair(w, g, s, r, cell_ray(w, r));
+            r += dr;
+            s += ds;
+            if (r >= nr) {
+                r -= nr;
+                ++s;
+            }
+        }
+    }
+}
+
+// K10.  Each warp marches MARCH_RAYS consecutive rays in lockstep rounds,
+// one cell per live ray a round.  The lanes are grouped by their current
+// cell (__match_any_sync); each distinct cell's tiles are loaded once for
+// the warp and its pairs spread over all 32 lanes (march_cell); each ray's
+// lane then recomputes its cell's winning test from the rows (for t's
+// bits) and merges it with take_closer, in march order, as the one-ray
+// march did.
+__global__ void __launch_bounds__(MARCH_WARPS * 32)
 march_kernel(const float4* __restrict__ rows,
              const int* __restrict__ cell_lo, const int* __restrict__ cell_hi,
              const float* __restrict__ grid_lo,
@@ -423,9 +533,14 @@ march_kernel(const float4* __restrict__ rows,
              const float* __restrict__ tnear, const float* __restrict__ tfar,
              int n_rays, float* __restrict__ t_out,
              int* __restrict__ slot_out) {
-    const int i = blockIdx.x * GRID_BLOCK + threadIdx.x;
-    if (i >= n_rays) return;
-    const Ray r = load_ray(org, dir, tnear, tfar, i);
+    __shared__ MarchWarp warps[MARCH_WARPS];
+    MarchWarp& w = warps[threadIdx.x >> 5];
+    const int lane = threadIdx.x & 31;
+    const int i = (blockIdx.x * MARCH_WARPS + (threadIdx.x >> 5))
+        * MARCH_RAYS + lane;
+    const bool own = lane < MARCH_RAYS && i < n_rays;
+    Ray r = {};
+    if (own) r = load_ray(org, dir, tnear, tfar, i);
     const float o[3] = {r.ox, r.oy, r.oz};
     const float d[3] = {r.dx, r.dy, r.dz};
     // the box as the reference kernel holds it: lo and the cell size in
@@ -446,7 +561,7 @@ march_kernel(const float4* __restrict__ rows,
         tmax = k == 0 ? fmaxf(t0a, t1a) : fminf(tmax, fmaxf(t0a, t1a));
     }
     const float t0 = fmaxf(tmin, r.tnear);
-    bool live = t0 <= tmax && r.tfar > r.tnear && t0 <= r.tfar;
+    bool live = own && t0 <= tmax && r.tfar > r.tnear && t0 <= r.tfar;
     int ci[3], st[3];
     float tn[3], td[3];
     #pragma unroll
@@ -464,18 +579,54 @@ march_kernel(const float4* __restrict__ rows,
     }
     float best_t = CUDART_INF_F;
     int best_slot = -1;
-    while (live) {
-        const int c = (ci[0] * res + ci[1]) * res + ci[2];
-        sweep_closest(rows, __ldg(cell_lo + c) * PAIR_TILE,
-                      __ldg(cell_hi + c) * PAIR_TILE, r, best_t, best_slot);
-        const float entry = fminf(tn[0], fminf(tn[1], tn[2]));
-        const int a = tn[0] <= entry ? 0 : (tn[1] <= entry ? 1 : 2);
-        ci[a] += st[a];
-        tn[a] += td[a];
-        live = ci[a] >= 0 && ci[a] < res && entry <= fminf(r.tfar, best_t);
+    while (__any_sync(FULL_MASK, live)) {
+        const int c = live ? (ci[0] * res + ci[1]) * res + ci[2] : -1;
+        const unsigned peers = __match_any_sync(FULL_MASK, c);
+        const int c_lo = live ? __ldg(cell_lo + c) : 0;
+        const int c_hi = live ? __ldg(cell_hi + c) : 0;
+        unsigned todo = __ballot_sync(FULL_MASK,
+                                      live && __ffs(peers) - 1 == lane);
+        while (todo) {
+            const int lead = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const unsigned m = __shfl_sync(FULL_MASK, peers, lead);
+            const int g0 = __shfl_sync(FULL_MASK, c_lo, lead);
+            const int g1 = __shfl_sync(FULL_MASK, c_hi, lead);
+            const bool mine = (m >> lane) & 1;
+            const int rank = __popc(m & ((1u << lane) - 1));
+            __syncwarp();         // the last cell's entries are read
+            if (mine) {
+                w.ray_a[rank] = make_float4(r.ox, r.oy, r.oz, r.tnear);
+                w.ray_b[rank] = make_float4(r.dx, r.dy, r.dz, r.tfar);
+                w.key[rank] = ~0ull;
+            }
+            __syncwarp();
+            march_cell(w, rows, g0, g1, __popc(m));
+            __syncwarp();
+            const unsigned long long key = mine ? w.key[rank] : ~0ull;
+            if (key != ~0ull) {
+                const int slot = static_cast<int>(key & 0xFFFFFFu) * PAIR_TILE
+                    + static_cast<int>((key >> 24) & (PAIR_TILE - 1));
+                float v[16];
+                load_row<4>(rows, 4, slot, v);
+                float th, uh, vh;
+                take_closer(woop_test(v, r, r.tnear, r.tfar, th, uh, vh), th,
+                            slot, best_t, best_slot);
+            }
+        }
+        if (live) {
+            const float entry = fminf(tn[0], fminf(tn[1], tn[2]));
+            const int a = tn[0] <= entry ? 0 : (tn[1] <= entry ? 1 : 2);
+            ci[a] += st[a];
+            tn[a] += td[a];
+            live = ci[a] >= 0 && ci[a] < res
+                && entry <= fminf(r.tfar, best_t);
+        }
     }
-    t_out[i] = best_t;
-    slot_out[i] = best_slot;
+    if (own) {
+        t_out[i] = best_t;
+        slot_out[i] = best_slot;
+    }
 }
 
 // ------------------------------------------------------------ entry points
@@ -577,7 +728,8 @@ extern "C" int yrt_grid_march(const void* rows, const void* cell_lo,
                               const void* tfar, int res, int n_rays,
                               void* t_out, void* slot_out, void* stream) {
     if (n_rays > 0) {
-        march_kernel<<<blocks(n_rays, GRID_BLOCK), GRID_BLOCK, 0,
+        march_kernel<<<blocks(n_rays, MARCH_WARPS * MARCH_RAYS),
+                       MARCH_WARPS * 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(rows),
             static_cast<const int*>(cell_lo),

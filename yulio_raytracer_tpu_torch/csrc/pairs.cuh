@@ -1,6 +1,5 @@
-// Shared device code of the port's grid kernels (grid.cu): the closest-hit
-// update rule, and the sweep of one ray over a range of triangle slots
-// from global memory (K10's march).
+// Shared device code of the port's grid kernels (grid.cu): the slot layout
+// and the closest-hit update rule.
 //
 // Triangles sit in tiles of PAIR_TILE slots; slot s is the 64-byte row
 // [woop.T (12) | ng (3) | cull] of one triangle (ops/pairs.py pack_planes,
@@ -32,19 +31,5 @@ __device__ __forceinline__ void take_closer(bool hit, float th, int s,
                     && s % PAIR_TILE < best_slot % PAIR_TILE))) {
         best_t = th;
         best_slot = s;
-    }
-}
-
-// Closest hit over slots [s0, s1), ascending, carried in (best_t,
-// best_slot).
-__device__ __forceinline__ void sweep_closest(
-        const float4* __restrict__ rows, int s0, int s1, const Ray& r,
-        float& best_t, int& best_slot) {
-    for (int s = s0; s < s1; ++s) {
-        float w[16];
-        load_row<4>(rows, 4, s, w);
-        float th, uh, vh;
-        take_closer(woop_test(w, r, r.tnear, r.tfar, th, uh, vh), th, s,
-                    best_t, best_slot);
     }
 }

@@ -11,9 +11,11 @@ reference's uint32 keys, and the argsort is stable, as `jnp.argsort` is,
 so the permutation is the reference's.
 
 The reference sorts so that a 1024-ray packet of its TPU kernels holds
-coherent rays.  Of the port's kernels only the split-leaf kernel
-(ops/splitleaf.py, K11) shares work across a packet; its `_sorted` form
-runs through `sorted_call`.  Sharing one sort among a bounce's batches
+coherent rays.  Of the port's kernels the split-leaf kernel
+(ops/splitleaf.py, K11) shares work across a packet, and its `_sorted`
+form runs through `sorted_call`; the grid march (ops/grid.py, K10)
+shares a cell's rows among a warp's rays, and sorts by the entry cell
+above this key (`march_sort_key`).  Sharing one sort among a bounce's batches
 (`hitpoint_sort_perm`) and sorting under ray_binning='morton' are not
 ported.
 """

@@ -22,10 +22,12 @@ pair kernels group each call's rays by range themselves (ops/pairs.py
 bin_rays), and the fallback's rays stay unsorted.
 
 `march_raw` is K10 (the reference's `_march_raw`): each ray's whole
-march in one kernel (csrc/grid.cu), no fallback; `intersect_march` maps
-its slots to triangles.  Its plain version runs the same rounds
-until every ray retires, from the kernel's entry cell (an absolute 1e-6
-past the box entry, where the rounds nudge by a part of a cell).
+march in one kernel (csrc/grid.cu), no fallback, a warp's rays in one
+cell sharing its rows; `intersect_march` sorts the rays by entry cell
+and origin first, as the reference's `_march_sorted` does, and maps the
+slots to triangles.  Its plain version runs the same rounds until every
+ray retires, from the kernel's entry cell (an absolute 1e-6 past the box
+entry, where the rounds nudge by a part of a cell).
 
 One deliberate difference: the reference's `_dda_step` adds
 onehot * tdelta, which turns an axis whose direction is zero (tdelta =
@@ -39,11 +41,12 @@ import numpy as np
 import torch
 
 from . import cuda_build as cb
-from . import pairs, traverse, wide
+from . import binning, pairs, traverse, wide
 from .intersect import Hit
 from .pairs import TL
 
 GRID_RES = 8         # cells per axis (the reference's scene.GRID_RES)
+WARP = 32            # rays a warp of the march kernel holds
 INF = float('inf')
 # the tables a committed scene keeps on its device (the lane-major
 # `planes` serve only the reference's TPU kernels)
@@ -256,7 +259,9 @@ def march_raw_plain(grid, org, dirn, tnear, tfar, res: int = GRID_RES,
     """Plain torch version of the grid march (K10): the rounds of
     intersect_grid, from the march kernel's entry cell, until every ray
     retires.  Returns (t, slot) as march_raw; counts gathers the pair
-    tests ('pair')."""
+    tests ('pair') and the rows the kernel loads ('rows': a cell's rows
+    once per round for each warp of WARP consecutive rays with a ray in
+    it)."""
     if org.is_cuda:
         march_raw_plain.cuda_calls += 1
     lo = grid['grid_lo']
@@ -270,9 +275,16 @@ def march_raw_plain(grid, org, dirn, tnear, tfar, res: int = GRID_RES,
     best_s = torch.full(tfar.shape, -1, dtype=torch.int32, device=org.device)
     while bool(live.any()):
         idx = torch.nonzero(live)[:, 0]
+        gs, ge = _cell_ranges(grid, ci[idx], live[idx], res)
+        if counts is not None:      # distinct (warp, cell) this round
+            cells = torch.unique(idx // WARP * res ** 3
+                                 + _cell_id(ci[idx], res)) % res ** 3
+            cb.count(counts, 'rows', (grid['cell_tile_hi'][cells]
+                                      - grid['cell_tile_lo'][cells])
+                     .to(torch.int64).sum() * TL)
         t_s, s_s = pairs.intersect_pairs_raw_plain(
-            grid['rows'], org[idx], dirn[idx], tnear[idx], tfar[idx],
-            *_cell_ranges(grid, ci[idx], live[idx], res), counts=counts)
+            grid['rows'], org[idx], dirn[idx], tnear[idx], tfar[idx], gs, ge,
+            counts=counts)
         take = pairs.better(t_s, s_s, best_t[idx], best_s[idx])
         best_t[idx] = torch.where(take, t_s, best_t[idx])
         best_s[idx] = torch.where(take, s_s, best_s[idx])
@@ -283,7 +295,9 @@ def march_raw_plain(grid, org, dirn, tnear, tfar, res: int = GRID_RES,
 
 def march_raw(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
     """(t, slot) of each ray's closest hit over the grid's rows (inf and
-    -1 on a miss), each ray marching the whole grid in one kernel (K10)."""
+    -1 on a miss), each ray marching the whole grid in one kernel (K10),
+    which shares a cell's rows among the rays of a warp that are in it:
+    the rays in any order, best grouped by cell (march_sort_key)."""
     if org.device.type == 'cpu':
         return march_raw_plain(grid, org, dirn, tnear, tfar, res)
     rays = cb.ray_args(org, dirn, tnear, tfar)
@@ -303,12 +317,32 @@ def march_raw(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
     return t, slot
 
 
+def march_sort_key(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
+    """(R,) int64 key of the reference's `_march_sorted`: the entry cell
+    of the rounds' DDA set-up (res^3 for a ray that misses the grid or is
+    dead) above the 18-bit octant/Morton key (ops/binning.py) of the
+    origin in the grid's box."""
+    ci, _, _, _, _, inside = _rounds_init(grid, org, dirn, tnear, res)
+    cid = torch.where(inside & (tfar > tnear), _cell_id(ci, res), res ** 3)
+    return (cid << 18) | binning.ray_sort_key(org, dirn, grid['grid_lo'],
+                                              grid['grid_hi'])
+
+
 def intersect_march(grid, org, dirn, tnear, tfar,
                     res: int = GRID_RES) -> Hit:
     """Exact closest hit through the grid march (K10): no rounds, no
-    fallback; slots mapped to triangles, u/v rebuilt from the rows."""
-    return _to_hit(grid, org, dirn,
-                   *march_raw(grid, org, dirn, tnear, tfar, res))
+    fallback.  The rays run sorted by march_sort_key (stable), so that a
+    warp's rays share cells; each ray's result depends on that ray alone,
+    so the sort changes no bit.  Slots are mapped to triangles and u/v
+    rebuilt from the rows, in the caller's order."""
+    perm = torch.argsort(march_sort_key(grid, org, dirn, tnear, tfar, res),
+                         stable=True)
+    t_p, s_p = march_raw(grid, org[perm], dirn[perm], tnear[perm],
+                         tfar[perm], res)
+    t, slot = torch.empty_like(t_p), torch.empty_like(s_p)
+    t[perm] = t_p
+    slot[perm] = s_p
+    return _to_hit(grid, org, dirn, t, slot)
 
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors

@@ -1,32 +1,36 @@
 """Split-leaf traversal (K11): a packet shares one walk of the binary BVH
-and defers its leaf rows into one list per sub-block.
+and defers its leaf rows into one list, each row tested only by the rays
+that reached it.
 
 Counterpart of `yulio_raytracer_tpu/ops/pallas_splitleaf.py`
 (`intersect_packet_split` and `intersect_packet_split_sorted`), the
 reference's ablation of its packet kernel for incoherent bounce rays.  A
-packet of PACKET = 256 rays (the reference: 1024) walks the tree with one
-shared stack of (node, entry t): an interior pop slab-tests both children
-against every ray's own best t and pushes the children some ray hits,
-far first, each with the least entry t of the rays that hit it; near is
-the side the packet's summed direction points to along the node's axis.
-A pop whose entry t exceeds the largest best t of the packet is culled.
-A leaf pop appends the leaf's packed triangle rows [a // 8,
-(a + count + 7) // 8) to the list of every sub-block (NSUB = 8 of 32 rays;
-the reference: 8 of 128) with a ray that hits the leaf box, and every ray
-of a sub-block tests all 8 triangles of each row of its list at a flush:
-when the rows appended since the last flush reach LISTCAP - max_groups,
-and at the end.  A triangle replaces a ray's best hit only when strictly
-nearer; its index is row * 8 + m.  The result is the closest hit of
-every ray, as K5's, up to the triangle chosen among equal t.
+packet of PACKET = 32 rays, one warp (the reference: 1024 rays in 8
+sub-blocks of 128), walks the tree with one shared stack of (node, entry
+t): an interior pop slab-tests both children against every ray's own best
+t and pushes the children some ray hits, far first, each with the least
+entry t of the rays that hit it; near is the side the packet's summed
+direction points to along the node's axis.  A pop whose entry t exceeds
+the largest best t of the packet is culled.  A leaf pop whose box some
+ray hits appends the leaf's packed triangle rows [a // 8,
+(a + count + 7) // 8) to the packet's list, each with the mask of the
+rays that hit the box; at a flush (when the list holds min(FLUSH_ROWS,
+LISTCAP - max_groups) rows, and at the end) each ray tests all 8
+triangles of each row its mask holds.  A triangle replaces a ray's best
+hit only when strictly nearer; its index is row * 8 + m.  The result is
+the closest hit of every ray, as K5's, up to the triangle chosen among
+equal t.  The reference flushes at LISTCAP - max_groups rows; on the card
+a flush after a few rows (FLUSH_ROWS) keeps the best t that culls the
+walk's pops fresh, which pays more than longer sweeps do.
 
 On a CUDA tensor `intersect_packet_split` launches the kernel of
-csrc/splitleaf.cu, a packet per block of 8 warps; on a CPU tensor it
-runs `intersect_split_plain`, which replays that schedule step by step
-with the packets as the batch dimension: the same pops, culls, list
-appends and flushes, so the same rows are tested in the same order.
-The packet's direction sum is taken in the kernel's order (a butterfly
-within each warp, then the warps in turn), so the near side agrees too.
-Any ray count is accepted: the tail packet's missing rays are dead.
+csrc/splitleaf.cu, one packet per warp; on a CPU tensor it runs
+`intersect_split_plain`, which replays that schedule step by step with
+the packets as the batch dimension: the same pops, culls, list appends
+and flushes, so the same pairs are tested.  The packet's direction sum is
+taken in the kernel's order (a butterfly over the lanes), so the near
+side agrees too.  Any ray count is accepted: the tail packet's missing
+rays are dead.
 """
 from __future__ import annotations
 
@@ -39,11 +43,11 @@ from . import cuda_build as cb
 from . import traverse, wide
 from .intersect import Hit, woop_test
 
-NSUB = 8                 # sub-blocks (warps) per packet
-WARP = 32                # rays per sub-block
-PACKET = NSUB * WARP     # rays per packet (one CUDA block)
+WARP = 32                # rays per packet (one warp)
+PACKET = WARP
 STACK = wide.STACK       # shared stack entries (pallas_splitleaf.STACK)
-LISTCAP = 48             # pending rows per sub-block between flushes
+LISTCAP = 48             # rows a packet's list holds
+FLUSH_ROWS = 3           # rows that start a flush (the kernel's)
 INF = float('inf')
 # ray-triangle pairs of one step of the plain flush: each temporary of
 # the Woop test stays at 64 MB
@@ -76,46 +80,46 @@ def _groups(nodes, max_leaf):
 # ------------------------------------------------------- plain version
 
 def _dir_sum(d):
-    """(P,) sum of d (P, NSUB, WARP) in the kernel's order: a butterfly
-    over each warp's lanes, then the warps in turn."""
+    """(P,) sum of d (P, WARP) in the kernel's order: a butterfly over the
+    lanes."""
     lane = torch.arange(WARP, device=d.device)
     for off in (16, 8, 4, 2, 1):
         d = d + d[..., lane ^ off]
-    s = d[:, 0, 0]
-    for w in range(1, NSUB):
-        s = s + d[:, w, 0]
-    return s
+    return d[:, 0]
 
 
-def _flush(pk, rows, lists, cnt, o, dirn, tn, best, counts):
+def _flush(pk, rows, lists, masks, cnt, o, dirn, tn, best, counts):
     """Sweep the lists of packets pk and empty them: every ray tests each
-    row of its sub-block's list, in list order, keeping a strictly nearer
-    hit.  That sequence's winner is the first test in order at the least
-    t below the best t the flush started from, which is what this takes
-    at once."""
+    row its mask holds, in list order, keeping a strictly nearer hit.
+    That sequence's winner is the first test in order at the least t
+    below the best t the flush started from, which is what this takes at
+    once."""
     t_b, tri_b, u_b, v_b = best
     q = int(cnt[pk].max()) if pk.numel() else 0
     if q == 0:
         return
-    cb.count(counts, 'pair', cnt[pk].sum() * 8 * WARP)
+    held = masks[pk] & (torch.arange(LISTCAP, device=pk.device)
+                        < cnt[pk][:, None])[..., None]
+    cb.count(counts, 'pair', held.sum() * 8)
+    cb.count(counts, 'row', cnt[pk].sum())
     m = torch.arange(8 * q, device=pk.device)
     step = max(1, _FLUSH_ELEMS // (PACKET * 8 * q))
     for c0 in range(0, pk.numel(), step):
         p = pk[c0:c0 + step]
-        tri = lists[p, :, :q, None] * 8 + torch.arange(8, device=p.device)
-        tri = tri.flatten(2)                            # (n, NSUB, 8q)
-        valid = (m // 8 < cnt[p][:, :, None])[:, :, None, :]
-        s = rows[tri].permute(3, 0, 1, 2)[:, :, :, None, :]
+        tri = (lists[p, :q, None] * 8
+               + torch.arange(8, device=p.device)).flatten(1)  # (n, 8q)
+        valid = held[c0:c0 + step, :q].repeat_interleave(8, dim=1)
+        s = rows[tri].permute(2, 0, 1)[:, :, None, :]
         th, uh, vh, ok = woop_test(s, o[p][..., None, :], dirn[p][..., None, :],
                                    tn[p][..., None], t_b[p][..., None])
-        th = torch.where(ok & valid, th, INF)          # (n, NSUB, WARP, 8q)
+        th = torch.where(ok & valid.transpose(1, 2), th, INF)  # (n, WARP, 8q)
         tmin = torch.amin(th, dim=-1)
         first = torch.amin(torch.where(th == tmin[..., None], m, 8 * q),
                            dim=-1, keepdim=True)
         hit = tmin < INF
         t_b[p] = torch.where(hit, tmin, t_b[p])
         tri_b[p] = torch.where(
-            hit, tri[:, :, None, :].expand_as(th).gather(-1, first)[..., 0]
+            hit, tri[:, None, :].expand_as(th).gather(-1, first)[..., 0]
             .to(torch.int32), tri_b[p])
         u_b[p] = torch.where(hit, uh.gather(-1, first)[..., 0], u_b[p])
         v_b[p] = torch.where(hit, vh.gather(-1, first)[..., 0], v_b[p])
@@ -127,17 +131,18 @@ def intersect_split_plain(nodes, tris, org, dirn, tnear, tfar,
     """Plain torch version of the split-leaf kernel, its schedule replayed
     packet by packet (module docstring).  counts, a dict, gathers the
     kernel's triangle ('pair') and slab ('box') tests, every lane of a
-    packet counted."""
+    packet per box and each ray's 8 a row its mask holds, and the list
+    rows swept ('row')."""
     if org.is_cuda:
         intersect_split_plain.cuda_calls += 1
-    limit = LISTCAP - _groups(nodes, max_leaf)
+    limit = min(FLUSH_ROWS, LISTCAP - _groups(nodes, max_leaf))
     r, dev = org.shape[0], org.device
     p = -(-r // PACKET)
     pad = p * PACKET - r
 
     def packets(x, fill):
         x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
-        return x.reshape((p, NSUB, WARP) + x.shape[1:])
+        return x.reshape((p, WARP) + x.shape[1:])
     o, d = packets(org, 0.0), packets(dirn, 0.0)
     tn, t_b = packets(tnear, 0.0), packets(tfar, -1.0)
     inv = wide._safe_inv(d)
@@ -149,11 +154,11 @@ def intersect_split_plain(nodes, tris, org, dirn, tnear, tfar,
     st_n = torch.zeros((p, STACK), dtype=torch.int64, device=dev)
     st_t = torch.zeros((p, STACK), dtype=torch.float32, device=dev)
     sp = torch.zeros((p,), dtype=torch.int64, device=dev)
-    lists = torch.zeros((p, NSUB, LISTCAP), dtype=torch.int64, device=dev)
-    cnt = torch.zeros((p, NSUB), dtype=torch.int64, device=dev)
-    since = torch.zeros((p,), dtype=torch.int64, device=dev)
+    lists = torch.zeros((p, LISTCAP), dtype=torch.int64, device=dev)
+    masks = torch.zeros((p, LISTCAP, WARP), dtype=torch.bool, device=dev)
+    cnt = torch.zeros((p,), dtype=torch.int64, device=dev)
     t_allmax = torch.full((p,), INF, device=dev)
-    cur_max = torch.amax(t_b, dim=(1, 2))
+    cur_max = torch.amax(t_b, dim=1)
     far_near = torch.tensor([[0, 1], [1, 0]], device=dev)
     act = torch.arange(p, device=dev)
     while act.numel():
@@ -167,33 +172,33 @@ def intersect_split_plain(nodes, tris, org, dirn, tnear, tfar,
         if bool(lf.any()):
             pk = act[lf]
             cb.count(counts, 'box', PACKET * pk.numel())
-            hit, _ = wide._slab(nd[lf][:, None, None, :], o[pk], inv[pk],
-                                tn[pk], t_b[pk])
-            wh = hit.any(-1)                            # (n, NSUB)
+            hit, _ = wide._slab(nd[lf][:, None, :], o[pk], inv[pk], tn[pk],
+                                t_b[pk])                # (n, WARP)
+            wh = hit.any(-1)
             g0 = a[lf] // 8
             gc = (a[lf] + tag[lf] + 7) // 8 - g0
             j = torch.arange(int(gc.max()), device=dev)
-            ni, ki, ji = torch.nonzero(wh[:, :, None] & (j < gc[:, None, None]),
-                                       as_tuple=True)
-            lists[pk[ni], ki, cnt[pk[ni], ki] + ji] = g0[ni] + ji
-            cnt[pk] += torch.where(wh, gc[:, None], 0)
-            since[pk] += torch.where(wh.any(1), gc, 0)
-            fl = pk[since[pk] >= limit]
+            ni, ji = torch.nonzero(wh[:, None] & (j < gc[:, None]),
+                                   as_tuple=True)
+            at = (pk[ni], cnt[pk[ni]] + ji)
+            lists[at] = g0[ni] + ji
+            masks[at] = hit[ni]
+            cnt[pk] += torch.where(wh, gc, 0)
+            fl = pk[cnt[pk] >= limit]
             if fl.numel():
-                _flush(fl, rows, lists, cnt, o, d, tn, best, counts)
-                since[fl] = 0
-                cur_max[fl] = torch.amax(t_b[fl], dim=(1, 2))
+                _flush(fl, rows, lists, masks, cnt, o, d, tn, best, counts)
+                cur_max[fl] = torch.amax(t_b[fl], dim=1)
             t_allmax[pk] = cur_max[pk]
         inner = live & (tag < 0)
         if bool(inner.any()):
             pk = act[inner]
             cb.count(counts, 'box', 2 * PACKET * pk.numel())
             kids = torch.stack([node[inner] + 1, a[inner]], dim=1)
-            hit, tmin = wide._slab(nodes[kids][:, :, None, None, :],
+            hit, tmin = wide._slab(nodes[kids][:, :, None, :],
                                    o[pk][:, None], inv[pk][:, None],
                                    tn[pk][:, None], t_b[pk][:, None])
-            any_k = hit.flatten(2).any(-1)              # (n, 2) left, right
-            m_k = torch.amin(torch.where(hit, tmin, INF).flatten(2), dim=-1)
+            any_k = hit.any(-1)                         # (n, 2) left, right
+            m_k = torch.amin(torch.where(hit, tmin, INF), dim=-1)
             ln = left_first[pk].gather(1, -tag[inner][:, None] - 1)[:, 0]
             order = far_near[ln.long()]                 # far, then near
             kids, any_k, m_k = (x.gather(1, order) for x in (kids, any_k, m_k))
@@ -201,8 +206,8 @@ def intersect_split_plain(nodes, tris, org, dirn, tnear, tfar,
                 wide._push((st_n, st_t), sp, pk, any_k[:, k],
                            (kids[:, k], m_k[:, k]))
         act = act[sp[act] >= 0]
-    _flush(torch.arange(p, device=dev), rows, lists, cnt, o, d, tn, best,
-           counts)
+    _flush(torch.arange(p, device=dev), rows, lists, masks, cnt, o, d, tn,
+           best, counts)
     t_b, tri_b, u_b, v_b = (x.reshape(-1)[:r] for x in best)
     return Hit(torch.where(tri_b >= 0, t_b, INF), tri_b, u_b, v_b)
 
