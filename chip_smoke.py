@@ -39,9 +39,13 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     their shadow rays), bit-equal; the sweep prototype's kernels K12
     (proto_sublane_sweep.py) on the colonnade's 512 packed rows holding
     the most closest hits of its camera rays against every fourth of those
-    rays (2^18), each bit-equal to its plain version and the two layouts
-    to each other, timed there (shape b) and at the script's own shapes
-    and random rows (shape a: run(which, 512, 64, 8)).
+    rays (2^18, shape b) and every fourth of the hemisphere rays from
+    their hits (b-hemi), each bit-equal to its plain version and the two
+    layouts to each other, timed there and at the script's own shapes
+    and random rows (shape a: run(which, 512, 64, 8), the triangle range
+    split over blocks); and, every form bit-equal to its plain version
+    over triangle slices at 64 reps, the same rows against 1024 of those
+    camera rays (some hit) and shape a's own inputs.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -271,7 +275,8 @@ def main():
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
         frame_dense_calls, frame_motion_calls, frame_pair_calls,
-        from_treelet_roots, hemisphere_rays, scattered_rays, shadow_rays)
+        from_treelet_roots, hemisphere_rays, scattered_rays, shadow_rays,
+        sweep_sets)
 
     dev = torch.device('cuda')
     card = smi_line()
@@ -584,41 +589,91 @@ def main():
     # K12, the sweep prototype.  Shape b: the colonnade's 512 packed rows
     # (4,096 triangles) that hold the most closest hits of its camera
     # rays, in table order, against every fourth of those rays (2^18), one
-    # rep, both layouts on the same triangles
-    per_row = torch.bincount(hit.tri[hit.tri >= 0].long() // 8,
-                             minlength=colonnade.tris.shape[0])
-    top = torch.argsort(-per_row, stable=True)[:512].sort().values
-    rows = colonnade.tris[top]
+    # rep, both layouts on the same triangles; b-hemi: those rows against
+    # every fourth of the hemisphere rays from those hits
+    rows, held, b_rays, hemi_rays = sweep_sets(colonnade, hit, cam_rays,
+                                               hemi)
     tiles = sweep.supertiles(rows)
-    b_args = (cam_rays[0][::4].contiguous(), cam_rays[1][::4].contiguous(),
-              1)
-    b_pairs = b_args[0].shape[0] * rows.shape[0] * 8
+    b_pairs = b_rays[0].shape[0] * rows.shape[0] * 8
     phase('kernels', f"K12's rows: the colonnade's 512 packed rows holding "
-          f"the most closest hits of its camera rays (their "
-          f"{int(per_row[top].sum())} of {int((hit.tri >= 0).sum())})")
-    check(sweep.sweep_rows, 'sweep_rows (colonnade rows, shape b)',
-          (rows, *b_args), {'pair': b_pairs}, exact=True)
-    check(sweep.sweep_tiles, 'sweep_tiles (colonnade super-tiles, shape b)',
-          (tiles, *b_args, False), {'pair': b_pairs}, exact=True)
-    old = sweep.sweep_rows(rows, *b_args)
-    if not all(torch.equal(a, b) for sw in (False, True)
-               for a, b in zip(old, sweep.sweep_tiles(tiles, *b_args, sw))):
+          f"the most closest hits of its camera rays (their {held} of "
+          f"{int((hit.tri >= 0).sum())})")
+    k12_ms = {}
+    for name, rays in (('b', b_rays), ('b-hemi', hemi_rays)):
+        args = (*rays, 1)
+        ms = {}
+        for f, table, more, key in (
+                (sweep.sweep_rows, rows, (), 'old'),
+                (sweep.sweep_tiles, tiles, (False,), 'new')):
+            before = results.get(f.__name__, {}).get('ms', 0.0)
+            check(f, f'{f.__name__} (colonnade, shape {name})',
+                  (table, *args, *more), {'pair': b_pairs}, exact=True)
+            ms[key] = results[f.__name__]['ms'] - before
+        old = sweep.sweep_rows(rows, *args)
+        if not all(torch.equal(x, y) for sw in (False, True)
+                   for x, y in zip(old, sweep.sweep_tiles(tiles, *args,
+                                                           sw))):
+            raise AssertionError(f"the sweep layouts disagree on the same "
+                                 f"triangles (shape {name})")
+        ms['newsw'] = cuda_ms(lambda: sweep.sweep_tiles(tiles, *args, True))
+        k12_ms[name] = ms
+        b_bound = b_pairs * PROTO_FLOPS / PEAK_FLOPS * 1e3
+        phase('kernels', f"K12 at shape {name} ({rays[0].shape[0]} rays x "
+              f"4,096 triangles, reps 1, "
+              f"{float((old[1] >= 0).float().mean()):.1%} of the rays hit; "
+              f"median of 5): " + ', '.join(
+                  f"{k} {v:.4f} ms, {b_pairs / v / 1e6:.2f} Gpairs/s, "
+                  f"{b_bound / v:.2%} of the bound" for k, v in ms.items())
+              + f"; new / old {ms['old'] / ms['new']:.3f}, newsw / old "
+              f"{ms['old'] / ms['newsw']:.3f} (in Gpairs/s); the layouts "
+              f"bit-equal with and without the switch; {card}")
+    # the triangle split over blocks and its merge by key, held exactly:
+    # the same rows against every 256th of shape b's rays (1024, some of
+    # which hit) and shape a's own inputs (the script's random rows, which
+    # no ray hits), at the script's 64 reps, every form on each
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    block_rays = sweep._lib().yrt_sweep_block_rays
+    few = tuple(x[::256].contiguous() for x in b_rays)
+    few_hits = int((sweep.sweep_rows_plain(rows, *few)[1] >= 0).sum())
+    if not few_hits:
+        raise AssertionError("none of the 1024 rays of K12's split set hits")
+    a_old, a_new = (sweep.shape_a(w, 512, dev) for w in ('old', 'new'))
+    zero_counters()
+    split = []
+    for name, kind, table, rays in (('colonnade', 'rows', rows, few),
+                                    ('colonnade', 'tiles', tiles, few),
+                                    ('shape a', 'rows', a_old[0], a_old[1:]),
+                                    ('shape a', 'tiles', a_new[0],
+                                     a_new[1:])):
+        units = table.shape[0] // (8 if kind == 'tiles' else 1)
+        n = sweep.slices(block_rays(int(kind == 'tiles')), rays[0].shape[0],
+                         units, sweep.MIN_SLICE[kind], sms)
+        if n < 2:
+            raise AssertionError(f"K12's {name} set does not split the "
+                                 f"triangle range ({kind})")
+        n_pairs = rays[0].shape[0] * table.shape[0] * 8 * 64
+        for more in ((),) if kind == 'rows' else ((False,), (True,)):
+            f = sweep.sweep_rows if kind == 'rows' else sweep.sweep_tiles
+            check(f, f"{f.__name__}{' switch' if more == (True,) else ''} "
+                  f"({name}, {rays[0].shape[0]} rays, reps 64, {n} triangle "
+                  f"slices)", (table, *rays, 64, *more), {'pair': n_pairs},
+                  exact=True)
+        split.append(f"{name} {kind} {n}")
+    old = sweep.sweep_rows(rows, *few, 64)
+    if not all(torch.equal(x, y) for sw in (False, True)
+               for x, y in zip(old, sweep.sweep_tiles(tiles, *few, 64, sw))):
         raise AssertionError("the sweep layouts disagree on the same "
-                             "triangles")
-    b_ms = {'old': results['sweep_rows']['ms'],
-            'new': results['sweep_tiles']['ms'],
-            'newsw': cuda_ms(lambda: sweep.sweep_tiles(tiles, *b_args, True))}
-    b_bound = b_pairs * PROTO_FLOPS / PEAK_FLOPS * 1e3
-    phase('kernels', f"K12 at shape b ({b_args[0].shape[0]} rays x 4,096 "
-          f"triangles, reps 1, "
-          f"{float((old[1] >= 0).float().mean()):.1%} of the rays hit; "
-          f"median of 5): " + ', '.join(
-              f"{k} {v:.4f} ms, {b_pairs / v / 1e6:.2f} Gpairs/s, "
-              f"{b_bound / v:.2%} of the bound" for k, v in b_ms.items())
-          + f"; new / old {b_ms['old'] / b_ms['new']:.3f}, newsw / old "
-          f"{b_ms['old'] / b_ms['newsw']:.3f} (in Gpairs/s); the layouts "
-          f"bit-equal with and without the switch; {card}")
-    # shape a: the script's own shapes, defaults and random rows
+                             "triangles (split set)")
+    phase('kernels', f"K12 over triangle slices bit-equal to the plain "
+          f"versions, every form, and the layouts to each other: "
+          f"{few_hits} of the colonnade set's 1024 rays hit; slices "
+          f"{', '.join(split)}; launches sweep_rows "
+          f"{sweep.sweep_rows.launches}, sweep_tiles "
+          f"{sweep.sweep_tiles.launches}")
+    if not (sweep.sweep_rows.launches and sweep.sweep_tiles.launches):
+        raise AssertionError("the split sets did not launch K12")
+    # shape a: the script's own shapes, defaults and random rows (which no
+    # ray hits), the triangle range split over blocks by the wrappers
     a_runs = {w: sweep.run(w, 512, 64, 8) for w in ('old', 'new', 'newsw')}
     a_bound = 512 * 8 * 1024 * 64 * PROTO_FLOPS / PEAK_FLOPS * 1e3
     phase('kernels', "K12 at shape a (the script's: 512 rows x 1024 rays, or "
@@ -628,11 +683,16 @@ def main():
           + f"; new / old {a_runs['new'][0] / a_runs['old'][0]:.3f}, newsw / "
           f"old {a_runs['newsw'][0] / a_runs['old'][0]:.3f}; {card}")
     k12_extra = {
-        'sweep_rows': {'gpairs_per_s': b_pairs / b_ms['old'] / 1e6,
+        'sweep_rows': {'gpairs_per_s': b_pairs / k12_ms['b']['old'] / 1e6,
+                       'shape_b_ms': k12_ms['b']['old'],
+                       'shape_b_hemi_ms': k12_ms['b-hemi']['old'],
                        'shape_a_ms': a_runs['old'][1],
                        'shape_a_gpairs_per_s': a_runs['old'][0]},
-        'sweep_tiles': {'gpairs_per_s': b_pairs / b_ms['new'] / 1e6,
-                        'switch_ms': b_ms['newsw'],
+        'sweep_tiles': {'gpairs_per_s': b_pairs / k12_ms['b']['new'] / 1e6,
+                        'shape_b_ms': k12_ms['b']['new'],
+                        'shape_b_hemi_ms': k12_ms['b-hemi']['new'],
+                        'switch_ms': k12_ms['b']['newsw'],
+                        'hemi_switch_ms': k12_ms['b-hemi']['newsw'],
                         'shape_a_ms': a_runs['new'][1],
                         'shape_a_gpairs_per_s': a_runs['new'][0],
                         'shape_a_switch_ms': a_runs['newsw'][1]}}

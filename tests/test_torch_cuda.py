@@ -251,16 +251,53 @@ def test_wide_kernels_take_large_leaves(colonnade_leaf512, rays):
     assert (ref.tri.cpu().numpy()[empty] == -1).all()
 
 
+def _sweep_case(dev, case):
+    """(rows, org, dirn) of one K12 case on the card, from the sphere over
+    a floor: its rows against 1000 or 65,537 rays; 512 rows (4,096
+    triangles, the table over and over: ties) against 100 rays; its
+    triangles, 3 zero ones and its triangles again (ties across lanes and
+    slices) against 1000 rays; 37 rows, a count no stage size divides,
+    against 140,000 rays; its rows with every other triangle's dwp and
+    owp floats scaled by 2^124 (|dwp| up to and past 2^126, where 1 / dwp
+    leaves the reciprocal's fast path) against 1000 rays."""
+    n = {'few rays': 100, 'ties': 1000, 'ragged': 140_000,
+         'wide': 1000}.get(case, case)
+    tris, _, rays = _tables_and_rays(dev, n)
+    if case == 'few rays':
+        tris = tris.repeat(-(-512 // tris.shape[0]), 1)[:512]
+    elif case == 'ties':
+        t16 = tris.reshape(-1, 16)
+        t16 = torch.cat([t16, t16.new_zeros(3, 16), t16])
+        tris = torch.cat([t16, t16.new_zeros(-t16.shape[0] % 8, 16)])
+        tris = tris.reshape(-1, 128)
+    elif case == 'ragged':
+        tris = tris[:37]
+    elif case == 'wide':
+        t16 = tris.reshape(-1, 16).clone()
+        t16[::2, [2, 5, 8, 11]] *= 2.0 ** 124
+        tris = t16.reshape(-1, 128)
+    return tris.contiguous(), rays[0], rays[1]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1000, 65_537])
+@pytest.mark.parametrize('n', [1000, 65_537, 'few rays', 'ties', 'ragged',
+                               'wide'])
 def test_sweep_kernels_match_plain_on_card(cuda, n):
     """K12: one ray per thread over rows of 8 triangles, and 8 lanes per
     ray over their super-tiles (a group a step, or each super-tile's 8
     unrolled), each bit-equal to its plain version, and the two layouts
-    to each other, on the sphere over a floor (2 reps)."""
-    tris, _, rays = _tables_and_rays(cuda, n)
-    org, d = rays[:2]
+    to each other (2 reps); the few-ray and tie cases split the triangle
+    range over blocks, the ragged one ends on a part stage, the wide one
+    takes the checked reciprocal."""
+    tris, org, d = _sweep_case(cuda, n)
     tiles = sweep.supertiles(tris)
+    if n in ('few rays', 'ties'):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        block = sweep._lib().yrt_sweep_block_rays
+        assert sweep.slices(block(0), org.shape[0], tris.shape[0],
+                            sweep.MIN_SLICE['rows'], sms) > 1
+        assert sweep.slices(block(1), org.shape[0], tiles.shape[0] // 8,
+                            sweep.MIN_SLICE['tiles'], sms) > 1
     before = (sweep.sweep_rows.launches, sweep.sweep_tiles.launches)
     got = [sweep.sweep_rows(tris, org, d, 2),
            sweep.sweep_tiles(tiles, org, d, 2, False),
@@ -271,6 +308,18 @@ def test_sweep_kernels_match_plain_on_card(cuda, n):
     assert (sweep.sweep_rows.launches, sweep.sweep_tiles.launches) == (
         before[0] + 1, before[1] + 2)
     assert bool((ref[1] >= 0).any())
+    if n in ('few rays', 'ties'):
+        # every hit has a twin at the same t: the first copy's (the
+        # table's 55 rows) is kept
+        assert int(ref[1].max()) < 8 * 55
+    if n == 'wide':
+        # some rays hit a triangle at |dwp| >= 2^126, others below it
+        hit = ref[1] >= 0
+        w = tris.reshape(-1, 16)[ref[1][hit].long()]
+        dh = d[hit]
+        dwp = (dh[:, 0] * w[:, 2] + dh[:, 1] * w[:, 5]) + dh[:, 2] * w[:, 8]
+        big = dwp.abs() >= 2.0 ** 126
+        assert bool(big.any()) and not bool(big.all())
     for (t, tri), (rt, rtri) in zip(got, (ref, ref_tiles, ref_tiles)):
         np.testing.assert_array_equal(t.cpu().numpy(), rt.cpu().numpy())
         np.testing.assert_array_equal(tri.cpu().numpy(), rtri.cpu().numpy())

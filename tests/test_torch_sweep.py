@@ -3,9 +3,16 @@ proto_sublane_sweep.py) held against the JAX script it ports,
 scripts/proto_sublane_sweep.py: its `old_kernel` and `new_kernel` run in
 interpret mode (as the JAX package's tests run Pallas kernels on the CPU)
 against the port's plain versions, on the cornell box's packed rows and
-32x32 of its camera rays (the script's random rows hit nothing).  The
-CUDA kernels are held against the plain versions on the card by
-tests/test_torch_cuda.py."""
+32x32 of its camera rays (the script's random rows hit nothing).  Plain
+torch emulations of the kernels' schedules (each lane's own best over
+triangles 8 g + s and a lex-min over the 8 lanes, triangle slices
+merged by the 64-bit key, a thread's two rays with a best each) are held
+against the plain versions bit for bit, also on a table of duplicated
+triangles, where equal t occur across lanes and slices.  The CUDA
+kernels are held against the plain versions on the card by
+tests/test_torch_cuda.py, which alone runs the kernels' own schedules.
+The turns tool's loading of another checkout and its stage counts are
+tested here on the CPU."""
 import importlib.util
 import os
 import subprocess
@@ -21,7 +28,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
-from yulio_raytracer_tpu_torch import raysets
+from yulio_raytracer_tpu_torch import raysets, sweep_turns
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 
 torch.set_num_threads(2)
@@ -177,3 +184,240 @@ def test_sweep_module_never_imports_jax():
                          text=True, timeout=300, cwd=ROOT, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+
+
+# ------------------------------------------------- the kernels' schedules
+
+def _loop(tris, idx, org, d, reps):
+    """One thread's loop in csrc/sweep.cu: the triangles tris (k, 16),
+    numbered idx, tested one at a time in order, `reps` times, a strictly
+    nearer hit replacing the best; also the tests past the sign test and
+    past the t window (as sweep_turns.stage_passes counts them)."""
+    n = org.shape[0]
+    t_b = torch.full((n,), float('inf'))
+    tri_b = torch.full((n,), -1, dtype=torch.int32)
+    passed = [0, 0]
+    for _ in range(reps):
+        for j in range(tris.shape[0]):
+            w = tris[j:j + 1]
+            th, ok = (x[:, 0] for x in sweep._proto_test(w, org, d, t_b))
+            owp = (org * w[:, [2, 5, 8]]).sum(1) + w[0, 11]
+            dwp = (d * w[:, [2, 5, 8]]).sum(1)
+            sign = (dwp.abs() > 1e-12) & (owp * dwp < 0)
+            passed[0] += int(sign.sum())
+            passed[1] += int((sign & (th > 0) & (th < t_b)).sum())
+            t_b = torch.where(ok, th, t_b)
+            tri_b = torch.where(ok, int(idx[j]), tri_b)
+    return t_b, tri_b, passed
+
+
+def _keys(t, tri):
+    """csrc/sweep.cu sweep_key of results (t, tri), as int64: t's bits
+    above the triangle's."""
+    hi = t.contiguous().view(torch.int32).to(torch.int64) << 32
+    return hi | (tri.to(torch.int64) & 0xffffffff)
+
+
+def _decode(keys):
+    """(t, tri) of keys, as csrc/sweep.cu sweep_decode_kernel writes
+    them."""
+    t = (keys >> 32).to(torch.int32).view(torch.float32)
+    return t, (keys & 0xffffffff).to(torch.int32)
+
+
+def _merge(results):
+    """The least key over (t, tri) results, decoded: the kernels' merge
+    across lanes (shuffles) and across slices (atomicMin)."""
+    return _decode(torch.stack([_keys(t, tri) for t, tri in results])
+                   .min(0).values)
+
+
+def _slice_ranges(units, n_slices):
+    """The units of each slice, as csrc/sweep.cu sweep_grid cuts them."""
+    n_slices = max(1, min(n_slices, units))
+    per = -(-units // n_slices)
+    return [range(lo, min(units, lo + per)) for lo in range(0, units, per)]
+
+
+def _lanes(tris, org, d, reps, units=None):
+    """The tiles kernel: lane s over triangles 8 g + s of the super-tiles
+    `units` (all by default), then the 8 lanes' lex-min."""
+    idx = torch.arange(tris.shape[0])
+    if units is not None:
+        idx = idx[64 * units.start:64 * units.stop]
+    return _merge([_loop(tris[idx[s::8]], idx[s::8], org, d, reps)[:2]
+                   for s in range(8)])
+
+
+def _schedule(name, tris, org, d, reps):
+    """(t, tri) of the kernels' schedule `name` over triangles tris
+    (T, 16), T a multiple of 64."""
+    rows = tris.shape[0] // 8
+    if name == 'lanes':
+        return _lanes(tris, org, d, reps)
+    if name == 'row slices':
+        n = sweep.slices(128, org.shape[0], rows, sweep.MIN_SLICE['rows'],
+                         132)
+        assert n > 1
+        return _merge([_loop(tris[8 * u.start:8 * u.stop],
+                             torch.arange(8 * u.start, 8 * u.stop), org, d,
+                             reps)[:2] for u in _slice_ranges(rows, n)])
+    if name == 'tile slices':
+        n = sweep.slices(16, org.shape[0], rows // 8,
+                         sweep.MIN_SLICE['tiles'], 132)
+        assert n > 1
+        return _merge([_lanes(tris, org, d, reps, u)
+                       for u in _slice_ranges(rows // 8, n)])
+    assert name == 'two rays'
+    return _two_rays(tris, org, d, reps)
+
+
+def _two_rays(tris, org, d, reps):
+    """The rows kernel's threads at SWEEP_ROWS_RAYS 2: thread x of the
+    256-ray block b holds ray 256 b + x in slot 0 and 256 b + 128 + x in
+    slot 1 (a zero ray past the last ray); one loop over the triangles
+    loads each once and tests it against slot 0, then slot 1, each with
+    its own best; a live slot's result goes to its ray."""
+    n = org.shape[0]
+    blocks = -(-n // 256)
+    ray = ((torch.arange(blocks)[:, None, None] * 2
+            + torch.arange(2)[None, :, None]) * 128
+           + torch.arange(128)[None, None, :])
+    ray = ray.permute(0, 2, 1).reshape(-1, 2)      # (threads, slot)
+    live = ray < n
+    safe = torch.where(live, ray, 0)
+    o = torch.where(live[..., None], org[safe], 0.0)
+    dd = torch.where(live[..., None], d[safe], 0.0)
+    t_b = torch.full(ray.shape, float('inf'))
+    tri_b = torch.full(ray.shape, -1, dtype=torch.int32)
+    for _ in range(reps):
+        for j in range(tris.shape[0]):
+            w = tris[j:j + 1]
+            for k in range(2):
+                th, ok = (x[:, 0] for x in sweep._proto_test(
+                    w, o[:, k], dd[:, k], t_b[:, k]))
+                t_b[:, k] = torch.where(ok, th, t_b[:, k])
+                tri_b[:, k] = torch.where(ok, j, tri_b[:, k])
+    t = torch.full((n,), float('inf'))
+    tri = torch.full((n,), -1, dtype=torch.int32)
+    t[ray[live]] = t_b[live]
+    tri[ray[live]] = tri_b[live]
+    return t, tri
+
+
+@pytest.fixture(scope='module')
+def duplicated(cornell):
+    """Cornell's 128 triangles, 3 zero triangles, the 128 again and 45
+    zero triangles (304 = 38 rows, 4.75 super-tiles): triangle k and
+    131 + k tie, in other lanes (131 % 8 = 3) and, for most slicings,
+    other slices."""
+    rows, org, d = cornell
+    t16 = rows.reshape(-1, 16)
+    z = torch.zeros(3, 16)
+    return (torch.cat([t16, z, t16, torch.zeros(45, 16)]), org, d)
+
+
+@pytest.mark.parametrize('reps', [1, 2])
+@pytest.mark.parametrize('table', ['cornell', 'duplicated'])
+@pytest.mark.parametrize('name', ['lanes', 'row slices', 'tile slices',
+                                  'two rays'])
+def test_kernel_schedules_match_the_plain_sweep(request, name, table, reps):
+    """Each of the kernels' schedules gives the plain sweep's (t, tri) bit
+    for bit: the least t and, among equal t, the lowest triangle."""
+    tris, org, d = request.getfixturevalue(table)
+    tris = tris.reshape(-1, 16)
+    tris = torch.cat([tris, torch.zeros(-tris.shape[0] % 64, 16)])
+    org, d = org[:300], d[:300]
+    t, tri = sweep._sweep_plain(tris, org, d, reps)
+    assert bool((tri >= 0).any())
+    if table == 'duplicated':
+        # every hit has its twin at the same t; the lower one is kept
+        assert int(tri.max()) < 128
+    t2, tri2 = _schedule(name, tris, org, d, reps)
+    assert torch.equal(t, t2) and torch.equal(tri, tri2)
+
+
+def test_sweep_keys_order_as_t_then_triangle():
+    """The key round-trips (t, tri), orders hits as (t, tri) do, puts the
+    miss key (inf, -1) above every hit, and decodes the miss key to
+    (inf, -1)."""
+    rs = np.random.RandomState(1)
+    t = torch.as_tensor(np.concatenate([
+        rs.rand(500) * 10.0 ** rs.randint(-30, 30, 500),
+        [1e-45, 3.4e38, 1.0, 1.0, 1.0]]).astype(np.float32))
+    tri = torch.as_tensor(np.concatenate([
+        rs.randint(0, 1 << 31, 500), [0, (1 << 31) - 1, 0, 5, 1 << 20]])
+        .astype(np.int32))
+    keys = _keys(t, tri)
+    back = _decode(keys)
+    assert torch.equal(back[0], t) and torch.equal(back[1], tri)
+    order = np.lexsort((tri.numpy(), t.numpy()))
+    assert (np.diff(keys.numpy()[order]) > 0).all()
+    assert int(keys.max()) < sweep.MISS_KEY
+    miss = torch.tensor([sweep.MISS_KEY])
+    assert torch.equal(_keys(torch.tensor([float('inf')]),
+                             torch.tensor([-1], dtype=torch.int32)), miss)
+    mt, mtri = _decode(miss)
+    assert float(mt) == float('inf') and int(mtri) == -1
+
+
+def test_slices_fill_the_card_only_when_rays_are_few():
+    """One slice when the rays alone make 4 blocks a multiprocessor; else
+    enough slices for that many blocks, none smaller than its minimum."""
+    assert sweep.slices(128, 1 << 18, 512, 2, 132) == 1
+    assert sweep.slices(128, 128 * 528, 512, 2, 132) == 1
+    assert sweep.slices(128, 1024, 512, 2, 132) == 66
+    assert sweep.slices(16, 128, 512, 1, 132) == 66
+    assert sweep.slices(128, 100, 512, 2, 132) == 256
+    assert sweep.slices(128, 100, 3, 2, 132) == 1
+    assert sweep.slices(128, 0, 512, 2, 132) == 1
+
+
+@pytest.mark.parametrize('reps', [1, 2])
+def test_stage_passes_count_a_sequential_sweep(duplicated, reps):
+    """sweep_turns.stage_passes' counts equal those of a loop over the
+    triangles one at a time: the tests past the sign test, and those with
+    0 < t < the best t before them."""
+    tris, org, d = duplicated
+    org, d = org[:200], d[:200]
+    _, _, passed = _loop(tris, torch.arange(tris.shape[0]), org, d, reps)
+    got = sweep_turns.stage_passes(tris, org, d, reps)
+    assert got == {'pair': 200 * tris.shape[0] * reps, 'sign': passed[0],
+                   'window': passed[1]}
+    assert 0 < got['window'] < got['sign'] < got['pair']
+
+
+def test_sweep_turns_runs_the_other_tree_through_its_wrappers(cornell):
+    """sweep_turns imports another checkout's sweep module under a package
+    name of its own, bound to that checkout's csrc, and runs a set's call
+    through its wrappers; one_slice sets SLICE_BLOCKS_PER_SM to 0 for the
+    call and restores it.  The other tree is this checkout, on CPU
+    tensors: the plain versions."""
+    other = sweep_turns.other_sweep(ROOT)
+    assert other is not sweep
+    assert other.__name__ == '_other_yrt.proto_sublane_sweep'
+    assert other.cb.CSRC == sweep.cb.CSRC
+    rows, org, d = cornell
+    tiles = sweep.supertiles(rows)
+    ref = sweep.sweep_rows_plain(rows, org, d, 2)
+    assert bool((ref[1] >= 0).any())
+    for one in (False, True):
+        for kind, switch, table in (('rows', False, rows),
+                                    ('tiles', False, tiles),
+                                    ('tiles', True, tiles)):
+            got = sweep_turns.sweep_call(other, kind, switch, table, org, d,
+                                         2, one)
+            assert torch.equal(got[0], ref[0])
+            assert torch.equal(got[1], ref[1])
+    with sweep_turns.one_slice(other, True):
+        assert other.slices(128, 100, 512, 2, 132) == 1
+    assert other.SLICE_BLOCKS_PER_SM == sweep.SLICE_BLOCKS_PER_SM
+    assert other.slices(128, 100, 512, 2, 132) == 256
+
+
+def test_sweep_turns_needs_a_card(tmp_path):
+    """The K12 turns tool exits 1 without a CUDA device, before it builds
+    or imports anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert sweep_turns.main([str(tmp_path), '--bounds']) == 1

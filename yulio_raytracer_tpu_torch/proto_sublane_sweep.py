@@ -1,4 +1,4 @@
-"""The dense-sweep layout prototype on the card: one ray per thread, or 8
+"""The dense-sweep layout prototype on the card: one ray per lane, or 8
 lanes per ray against 8 triangles.
 
     python -m yulio_raytracer_tpu_torch.proto_sublane_sweep [--rows 512]
@@ -9,7 +9,7 @@ experiment on how to lay out the dense closest-hit sweep (the body of the
 dense kernels K1 and of the pair sweeps K8/K9): does a layout with 8
 triangles across one axis and rays across the other, followed by a
 lex-min over the 8, hold its own against one ray per lane testing each
-triangle in turn?  `--what` takes 'old' (one ray per thread, K1's form),
+triangle in turn?  `--what` takes 'old' (one ray per lane, K1's form),
 'new' (8 lanes per ray, the 8 groups of a super-tile unrolled) and
 'newsw' (one group read per step).  As the script, each variant times
 `rows * 8 * 1024 * reps` pairs a launch: 'old' 1024 rays against `rows`
@@ -24,6 +24,18 @@ no BARY_EPS.  On a CUDA tensor `sweep_rows` and `sweep_tiles` launch the
 kernels of `csrc/sweep.cu`; on a CPU tensor they run the plain torch
 versions, which the kernels are held against bit for bit on the card.  No
 render path runs them.
+
+What bounds the kernels is the SMs' instruction issue: the test is 48 f32
+operations on values in shared memory and registers, and `--fmad=false`
+(which keeps t bit-equal to the plain versions) issues each multiply and
+add apart.  So the kernels issue as little as they can besides the test:
+each lane keeps its own best (t, triangle) and the 8 lanes of a ray in
+the tiles layout take their lex-min once, after the sweep, since the
+least (t, triangle) does not depend on the order of the tests.  And when
+the rays fill fewer blocks than `SLICE_BLOCKS_PER_SM` a multiprocessor,
+the wrappers split the triangle range over blocks, which merge their
+results with a 64-bit atomic minimum on the key of t's bits and the
+triangle (`MISS_KEY` for a miss).
 """
 from __future__ import annotations
 
@@ -42,10 +54,17 @@ INF = float('inf')
 RAYS_OLD, RAYS_NEW = 1024, 128      # the script's rays per program
 _CHUNK_ELEMS = 1 << 24   # (ray, triangle) pairs per step of a plain version
 
+# each ray's result as the kernels merge it across blocks: t's bits in the
+# high word, the triangle in the low one; a miss (inf, -1)
+MISS_KEY = 0x7f800000ffffffff
+SLICE_BLOCKS_PER_SM = 4   # the triangle range is split below this
+MIN_SLICE = {'rows': 2, 'tiles': 1}   # rows of 8 / super-tiles of 64
+
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    'yrt_sweep_rows': [_V, _I, _V, _V, _I, _I, _V, _V],
-    'yrt_sweep_tiles': [_V, _I, _V, _V, _I, _I, _I, _V, _V],
+    'yrt_sweep_rows': [_V, _I, _V, _V, _I, _I, _I, _V, _V, _V, _V],
+    'yrt_sweep_tiles': [_V, _I, _V, _V, _I, _I, _I, _I, _V, _V, _V, _V],
+    'yrt_sweep_block_rays': [_I],
 }
 
 
@@ -154,20 +173,49 @@ def _kernel_args(table, org, dirn):
     return table, org, dirn
 
 
-def _outputs(r, device):
-    return (torch.empty((r,), dtype=torch.float32, device=device),
-            torch.empty((r,), dtype=torch.int32, device=device))
+def slices(block_rays, n_rays, units, min_units, sm_count):
+    """Triangle slices for a sweep of n_rays rays, block_rays a block,
+    over `units` rows or super-tiles: 1 when the rays alone make
+    SLICE_BLOCKS_PER_SM blocks a multiprocessor, else enough slices of
+    at least min_units units to make that many blocks."""
+    blocks = -(-n_rays // block_rays)
+    target = SLICE_BLOCKS_PER_SM * sm_count
+    if blocks == 0 or blocks >= target:
+        return 1
+    return max(1, min(-(-target // blocks), units // min_units))
+
+
+def _launch(kind, table, org, dirn, reps, switch=False):
+    """One launch of the sweep kernel `kind` ('rows' or 'tiles') on
+    checked arguments (`_kernel_args`), over the triangle slices
+    `slices` chooses; returns (t, tri)."""
+    lib, r, dev = _lib(), org.shape[0], org.device
+    units = table.shape[0] // (8 if kind == 'tiles' else 1)
+    n_slices = slices(lib.yrt_sweep_block_rays(int(kind == 'tiles')), r,
+                      units, MIN_SLICE[kind],
+                      torch.cuda.get_device_properties(
+                          dev).multi_processor_count)
+    keys = (torch.full((r,), MISS_KEY, dtype=torch.int64, device=dev)
+            if n_slices > 1 else None)
+    out = (torch.empty((r,), dtype=torch.float32, device=dev),
+           torch.empty((r,), dtype=torch.int32, device=dev))
+    if kind == 'tiles':
+        cb.launch(lib.yrt_sweep_tiles, 'sweep_tiles', dev, table, units, org,
+                  dirn, r, int(reps), int(bool(switch)), n_slices, keys,
+                  *out)
+    else:
+        cb.launch(lib.yrt_sweep_rows, 'sweep_rows', dev, table, units, org,
+                  dirn, r, int(reps), n_slices, keys, *out)
+    return out
 
 
 def sweep_rows(rows, org, dirn, reps=1):
     """(t, tri) of each ray (R, 3) against G rows of 8 triangles
-    (G, 128), one ray per thread (the script's `old_kernel`)."""
+    (G, 128), one ray per lane testing each triangle in turn (the
+    script's `old_kernel`; the kernel gives a thread two rays)."""
     if org.device.type == 'cpu':
         return sweep_rows_plain(rows, org, dirn, reps)
-    rows, org, dirn = _kernel_args(rows, org, dirn)
-    out = _outputs(org.shape[0], org.device)
-    cb.launch(_lib().yrt_sweep_rows, 'sweep_rows', org.device, rows,
-              rows.shape[0], org, dirn, org.shape[0], int(reps), *out)
+    out = _launch('rows', *_kernel_args(rows, org, dirn), reps)
     sweep_rows.launches += 1
     return out
 
@@ -182,10 +230,7 @@ def sweep_tiles(tiles, org, dirn, reps=1, switch=False):
     if tiles.shape[0] % 8:
         raise ValueError(f"{tiles.shape[0]} rows are not whole super-tiles "
                          "of 8 rows")
-    out = _outputs(org.shape[0], org.device)
-    cb.launch(_lib().yrt_sweep_tiles, 'sweep_tiles', org.device, tiles,
-              tiles.shape[0] // 8, org, dirn, org.shape[0], int(reps),
-              int(bool(switch)), *out)
+    out = _launch('tiles', tiles, org, dirn, reps, switch)
     sweep_tiles.launches += 1
     return out
 
@@ -199,13 +244,11 @@ sweep_tiles_plain.cuda_calls = 0
 
 # ---------------------------------------------------------------- script
 
-def run(which: str, rows: int, reps: int, iters: int):
-    """The script's equal-work comparison on the card: every variant
-    tests rows * 8 * 1024 pairs a rep ('old': `rows` rows of 8 triangles
-    against 1024 rays; 'new', 'newsw': `rows` super-tiles of 64 against
-    128), on the script's random numbers (RandomState(0)).  Prints and
-    returns (Gpairs/s, median ms of `iters` launches)."""
-    dev = torch.device('cuda')
+def shape_a(which: str, rows: int, device):
+    """The script's inputs for variant `which` at `rows` (its random
+    numbers, RandomState(0), all in [0, 1): no ray hits): (table, org,
+    dirn), 'old' `rows` rows of 8 triangles against 1024 rays, 'new' and
+    'newsw' `rows` super-tiles of 64 against 128."""
     rs = np.random.RandomState(0)
     if which == 'old':
         n, tris = RAYS_OLD, rs.rand(rows, 128).astype(np.float32)
@@ -213,11 +256,19 @@ def run(which: str, rows: int, reps: int, iters: int):
         n, tris = RAYS_NEW, rs.rand(rows * 8, 128).astype(np.float32)
     else:
         raise ValueError(f"unknown variant {which!r} (old, new, newsw)")
-    pairs = rows * 8 * 1024 * reps
     ray = [rs.rand(n).astype(np.float32) for _ in range(6)]
-    tris = torch.as_tensor(tris).to(dev)
-    org = torch.as_tensor(np.stack(ray[:3], 1)).to(dev)
-    dirn = torch.as_tensor(np.stack(ray[3:], 1)).to(dev)
+    return tuple(torch.as_tensor(x).to(device) for x in (
+        tris, np.stack(ray[:3], 1), np.stack(ray[3:], 1)))
+
+
+def run(which: str, rows: int, reps: int, iters: int):
+    """The script's equal-work comparison on the card: every variant
+    tests rows * 8 * 1024 pairs a rep ('old': `rows` rows of 8 triangles
+    against 1024 rays; 'new', 'newsw': `rows` super-tiles of 64 against
+    128), on the script's random numbers (`shape_a`).  Prints and
+    returns (Gpairs/s, median ms of `iters` launches)."""
+    tris, org, dirn = shape_a(which, rows, torch.device('cuda'))
+    pairs = rows * 8 * 1024 * reps
     if which == 'old':
         ms = median_ms(lambda: sweep_rows(tris, org, dirn, reps), iters)
     else:

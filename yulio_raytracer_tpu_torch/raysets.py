@@ -1,9 +1,10 @@
 """The ray sets the kernels are held and timed on: camera rays, the
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
-roots, the dense kernels' entry sets, and the dense, pair, binary and
-motion kernels' own calls in a frame.  `chip_smoke.py`, `wide_turns`,
-`pairs_turns`, `binary_turns` and `dense_turns` make them with these
+roots, the dense kernels' entry sets, the sweep prototype's rows and
+rays on a scene, and the dense, pair, binary and motion kernels' own
+calls in a frame.  `chip_smoke.py`, `wide_turns`, `pairs_turns`,
+`binary_turns`, `dense_turns` and `sweep_turns` make them with these
 functions.
 """
 from __future__ import annotations
@@ -105,6 +106,21 @@ def from_treelet_roots(scene, org, dirn, tnear, tfar):
                                      org.device))
     return (org, dirn, tnear, torch.where(has, tfar, -1.0),
             tl['treelet_roots'][torch.clamp(sel, min=0).long()])
+
+
+def sweep_sets(scene, hit, cam, hemi, n_rows=512, every=4):
+    """The sweep prototype K12's sets on a scene: its n_rows packed rows
+    that hold the most closest hits `hit` of its camera rays, in table
+    order; every `every`-th of those rays cam (org, dirn, ...), and of
+    the hemisphere rays hemi from their hits (a missed ray's dead lane is
+    tested as any other: K12 has no tfar).  Returns (rows, hits in
+    them, (org, dirn), (org, dirn))."""
+    per_row = torch.bincount(hit.tri[hit.tri >= 0].long() // 8,
+                             minlength=scene.tris.shape[0])
+    top = torch.argsort(-per_row, stable=True)[:n_rows].sort().values
+    return (scene.tris[top], int(per_row[top].sum()),
+            *((x[0][::every].contiguous(), x[1][::every].contiguous())
+              for x in (cam, hemi)))
 
 
 @contextlib.contextmanager
