@@ -50,7 +50,8 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
  4. the pinned CPU goldens rendered through render_frame on the card, one
-    path each, PSNR >= 40 dB: cornell_64 through the dense kernels,
+    path each, PSNR >= 40 dB: cornell_64 and stereo_64 (the cornell box
+    through a StereoCube face, depth 2) through the dense kernels,
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
     the binary kernels and again with ray_binning 'grid', 'treelet' and
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
@@ -66,7 +67,11 @@ Phases, one line each (a failure raises and the exit code is nonzero):
  5. timed full-size frames (cornell_512, colonnade_1024,
     colonnade_1024_bvh2, colonnade_1024_grid, colonnade_1024_treelet,
     colonnade_1024_dense, motion_field_512), with each kernel's launches
-    per frame;
+    per frame; then the production stereo face stereo_face_1536 (the
+    colonnade's BVH4 through StereoCube face 1, 1536^2, 2 spp, depth 10,
+    the dome shadow cap 120) with compaction 'off' and 'auto', 1 warm-up
+    and 3 frames each, with its per-bounce widths and live counts, the
+    two modes' films of one seed bit-equal;
  6. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3; K12's
@@ -272,6 +277,8 @@ def main():
                                                traverse, treelets, wide)
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
+    from yulio_raytracer_tpu_torch.profile_frame import (STEREO_PARAMS,
+                                                         stereo_face_camera)
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
         frame_dense_calls, frame_motion_calls, frame_pair_calls,
@@ -807,6 +814,8 @@ def main():
     goldens = (
         ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32, 'morton',
          (0, 1)),
+        ('stereo_64', cornell, bs.cornell_stereo_camera(64, 64), 2, 8,
+         'morton', (0, 1)),
         ('colonnade_64', colonnade, bs.colonnade_camera(64, 64), 3, 8,
          'morton', (k3, k4)),
         ('colonnade_64', colonnade2, bs.colonnade_camera(64, 64), 3, 8,
@@ -952,6 +961,62 @@ def main():
               f"{secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} Mrays/frame, "
               f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
               f", launches per frame {per_frame} on {card}")
+
+    # the production stereo face (bench.py bench_stereo_face): BVH4, depth
+    # 10 past the roulette start, the dome cap 120, two passes of 1536^2
+    # rays; without compaction, then with it ('auto' compacts here), the
+    # films of one seed held bit-equal
+    params = pt.PTParams(**STEREO_PARAMS)
+    stereo_cam = stereo_face_camera(1536, 1536)
+    films, lives = {}, {}
+    for how in ('off', 'auto'):
+        torch.cuda.reset_peak_memory_stats()
+        renderer.render_frame(colonnade, stereo_cam, params, 1536, 1536,
+                              spp=2, seed=SEED, compaction=how)
+        zero_counters()
+        runs = []
+        for i in (1, 2, 3):
+            bounces = []
+            film, st = renderer.render_frame(
+                colonnade, stereo_cam, params, 1536, 1536, spp=2,
+                seed=SEED + i, compaction=how, bounce_stats=bounces)
+            runs.append(st)
+            if i == 1:
+                films[how], lives[how] = film.rgb_sum, bounces
+        per_frame = {f.__name__: f.launches / len(runs)
+                     for f in (*counters, pairs.bin_rays) if f.launches}
+        mrps = sorted(s.mrps for s in runs)
+        secs = sorted(s.seconds for s in runs)
+        phase('frame', f"stereo_face_1536 (1536^2, 2 spp, depth 10, "
+              f"t_max_shadow_ray 120, accel {colonnade.accel}, compaction "
+              f"{how}): {mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, max "
+              f"{mrps[2]:.2f}), frame_s {secs[1]:.3f} (min {secs[0]:.3f}, "
+              f"max {secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} "
+              f"Mrays/frame, peak mem "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches per frame {per_frame} on {card}")
+        if set(per_frame) != {'intersect_packet4', 'occluded_packet4'}:
+            raise AssertionError(f"stereo_face_1536 ({how}) ran other "
+                                 f"kernels than BVH4's: {per_frame}")
+    starts = [i for i, b in enumerate(lives['auto']) if b['depth'] == 0]
+    if lives['off'] or not starts or starts[0] != 0:
+        raise AssertionError("stereo_face_1536: compaction 'off' compacted, "
+                             "or 'auto' did not")
+    for n, (p0, p1) in enumerate(zip(starts, starts[1:] + [None])):
+        phase('frame', f"stereo_face_1536 (compaction auto, seed {SEED + 1})"
+              f" pass {n + 1} of {len(starts)} by bounce (depth, width, "
+              "live, ms): " + ', '.join(
+                  f"({b['depth']}, {b['width']}, {b['live']}, "
+                  f"{b['seconds'] * 1e3:.1f})" for b in lives['auto'][p0:p1]))
+    differ = (films['off'] != films['auto']).any(dim=-1)
+    phase('frame', f"stereo_face_1536 films of compaction off and auto: "
+          f"bit-equal {not bool(differ.any())}, {int(differ.sum())} pixels "
+          f"differ, largest difference "
+          f"{float((films['off'] - films['auto']).abs().max()):.3g}")
+    if differ.any():
+        raise AssertionError("stereo_face_1536: the films of compaction off "
+                             "and auto differ")
+    del films
 
     # ---- 6. bounds ---------------------------------------------------------
     summary = []

@@ -6,8 +6,9 @@ K8/K9 also on a frame's own calls and on edge cases of their binning, the
 split-leaf kernel K11 and the sweep prototype's kernels K12, the motion
 kernel K7's closest and any-hit forms also on the motion field's entry
 sets, leaves of 33-64 rows, dead lanes, 65,537 rays and a frame's own
-calls), and the cornell, motion, grid, treelet and dense colonnade
-goldens rendered through them.
+calls), the cornell, stereo, motion, grid, treelet and dense colonnade
+goldens rendered through them, the StereoCube rays against the port's
+CPU rays, and compaction 'auto' against 'off' on the colonnade.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -976,3 +977,81 @@ def test_colonnade_grid_golden_on_card(cuda, binning):
     assert 10 * np.log10(img.max() ** 2 / max(mse, 1e-20)) >= 40.0
     assert all(f.launches > b for f, b in zip(kernels, before))
     assert pairs.intersect_pairs_raw_plain.cuda_calls == plain
+
+
+@pytest.mark.cuda
+def test_stereo_golden_on_card(cuda):
+    """stereo_64 (cornell through StereoCube face 7, depth 2, 8 spp, seed
+    42) through the dense kernels."""
+    before = (dense.intersect_dense.launches, dense.occluded_dense.launches)
+    film, _ = renderer.render_frame(
+        bs.cornell_box().commit(device=cuda), bs.cornell_stereo_camera(64, 64),
+        pt.PTParams(max_depth=2), 64, 64, spp=8, seed=42)
+    img = accum.resolve(film).cpu().numpy()
+    golden = np.load(os.path.join(GOLDEN, 'stereo_64_cpu.npz'))['img']
+    mse = ((img - golden) ** 2).mean()
+    assert 10 * np.log10(img.max() ** 2 / max(mse, 1e-20)) >= 40.0
+    assert dense.intersect_dense.launches > before[0]
+    assert dense.occluded_dense.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('toe_in', [False, True])
+def test_stereo_rays_on_card_match_cpu(cuda, toe_in):
+    """All 12 faces of the production rig (scene scale 0.05) against the
+    port's own CPU rays, on a jittered 64 x 64 set and each face's exact
+    centre.  Directions within 4 float32 ulps of each ray's largest
+    coordinate magnitude.  Origins within that plus what the head
+    rotation's angle, theta = arccos(c), makes of a few ulps in c: the
+    card sums the dot product's three terms in another order than the
+    CPU, and near c = 1 an error of 4 ulps in c moves theta by up to
+    sqrt(8 eps), which moves the eye, |eye offset| from the head axis, by
+    |eye offset| sqrt(8 eps)."""
+    from yulio_raytracer_tpu_torch.cameras import cameras as cam
+    rs = np.random.RandomState(64)
+    yy, xx = np.mgrid[0:64, 0:64]
+    pix = np.concatenate([(np.stack([xx.ravel(), yy.ravel()], -1)
+                           + rs.rand(64 * 64, 2)) / 64, [[0.5, 0.5]]])
+    pix = torch.as_tensor(pix.astype(np.float32))
+    rig = cam.make_stereo_rig(cam.look_at((-9.0, 2.2, 0.0), (10.0, 1.6, 0.0),
+                                          (0.0, 1.0, 0.0)),
+                              scene_scale=0.05, toe_in=toe_in)
+    eps = float(np.finfo(np.float32).eps)
+    eye_off = 0.5 * cam.EYE_SEPARATION * 0.05
+    for face in rig:
+        for what, got, ref in zip(('origin', 'direction'),
+                                  face.ray(pix.to(cuda), None),
+                                  face.ray(pix, None)):
+            assert got.device.type == 'cuda'
+            bound = ref.abs().amax(dim=-1, keepdim=True) * eps * 4
+            if what == 'origin':
+                bound = bound + eye_off * np.sqrt(8 * eps)
+            err = (got.cpu() - ref).abs()
+            assert bool((err <= bound).all()), \
+                (face.cube_face_index, what, float((err / bound).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('accel', ['default', 'bvh2'])
+def test_compaction_matches_off_on_card(cuda, accel):
+    """The colonnade at 67 x 45 x 2 spp (no multiple of 32 rays), depth 10
+    with the dome cap: compaction 'auto' films bit-equal to 'off' with
+    equal rays, through the BVH4 (or binary) kernels."""
+    sc = bs.colonnade().commit(device=cuda, leaf_size=32, accel=accel)
+    kernels = ((wide.intersect_packet4, wide.occluded_packet4)
+               if sc.accel == 'bvh4' else
+               (traverse.intersect_packet, traverse.occluded_packet))
+    cam = bs.colonnade_camera(67, 45)
+    params = pt.PTParams(max_depth=10, t_max_shadow_ray=12.0)
+    before = [f.launches for f in kernels]
+    f_off, s_off = renderer.render_frame(sc, cam, params, 67, 45, spp=2,
+                                         seed=5, compaction='off')
+    stats = []
+    f_on, s_on = renderer.render_frame(sc, cam, params, 67, 45, spp=2,
+                                       seed=5, compaction='auto',
+                                       bounce_stats=stats)
+    assert len(stats) == params.max_depth or stats[-1]['live'] == 0
+    assert stats[-1]['width'] < stats[0]['width']
+    assert torch.equal(f_off.rgb_sum, f_on.rgb_sum)
+    assert s_off.num_rays == s_on.num_rays
+    assert all(f.launches > b for f, b in zip(kernels, before))

@@ -26,13 +26,25 @@ accel.  'morton' and 'none' both trace unsorted: the reference's sort
 serves its 1024-ray packets, which one ray per thread does not have.  A
 motion scene, and a dense one, never take a binning.
 
+A finite `t_max_shadow_ray` takes the Yulio dome trick: every light
+sample's shadow ray gets the cap, jittered by +-t_max_shadow_jitter on
+its own RNG dim and lengthened up to 100x below the horizon (`up`).  As
+in the reference, the cap replaces the tmax of area lights too, so such
+a ray reports what lies behind the light.  An infinite cap (the
+default) runs the bounce without it.
+
+`trace_compacted` (the reference's pathtracer.py:862-931) runs the same
+bounce one at a time and, where rays died, flushes their radiance and
+gathers the live rays to a prefix in their order, so later bounces run
+at the live width; it is bit-identical per ray to `trace`.
+
 Not in this slice: ray sorting under 'morton', environment lights and
-backplates, the dome shadow cap (finite t_max_shadow_ray), the
-precomputed sampler, live-ray compaction (`trace_compacted`), the
-triangle-sharded mesh axis.
+backplates, the precomputed sampler, the triangle-sharded mesh axis.
 """
 from __future__ import annotations
 
+import math
+import time as _time
 from dataclasses import dataclass
 
 import torch
@@ -60,6 +72,10 @@ class PTParams:
     rr_depth: int = 5
     min_contribution: float = 0.02
     epsilon: float = 32.0 * ULP
+    # the dome shadow cap: inf disables it
+    t_max_shadow_ray: float = float('inf')
+    t_max_shadow_jitter: float = 0.15
+    up: tuple = (0.0, 1.0, 0.0)
     # bounces >= 1: 'grid', 'dense' and 'treelet' trace through the
     # scene's grid or treelets; 'morton' (the reference's default) and
     # 'none' both trace unsorted
@@ -232,11 +248,33 @@ def _light_groups(lights):
     return out
 
 
+def _live(state, params):
+    """Lanes that the next bounce traces (the bounce's own predicate)."""
+    return state['active'] & (torch.amax(state['throughput'], dim=-1)
+                              >= params.min_contribution)
+
+
+def _shadow_cap(params, seed, pixel_id, sample_id, wi, dims):
+    """The Yulio dome trick (pathtracer.py:497-513, cpp:148-157): the
+    shadow tmax of light samples wi (nk, R, 3) becomes the cap jittered
+    by +-t_max_shadow_jitter (u on dims (nk, 1)), lengthened by up to
+    100 caps where wi points at or below the horizon."""
+    cap, jit = params.t_max_shadow_ray, params.t_max_shadow_jitter
+    u = rng.uniform1(seed, pixel_id, sample_id, dims)
+    tmax = cap + (2.0 * cap * jit * u - cap * jit)
+    dot_up = vm.dot(wi, torch.tensor(params.up, dtype=torch.float32,
+                                     device=wi.device))
+    return tmax + torch.where(
+        dot_up <= 0.0, cap * 100.0 * vm.smoothstep(0.0, 1.0,
+                                                   torch.abs(dot_up)), 0.0)
+
+
 def _make_bounce(scene, params: PTParams, seed):
     """The per-bounce wavefront body: bounce(state, depth) -> state."""
     lights = scene.lights
     dim_light, dim_stride = _dim_layout(len(lights))
     groups = _light_groups(lights)
+    has_shadow_cap = math.isfinite(params.t_max_shadow_ray)
 
     def bounce(state, depth: int):
         r, dev = state['org'].shape[0], state['org'].device
@@ -248,8 +286,7 @@ def _make_bounce(scene, params: PTParams, seed):
         thr, L = state['throughput'], state['L']
 
         # terminate low-contribution paths (pathtraceintegrator.cpp:66-67)
-        active = state['active'] & (torch.amax(thr, dim=-1)
-                                    >= params.min_contribution)
+        active = _live(state, params)
         # dead lanes get tfar < tnear: every kernel rejects them at once
         tfar_live = torch.where(active, float('inf'), -1.0)
         hit = _intersect(scene, org, dirn, torch.zeros((r,), device=dev),
@@ -294,6 +331,11 @@ def _make_bounce(scene, params: PTParams, seed):
                     & torch.any(le > 0.0, dim=-1))
             brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE)
             cand = cand & torch.any(brdf > 0.0, dim=-1)
+            if has_shadow_cap:
+                tmax = _shadow_cap(params, seed, pixel_id, sample_id, wi,
+                                   torch.tensor([(base + _DIM_SHADOW + li)
+                                                 & rng._MASK for li in idxs],
+                                                device=dev)[:, None])
             contrib = thr * le * brdf / torch.clamp(pdf, min=1e-20)[..., None]
             cand_gs.append(cand)
             contrib_gs.append(contrib)
@@ -384,3 +426,60 @@ def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id,
     for depth in range(params.max_depth):
         state = bounce(state, depth)
     return state['L'], state['num_rays']
+
+
+def _compact(state, live, n, l_out):
+    """Flush the radiance of the lanes that are not live into l_out by
+    their ray ids and keep the n live lanes, in their order: a stable
+    partition built from live's running count (no sort, no sync).
+    Dropped lanes are dead, so their L is final."""
+    w = live.shape[0]
+    lane = torch.arange(w, device=live.device)
+    before = torch.cumsum(live, 0) - live.long()
+    # live lanes to [0, n) and the others to [n, w), each in lane order
+    dest = torch.where(live, before, n + lane - before)
+    perm = torch.empty_like(lane).scatter_(0, dest, lane)
+    kept, dropped = perm[:n], perm[n:]
+    l_out.index_copy_(0, state['rid'][dropped], state['L'][dropped])
+    return {k: (v[kept] if isinstance(v, torch.Tensor) and v.dim() >= 1
+                else v) for k, v in state.items()}
+
+
+def trace_compacted(scene, params: PTParams, org, dirn, seed, pixel_id,
+                    sample_id, time=None, bounce_stats=None):
+    """trace() one bounce at a time with live-ray compaction between
+    bounces (pathtracer.py:862-931): after each bounce the live count is
+    read (one host sync), and where it is below the width the dead
+    lanes' radiance is flushed by ray id and the live lanes are gathered
+    to a prefix in their order, so the next bounce runs at the live
+    width.  Bit-identical per ray to trace().
+
+    bounce_stats: an optional list; one {'depth', 'width', 'live',
+    'seconds'} dict is appended a bounce: the width it ran at, the live
+    count entering the next bounce, and the seconds since the previous
+    entry, which end with the device synchronised.  Returns (L (R, 3),
+    num_rays) as trace()."""
+    r = org.shape[0]
+    state = _init_state(org, dirn, pixel_id, sample_id, time)
+    state['rid'] = torch.arange(r, device=org.device)
+    bounce = _make_bounce(scene, params, seed)
+    l_out = torch.zeros((r, 3), device=org.device)
+    t0 = _time.perf_counter()
+    for depth in range(params.max_depth):
+        state = bounce(state, depth)
+        last = depth == params.max_depth - 1
+        if last and bounce_stats is None:
+            break
+        live = _live(state, params)
+        n = int(torch.sum(live))             # the bounce's one sync
+        if bounce_stats is not None:
+            t1 = _time.perf_counter()
+            bounce_stats.append({'depth': depth, 'width': live.shape[0],
+                                 'live': n, 'seconds': t1 - t0})
+            t0 = t1
+        if last or n == 0:
+            break
+        if n < live.shape[0]:
+            state = _compact(state, live, n, l_out)
+    l_out.index_copy_(0, state['rid'], state['L'])
+    return l_out, state['num_rays']

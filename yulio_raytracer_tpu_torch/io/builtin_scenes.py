@@ -1,9 +1,9 @@
 """Built-in test and benchmark scenes.
 
 Counterpart of `yulio_raytracer_tpu/io/builtin_scenes.py` (the cornell
-box, the colonnade and the motion field with their cameras): the same
-meshes, materials and lights in the same order, so both packages commit
-equal tables.
+box, the colonnade and the motion field with their cameras, and the
+cornell stereo face): the same meshes, materials and lights in the same
+order, so both packages commit equal tables.
 """
 from __future__ import annotations
 
@@ -93,6 +93,16 @@ def cornell_camera(width: int = 512, height: int = 512):
     l2w = cam.look_at((278.0, 273.0, -800.0), (278.0, 273.0, 0.0),
                       (0.0, 1.0, 0.0))
     return cam.Pinhole(l2w, angle=37.0, aspect=width / height)
+
+
+def cornell_stereo_camera(width: int = 64, height: int = 64,
+                          face: int = 7):
+    """One face of a production stereo rig inside the Cornell box (the
+    stereo_64 golden; default face 7, the right face's right eye).  The
+    rig sits inside the box, which is open at z < 0."""
+    l2w = cam.look_at((278.0, 273.0, 150.0), (278.0, 273.0, 559.0),
+                      (0.0, 1.0, 0.0))
+    return cam.make_stereo_rig(l2w, scene_scale=10.0)[face]
 
 
 def colonnade(cols_x: int = 8, cols_z: int = 4, tess=(16, 24),

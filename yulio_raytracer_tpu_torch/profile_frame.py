@@ -2,10 +2,13 @@
 torch.profiler on the card.
 
     python -m yulio_raytracer_tpu_torch.profile_frame [cell ...]
+        [--compaction auto|on|off]
 
-The cells are the frames chip_smoke.py times (default: all of them).
-Each is committed on the card and rendered once to warm up, three times
-with the clock alone, then once under the profiler.  One line per cell:
+The cells are the frames chip_smoke.py times (default: all of them),
+each under render_frame's `compaction` (default 'auto', which compacts
+only stereo_face_1536, the one cell past the roulette start).  Each is
+committed on the card and rendered once to warm up, three times with
+the clock alone, then once under the profiler.  One line per cell:
 the commit's seconds and the device bytes the committed scene holds, the
 median wall time of the three frames, the wall time of the profiled
 frame, the device's busy time (the sum of the device activities' time;
@@ -16,6 +19,7 @@ last line is the same as one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import sys
@@ -24,26 +28,44 @@ import time
 import torch
 
 from . import renderer
+from .cameras import cameras as cam
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
 
-# name: (commit, camera, resolution, spp, depth, ray_binning)
+
+def stereo_face_camera(width: int = 1536, height: int = 1536):
+    """The production stereo face (bench.py bench_stereo_face): face 1
+    (the right face, left eye) of the rig down the colonnade's hall at
+    scene scale 0.05.  Every face is square; the size is the frame's."""
+    l2w = cam.look_at((-9.0, 2.2, 0.0), (10.0, 1.6, 0.0), (0.0, 1.0, 0.0))
+    return cam.make_stereo_rig(l2w, scene_scale=0.05)[1]
+
+
+# the production config: depth 10 past rr_depth 5, the dome cap 120
+STEREO_PARAMS = dict(max_depth=10, t_max_shadow_ray=120.0)
+
+# name: (commit, camera, resolution, spp, PTParams fields)
 CELLS = {
     'cornell_512': (lambda: bs.cornell_box().commit(), bs.cornell_camera,
-                    512, 32, 4, 'morton'),
+                    512, 32, dict(max_depth=4)),
     'colonnade_1024': (lambda: bs.colonnade().commit(leaf_size=32),
-                       bs.colonnade_camera, 1024, 8, 4, 'morton'),
+                       bs.colonnade_camera, 1024, 8, dict(max_depth=4)),
     'colonnade_1024_bvh2': (
         lambda: bs.colonnade().commit(leaf_size=32, accel='bvh2'),
-        bs.colonnade_camera, 1024, 8, 4, 'morton'),
+        bs.colonnade_camera, 1024, 8, dict(max_depth=4)),
     'colonnade_1024_grid': (lambda: bs.colonnade().commit(leaf_size=32),
-                            bs.colonnade_camera, 1024, 8, 4, 'grid'),
+                            bs.colonnade_camera, 1024, 8,
+                            dict(max_depth=4, ray_binning='grid')),
     'colonnade_1024_treelet': (lambda: bs.colonnade().commit(leaf_size=32),
-                               bs.colonnade_camera, 1024, 8, 4, 'treelet'),
+                               bs.colonnade_camera, 1024, 8,
+                               dict(max_depth=4, ray_binning='treelet')),
     'colonnade_1024_dense': (lambda: bs.colonnade().commit(leaf_size=32),
-                             bs.colonnade_camera, 1024, 8, 4, 'dense'),
+                             bs.colonnade_camera, 1024, 8,
+                             dict(max_depth=4, ray_binning='dense')),
     'motion_field_512': (lambda: bs.motion_field().commit(),
-                         bs.motion_field_camera, 512, 16, 4, 'morton'),
+                         bs.motion_field_camera, 512, 16, dict(max_depth=4)),
+    'stereo_face_1536': (lambda: bs.colonnade().commit(leaf_size=32),
+                         stereo_face_camera, 1536, 2, STEREO_PARAMS),
 }
 # the port's kernels by their __global__ names (csrc/*.cu)
 KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
@@ -64,8 +86,8 @@ def kernel_of(event_name: str):
     return ident if ident in KERNELS else None
 
 
-def profile_cell(name: str) -> dict:
-    commit, camera, res, spp, depth, binning = CELLS[name]
+def profile_cell(name: str, compaction: str = 'auto') -> dict:
+    commit, camera, res, spp, fields = CELLS[name]
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -73,19 +95,21 @@ def profile_cell(name: str) -> dict:
     torch.cuda.synchronize()
     commit_s = time.perf_counter() - t0
     scene_bytes = torch.cuda.memory_allocated() - held
-    cam = camera(res, res)
-    params = pt.PTParams(max_depth=depth, ray_binning=binning)
-    renderer.render_frame(scene, cam, params, res, res, spp=spp, seed=42)
-    frames = sorted(renderer.render_frame(scene, cam, params, res, res,
-                                          spp=spp, seed=44 + i)[1].seconds
-                    for i in range(3))
+    view = camera(res, res)
+    params = pt.PTParams(**fields)
+
+    def frame(seed):
+        return renderer.render_frame(scene, view, params, res, res, spp=spp,
+                                     seed=seed, compaction=compaction)
+
+    frame(42)
+    frames = sorted(frame(44 + i)[1].seconds for i in range(3))
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, stats = renderer.render_frame(scene, cam, params, res, res,
-                                         spp=spp, seed=43)
+        _, stats = frame(43)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, launches, kernels = 0.0, 0, {}
@@ -100,7 +124,9 @@ def profile_cell(name: str) -> dict:
             calls, k_us = kernels.get(k, (0, 0.0))
             kernels[k] = (calls + evt.count, k_us + us)
     kernel_us = sum(us for _, us in kernels.values())
-    return {'cell': name, 'commit_s': commit_s, 'scene_bytes': scene_bytes,
+    return {'cell': name, 'compaction': compaction,
+            'compacted': renderer.compacts(scene, params, compaction),
+            'commit_s': commit_s, 'scene_bytes': scene_bytes,
             'frame_s': frames[1], 'wall_ms': wall * 1e3, 'busy_ms': busy_us / 1e3,
             'busy_share': busy_us / 1e3 / (wall * 1e3),
             'device_launches': launches, 'num_rays': stats.num_rays,
@@ -110,22 +136,29 @@ def profile_cell(name: str) -> dict:
 
 
 def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("profile_frame: no CUDA device", file=sys.stderr)
-        return 1
-    unknown = [c for c in argv if c not in CELLS]
+    ap = argparse.ArgumentParser(prog='profile_frame')
+    ap.add_argument('cells', nargs='*', metavar='cell',
+                    help=f"default: all of {', '.join(CELLS)}")
+    ap.add_argument('--compaction', default='auto',
+                    choices=renderer.COMPACTIONS)
+    args = ap.parse_args(argv)
+    unknown = [c for c in args.cells if c not in CELLS]
     if unknown:
         print(f"profile_frame: unknown cells {unknown}; known: "
               f"{', '.join(CELLS)}", file=sys.stderr)
         return 2
+    if not torch.cuda.is_available():
+        print("profile_frame: no CUDA device", file=sys.stderr)
+        return 1
     card = torch.cuda.get_device_name(0)
     rows = []
-    for name in argv or CELLS:
-        r = profile_cell(name)
+    for name in args.cells or CELLS:
+        r = profile_cell(name, args.compaction)
         rows.append(r)
         ks = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms"
                        for k, v in r['kernels'].items())
-        print(f"[profile] {name}: commit {r['commit_s']:.3f} s, scene "
+        print(f"[profile] {name} (compaction {args.compaction}, "
+              f"compacted {r['compacted']}): commit {r['commit_s']:.3f} s, scene "
               f"{r['scene_bytes']} device bytes, frame_s {r['frame_s']:.4f} "
               f"(median of 3); profiled wall {r['wall_ms']:.1f} ms, device busy "
               f"{r['busy_ms']:.1f} ms ({r['busy_share']:.1%}), "

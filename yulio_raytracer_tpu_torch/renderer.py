@@ -7,7 +7,10 @@ a render is deterministic and independent of how the frame is cut into
 passes.  Passes are sized by device memory alone: a pass holds at most
 `MAX_RAYS_PER_PASS` rays, folding several samples of every pixel into
 one batch when the frame is small enough (the reference's sample-major
-batching), and any ray count is accepted.
+batching), and any ray count is accepted.  Where the frame's paths run
+past the Russian-roulette start on a BVH scene, each pass runs
+`pathtracer.trace_compacted`, which drops dead rays between bounces
+(`compaction`, as the reference's render_frame).
 """
 from __future__ import annotations
 
@@ -60,6 +63,23 @@ def _tile_order(width: int, height: int, tile: int = 32) -> np.ndarray:
     return order.astype(np.int64)
 
 
+COMPACTIONS = ('auto', 'on', 'off')
+
+
+def compacts(scene, params, compaction: str) -> bool:
+    """Whether a frame's passes run trace_compacted: 'auto' where paths
+    run past the Russian-roulette start (max_depth > rr_depth), 'on' at
+    any max_depth > 1, 'off' never; only on a BVH scene (the dense
+    kernels' scenes keep trace).  Raises ValueError for another
+    compaction."""
+    if compaction not in COMPACTIONS:
+        raise ValueError(f"compaction must be 'auto', 'on' or 'off', got "
+                         f"{compaction!r}")
+    return (scene.accel != 'dense' and params.max_depth > 1
+            and (compaction == 'on' or (compaction == 'auto' and
+                                        params.max_depth > params.rr_depth)))
+
+
 @dataclass
 class FrameStats:
     num_rays: float = 0.0
@@ -71,12 +91,18 @@ class FrameStats:
 
 
 def render_frame(scene, camera, params, width: int, height: int, spp: int,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, compaction: str = 'auto',
+                 bounce_stats=None):
     """Render spp samples per pixel into a new film on `device` (default:
     the scene's; it must be the scene's device).
 
+    compaction ('auto', 'on' or 'off'; see `compacts`) picks
+    trace_compacted or trace for every pass; both give the same film.
+    bounce_stats: an optional list that collects trace_compacted's
+    per-bounce {'depth', 'width', 'live', 'seconds'} dicts of every pass.
     Deterministic per (scene, spp, seed).  Returns (film, FrameStats);
     the stats' seconds end after the device finished."""
+    compacted = compacts(scene, params, compaction)
     device = scene.device if device is None else torch.device(device)
     if device != scene.device:
         raise ValueError(f"render_frame on {device}, but the scene lives "
@@ -100,8 +126,13 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
             org, dirn, ray_time = _gen_rays(scene, camera, width, height,
                                             spp_grid, pixel_ids, sample_ids,
                                             seed)
-            rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
-                                          pixel_ids, sample_ids, ray_time)
+            if compacted:
+                rgb, nrays = pathtracer.trace_compacted(
+                    scene, params, org, dirn, seed, pixel_ids, sample_ids,
+                    ray_time, bounce_stats)
+            else:
+                rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
+                                              pixel_ids, sample_ids, ray_time)
             # pixels are unique within each of the k sample slices, so
             # the scatter is a deterministic permutation add
             rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))

@@ -1,8 +1,9 @@
 """Shape sampling over batched sample tensors.
 
 Counterpart of `yulio_raytracer_tpu/sampling/shapesampler.py`, limited
-to what the ported path calls: the cosine hemisphere (Lambertian lobes)
-and the area-uniform triangle point (triangle lights).
+to what the ported path calls: the cosine hemisphere (Lambertian lobes),
+the area-uniform triangle point (triangle lights) and the disk (the
+depth-of-field lens).
 """
 from __future__ import annotations
 
@@ -37,3 +38,11 @@ def uniform_sample_triangle(u, v, a, b, c):
     """Area-uniform point on triangle ABC."""
     su = torch.sqrt(torch.clamp(u, min=0.0))[..., None]
     return c + (1.0 - su) * (a - c) + (v[..., None] * su) * (b - c)
+
+
+def uniform_sample_disk(sample, radius):
+    """Point on a disk of the given radius, (..., 2)."""
+    r = torch.sqrt(torch.clamp(sample[..., 0], min=0.0))
+    theta = TWO_PI * sample[..., 1]
+    return torch.stack([radius * r * torch.cos(theta),
+                        radius * r * torch.sin(theta)], dim=-1)
