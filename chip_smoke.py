@@ -55,7 +55,10 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     colonnade_64 through the BVH4 kernels, again with accel='bvh2' through
     the binary kernels and again with ray_binning 'grid', 'treelet' and
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
-    motion_64 through the motion kernel's two forms; K10's entry point
+    motion_64 through the motion kernel's two forms, sponza_64 (the
+    textured sponza_like, committed on the card and timed, leaf 32, depth
+    2, 4 spp) through the BVH4 kernels alone and again with ray_binning
+    'grid'; K10's entry point
     (grid.intersect_march on the colonnade's 1M hemisphere rays) and
     K11's (sorted on those rays, unsorted on its camera rays), whose t
     and hit mask must equal K5's.
@@ -66,8 +69,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     ranged calls and on no other path;
  5. timed full-size frames (cornell_512, colonnade_1024,
     colonnade_1024_bvh2, colonnade_1024_grid, colonnade_1024_treelet,
-    colonnade_1024_dense, motion_field_512), with each kernel's launches
-    per frame; then the production stereo face stereo_face_1536 (the
+    colonnade_1024_dense, motion_field_512, sponza_like_1024 with its
+    commit's seconds), with each kernel's launches per frame and peak
+    memory; then the production stereo face stereo_face_1536 (the
     colonnade's BVH4 through StereoCube face 1, 1536^2, 2 spp, depth 10,
     the dome shadow cap 120) with compaction 'off' and 'auto', 1 warm-up
     and 3 frames each, with its per-bounce widths and live counts, the
@@ -806,6 +810,20 @@ def main():
           f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4. goldens, one path each ----------------------------------------
+    # sponza_like (bench.py bench_psnr_hbm and bench_sponza): 238,208
+    # triangles, 269 materials, 20 textures; its commit timed on the card
+    sponza_sb = bs.sponza_like()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sponza = sponza_sb.commit(device=dev, leaf_size=32)
+    torch.cuda.synchronize()
+    sponza_commit_s = time.perf_counter() - t0
+    phase('golden', f"sponza_like committed in {sponza_commit_s:.2f} s: "
+          f"{sponza.num_triangles} triangles, accel {sponza.accel}, "
+          f"{sponza.materials['mat_tab'].shape[0]} materials, lobe types "
+          f"{sponza.lobe_types}, texture modes {sponza.tex_modes}, atlas "
+          f"{sponza.textures['data'].shape[0]} texels in "
+          f"{sponza.textures['off'].numel()} textures")
     main_launches = [0] * len(counters)
     ix = {f.__name__: i for i, f in enumerate(counters)}
     k3, k4, k5, k6, k8, k9 = (ix[n] for n in (
@@ -828,6 +846,13 @@ def main():
          'dense', (k3, k4, k5, k6, k8, k9)),
         ('motion_64', motion, bs.motion_field_camera(64, 64), 2, 16,
          'morton', (ix['intersect_packet_mb'], ix['occluded_packet_mb'])),
+        # textured shading, the plastic's layered and microfacet lobes;
+        # above the reference's VMEM budget, so its 'grid' render takes
+        # the sorted BVH there and the grid's kernels here
+        ('sponza_64', sponza, bs.sponza_like_camera(64, 64), 2, 4, 'morton',
+         (k3, k4)),
+        ('sponza_64', sponza, bs.sponza_like_camera(64, 64), 2, 4, 'grid',
+         (k3, k4, k5, k6, k8, k9)),
     )
     for name, scene, cam, depth, spp, binning, used in goldens:
         zero_counters()
@@ -939,7 +964,10 @@ def main():
          1024, 8, 4, 'dense'),
         ('motion_field_512', motion, bs.motion_field_camera(512, 512), 512,
          16, 4, 'morton'),
+        ('sponza_like_1024', sponza, bs.sponza_like_camera(1024, 1024),
+         1024, 8, 4, 'morton'),
     )
+    commits = {'sponza_like_1024': sponza_commit_s}
     for name, scene, cam, res, spp, depth, binning in frames:
         params = pt.PTParams(max_depth=depth, ray_binning=binning)
         torch.cuda.reset_peak_memory_stats()
@@ -960,7 +988,9 @@ def main():
               f" frame_s {secs[1]:.3f} (min {secs[0]:.3f}, max "
               f"{secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} Mrays/frame, "
               f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-              f", launches per frame {per_frame} on {card}")
+              f", launches per frame {per_frame}"
+              + (f", commit {commits[name]:.2f} s" if name in commits else '')
+              + f" on {card}")
 
     # the production stereo face (bench.py bench_stereo_face): BVH4, depth
     # 10 past the roulette start, the dome cap 120, two passes of 1536^2

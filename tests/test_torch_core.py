@@ -18,7 +18,6 @@ from yulio_raytracer_tpu_torch.core import rng
 from yulio_raytracer_tpu_torch.sampling import patterns, shapesampler as ss
 from yulio_raytracer_tpu_torch.cameras import cameras as cam
 from yulio_raytracer_tpu_torch.shading import lobes as lb, materials as mat
-from yulio_raytracer_tpu_torch.shading import textures as tex
 from yulio_raytracer_tpu_torch.lights import lights
 from yulio_raytracer_tpu_torch.film import tonemap
 
@@ -167,7 +166,8 @@ def test_shade_context_matches():
                                   jnp.asarray(trans))
     tl, taux = mat.shade_context({k: _t(v) for k, v in ttab.items()},
                                  {k: _t(v) for k, v in ttx.items()},
-                                 _t(mid).long(), _t(eta), _t(trans))
+                                 _t(mid).long(), torch.zeros((512, 2)),
+                                 _t(eta), _t(trans))
     for k in ('type', 'color', 'eta'):
         np.testing.assert_array_equal(tl[k].numpy(),
                                       np.asarray(jl[k]).astype(
@@ -214,10 +214,11 @@ def test_tonemap_matches():
 
 
 @pytest.mark.parametrize('make', [
-    lambda: mat.make_material('glass', {}),
-    lambda: lb.check_types([jlb.SPECULAR_REFLECT]),
+    lambda: lights.set_scene_bounds({'kind': 'ambient'}, np.zeros(3),
+                                    np.ones(3)),
     lambda: lights.sample({'kind': 'point'}, None, None, None),
-    lambda: tex.TextureTableBuilder().add(np.zeros((2, 2, 3), np.float32)),
+    lambda: lights.sample({'kind': 'spot'}, None, None, None),
+    lambda: lights.le_area({'kind': 'hdri'}, None),
 ])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

@@ -8,7 +8,9 @@ kernel K7's closest and any-hit forms also on the motion field's entry
 sets, leaves of 33-64 rows, dead lanes, 65,537 rays and a frame's own
 calls), the cornell, stereo, motion, grid, treelet and dense colonnade
 goldens rendered through them, the StereoCube rays against the port's
-CPU rays, and compaction 'auto' against 'off' on the colonnade.
+CPU rays, compaction 'auto' against 'off' on the colonnade, and the
+shading layer (the texture fetch, the shade context and the materials
+probe of every preset) against the port's CPU results.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -29,6 +31,8 @@ from yulio_raytracer_tpu_torch.ops import (binning, dense, grid, pairs,
                                            splitleaf, traverse, treelets,
                                            wide)
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
+from yulio_raytracer_tpu_torch.shading import materials as mat
+from yulio_raytracer_tpu_torch.shading import textures as tex
 from yulio_raytracer_tpu_torch import raysets, renderer
 from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
 from yulio_raytracer_tpu_torch.film import accum
@@ -1055,3 +1059,78 @@ def test_compaction_matches_off_on_card(cuda, accel):
     assert torch.equal(f_off.rgb_sum, f_on.rgb_sum)
     assert s_off.num_rays == s_on.num_rays
     assert all(f.launches > b for f, b in zip(kernels, before))
+
+
+def _shading_inputs(n=4096):
+    """A textured atlas (both filters, one inverted), a material table of
+    every probe preset bound to its textures (Obj with a bump map), and n
+    hits: material ids (with -1), uvs outside [0, 1), a tangent frame."""
+    rs = np.random.RandomState(21)
+    b = tex.TextureTableBuilder()
+    b.add(bs._procedural_texture(rs, 2, res=32))
+    b.add((rs.rand(5, 7, 3) * 255).astype(np.uint8), invert=True)
+    b.add(rs.rand(4, 4).astype(np.float32), filter=tex.FILTER_NEAREST)
+    specs = [mat.make_material(name, p, tex_id=k % 3)
+             for k, (name, p) in enumerate(bs.PROBE_PRESETS.items())]
+    specs.append(mat.make_material('obj', bs.PROBE_PRESETS['obj'], tex_id=0,
+                                   tex_ids={'map_d': 1, 'map_Bump': 2}))
+    table = mat.build_table(specs)
+    ns = rs.randn(n, 3).astype(np.float32)
+    ns /= np.linalg.norm(ns, axis=1, keepdims=True)
+    tx = np.cross(rs.randn(n, 3).astype(np.float32), ns)
+    tx /= np.linalg.norm(tx, axis=1, keepdims=True)
+    hits = {'mid': rs.randint(-1, len(specs), n),
+            'st': rs.uniform(-1.5, 2.5, (n, 2)).astype(np.float32),
+            'eta': np.where(rs.rand(n) < 0.5, 1.5, 1.0).astype(np.float32),
+            'trans': np.ones((n, 3), np.float32),
+            'ns': ns, 'tx': tx, 'ty': np.cross(ns, tx)}
+    return b.build(), table, hits
+
+
+@pytest.mark.cuda
+def test_texture_fetch_and_shade_context_on_card_match_cpu(cuda):
+    """The texture fetch and the shade context (all seven texture modes,
+    a bump map, rays inside and outside a dielectric) on the card equal
+    the port's CPU results within 1e-6."""
+    atlas, table, hits = _shading_inputs()
+    gates = mat.table_gates(table)
+    outs = []
+    for dev in ('cpu', cuda):
+        t_atlas = {k: torch.as_tensor(v).to(dev) for k, v in atlas.items()}
+        t_tab = {k: torch.as_tensor(v).to(dev) for k, v in table.items()}
+        h = {k: torch.as_tensor(v).to(dev) for k, v in hits.items()}
+        texel = tex.fetch(t_atlas, h['mid'] % 3 - (h['mid'] < 0).long(),
+                          h['st'])
+        lobed, aux = mat.shade_context(
+            t_tab, t_atlas, h['mid'], h['st'], h['eta'], h['trans'],
+            ns=h['ns'], tx=h['tx'], ty=h['ty'], tex_modes=gates[0],
+            bump=gates[1])
+        outs.append({'texel': texel, **{f'lobe_{k}': v for k, v in
+                                        lobed.items()},
+                     **{f'aux_{k}': v for k, v in aux.items()}})
+    assert gates == (tuple(range(7)), True)
+    for k, v in outs[0].items():
+        g = outs[1][k].cpu()
+        if v.dtype in (torch.bool, torch.int64):
+            assert torch.equal(g, v), k
+        else:
+            np.testing.assert_allclose(g.numpy(), v.numpy(), rtol=0,
+                                       atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('preset', list(bs.PROBE_PRESETS))
+def test_materials_probe_on_card_matches_cpu(cuda, preset):
+    """The materials probe (the cornell box's blocks in one preset; 16^2,
+    4 spp, depth 4) through the dense kernels on the card against the
+    port's CPU render: >= 40 dB."""
+    imgs = []
+    for dev in ('cpu', cuda):
+        film, _ = renderer.render_frame(
+            bs.materials_probe(preset).commit(device=dev),
+            bs.cornell_camera(16, 16), pt.PTParams(max_depth=4), 16, 16,
+            spp=4, seed=42)
+        imgs.append(accum.resolve(film).cpu().numpy())
+    mse = ((imgs[1] - imgs[0]) ** 2).mean()
+    assert np.isfinite(imgs[1]).all()
+    assert 10 * np.log10(imgs[0].max() ** 2 / max(mse, 1e-20)) >= 40.0

@@ -1,8 +1,8 @@
 """Vector math over batched (..., 3) tensors.
 
 Counterpart of `yulio_raytracer_tpu/core/math.py`, limited to what the
-ported path calls: the vec3 helpers, the frame, the affine transforms
-and rotations the cameras build, and smoothstep.  Affine spaces keep the
+ported path calls: the vec3 helpers, reflect and refract, the frame, the
+affine transforms and rotations the cameras build, and smoothstep.  Affine spaces keep the
 (4, 3) row layout [vx; vy; vz; p] of the reference.
 """
 from __future__ import annotations
@@ -25,6 +25,25 @@ def length(a):
 
 def normalize(a, eps=1e-20):
     return a / torch.clamp(length(a), min=eps)[..., None]
+
+
+def reflect(v, n, cos_i=None):
+    """Reflect v about n (optics.h:30-39): v points away from the surface
+    and so does the result, r = 2 dot(v, n) n - v."""
+    if cos_i is None:
+        cos_i = dot(v, n)
+    return 2.0 * cos_i[..., None] * n - v
+
+
+def refract(v, n, eta, cos_i):
+    """Refract v about n with relative IOR eta (optics.h:80-87); v and n
+    point to the same side.  Returns (direction, valid, cos_t); on total
+    internal reflection valid is False and the direction zeros."""
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    valid = k >= 0.0
+    cos_t = torch.sqrt(torch.clamp(k, min=0.0))
+    d = eta[..., None] * (cos_i[..., None] * n - v) - cos_t[..., None] * n
+    return torch.where(valid[..., None], d, 0.0), valid, cos_t
 
 
 def frame(n):

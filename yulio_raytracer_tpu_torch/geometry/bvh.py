@@ -215,11 +215,11 @@ def _build_numpy(valid, leaf_size, nbins, bounds) -> FlatBVH:
 
 PER_TRIANGLE_KEYS = ('v0', 'e1', 'e2', 'ng', 'vn', 'uv', 'mat_id',
                      'light_id', 'cull', 'illum_mask', 'shadow_mask', 'valid',
-                     'mv0', 'me1', 'me2')
+                     'mv0', 'me1', 'me2', 'ptx', 'pty')
 
 
 def permute_geom(geom: dict, order: np.ndarray) -> dict:
     """Apply the BVH triangle permutation to the per-triangle arrays of a
-    geometry dict."""
-    return {k: (a[order] if k in PER_TRIANGLE_KEYS else a)
+    geometry dict (an absent one, None, stays None)."""
+    return {k: (a[order] if k in PER_TRIANGLE_KEYS and a is not None else a)
             for k, a in geom.items()}

@@ -1,7 +1,7 @@
 """SoA triangle geometry, host side (numpy only).
 
 The part of `yulio_raytracer_tpu/geometry/mesh.py` that the port's commit
-runs, for static and moving meshes (no authored tangents, no
+runs, for static and moving meshes with or without authored tangents (no
 camera-aligned billboards): `pack_meshes`, `woop_matrices` and
 `add_shade_table` produce the same arrays, so a scene committed by either
 package holds identical tables.
@@ -27,6 +27,11 @@ class HostMesh:
     normals: Optional[np.ndarray] = None    # (V, 3) f32 or None
     texcoords: Optional[np.ndarray] = None  # (V, 2) f32 or None
     motions: Optional[np.ndarray] = None    # (V, 3) f32 dP/dt (motion blur)
+    # per-vertex shading tangents (trianglemesh_full.cpp:39-47, for the
+    # anisotropic BRDF and bump mapping); without them a triangle's frame
+    # comes from its uv parameterization
+    tangent_x: Optional[np.ndarray] = None   # (V, 3) f32
+    tangent_y: Optional[np.ndarray] = None   # (V, 3) f32
     material: int = 0
     light: int = -1                  # area-light id or -1
     cull: int = CULL_NONE
@@ -56,6 +61,11 @@ class PackedGeometry:
     mv0: Optional[np.ndarray] = None   # (T, 3)
     me1: Optional[np.ndarray] = None
     me2: Optional[np.ndarray] = None
+    # authored per-triangle tangent frames: the face mean of the
+    # per-vertex tangents, NaN rows where a mesh has none (None when no
+    # mesh authored them)
+    ptx: Optional[np.ndarray] = None   # (T, 3)
+    pty: Optional[np.ndarray] = None
 
     @property
     def num_triangles(self) -> int:
@@ -129,11 +139,22 @@ def tangent_frames(e1: np.ndarray, e2: np.ndarray, uv: np.ndarray,
 def add_shade_table(geom: dict) -> dict:
     """Pack the per-triangle shading attributes into one (T, 28) f32 table
     (post_intersect gathers one row per hit):
-    [ng(3) | vn(9) | uv(6) | mat | light | illum | shadow | tx(3) | ty(3)]."""
+    [ng(3) | vn(9) | uv(6) | mat | light | illum | shadow | tx(3) | ty(3)].
+    Authored tangents ('ptx'/'pty', popped) replace the uv-derived frame
+    on the rows that have them."""
     t = geom['ng'].shape[0]
     geom = {k: np.asarray(v) for k, v in geom.items()}
     tx, ty = tangent_frames(geom['e1'], geom['e2'],
                             geom['uv'], geom['ng'])
+    if 'ptx' in geom:
+        # NaN rows mark triangles without authored tangents
+        ptx = geom.pop('ptx')
+        pty = geom.pop('pty')
+        has = np.isfinite(ptx).all(axis=1, keepdims=True)
+        tx = np.where(has, np.nan_to_num(ptx), tx).astype(np.float32,
+                                                          copy=False)
+        ty = np.where(has & np.isfinite(pty).all(axis=1, keepdims=True),
+                      np.nan_to_num(pty), ty).astype(np.float32, copy=False)
     geom['shade_tab'] = np.concatenate([
         geom['ng'].astype(np.float32, copy=False),
         geom['vn'].reshape(t, 9).astype(np.float32, copy=False),
@@ -154,9 +175,11 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
     tables are equal)."""
     v0s, e1s, e2s, vns, uvs = [], [], [], [], []
     mats, lights, culls, ims, sms = [], [], [], [], []
-    movs = []
+    movs, ptxs, ptys = [], [], []
     any_motion = any(m.motions is not None and len(m.motions)
                      for m in meshes)
+    any_tangent = any(m.tangent_x is not None or m.tangent_y is not None
+                      for m in meshes)
     for m in meshes:
         pos = np.asarray(m.positions, np.float32)
         tri = np.asarray(m.triangles, np.int64)
@@ -180,6 +203,10 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
             ng = np.cross(p1 - p0, p2 - p0)
             ng /= np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
             vns.append(np.repeat(ng[:, None, :], 3, axis=1))
+        if any_tangent:
+            ptx_, pty_ = _face_tangents(m, tri)
+            ptxs.append(ptx_)
+            ptys.append(pty_)
         if m.texcoords is not None and len(m.texcoords):
             t = np.asarray(m.texcoords, np.float32)
             uvs.append(np.stack([t[tri[:, 0]], t[tri[:, 1]], t[tri[:, 2]]], axis=1))
@@ -241,4 +268,24 @@ def pack_meshes(meshes: list[HostMesh], pad_multiple: int = 128) -> PackedGeomet
         bbox_lo=bb_lo.astype(np.float32, copy=False),
         bbox_hi=bb_hi.astype(np.float32, copy=False),
         mv0=mv0, me1=me1, me2=me2,
+        ptx=_pad(np.concatenate(ptxs), fill=np.nan) if ptxs else None,
+        pty=_pad(np.concatenate(ptys), fill=np.nan) if ptys else None,
     )
+
+
+def _face_tangents(m: HostMesh, tri: np.ndarray) -> tuple:
+    """A mesh's per-triangle (tx, ty): the normalized mean of its three
+    vertices' tangents, NaN rows for a tangent the mesh lacks (ty is NaN
+    wherever tx is)."""
+    def face_mean(t):
+        t = np.asarray(t, np.float32)
+        v = (t[tri[:, 0]] + t[tri[:, 1]] + t[tri[:, 2]]) / 3.0
+        n = np.linalg.norm(v, axis=-1, keepdims=True)
+        return (v / np.maximum(n, 1e-20)).astype(np.float32, copy=False)
+
+    missing = np.full((len(tri), 3), np.nan, np.float32)
+    if m.tangent_x is None or not len(m.tangent_x):
+        return missing, missing
+    return face_mean(m.tangent_x), (
+        face_mean(m.tangent_y)
+        if m.tangent_y is not None and len(m.tangent_y) else missing)

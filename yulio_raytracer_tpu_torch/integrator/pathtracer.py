@@ -63,6 +63,12 @@ from ..shading import materials as gmat
 ULP = 1.1920929e-7
 # PTParams.ray_binning: the reference's five
 BINNINGS = ('morton', 'none', 'grid', 'dense', 'treelet')
+# profiler ranges of the bounce's shading (profile_frame reads their
+# device time): the shade context (its texture fetches included) and the
+# lobes' eval and sampling
+SPAN_SHADE = 'yrt.shade_context'
+SPAN_LOBES = 'yrt.lobes'
+
 
 
 @dataclass(frozen=True)
@@ -303,10 +309,15 @@ def _make_bounce(scene, params: PTParams, seed):
         ng = torch.where(backfacing[:, None], -dg['Ng'], dg['Ng'])
         ns = torch.where(backfacing[:, None], -dg['Ns'], dg['Ns'])
 
-        # shade: material -> lobe context (cpp:108-111)
-        lobed, aux = gmat.shade_context(scene.materials, scene.textures,
-                                        dg['mat_id'], state['medium_eta'],
-                                        state['medium_trans'])
+        # shade: material -> lobe context (cpp:108-111), with the
+        # bump-mapped shading normal where a material binds a bump map
+        with torch.profiler.record_function(SPAN_SHADE):
+            lobed, aux = gmat.shade_context(
+                scene.materials, scene.textures, dg['mat_id'], dg['st'],
+                state['medium_eta'], state['medium_trans'], ns=ns,
+                tx=dg['Tx'], ty=dg['Ty'], tex_modes=scene.tex_modes,
+                bump=scene.bump)
+        ns = aux.get('ns', ns)
 
         # area-light emission (cpp:113-115)
         for li, l in enumerate(lights):
@@ -329,7 +340,9 @@ def _make_bounce(scene, params: PTParams, seed):
             le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
             cand = (use_dl & mask_ok & (pdf > 0.0)
                     & torch.any(le > 0.0, dim=-1))
-            brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE)
+            with torch.profiler.record_function(SPAN_LOBES):
+                brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE,
+                                     types_present=scene.lobe_types)
             cand = cand & torch.any(brdf > 0.0, dim=-1)
             if has_shadow_cap:
                 tmax = _shadow_cap(params, seed, pixel_id, sample_id, wi,
@@ -370,8 +383,10 @@ def _make_bounce(scene, params: PTParams, seed):
         s2 = rng.uniform2(seed, pixel_id, sample_id, base + _DIM_SCATTER)
         s1 = rng.uniform1(seed, pixel_id, sample_id,
                           base + _DIM_SCATTER_TYPE)
-        samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
-                               types_present=scene.lobe_types)
+        with torch.profiler.record_function(SPAN_LOBES):
+            samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
+                                   tx=dg['Tx'], ty=dg['Ty'],
+                                   types_present=scene.lobe_types)
         cont = (cont & samp['valid'] & (samp['pdf'] > 0.0)
                 & torch.any(samp['weight'] > 0.0, dim=-1))
 

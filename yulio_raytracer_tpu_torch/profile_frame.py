@@ -14,8 +14,11 @@ median wall time of the three frames, the wall time of the profiled
 frame, the device's busy time (the sum of the device activities' time;
 the port runs one stream, so they do not overlap) and its share of the
 wall, the device launches, each port kernel's calls and device time,
-and the rest of the device time (the torch glue of the bounce).  The
-last line is the same as one JSON object.  Needs a CUDA device.
+the rest of the device time (the torch glue of the bounce), the device
+time of the glue's shading ranges (SPANS: the shade context, its texture
+fetches, the lobes), the glue's largest device activities by name, and
+the frames' peak device memory.  The last line is the same as one JSON
+object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from . import renderer
 from .cameras import cameras as cam
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
+from .shading import textures as gtex
 
 
 def stereo_face_camera(width: int = 1536, height: int = 1536):
@@ -66,7 +70,14 @@ CELLS = {
                          bs.motion_field_camera, 512, 16, dict(max_depth=4)),
     'stereo_face_1536': (lambda: bs.colonnade().commit(leaf_size=32),
                          stereo_face_camera, 1536, 2, STEREO_PARAMS),
+    'sponza_like_1024': (lambda: bs.sponza_like().commit(leaf_size=32),
+                         bs.sponza_like_camera, 1024, 8, dict(max_depth=4)),
 }
+# the bounce's profiler ranges: the shade context (its texture fetches
+# included), the texture fetches, and the lobes' eval and sampling
+SPANS = (pt.SPAN_SHADE, gtex.SPAN_FETCH, pt.SPAN_LOBES)
+# the glue's device activities reported by name, largest first
+TOP_GLUE = 6
 # the port's kernels by their __global__ names (csrc/*.cu)
 KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
            'intersect_wide_kernel', 'occluded_wide_kernel',
@@ -102,8 +113,10 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
         return renderer.render_frame(scene, view, params, res, res, spp=spp,
                                      seed=seed, compaction=compaction)
 
+    torch.cuda.reset_peak_memory_stats()
     frame(42)
     frames = sorted(frame(44 + i)[1].seconds for i in range(3))
+    peak = torch.cuda.max_memory_allocated()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -112,8 +125,15 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
         _, stats = frame(43)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us, launches, kernels = 0.0, 0, {}
+    busy_us, launches, kernels, spans, glue = 0.0, 0, {}, {}, []
     for evt in prof.key_averages():
+        if evt.key in SPANS:
+            # a range's host event holds the device time of the kernels
+            # launched inside it; its device-side marker is no launch
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                spans[evt.key] = {'calls': evt.count,
+                                  'ms': evt.device_time_total / 1e3}
+            continue
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = evt.self_device_time_total
@@ -123,16 +143,22 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
         if k is not None:
             calls, k_us = kernels.get(k, (0, 0.0))
             kernels[k] = (calls + evt.count, k_us + us)
+        else:
+            glue.append((us, evt.count, evt.key))
     kernel_us = sum(us for _, us in kernels.values())
     return {'cell': name, 'compaction': compaction,
             'compacted': renderer.compacts(scene, params, compaction),
             'commit_s': commit_s, 'scene_bytes': scene_bytes,
             'frame_s': frames[1], 'wall_ms': wall * 1e3, 'busy_ms': busy_us / 1e3,
             'busy_share': busy_us / 1e3 / (wall * 1e3),
+            'peak_gib': peak / 2**30,
             'device_launches': launches, 'num_rays': stats.num_rays,
             'kernels': {k: {'calls': c, 'ms': us / 1e3}
                         for k, (c, us) in sorted(kernels.items())},
-            'glue_ms': (busy_us - kernel_us) / 1e3}
+            'glue_ms': (busy_us - kernel_us) / 1e3, 'spans': spans,
+            'top_glue': [{'op': name[:80], 'calls': n, 'ms': us / 1e3}
+                         for us, n, name in sorted(glue, reverse=True)[
+                             :TOP_GLUE]]}
 
 
 def main(argv) -> int:
@@ -157,13 +183,20 @@ def main(argv) -> int:
         rows.append(r)
         ks = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms"
                        for k, v in r['kernels'].items())
+        sp = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms "
+                       f"({v['ms'] / max(r['glue_ms'], 1e-9):.1%} of the glue)"
+                       for k, v in r['spans'].items())
         print(f"[profile] {name} (compaction {args.compaction}, "
               f"compacted {r['compacted']}): commit {r['commit_s']:.3f} s, scene "
               f"{r['scene_bytes']} device bytes, frame_s {r['frame_s']:.4f} "
               f"(median of 3); profiled wall {r['wall_ms']:.1f} ms, device busy "
               f"{r['busy_ms']:.1f} ms ({r['busy_share']:.1%}), "
               f"{r['device_launches']} device launches; {ks}; glue "
-              f"{r['glue_ms']:.1f} ms; on {card}", flush=True)
+              f"{r['glue_ms']:.1f} ms; of it {sp or 'no span'}; largest "
+              "glue activities " + ', '.join(
+                  f"{g['op']} {g['calls']} calls {g['ms']:.1f} ms"
+                  for g in r['top_glue'])
+              + f"; peak mem {r['peak_gib']:.2f} GiB; on {card}", flush=True)
     print(json.dumps({'card': card, 'cells': rows}))
     return 0
 

@@ -1,9 +1,9 @@
 """Shape sampling over batched sample tensors.
 
 Counterpart of `yulio_raytracer_tpu/sampling/shapesampler.py`, limited
-to what the ported path calls: the cosine hemisphere (Lambertian lobes),
-the area-uniform triangle point (triangle lights) and the disk (the
-depth-of-field lens).
+to what the ported path calls: the cosine and power-cosine hemispheres
+(the lobes), the area-uniform triangle point (triangle lights) and the
+disk (the depth-of-field lens).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from ..core import math as vm
 
 TWO_PI = float(2.0 * np.pi)
 ONE_OVER_PI = float(1.0 / np.pi)
+ONE_OVER_TWO_PI = float(1.0 / (2.0 * np.pi))
 
 
 def _local_to_world(n, local):
@@ -32,6 +33,33 @@ def cosine_sample_hemisphere(u, v, n=None):
     if n is None:
         return local, pdf
     return _local_to_world(n, local), pdf
+
+
+def cosine_hemisphere_pdf(wi, n):
+    """shapesampler.h:113-115."""
+    c = vm.dot(wi, n)
+    return torch.where(c < 0.0, 0.0, c * ONE_OVER_PI)
+
+
+def power_cosine_sample_hemisphere(u, v, exp, n=None):
+    """shapesampler.h:119-136.  Returns (dir, pdf); up = n (or +z)."""
+    phi = TWO_PI * u
+    cos_t = torch.pow(torch.clamp(v, min=1e-30), 1.0 / (exp + 1.0))
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    local = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t,
+                         cos_t], dim=-1)
+    pdf = (exp + 1.0) * torch.pow(cos_t, exp) * ONE_OVER_TWO_PI
+    if n is None:
+        return local, pdf
+    return _local_to_world(n, local), pdf
+
+
+def power_cosine_hemisphere_pdf(wi, n, exp):
+    """shapesampler.h:139-141."""
+    c = vm.dot(wi, n)
+    return torch.where(c < 0.0, 0.0,
+                       (exp + 1.0) * torch.pow(torch.clamp(c, min=0.0), exp)
+                       * ONE_OVER_TWO_PI)
 
 
 def uniform_sample_triangle(u, v, a, b, c):

@@ -20,7 +20,11 @@ for another:
 * for motion scenes, the vertex-edge arrays `motion` and, above
   BRUTE_FORCE_MAX_TRIS, binary rows over union bounds with the motion
   triangle rows `tris_mb`;
-* the shading table, material table, texture atlas and light list.
+* the shading table (with authored tangents where meshes have them),
+  the material table, the texture atlas and the light list, with the
+  static facts the bounce reads off them: the lobe types in use and the
+  material table's texture modes and bump maps (shading/materials.py
+  table_gates).
 
 The reference's TPU layout rules (SMEM leaf growth, the VMEM/HBM split,
 the zero rows after the packed triangles) and the lane-major `planes`
@@ -213,7 +217,7 @@ class TorchScene:
     motion: Optional[dict]        # MOTION_KEYS arrays of a motion scene
     geom: dict                    # {'shade_tab': (T, 28) f32}
     materials: dict               # material table (shading/materials.py)
-    textures: dict                # texture atlas (empty in this slice)
+    textures: dict                # texture atlas (shading/textures.py)
     lights: list                  # light dicts, arrays as tensors
     leaf_size: int
     bbox_lo: tuple
@@ -221,6 +225,8 @@ class TorchScene:
     num_triangles: int
     lobe_types: tuple             # static set of lobe type ids in use
     accel: str
+    tex_modes: tuple              # texture modes the material table holds
+    bump: bool                    # a material binds a bump map
 
 
 def resolve_device(device) -> torch.device:
@@ -245,9 +251,8 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
     GRID_KEYS and the packet's TREELET_KEYS (the reference keeps the
     dense binning's only where they fit its VMEM budget), and drops the
     lane-major planes; a scene without node tables is 'dense' whatever
-    the reference's accel says.  Raises
-    NotImplementedError for what this package cannot shade (other lobe
-    types, textures, non-triangle lights)."""
+    the reference's accel says.  Raises NotImplementedError for lights
+    other than 'triangle', which this package cannot sample yet."""
     device = resolve_device(device)
 
     def dev(x):
@@ -256,7 +261,7 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
     def table(key):
         return dev(packet[key]) if key in packet else None
 
-    gmat.check_table(materials)
+    tex_modes, bump = gmat.table_gates(materials)
     for l in lights:
         if l['kind'] != 'triangle':
             raise NotImplementedError(
@@ -285,4 +290,6 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
         num_triangles=int(num_triangles),
         lobe_types=tuple(lobe_types),
         accel=accel if 'nodes' in packet else 'dense',
+        tex_modes=tex_modes,
+        bump=bump,
     )
