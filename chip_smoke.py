@@ -43,9 +43,15 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     their hits (b-hemi), each bit-equal to its plain version and the two
     layouts to each other, timed there and at the script's own shapes
     and random rows (shape a: run(which, 512, 64, 8), the triangle range
-    split over blocks); and, every form bit-equal to its plain version
+    split over blocks); every form bit-equal to its plain version
     over triangle slices at 64 reps, the same rows against 1024 of those
-    camera rays (some hit) and shape a's own inputs.
+    camera rays (some hit) and shape a's own inputs; and sponza_like
+    (committed on the card and timed, leaf 32): the BVH4 and binary pairs
+    on its tables and the pair kernels on its grid, over 256^2 camera
+    rays, the hemisphere rays from their hits and the shadow rays to its
+    6 lights, and the pair and binary kernels on every call of the
+    sponza_64 golden's 'grid' render, all bit-equal, with the launch
+    counters zeroed before and every one of those kernels launched.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -56,8 +62,7 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     the binary kernels and again with ray_binning 'grid', 'treelet' and
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
     motion_64 through the motion kernel's two forms, sponza_64 (the
-    textured sponza_like, committed on the card and timed, leaf 32, depth
-    2, 4 spp) through the BVH4 kernels alone and again with ray_binning
+    textured sponza_like of phase 3, depth 2, 4 spp) through the BVH4 kernels alone and again with ray_binning
     'grid'; K10's entry point
     (grid.intersect_march on the colonnade's 1M hemisphere rays) and
     K11's (sorted on those rays, unsorted on its camera rays), whose t
@@ -806,29 +811,92 @@ def main():
               f"{acc['pass_ms']:.3f} ms, bound "
               f"{acc['pass_bound_ms']:.4f} ms: "
               f"{acc['pass_bound_ms'] / acc['pass_ms']:.2%} of it; {card}")
-    phase('kernels', f"all kernels agree with their plain versions "
-          f"({time.perf_counter() - t0:.1f} s)")
-
-    # ---- 4. goldens, one path each ----------------------------------------
     # sponza_like (bench.py bench_psnr_hbm and bench_sponza): 238,208
-    # triangles, 269 materials, 20 textures; its commit timed on the card
+    # triangles, 269 materials, 20 textures; its commit timed on the card.
+    # The kernels of its golden paths on its own tables, bit-equal: K3/K4
+    # on its BVH4, K5/K6 on its binary rows (the grid's fallback) and
+    # K8/K9 on its grid, over 256^2 camera rays, the hemisphere rays from
+    # their hits and the shadow rays to its 6 triangle lights; then K8/K9
+    # and K5/K6 on every call of the sponza_64 golden's 'grid' render
     sponza_sb = bs.sponza_like()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     sponza = sponza_sb.commit(device=dev, leaf_size=32)
     torch.cuda.synchronize()
-    sponza_commit_s = time.perf_counter() - t0
-    phase('golden', f"sponza_like committed in {sponza_commit_s:.2f} s: "
+    sponza_commit_s = time.perf_counter() - t1
+    phase('kernels', f"sponza_like committed in {sponza_commit_s:.2f} s: "
           f"{sponza.num_triangles} triangles, accel {sponza.accel}, "
+          f"{sponza.nodes4.shape[0]} BVH4 nodes, "
+          f"{sponza.nodes.shape[0]} binary nodes, "
           f"{sponza.materials['mat_tab'].shape[0]} materials, lobe types "
           f"{sponza.lobe_types}, texture modes {sponza.tex_modes}, atlas "
           f"{sponza.textures['data'].shape[0]} texels in "
           f"{sponza.textures['off'].numel()} textures")
-    main_launches = [0] * len(counters)
+    gen_s = torch.Generator(device=dev).manual_seed(SEED)
+    org, dirn, _ = camera_rays(sponza, bs.sponza_like_camera(256, 256), 256,
+                               256, dev, SEED)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    s_cam = (org, dirn, zeros, torch.full_like(zeros, float('inf')))
+    s_hit = wide.intersect_packet4(sponza.nodes4, sponza.tris, *s_cam)
+    *s_hemi, dg, eps = hemisphere_rays(sponza, org, dirn, s_hit, gen_s, dev)
+    s_shadow = shadow_rays(sponza, dg, eps, s_hit.valid, gen_s, dev)
+    sg = sponza.grid
+    s_stack = {'BVH4': [], 'binary': []}
+    zero_counters()
+    for what, rays, pair in (('camera', s_cam, (wide.intersect_packet4,
+                                                traverse.intersect_packet)),
+                             ('hemisphere', s_hemi,
+                              (wide.intersect_packet4,
+                               traverse.intersect_packet)),
+                             ('shadow', s_shadow,
+                              (wide.occluded_packet4,
+                               traverse.occluded_packet))):
+        for f, table, tree in zip(pair, (sponza.nodes4, sponza.nodes),
+                                  s_stack):
+            counts = {}
+            compare(f'{f.__name__} (sponza {what})', f,
+                    plains[counters.index(f)], (table, sponza.tris, *rays),
+                    counts, exact=True)
+            s_stack[tree].append((f'{f.__name__} ({what})', [counts]))
+        if what != 'camera':
+            f = (pairs.intersect_pairs_raw if what == 'hemisphere'
+                 else pairs.occluded_pairs)
+            compare(f'{f.__name__} (sponza grid, {what}, entry cells)', f,
+                    plains[counters.index(f)],
+                    (sg['rows'], *rays, *grid.entry_ranges(sg, *rays)),
+                    exact=True)
+    for tree, sets in s_stack.items():
+        stack_depth(f"{tree} on sponza", sets)
+    s_calls = 0
+    for record_calls, module in ((frame_pair_calls, pairs),
+                                 (frame_binary_calls, traverse)):
+        calls = record_calls(sponza, bs.sponza_like_camera(64, 64), 'grid',
+                             64, 64, spp=4, seed=SEED)
+        for n, c in enumerate(calls):
+            f = getattr(module, c['kernel'])
+            compare(f"{c['kernel']} (sponza_64 grid frame, call {n + 1} of "
+                    f"{len(calls)})", f, plains[counters.index(f)],
+                    c['args'], exact=True)
+        s_calls += len(calls)
+        del calls
     ix = {f.__name__: i for i, f in enumerate(counters)}
     k3, k4, k5, k6, k8, k9 = (ix[n] for n in (
         'intersect_packet4', 'occluded_packet4', 'intersect_packet',
         'occluded_packet', 'intersect_pairs_raw', 'occluded_pairs'))
+    ran = {counters[k].__name__: counters[k].launches
+           for k in (k3, k4, k5, k6, k8, k9)}
+    phase('kernels', f"sponza's sets bit-equal to the plain versions "
+          f"({s_calls} recorded calls of the grid frame among them); "
+          f"launches {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"sponza's sets did not launch every kernel "
+                             f"of its golden paths: {ran}")
+    del s_cam, s_hemi, s_shadow, s_hit, dg, eps
+    phase('kernels', f"all kernels agree with their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 4. goldens, one path each ----------------------------------------
+    main_launches = [0] * len(counters)
     goldens = (
         ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32, 'morton',
          (0, 1)),

@@ -167,7 +167,9 @@ def test_shade_context_matches():
     tl, taux = mat.shade_context({k: _t(v) for k, v in ttab.items()},
                                  {k: _t(v) for k, v in ttx.items()},
                                  _t(mid).long(), torch.zeros((512, 2)),
-                                 _t(eta), _t(trans))
+                                 _t(eta), _t(trans),
+                                 **dict(zip(('tex_modes', 'bump'),
+                                            mat.table_gates(ttab))))
     for k in ('type', 'color', 'eta'):
         np.testing.assert_array_equal(tl[k].numpy(),
                                       np.asarray(jl[k]).astype(

@@ -37,6 +37,8 @@ from yulio_raytracer_tpu_torch import raysets, renderer
 from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
 from yulio_raytracer_tpu_torch.film import accum
 
+from probe_scene import PROBE_PRESETS, materials_probe
+
 torch.set_num_threads(2)
 GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets', 'golden')
@@ -1071,8 +1073,8 @@ def _shading_inputs(n=4096):
     b.add((rs.rand(5, 7, 3) * 255).astype(np.uint8), invert=True)
     b.add(rs.rand(4, 4).astype(np.float32), filter=tex.FILTER_NEAREST)
     specs = [mat.make_material(name, p, tex_id=k % 3)
-             for k, (name, p) in enumerate(bs.PROBE_PRESETS.items())]
-    specs.append(mat.make_material('obj', bs.PROBE_PRESETS['obj'], tex_id=0,
+             for k, (name, p) in enumerate(PROBE_PRESETS.items())]
+    specs.append(mat.make_material('obj', PROBE_PRESETS['obj'], tex_id=0,
                                    tex_ids={'map_d': 1, 'map_Bump': 2}))
     table = mat.build_table(specs)
     ns = rs.randn(n, 3).astype(np.float32)
@@ -1119,7 +1121,7 @@ def test_texture_fetch_and_shade_context_on_card_match_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('preset', list(bs.PROBE_PRESETS))
+@pytest.mark.parametrize('preset', list(PROBE_PRESETS))
 def test_materials_probe_on_card_matches_cpu(cuda, preset):
     """The materials probe (the cornell box's blocks in one preset; 16^2,
     4 spp, depth 4) through the dense kernels on the card against the
@@ -1127,7 +1129,7 @@ def test_materials_probe_on_card_matches_cpu(cuda, preset):
     imgs = []
     for dev in ('cpu', cuda):
         film, _ = renderer.render_frame(
-            bs.materials_probe(preset).commit(device=dev),
+            materials_probe(preset, bs, mat, mesh).commit(device=dev),
             bs.cornell_camera(16, 16), pt.PTParams(max_depth=4), 16, 16,
             spp=4, seed=42)
         imgs.append(accum.resolve(film).cpu().numpy())

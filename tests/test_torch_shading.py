@@ -36,6 +36,8 @@ from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 from yulio_raytracer_tpu_torch import renderer
 from yulio_raytracer_tpu_torch.film import accum
 
+from probe_scene import PROBE_PRESETS, materials_probe
+
 torch.set_num_threads(2)
 R = 1024
 LOBE_RTOL, LOBE_ATOL = 2e-4, 2e-5
@@ -338,15 +340,13 @@ def test_lobe_type_matches(ltype):
 
 # ----------------------------------------------------------------- materials
 
-PRESETS = tuple(bs.PROBE_PRESETS)
-DELTA_SPECULAR = ('dielectric', 'glass', 'thindielectric', 'thinglass',
-                  'mirror', 'metallicpaint')
+PRESETS = tuple(PROBE_PRESETS)
 
 
 def _materials(pkg, name, tex_id, **extra):
     """A preset through pkg's make_material, and its variants: the other
     roughness / reflectivity branches, and Obj's extra maps."""
-    p = {**bs.PROBE_PRESETS[name], **extra}
+    p = {**PROBE_PRESETS[name], **extra}
     out = [pkg.make_material(name, p, tex_id=tex_id)]
     if name == 'obj':
         out.append(pkg.make_material(name, p, tex_id=tex_id, tex_ids={
@@ -388,8 +388,8 @@ def _atlas(pkg, rs):
 def test_shade_context_all_modes_match(medium, bump):
     """Every preset on a textured atlas (all seven texture modes, the
     Obj bump map where 'bump'), rays outside and inside the dielectric's
-    medium, against the reference; the port runs once with the table's
-    static gates and once with none."""
+    medium, against the reference; the port runs with the table's static
+    gates."""
     rs = np.random.RandomState(7)
     tids = rs.randint(0, 3, len(PRESETS))
     specs = {pkg: [m for name, tid in zip(PRESETS, tids)
@@ -421,24 +421,25 @@ def test_shade_context_all_modes_match(medium, bump):
         ty=jnp.asarray(ty))
     t_tab = {k: _t(v) for k, v in ttab.items()}
     t_tx = {k: _t(v) for k, v in ttx.items()}
-    for gates in (dict(tex_modes=modes, bump=has_bump), {}):
-        tl, taux = mat.shade_context(t_tab, t_tx, _t(mid).long(), _t(st),
-                                     _t(eta), _t(trans), ns=_t(ns),
-                                     tx=_t(tx), ty=_t(ty), **gates)
-        np.testing.assert_array_equal(tl['type'].numpy(),
-                                      _np(jl['type']).astype(np.int64))
-        for k in ('color', 'eta', 'exp', 'ceta', 'ck'):
-            np.testing.assert_allclose(tl[k].numpy(), _np(jl[k]), rtol=0,
-                                       atol=1e-6, err_msg=k)
-        # without gates the bump step runs, as the reference's does, and
-        # reads ns back where no material binds a bump map
-        assert ('ns' in taux) == (bump == 'bump' or not gates)
-        assert jaux.keys() == taux.keys() | {'ns'}
-        for k in taux:
-            np.testing.assert_allclose(
-                taux[k].numpy().astype(np.float32),
-                _np(jaux[k]).astype(np.float32), rtol=0, atol=1e-6,
-                err_msg=k)
+    tl, taux = mat.shade_context(t_tab, t_tx, _t(mid).long(), _t(st),
+                                 _t(eta), _t(trans), tex_modes=modes,
+                                 bump=has_bump, ns=_t(ns), tx=_t(tx),
+                                 ty=_t(ty))
+    np.testing.assert_array_equal(tl['type'].numpy(),
+                                  _np(jl['type']).astype(np.int64))
+    for k in ('color', 'eta', 'exp', 'ceta', 'ck'):
+        np.testing.assert_allclose(tl[k].numpy(), _np(jl[k]), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    # the reference's bump step always runs and reads ns back where no
+    # material binds a bump map; the port's runs only where one does
+    assert ('ns' in taux) == (bump == 'bump')
+    assert jaux.keys() == taux.keys() | {'ns'}
+    for k in taux:
+        np.testing.assert_allclose(
+            taux[k].numpy().astype(np.float32),
+            _np(jaux[k]).astype(np.float32), rtol=0, atol=1e-6, err_msg=k)
+    if bump == 'no_bump':
+        np.testing.assert_array_equal(_np(jaux['ns']), ns)
     if medium == 'inside':
         assert taux['inside'].any() and not taux['inside'].all()
     if bump == 'bump':
@@ -491,23 +492,6 @@ def test_authored_tangents_shade_table_matches():
 
 # ----------------------------------------------------------- materials probe
 
-def _jax_probe(name):
-    """builtin_scenes.materials_probe built with the JAX package."""
-    sb = jbs.cornell_box(with_boxes=False)
-    tid = sb.textures.add(jbs._procedural_texture(
-        np.random.RandomState(3), 0, res=16))
-    m = sb.add_material(jmat.make_material(name, bs.PROBE_PRESETS[name],
-                                           tex_id=tid))
-    uv = np.float32([[0, 0], [2, 0], [2, 2], [0, 2]])
-    for verts in (bs.SHORT_BOX, bs.TALL_BOX):
-        v = np.asarray(verts, np.float32)
-        for q in range(0, 20, 4):
-            sb.add_mesh(jmesh.HostMesh(
-                v[q:q + 4], np.int32([[0, 1, 2], [0, 2, 3]]), texcoords=uv,
-                material=m))
-    return sb
-
-
 def _trimmed_psnr(a, b, trim=0.01):
     """PSNR over the pixels left after dropping the trim share with the
     largest squared error."""
@@ -524,12 +508,10 @@ def _psnr(a, b):
 @pytest.mark.parametrize('name', PRESETS)
 def test_materials_probe_matches_jax_render(name):
     """The probe at 16^2, 4 spp, depth 4 through both packages: >= 60 dB
-    with equal ray counts.  A delta-specular preset (glass, mirror, thin
-    glass, the paint's clear coat) that misses 60 dB is held to 40 dB with
-    its PSNR and trimmed-1% PSNR printed: its specular chains amplify the
-    float association that torch and XLA order differently (ROADMAP C4)."""
-    sc = bs.materials_probe(name).commit(device='cpu')
-    js = _jax_probe(name).commit()
+    with equal ray counts, every preset (the delta-specular ones, whose
+    chains amplify float association (ROADMAP C4), included)."""
+    sc = materials_probe(name, bs, mat, mesh).commit(device='cpu')
+    js = materials_probe(name, jbs, jmat, jmesh).commit()
     assert sc.lobe_types == js.lobe_types
     for grp in ('geom', 'materials', 'textures'):
         for k, v in getattr(sc, grp).items():
@@ -547,8 +529,5 @@ def test_materials_probe_matches_jax_render(name):
     db, trimmed = _psnr(img, ref), _trimmed_psnr(img, ref)
     print(f"{name}: {db:.2f} dB, trimmed-1% {trimmed:.2f} dB, "
           f"{stats.num_rays:.0f} rays (JAX {jstats.num_rays:.0f})")
-    if name in DELTA_SPECULAR and db < 60.0:
-        assert db >= 40.0, (db, trimmed)
-    else:
-        assert db >= 60.0, (db, trimmed)
-        assert stats.num_rays == jstats.num_rays
+    assert db >= 60.0, (db, trimmed)
+    assert stats.num_rays == jstats.num_rays
