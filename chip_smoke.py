@@ -51,7 +51,11 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     rays, the hemisphere rays from their hits and the shadow rays to its
     6 lights, and the pair and binary kernels on every call of the
     sponza_64 golden's 'grid' render, all bit-equal, with the launch
-    counters zeroed before and every one of those kernels launched.
+    counters zeroed before and every one of those kernels launched; and
+    sphere_glass (leaf 32, under the ambient dome): the BVH4 pair over
+    256^2 camera rays, the hemisphere rays from their hits and the dome's
+    shadow rays from them, each with its finite tmax (the far hit of the
+    scene's bounding sphere x 1.5), bit-equal, K3 and K4 alone launched.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -62,8 +66,13 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     the binary kernels and again with ray_binning 'grid', 'treelet' and
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
     motion_64 through the motion kernel's two forms, sponza_64 (the
-    textured sponza_like of phase 3, depth 2, 4 spp) through the BVH4 kernels alone and again with ray_binning
-    'grid'; K10's entry point
+    textured sponza_like of phase 3, depth 2, 4 spp) through the BVH4
+    kernels alone and again with ray_binning 'grid', sphere_glass_64
+    (depth 8, 32 spp, the ambient dome, compacted) through the BVH4
+    kernels, each with its trimmed-1% PSNR beside; sphere_mirror_64 (the
+    HDRI light, sphere_mirror.ecs through the port's loader, depth 3, 8
+    spp) on the card against the port's CPU render, >= 40 dB; K10's entry
+    point
     (grid.intersect_march on the colonnade's 1M hemisphere rays) and
     K11's (sorted on those rays, unsorted on its camera rays), whose t
     and hit mask must equal K5's.
@@ -80,7 +89,8 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     colonnade's BVH4 through StereoCube face 1, 1536^2, 2 spp, depth 10,
     the dome shadow cap 120) with compaction 'off' and 'auto', 1 warm-up
     and 3 frames each, with its per-bounce widths and live counts, the
-    two modes' films of one seed bit-equal;
+    two modes' films of one seed bit-equal; and sphere_glass_512 (leaf 32,
+    512^2, 32 spp, depth 8) the same way;
  6. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3; K12's
@@ -199,6 +209,14 @@ def psnr(img, ref):
     return 10 * np.log10(max(float(img.max()), 1e-9) ** 2 / max(mse, 1e-20))
 
 
+def trimmed_psnr(img, ref, keep=0.99):
+    """PSNR over the 99% of values closest to the reference: a few
+    chaotic specular paths apart from a fault across the image."""
+    err = np.sort(((img - ref) ** 2).ravel())[:int(img.size * keep)]
+    return 10 * np.log10(max(float(img.max()), 1e-9) ** 2
+                         / max(float(err.mean()), 1e-20))
+
+
 def compare(name, kernel, plain, args, counts=None, labels=('kernel',
                                                               'plain'),
             other_tie_rule=False, exact=False):
@@ -281,13 +299,15 @@ def main():
     from yulio_raytracer_tpu_torch.film import accum
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
+    from yulio_raytracer_tpu_torch.io import ecs
     from yulio_raytracer_tpu_torch.ops import (binning, cuda_build, dense,
                                                grid, pairs, splitleaf,
                                                traverse, treelets, wide)
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch import renderer
-    from yulio_raytracer_tpu_torch.profile_frame import (STEREO_PARAMS,
-                                                         stereo_face_camera)
+    from yulio_raytracer_tpu_torch.profile_frame import (
+        SPHERE_MIRROR, STEREO_PARAMS, sphere_mirror_camera,
+        stereo_face_camera)
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
         frame_dense_calls, frame_motion_calls, frame_pair_calls,
@@ -892,6 +912,49 @@ def main():
         raise AssertionError(f"sponza's sets did not launch every kernel "
                              f"of its golden paths: {ran}")
     del s_cam, s_hemi, s_shadow, s_hit, dg, eps
+    # sphere_glass (bench.py bench_tpu_psnr_glass): 4,992 triangles under
+    # the ambient dome, at the sphere_glass_512 frame's leaf 32.  K3/K4 on
+    # its tables, bit-equal: 256^2 camera rays, the hemisphere rays from
+    # their hits, and the dome's shadow rays from those hits, each ending
+    # at the far hit of 1.5x the scene's bounding sphere (ray_sphere_tfar)
+    glass = bs.sphere_glass().commit(device=dev, leaf_size=32)
+    gen_g = torch.Generator(device=dev).manual_seed(SEED)
+    org, dirn, _ = camera_rays(glass, bs.sphere_glass_camera(256, 256), 256,
+                               256, dev, SEED)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    g_cam = (org, dirn, zeros, torch.full_like(zeros, float('inf')))
+    g_hit = wide.intersect_packet4(glass.nodes4, glass.tris, *g_cam)
+    *g_hemi, dg, eps = hemisphere_rays(glass, org, dirn, g_hit, gen_g, dev)
+    back = (dg['Ng'] * dirn).sum(-1, keepdim=True) > 0
+    g_shadow = shadow_rays(glass, dg, eps, g_hit.valid, gen_g, dev,
+                           torch.where(back, -dg['Ns'], dg['Ns']))
+    g_live = g_shadow[3] >= 0
+    if not bool(torch.isfinite(g_shadow[3]).all()) or not bool(g_live.any()):
+        raise AssertionError("sphere_glass: the dome's shadow rays have no "
+                             "finite tmax")
+    phase('kernels', f"sphere_glass: {glass.num_triangles} triangles, accel "
+          f"{glass.accel}, {glass.nodes4.shape[0]} BVH4 nodes, lights "
+          f"{[l['kind'] for l in glass.lights]}, dome radius "
+          f"{float(glass.lights[0]['bsphere_radius']):.2f}; "
+          f"{int(g_hit.valid.sum())} of {org.shape[0]} camera rays hit, "
+          f"dome shadow tmax median "
+          f"{float(g_shadow[3][g_live].median()):.2f}")
+    zero_counters()
+    g_stack = []
+    for what, rays, f in (('camera', g_cam, wide.intersect_packet4),
+                          ('hemisphere', g_hemi, wide.intersect_packet4),
+                          ('dome shadow', g_shadow, wide.occluded_packet4)):
+        counts = check(f, f'{f.__name__} (sphere_glass {what})',
+                       (glass.nodes4, glass.tris, *rays), exact=True)
+        g_stack.append((f'{f.__name__} ({what})', [counts]))
+    stack_depth("BVH4 on sphere_glass", g_stack)
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    phase('kernels', f"sphere_glass's sets bit-equal to the plain versions; "
+          f"launches {ran}")
+    if set(ran) != {'intersect_packet4', 'occluded_packet4'}:
+        raise AssertionError(f"sphere_glass's sets did not launch K3 and K4 "
+                             f"alone: {ran}")
+    del g_cam, g_hemi, g_shadow, g_hit, dg, eps
     phase('kernels', f"all kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -921,6 +984,10 @@ def main():
          (k3, k4)),
         ('sponza_64', sponza, bs.sponza_like_camera(64, 64), 2, 4, 'grid',
          (k3, k4, k5, k6, k8, k9)),
+        # glass and Beer media under the ambient dome, depth 8 past the
+        # roulette start ('auto' compacts), at the commit's default leaf
+        ('sphere_glass_64', bs.sphere_glass().commit(device=dev),
+         bs.sphere_glass_camera(64, 64), 8, 32, 'morton', (k3, k4)),
     )
     for name, scene, cam, depth, spp, binning, used in goldens:
         zero_counters()
@@ -936,7 +1003,8 @@ def main():
         db = psnr(img, ref)
         counts = {f.__name__: n for f, n in zip(counters, ran) if n}
         phase('golden', f"{name} (accel {scene.accel}, ray_binning "
-              f"{binning}): PSNR {db:.2f} dB vs {name}_cpu.npz (gate "
+              f"{binning}): PSNR {db:.2f} dB (trimmed-1% "
+              f"{trimmed_psnr(img, ref):.2f}) vs {name}_cpu.npz (gate "
               f"{PSNR_MIN}), {stats.num_rays:.0f} rays, kernel launches "
               f"{counts}, pair binnings {pairs.bin_rays.launches}")
         if db < PSNR_MIN:
@@ -976,6 +1044,38 @@ def main():
             raise AssertionError(f"{name}: a plain version ran on CUDA "
                                  "tensors in the main path")
         main_launches = [a + b for a, b in zip(main_launches, ran)]
+    # the HDRI light: sphere_mirror.ecs (the mirror ball under the
+    # lines.ppm map) through the port's own loader, its camera made from
+    # the parsed settings as the reference's api/output.py mono_camera
+    # does; rendered on the card and by the port on this machine's CPU
+    mst, msb = ecs.parse_ecs(SPHERE_MIRROR)
+    mcam = sphere_mirror_camera(64, 64)
+    mparams = pt.PTParams(max_depth=3)
+    mirror = msb.commit(device=dev, accel=mst.accel)
+    zero_counters()
+    film, stats = renderer.render_frame(mirror, mcam, mparams, 64, 64, spp=8,
+                                        seed=SEED)
+    img = accum.resolve(film).cpu().numpy()
+    ran = [f.launches for f in counters]
+    counts = {f.__name__: n for f, n in zip(counters, ran) if n}
+    cpu_film, _ = renderer.render_frame(msb.commit(device='cpu',
+                                                   accel=mst.accel),
+                                        mcam, mparams, 64, 64, spp=8,
+                                        seed=SEED)
+    ref = accum.resolve(cpu_film).numpy()
+    db = psnr(img, ref)
+    phase('golden', f"sphere_mirror_64 (HDRI {mirror.lights[0]['width']}x"
+          f"{mirror.lights[0]['height']}, accel {mirror.accel}, depth 3, 8 "
+          f"spp): PSNR {db:.2f} dB (trimmed-1% {trimmed_psnr(img, ref):.2f})"
+          f" vs the port's CPU render (gate {PSNR_MIN}), "
+          f"{stats.num_rays:.0f} rays, kernel launches {counts}")
+    if (not np.isfinite(img).all() or db < PSNR_MIN
+            or set(counts) != {'intersect_packet4', 'occluded_packet4'}
+            or any(f.cuda_calls for f in plains)):
+        raise AssertionError(f"sphere_mirror_64: PSNR {db:.2f}, launches "
+                             f"{counts}: not K3/K4 alone, or disagrees with "
+                             "the CPU")
+    main_launches = [a + b for a, b in zip(main_launches, ran)]
     # K11's entry points, the reference's bench_incoherent.py 'split'
     # runs: sorted on the 1M bounce-1 rays, unsorted on the camera rays;
     # their hits are K5's
@@ -1060,61 +1160,73 @@ def main():
               + (f", commit {commits[name]:.2f} s" if name in commits else '')
               + f" on {card}")
 
+    def timed_modes(name, scene, cam, params, res, spp, desc):
+        """A frame past the roulette start with compaction 'off' and
+        'auto', 1 warm-up and 3 frames each: frame_s, Mrays/s, peak
+        memory, launches per frame (BVH4's alone), the 'auto' passes'
+        per-bounce widths and live counts, and the two modes' films of
+        one seed held bit-equal."""
+        films, lives = {}, {}
+        for how in ('off', 'auto'):
+            torch.cuda.reset_peak_memory_stats()
+            renderer.render_frame(scene, cam, params, res, res, spp=spp,
+                                  seed=SEED, compaction=how)
+            zero_counters()
+            runs = []
+            for i in (1, 2, 3):
+                bounces = []
+                film, st = renderer.render_frame(
+                    scene, cam, params, res, res, spp=spp, seed=SEED + i,
+                    compaction=how, bounce_stats=bounces)
+                runs.append(st)
+                if i == 1:
+                    films[how], lives[how] = film.rgb_sum, bounces
+            per_frame = {f.__name__: f.launches / len(runs)
+                         for f in (*counters, pairs.bin_rays) if f.launches}
+            mrps = sorted(s.mrps for s in runs)
+            secs = sorted(s.seconds for s in runs)
+            phase('frame', f"{name} ({desc}, accel {scene.accel}, compaction "
+                  f"{how}): {mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, max "
+                  f"{mrps[2]:.2f}), frame_s {secs[1]:.3f} (min {secs[0]:.3f}, "
+                  f"max {secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} "
+                  f"Mrays/frame, peak mem "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                  f"launches per frame {per_frame} on {card}")
+            if set(per_frame) != {'intersect_packet4', 'occluded_packet4'}:
+                raise AssertionError(f"{name} ({how}) ran other kernels "
+                                     f"than BVH4's: {per_frame}")
+        starts = [i for i, b in enumerate(lives['auto']) if b['depth'] == 0]
+        if lives['off'] or not starts or starts[0] != 0:
+            raise AssertionError(f"{name}: compaction 'off' compacted, or "
+                                 "'auto' did not")
+        for n, (p0, p1) in enumerate(zip(starts, starts[1:] + [None])):
+            phase('frame', f"{name} (compaction auto, seed {SEED + 1}) pass "
+                  f"{n + 1} of {len(starts)} by bounce (depth, width, live, "
+                  "ms): " + ', '.join(
+                      f"({b['depth']}, {b['width']}, {b['live']}, "
+                      f"{b['seconds'] * 1e3:.1f})"
+                      for b in lives['auto'][p0:p1]))
+        differ = (films['off'] != films['auto']).any(dim=-1)
+        phase('frame', f"{name} films of compaction off and auto: bit-equal "
+              f"{not bool(differ.any())}, {int(differ.sum())} pixels differ, "
+              f"largest difference "
+              f"{float((films['off'] - films['auto']).abs().max()):.3g}")
+        if differ.any():
+            raise AssertionError(f"{name}: the films of compaction off and "
+                                 "auto differ")
+
     # the production stereo face (bench.py bench_stereo_face): BVH4, depth
     # 10 past the roulette start, the dome cap 120, two passes of 1536^2
-    # rays; without compaction, then with it ('auto' compacts here), the
-    # films of one seed held bit-equal
-    params = pt.PTParams(**STEREO_PARAMS)
-    stereo_cam = stereo_face_camera(1536, 1536)
-    films, lives = {}, {}
-    for how in ('off', 'auto'):
-        torch.cuda.reset_peak_memory_stats()
-        renderer.render_frame(colonnade, stereo_cam, params, 1536, 1536,
-                              spp=2, seed=SEED, compaction=how)
-        zero_counters()
-        runs = []
-        for i in (1, 2, 3):
-            bounces = []
-            film, st = renderer.render_frame(
-                colonnade, stereo_cam, params, 1536, 1536, spp=2,
-                seed=SEED + i, compaction=how, bounce_stats=bounces)
-            runs.append(st)
-            if i == 1:
-                films[how], lives[how] = film.rgb_sum, bounces
-        per_frame = {f.__name__: f.launches / len(runs)
-                     for f in (*counters, pairs.bin_rays) if f.launches}
-        mrps = sorted(s.mrps for s in runs)
-        secs = sorted(s.seconds for s in runs)
-        phase('frame', f"stereo_face_1536 (1536^2, 2 spp, depth 10, "
-              f"t_max_shadow_ray 120, accel {colonnade.accel}, compaction "
-              f"{how}): {mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, max "
-              f"{mrps[2]:.2f}), frame_s {secs[1]:.3f} (min {secs[0]:.3f}, "
-              f"max {secs[2]:.3f}), {runs[0].num_rays / 1e6:.1f} "
-              f"Mrays/frame, peak mem "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches per frame {per_frame} on {card}")
-        if set(per_frame) != {'intersect_packet4', 'occluded_packet4'}:
-            raise AssertionError(f"stereo_face_1536 ({how}) ran other "
-                                 f"kernels than BVH4's: {per_frame}")
-    starts = [i for i, b in enumerate(lives['auto']) if b['depth'] == 0]
-    if lives['off'] or not starts or starts[0] != 0:
-        raise AssertionError("stereo_face_1536: compaction 'off' compacted, "
-                             "or 'auto' did not")
-    for n, (p0, p1) in enumerate(zip(starts, starts[1:] + [None])):
-        phase('frame', f"stereo_face_1536 (compaction auto, seed {SEED + 1})"
-              f" pass {n + 1} of {len(starts)} by bounce (depth, width, "
-              "live, ms): " + ', '.join(
-                  f"({b['depth']}, {b['width']}, {b['live']}, "
-                  f"{b['seconds'] * 1e3:.1f})" for b in lives['auto'][p0:p1]))
-    differ = (films['off'] != films['auto']).any(dim=-1)
-    phase('frame', f"stereo_face_1536 films of compaction off and auto: "
-          f"bit-equal {not bool(differ.any())}, {int(differ.sum())} pixels "
-          f"differ, largest difference "
-          f"{float((films['off'] - films['auto']).abs().max()):.3g}")
-    if differ.any():
-        raise AssertionError("stereo_face_1536: the films of compaction off "
-                             "and auto differ")
-    del films
+    # rays
+    timed_modes('stereo_face_1536', colonnade, stereo_face_camera(1536, 1536),
+                pt.PTParams(**STEREO_PARAMS), 1536, 2,
+                "1536^2, 2 spp, depth 10, t_max_shadow_ray 120")
+    # sphere_glass at its camera's own size with the golden's spp and
+    # depth: the ambient dome's NEE and escaped rays, glass chains past the
+    # roulette start; two passes of 2^22 rays
+    timed_modes('sphere_glass_512', glass, bs.sphere_glass_camera(512, 512),
+                pt.PTParams(max_depth=8), 512, 32,
+                "512^2, 32 spp, depth 8, leaf 32")
 
     # ---- 6. bounds ---------------------------------------------------------
     summary = []

@@ -126,9 +126,9 @@ def test_trace_compacted_matches_trace_per_ray():
         w, h = res
         pid = torch.arange(w * h).repeat(3)
         sid = torch.arange(3).repeat_interleave(w * h)
-        org, dirn, tm = renderer._gen_rays(scene, cam, w, h,
-                                           patterns.grid_scalars(3), pid,
-                                           sid, 5)
+        org, dirn, tm, _ = renderer._gen_rays(scene, cam, w, h,
+                                              patterns.grid_scalars(3), pid,
+                                              sid, 5)
         params = pt.PTParams(max_depth=8)
         ref, nref = pt.trace(scene, params, org, dirn, 5, pid, sid, tm)
         stats = []

@@ -1,5 +1,7 @@
 """The torch port's RNG, sampling, camera, shading and light functions held
 against the JAX package on the same numpy inputs."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,8 @@ from yulio_raytracer_tpu_torch.film import tonemap
 
 torch.set_num_threads(2)
 N = 100_000
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'assets', 'scenes')
 
 
 def _keys(seed=0):
@@ -99,6 +103,14 @@ def test_shape_samplers_match():
     ref = jss.uniform_sample_triangle(u, v, a, b, c)
     got = ss.uniform_sample_triangle(_t(u), _t(v), _t(a), _t(b), _t(c))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    for r, g in zip(jss.uniform_sample_sphere(u, v),
+                    ss.uniform_sample_sphere(_t(u), _t(v))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5)
+    angle = np.float32(np.deg2rad(7.5))
+    for r, g in zip(jss.uniform_sample_cone(u, v, angle),
+                    ss.uniform_sample_cone(_t(u), _t(v), _t(angle))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def _lambertian_lobes(rs, r):
@@ -215,12 +227,30 @@ def test_tonemap_matches():
                                       np.asarray(jtm.to_srgb_u8(ref)))
 
 
+def _load_dae():
+    from yulio_raytracer_tpu_torch.io import ecs
+    from yulio_raytracer_tpu_torch.scene import SceneBuilder
+    ecs.load_scene_file(os.path.join(ASSETS, 'test_room.dae'),
+                        ecs.RenderSettings(), SceneBuilder())
+
+
+def _load_billboard_xml():
+    from yulio_raytracer_tpu_torch.io import xml_scene
+    from yulio_raytracer_tpu_torch.scene import SceneBuilder
+    xml_scene.load_xml(os.path.join(ASSETS, 'test_stereo.xml'),
+                       SceneBuilder())
+
+
+def _parse_stereo_entry():
+    from yulio_raytracer_tpu_torch.io import ecs
+    ecs.parse_ecs(os.path.join(ASSETS, 'test_stereo.ecs'))
+
+
 @pytest.mark.parametrize('make', [
-    lambda: lights.set_scene_bounds({'kind': 'ambient'}, np.zeros(3),
-                                    np.ones(3)),
-    lambda: lights.sample({'kind': 'point'}, None, None, None),
-    lambda: lights.sample({'kind': 'spot'}, None, None, None),
-    lambda: lights.le_area({'kind': 'hdri'}, None),
+    _load_dae,                          # Collada (ROADMAP A6)
+    _load_billboard_xml,                # faceCamera billboards (A6)
+    lambda: lights.le_area(lights.ambient((1, 1, 1)), None),
+    _parse_stereo_entry,                # the stereo entry scene (A6)
 ])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

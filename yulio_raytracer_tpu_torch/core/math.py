@@ -2,11 +2,13 @@
 
 Counterpart of `yulio_raytracer_tpu/core/math.py`, limited to what the
 ported path calls: the vec3 helpers, reflect and refract, the frame, the
-affine transforms and rotations the cameras build, and smoothstep.  Affine spaces keep the
+affine transforms and rotations the cameras build, smoothstep, and the
+ambient dome's bounding sphere and far hit.  Affine spaces keep the
 (4, 3) row layout [vx; vy; vz; p] of the reference.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -110,3 +112,23 @@ def rotate_about_axis(v, u, angle):
 def smoothstep(e0, e1, x):
     t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+def bsphere_of_bbox(lower, upper):
+    """Bounding sphere (center, radius) of a bbox, on the host (the
+    reference's getBSphere; the ambient light scales the radius by
+    1.5)."""
+    center = 0.5 * (np.asarray(lower) + np.asarray(upper))
+    radius = float(np.linalg.norm(np.asarray(upper) - center))
+    return center.astype(np.float32), np.float32(radius)
+
+
+def ray_sphere_tfar(org, direction, center, radius):
+    """Far intersection of rays with a sphere, for the ambient dome's
+    shadow tmax; org may lie inside the sphere.  Returns (hit, t_far)."""
+    oc = org - center
+    b = dot(direction, oc)
+    c = dot(oc, oc) - radius * radius
+    disc = b * b - c
+    t_far = -b + torch.sqrt(torch.clamp(disc, min=0.0))
+    return (disc >= 0.0) & (t_far > 0.0), t_far

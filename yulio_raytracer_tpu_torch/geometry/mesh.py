@@ -1,10 +1,10 @@
 """SoA triangle geometry, host side (numpy only).
 
 The part of `yulio_raytracer_tpu/geometry/mesh.py` that the port's commit
-runs, for static and moving meshes with or without authored tangents (no
-camera-aligned billboards): `pack_meshes`, `woop_matrices` and
-`add_shade_table` produce the same arrays, so a scene committed by either
-package holds identical tables.
+and loaders run, for static and moving meshes with or without authored
+tangents (no camera-aligned billboards): `HostMesh.transformed`,
+`pack_meshes`, `woop_matrices` and `add_shade_table` produce the same
+arrays, so a scene committed by either package holds identical tables.
 """
 from __future__ import annotations
 
@@ -37,6 +37,28 @@ class HostMesh:
     cull: int = CULL_NONE
     illum_mask: int = -1
     shadow_mask: int = -1
+
+    def transformed(self, xfm: np.ndarray) -> "HostMesh":
+        """Bake an affine transform ((4, 3) rows [vx; vy; vz; p]) into the
+        vertices, as TriangleMesh::transform (trianglemesh_normals.cpp:
+        43-57): normals by the inverse transpose, renormalized."""
+        l, p = xfm[:3], xfm[3]
+        pos = self.positions @ l + p
+        nrm = None
+        if self.normals is not None:
+            nrm = self.normals @ np.linalg.inv(l)
+            nlen = np.linalg.norm(nrm, axis=-1, keepdims=True)
+            nrm = (nrm / np.maximum(nlen, 1e-20)).astype(np.float32,
+                                                          copy=False)
+
+        def vec(t):
+            return np.asarray(t @ l, np.float32) if t is not None else None
+
+        return HostMesh(pos.astype(np.float32, copy=False), self.triangles,
+                        nrm, self.texcoords, vec(self.motions),
+                        vec(self.tangent_x), vec(self.tangent_y),
+                        self.material, self.light, self.cull,
+                        self.illum_mask, self.shadow_mask)
 
 
 @dataclass

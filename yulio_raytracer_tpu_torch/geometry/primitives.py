@@ -62,6 +62,31 @@ def tessellate_sphere(center, radius, num_theta: int, num_phi: int,
                     texcoords.astype(np.float32), **mesh_kw)
 
 
+def tessellate_disk(center, normal, radius, num_phi: int = 64,
+                    **mesh_kw) -> HostMesh:
+    """Fan-triangulated disk (shapes/disk.h)."""
+    center = np.asarray(center, np.float32)
+    n = np.asarray(normal, np.float64)
+    n = n / max(np.linalg.norm(n), 1e-20)
+    h = np.eye(3)[np.argmin(np.abs(n))]
+    dx = np.cross(h, n)
+    dx /= max(np.linalg.norm(dx), 1e-20)
+    dy = np.cross(n, dx)
+    positions = [center]
+    texcoords = [[0.5, 0.5]]
+    tris = []
+    for ip in range(num_phi):
+        ph = ip * 2.0 * np.pi / num_phi
+        positions.append(center + radius * (np.cos(ph) * dx + np.sin(ph) * dy))
+        texcoords.append([0.5 + 0.5 * np.cos(ph), 0.5 + 0.5 * np.sin(ph)])
+        tris.append([0, 1 + ip, 1 + (ip + 1) % num_phi])
+    normals = np.repeat(n[None, :], len(positions), axis=0)
+    return HostMesh(np.asarray(positions, np.float32),
+                    np.asarray(tris, np.int32),
+                    normals.astype(np.float32),
+                    np.asarray(texcoords, np.float32), **mesh_kw)
+
+
 def single_triangle(v0, v1, v2, **mesh_kw) -> HostMesh:
     pos = np.asarray([v0, v1, v2], np.float32)
     return HostMesh(pos, np.asarray([[0, 1, 2]], np.int32), **mesh_kw)

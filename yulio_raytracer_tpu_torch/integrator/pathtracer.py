@@ -38,8 +38,14 @@ bounce one at a time and, where rays died, flushes their radiance and
 gathers the live rays to a prefix in their order, so later bounces run
 at the live width; it is bit-identical per ray to `trace`.
 
-Not in this slice: ray sorting under 'morton', environment lights and
-backplates, the precomputed sampler, the triangle-sharded mesh axis.
+Escaped rays take the environment lights' radiance (the ambient dome,
+HDRI maps) unless the previous bounce sampled a diffuse lobe; with a
+backplate, rays that no bounce has bent take its texel at their camera
+uv instead.  A scene without environment lights, rendered without a
+backplate, runs no op for them.
+
+Not in this slice: ray sorting under 'morton', the precomputed sampler,
+the triangle-sharded mesh axis.
 """
 from __future__ import annotations
 
@@ -63,11 +69,13 @@ from ..shading import materials as gmat
 ULP = 1.1920929e-7
 # PTParams.ray_binning: the reference's five
 BINNINGS = ('morton', 'none', 'grid', 'dense', 'treelet')
-# profiler ranges of the bounce's shading (profile_frame reads their
-# device time): the shade context (its texture fetches included) and the
-# lobes' eval and sampling
+# profiler ranges of the bounce (profile_frame reads their device time):
+# the shade context (its texture fetches included), the lobes' eval and
+# sampling, the light samples of the NEE and the escaped rays' radiance
 SPAN_SHADE = 'yrt.shade_context'
 SPAN_LOBES = 'yrt.lobes'
+SPAN_LIGHTS = 'yrt.light_sample'
+SPAN_ENV = 'yrt.env'
 
 
 
@@ -213,12 +221,13 @@ def _occluded_lights(scene, p, wi, tnear, tfar, time, sort_rays, binning):
     return torch.cat(occ)
 
 
-def _init_state(org, dirn, pixel_id, sample_id, time=None):
+def _init_state(org, dirn, pixel_id, sample_id, time=None, pixel_uv=None):
     """Fresh wavefront state for primary rays (with each ray's time in a
-    motion scene)."""
+    motion scene, and its camera uv and unbent flag under a
+    backplate)."""
     r, dev = org.shape[0], org.device
     ones = torch.ones((r,), device=dev)
-    return {
+    state = {
         'org': org,
         'dir': dirn,
         'L': torch.zeros((r, 3), device=dev),
@@ -233,22 +242,35 @@ def _init_state(org, dirn, pixel_id, sample_id, time=None):
         'sid': sample_id,
         'time': time,
     }
+    if pixel_uv is not None:
+        state['uv'] = pixel_uv
+        state['unbent'] = torch.ones((r,), dtype=torch.bool, device=dev)
+    return state
 
 
 def _light_groups(lights):
-    """NEE groups: same-kind lights sampled in one batched call, in order
-    of each kind's first light; each group carries its light indices
-    (the RNG dims) and its parameters stacked to (nk, 1, ...)."""
+    """NEE groups, in the reference's order (pathtracer.py:359-367): the
+    lights keyed by kind, and an HDRI by (kind, width, height), in order
+    of each key's first light.  A group samples its lights in one
+    batched call with their parameters stacked to (nk, 1, ...); an HDRI
+    light, whose tables do not stack, is sampled alone, unstacked.  Each
+    group carries its light indices (the RNG dims)."""
     groups = {}
     for li, l in enumerate(lights):
-        groups.setdefault(l['kind'], []).append(li)
+        key = ((l['kind'], l['width'], l['height']) if l['kind'] == 'hdri'
+               else l['kind'])
+        groups.setdefault(key, []).append(li)
     out = []
-    for kind, idxs in groups.items():
-        stacked = {'kind': kind}
-        for key, val in lights[idxs[0]].items():
+    for key, idxs in groups.items():
+        if isinstance(key, tuple):          # HDRI lights of one map size
+            out.extend(([li], lights[li], [lights[li]['illum_mask']
+                                           & rng._MASK]) for li in idxs)
+            continue
+        stacked = {'kind': key}
+        for k, val in lights[idxs[0]].items():
             if isinstance(val, torch.Tensor):
-                stacked[key] = torch.stack(
-                    [lights[i][key] for i in idxs])[:, None]
+                stacked[k] = torch.stack(
+                    [lights[i][k] for i in idxs])[:, None]
         masks = [lights[i]['illum_mask'] & rng._MASK for i in idxs]
         out.append((idxs, stacked, masks))
     return out
@@ -275,9 +297,32 @@ def _shadow_cap(params, seed, pixel_id, sample_id, wi, dims):
                                                    torch.abs(dot_up)), 0.0)
 
 
-def _make_bounce(scene, params: PTParams, seed):
-    """The per-bounce wavefront body: bounce(state, depth) -> state."""
+def _escaped(state, miss, wo, env_lights, backplate):
+    """Radiance of the escaped rays (miss) along wo (cpp:79-92): a
+    backplate's texel at the camera uv for rays no bounce has bent,
+    else the environment lights' unless the last bounce sampled a
+    diffuse lobe (ignore_vl)."""
+    env = sum(glights.le_env(l, wo) for l in env_lights) if env_lights \
+        else torch.zeros_like(wo)
+    seen = ~state['ignore_vl']
+    env_l = 0.0
+    if backplate is not None:
+        bp_h, bp_w = backplate.shape[0], backplate.shape[1]
+        uv = state['uv']
+        bx = torch.clamp((uv[:, 0] * bp_w).to(torch.int64), 0, bp_w - 1)
+        by = torch.clamp((uv[:, 1] * bp_h).to(torch.int64), 0, bp_h - 1)
+        env_l = torch.where(state['unbent'][:, None], backplate[by, bx], 0.0)
+        seen = seen & ~state['unbent']
+    env_l = env_l + torch.where(seen[:, None], env, 0.0)
+    return torch.where(miss[:, None], state['throughput'] * env_l, 0.0)
+
+
+def _make_bounce(scene, params: PTParams, seed, backplate=None):
+    """The per-bounce wavefront body: bounce(state, depth) -> state.
+    backplate: an optional (H, W, 3) image that the state's unbent rays
+    see where they escape (the state then carries 'uv' and 'unbent')."""
     lights = scene.lights
+    env_lights = scene.env_lights
     dim_light, dim_stride = _dim_layout(len(lights))
     groups = _light_groups(lights)
     has_shadow_cap = math.isfinite(params.t_max_shadow_ray)
@@ -301,7 +346,10 @@ def _make_bounce(scene, params: PTParams, seed):
         state['num_rays'] = state['num_rays'] + torch.sum(active)
         dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
         wo = -dirn
-        # escaped rays: no environment lights or backplate in this slice
+        if env_lights or backplate is not None:
+            with torch.profiler.record_function(SPAN_ENV):
+                L = L + _escaped(state, active & ~hit.valid, wo, env_lights,
+                                 backplate)
         active = active & hit.valid
 
         # face-forward normals (cpp:94-98)
@@ -321,6 +369,8 @@ def _make_bounce(scene, params: PTParams, seed):
 
         # area-light emission (cpp:113-115)
         for li, l in enumerate(lights):
+            if l['kind'] != 'triangle':
+                continue
             is_hit_light = (active & (dg['light_id'] == li) & ~backfacing
                             & ~state['ignore_vl'])
             L = L + torch.where(is_hit_light[:, None],
@@ -337,7 +387,8 @@ def _make_bounce(scene, params: PTParams, seed):
                                  for li in idxs], device=dev)[:, None]
             mask_ok = (torch.tensor(masks, device=dev)[:, None] & illum) != 0
             u2 = rng.uniform2(seed, pixel_id, sample_id, dims)  # (nk, R, 2)
-            le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
+            with torch.profiler.record_function(SPAN_LIGHTS):
+                le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
             cand = (use_dl & mask_ok & (pdf > 0.0)
                     & torch.any(le > 0.0, dim=-1))
             with torch.profiler.record_function(SPAN_LOBES):
@@ -424,20 +475,35 @@ def _make_bounce(scene, params: PTParams, seed):
                                             state['medium_trans'])
         state['eta_rr'] = torch.where(cont, state['eta_rr'] * samp['eta'],
                                       state['eta_rr'])
+        if 'unbent' in state:
+            state['unbent'] = state['unbent'] & torch.all(
+                torch.abs(state['dir'] - dirn) < 1e-12, dim=-1)
         return state
 
     return bounce
 
 
+def _backplate_uv(pixel_uv, backplate):
+    """The camera uv the state carries: only under a backplate."""
+    if backplate is None:
+        return None
+    if pixel_uv is None:
+        raise ValueError("a backplate needs each ray's pixel_uv")
+    return pixel_uv
+
+
 def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id,
-          time=None):
+          time=None, pixel_uv=None, backplate=None):
     """Radiance along primary rays.  org/dirn: (R, 3) f32; pixel_id,
     sample_id: (R,) int64 holding u32 RNG keys; time: (R,) f32 in [0, 1]
-    for a motion scene (every bounce and shadow ray of a path keeps it).
-    Returns (L (R, 3), num_rays (scalar tensor: closest-hit rays plus
-    shadow candidates))."""
-    state = _init_state(org, dirn, pixel_id, sample_id, time)
-    bounce = _make_bounce(scene, params, seed)
+    for a motion scene (every bounce and shadow ray of a path keeps it);
+    backplate: an optional (H, W, 3) f32 image on the rays' device, seen
+    by escaped rays that no bounce bent at their pixel_uv (R, 2) in
+    [0, 1)^2.  Returns (L (R, 3), num_rays (scalar tensor: closest-hit
+    rays plus shadow candidates))."""
+    state = _init_state(org, dirn, pixel_id, sample_id, time,
+                        _backplate_uv(pixel_uv, backplate))
+    bounce = _make_bounce(scene, params, seed, backplate)
     for depth in range(params.max_depth):
         state = bounce(state, depth)
     return state['L'], state['num_rays']
@@ -461,7 +527,8 @@ def _compact(state, live, n, l_out):
 
 
 def trace_compacted(scene, params: PTParams, org, dirn, seed, pixel_id,
-                    sample_id, time=None, bounce_stats=None):
+                    sample_id, time=None, bounce_stats=None, pixel_uv=None,
+                    backplate=None):
     """trace() one bounce at a time with live-ray compaction between
     bounces (pathtracer.py:862-931): after each bounce the live count is
     read (one host sync), and where it is below the width the dead
@@ -475,9 +542,10 @@ def trace_compacted(scene, params: PTParams, org, dirn, seed, pixel_id,
     entry, which end with the device synchronised.  Returns (L (R, 3),
     num_rays) as trace()."""
     r = org.shape[0]
-    state = _init_state(org, dirn, pixel_id, sample_id, time)
+    state = _init_state(org, dirn, pixel_id, sample_id, time,
+                        _backplate_uv(pixel_uv, backplate))
     state['rid'] = torch.arange(r, device=org.device)
-    bounce = _make_bounce(scene, params, seed)
+    bounce = _make_bounce(scene, params, seed, backplate)
     l_out = torch.zeros((r, 3), device=org.device)
     t0 = _time.perf_counter()
     for depth in range(params.max_depth):

@@ -1,8 +1,8 @@
 """Built-in test and benchmark scenes.
 
 Counterpart of `yulio_raytracer_tpu/io/builtin_scenes.py` (the cornell
-box, the colonnade, the textured sponza_like atrium and the motion field
-with their cameras, and the cornell stereo face): the same meshes,
+box, the colonnade, the textured sponza_like atrium, the motion field and
+sphere_glass with their cameras, and the cornell stereo face): the same meshes,
 materials, textures and lights in the same order, and the same random
 draws in the same order, so both packages commit equal tables.
 """
@@ -103,6 +103,28 @@ def cornell_stereo_camera(width: int = 64, height: int = 64,
     l2w = cam.look_at((278.0, 273.0, 150.0), (278.0, 273.0, 559.0),
                       (0.0, 1.0, 0.0))
     return cam.make_stereo_rig(l2w, scene_scale=10.0)[face]
+
+
+def sphere_glass() -> SceneBuilder:
+    """The sphere_glass golden scene: a glass sphere (Beer medium) over a
+    textured floor under the ambient dome, loaded from
+    assets/scenes/sphere_glass.xml through the port's ecs loader."""
+    import os
+    from . import ecs
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))), 'assets', 'scenes')
+    sb = SceneBuilder()
+    ecs.load_scene_file(os.path.join(assets, 'sphere_glass.xml'),
+                        ecs.RenderSettings(), sb)
+    return sb
+
+
+def sphere_glass_camera(width: int = 512, height: int = 512):
+    """The canonical sphere-scene viewpoint (sphere_view.ecs: vp -200 100
+    200, vi 0 100 200, fov 90)."""
+    l2w = cam.look_at((-200.0, 100.0, 200.0), (0.0, 100.0, 200.0),
+                      (0.0, 1.0, 0.0))
+    return cam.Pinhole(l2w, angle=90.0, aspect=width / height)
 
 
 def colonnade(cols_x: int = 8, cols_z: int = 4, tess=(16, 24),

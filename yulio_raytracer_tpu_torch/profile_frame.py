@@ -4,9 +4,10 @@ torch.profiler on the card.
     python -m yulio_raytracer_tpu_torch.profile_frame [cell ...]
         [--compaction auto|on|off]
 
-The cells are the frames chip_smoke.py times (default: all of them),
-each under render_frame's `compaction` (default 'auto', which compacts
-only stereo_face_1536, the one cell past the roulette start).  Each is
+The cells are the frames chip_smoke.py times and sphere_mirror_512, the
+HDRI light's (default: all of them), each under render_frame's
+`compaction` (default 'auto', which compacts only stereo_face_1536 and
+sphere_glass_512, the cells past the roulette start).  Each is
 committed on the card and rendered once to warm up, three times with
 the clock alone, then once under the profiler.  One line per cell:
 the commit's seconds and the device bytes the committed scene holds, the
@@ -15,8 +16,8 @@ frame, the device's busy time (the sum of the device activities' time;
 the port runs one stream, so they do not overlap) and its share of the
 wall, the device launches, each port kernel's calls and device time,
 the rest of the device time (the torch glue of the bounce), the device
-time of the glue's shading ranges (SPANS: the shade context, its texture
-fetches, the lobes), the glue's largest device activities by name, and
+time of the glue's ranges (SPANS: the shade context, its texture
+fetches, the lobes, the light samples, the environment lookups), the glue's largest device activities by name, and
 the frames' peak device memory.  The last line is the same as one JSON
 object.  Needs a CUDA device.
 """
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import sys
 import time
@@ -34,7 +36,11 @@ from . import renderer
 from .cameras import cameras as cam
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
+from .io import ecs
 from .shading import textures as gtex
+
+SPHERE_MIRROR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'assets', 'scenes', 'sphere_mirror.ecs')
 
 
 def stereo_face_camera(width: int = 1536, height: int = 1536):
@@ -43,6 +49,14 @@ def stereo_face_camera(width: int = 1536, height: int = 1536):
     scene scale 0.05.  Every face is square; the size is the frame's."""
     l2w = cam.look_at((-9.0, 2.2, 0.0), (10.0, 1.6, 0.0), (0.0, 1.0, 0.0))
     return cam.make_stereo_rig(l2w, scene_scale=0.05)[1]
+
+
+def sphere_mirror_camera(width: int, height: int):
+    """The camera sphere_mirror.ecs names, made as the reference's
+    api/output.py mono_camera makes it."""
+    st, _ = ecs.parse_ecs(SPHERE_MIRROR)
+    return cam.Pinhole(cam.look_at(st.cam_pos, st.cam_look_at, st.cam_up),
+                       angle=st.fov, aspect=width / height)
 
 
 # the production config: depth 10 past rr_depth 5, the dome cap 120
@@ -72,10 +86,20 @@ CELLS = {
                          stereo_face_camera, 1536, 2, STEREO_PARAMS),
     'sponza_like_1024': (lambda: bs.sponza_like().commit(leaf_size=32),
                          bs.sponza_like_camera, 1024, 8, dict(max_depth=4)),
+    # the sphere_glass golden's spp and depth at its camera's own size:
+    # the dome's NEE and escaped rays, glass chains past the roulette
+    'sphere_glass_512': (lambda: bs.sphere_glass().commit(leaf_size=32),
+                         bs.sphere_glass_camera, 512, 32, dict(max_depth=8)),
+    # the HDRI light (lines.ppm) over a mirror ball: its NEE samples the
+    # map's distribution, its escaped rays read the map
+    'sphere_mirror_512': (lambda: ecs.parse_ecs(SPHERE_MIRROR)[1].commit(),
+                          sphere_mirror_camera, 512, 8, dict(max_depth=3)),
 }
 # the bounce's profiler ranges: the shade context (its texture fetches
-# included), the texture fetches, and the lobes' eval and sampling
-SPANS = (pt.SPAN_SHADE, gtex.SPAN_FETCH, pt.SPAN_LOBES)
+# included), the texture fetches, the lobes' eval and sampling, the NEE's
+# light samples and the escaped rays' environment and backplate lookups
+SPANS = (pt.SPAN_SHADE, gtex.SPAN_FETCH, pt.SPAN_LOBES, pt.SPAN_LIGHTS,
+         pt.SPAN_ENV)
 # the glue's device activities reported by name, largest first
 TOP_GLUE = 6
 # the port's kernels by their __global__ names (csrc/*.cu)

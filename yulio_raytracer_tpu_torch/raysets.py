@@ -16,6 +16,7 @@ import torch
 
 from . import renderer
 from .integrator import pathtracer as pt
+from .lights import lights as glights
 from .ops import intersect as ops_i
 from .ops import dense, pairs, traverse, treelets
 from .sampling import patterns
@@ -28,7 +29,7 @@ def camera_rays(scene, cam, width, height, dev, seed):
     order = torch.as_tensor(renderer._tile_order(width, height), device=dev)
     sid = torch.zeros_like(order)
     return renderer._gen_rays(scene, cam, width, height,
-                              patterns.grid_scalars(1), order, sid, seed)
+                              patterns.grid_scalars(1), order, sid, seed)[:3]
 
 
 def scattered_rays(scene, n, gen, dev):
@@ -59,18 +60,25 @@ def hemisphere_rays(scene, org, dirn, hit, gen, dev):
     return o, wi, torch.zeros_like(tf), tf, dg, eps
 
 
-def shadow_rays(scene, dg, eps, valid, gen, dev):
+def shadow_rays(scene, dg, eps, valid, gen, dev, ns=None):
     """Rays from every hit point to a random point on every light, as the
-    NEE batch lays them out (light-major); missed rays are dead lanes."""
+    NEE batch lays them out (light-major); missed rays are dead lanes.
+    A light of another kind than 'triangle' is sampled as the bounce
+    samples it (lights.sample, about the shading normals ns: the dome's
+    rays end at its bounding sphere, a directional light's never)."""
     os_, ds, tns, tfs = [], [], [], []
     for l in scene.lights:
         u = torch.rand(dg['P'].shape[0], 2, generator=gen, device=dev)
-        p = ss.uniform_sample_triangle(u[:, 0], u[:, 1], l['v0'], l['v1'],
-                                       l['v2'])
-        d = p - dg['P']
-        dist = d.norm(dim=-1)
+        if l['kind'] == 'triangle':
+            p = ss.uniform_sample_triangle(u[:, 0], u[:, 1], l['v0'],
+                                           l['v1'], l['v2'])
+            d = p - dg['P']
+            dist = d.norm(dim=-1)
+            d = d / dist.clamp(min=1e-20)[:, None]
+        else:
+            _, d, _, dist = glights.sample(l, dg['P'], ns, u)
         os_.append(dg['P'])
-        ds.append(d / dist.clamp(min=1e-20)[:, None])
+        ds.append(d)
         tns.append(eps)
         tfs.append(torch.where(valid, dist - eps, -1.0))
     return (torch.cat(os_), torch.cat(ds), torch.cat(tns), torch.cat(tfs))

@@ -36,8 +36,9 @@ MAX_RAYS_PER_PASS = 1 << 22
 
 def _gen_rays(scene, camera, width, height, spp, pixel_ids, sample_ids,
               seed):
-    """Camera samples -> (org, dir, time); time (R,) in [0, 1) for a
-    motion scene, else None.  pixel_ids/sample_ids: (R,) int64; spp:
+    """Camera samples -> (org, dir, time, uv); time (R,) in [0, 1) for a
+    motion scene, else None; uv (R, 2) each ray's position on the film in
+    [0, 1)^2.  pixel_ids/sample_ids: (R,) int64; spp:
     patterns.grid_scalars(spp)."""
     px = (pixel_ids % width).to(torch.float32)
     py = (pixel_ids // width).to(torch.float32)
@@ -48,7 +49,7 @@ def _gen_rays(scene, camera, width, height, spp, pixel_ids, sample_ids,
     org, dirn = camera.ray(uv, lens)
     time = (patterns.sample_1d(seed, pixel_ids, sample_ids, DIM_TIME)
             if scene.motion is not None else None)
-    return org, dirn, time
+    return org, dirn, time, uv
 
 
 @lru_cache(maxsize=8)
@@ -92,9 +93,14 @@ class FrameStats:
 
 def render_frame(scene, camera, params, width: int, height: int, spp: int,
                  seed: int = 0, device=None, compaction: str = 'auto',
-                 bounce_stats=None):
+                 bounce_stats=None, backplate=None):
     """Render spp samples per pixel into a new film on `device` (default:
     the scene's; it must be the scene's device).
+
+    backplate: an optional (H, W, 3) image (an array or a tensor; a
+    fourth channel is dropped) that escaped rays no bounce has bent see
+    at their position on the film, in place of the environment lights
+    (as the reference's render_frame).
 
     compaction ('auto', 'on' or 'off'; see `compacts`) picks
     trace_compacted or trace for every pass; both give the same film.
@@ -112,6 +118,9 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     rgb_flat = torch.zeros((npix, 3), device=device)
     total_rays = torch.zeros((), device=device)
     spp_grid = patterns.grid_scalars(spp)
+    if backplate is not None:
+        backplate = torch.as_tensor(backplate, dtype=torch.float32,
+                                    device=device)[..., :3]
     order = torch.as_tensor(_tile_order(width, height), device=device)
     pix_per_pass = max(1, min(npix, MAX_RAYS_PER_PASS))
     # sample-major batching: fold k samples of every pixel into one batch
@@ -123,16 +132,17 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
             pixel_ids = pix.repeat(k)
             sample_ids = (s0 + torch.arange(
                 k, device=device)).repeat_interleave(pix.shape[0])
-            org, dirn, ray_time = _gen_rays(scene, camera, width, height,
-                                            spp_grid, pixel_ids, sample_ids,
-                                            seed)
+            org, dirn, ray_time, uv = _gen_rays(
+                scene, camera, width, height, spp_grid, pixel_ids,
+                sample_ids, seed)
             if compacted:
                 rgb, nrays = pathtracer.trace_compacted(
                     scene, params, org, dirn, seed, pixel_ids, sample_ids,
-                    ray_time, bounce_stats)
+                    ray_time, bounce_stats, uv, backplate)
             else:
                 rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
-                                              pixel_ids, sample_ids, ray_time)
+                                              pixel_ids, sample_ids, ray_time,
+                                              uv, backplate)
             # pixels are unique within each of the k sample slices, so
             # the scatter is a deterministic permutation add
             rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))

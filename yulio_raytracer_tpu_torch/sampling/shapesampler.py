@@ -2,8 +2,9 @@
 
 Counterpart of `yulio_raytracer_tpu/sampling/shapesampler.py`, limited
 to what the ported path calls: the cosine and power-cosine hemispheres
-(the lobes), the area-uniform triangle point (triangle lights) and the
-disk (the depth-of-field lens).
+(the lobes and the ambient dome), the area-uniform triangle point
+(triangle lights), the cone (distant lights), the sphere and the disk
+(the depth-of-field lens).
 """
 from __future__ import annotations
 
@@ -15,11 +16,22 @@ from ..core import math as vm
 TWO_PI = float(2.0 * np.pi)
 ONE_OVER_PI = float(1.0 / np.pi)
 ONE_OVER_TWO_PI = float(1.0 / (2.0 * np.pi))
+ONE_OVER_FOUR_PI = float(1.0 / (4.0 * np.pi))
 
 
 def _local_to_world(n, local):
     dx, dy, dz = vm.frame(n)
     return local[..., 0:1] * dx + local[..., 1:2] * dy + local[..., 2:3] * dz
+
+
+def uniform_sample_sphere(u, v):
+    """shapesampler.h:32-36.  Returns (dir, pdf)."""
+    phi = TWO_PI * u
+    cos_t = 1.0 - 2.0 * v
+    sin_t = 2.0 * torch.sqrt(torch.clamp(v * (1.0 - v), min=0.0))
+    d = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t],
+                    dim=-1)
+    return d, torch.full_like(u, ONE_OVER_FOUR_PI)
 
 
 def cosine_sample_hemisphere(u, v, n=None):
@@ -60,6 +72,19 @@ def power_cosine_hemisphere_pdf(wi, n, exp):
     return torch.where(c < 0.0, 0.0,
                        (exp + 1.0) * torch.pow(torch.clamp(c, min=0.0), exp)
                        * ONE_OVER_TWO_PI)
+
+
+def uniform_sample_cone(u, v, angle):
+    """shapesampler.h:149-156: a cone around +z of half-angle `angle` (a
+    tensor broadcasting with u).  Returns (dir, pdf)."""
+    phi = TWO_PI * u
+    cos_a = torch.cos(angle)
+    cos_t = 1.0 - v * (1.0 - cos_a)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    d = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t],
+                    dim=-1)
+    pdf = 1.0 / (TWO_PI * (1.0 - cos_a))
+    return d, pdf.expand(u.shape)
 
 
 def uniform_sample_triangle(u, v, a, b, c):

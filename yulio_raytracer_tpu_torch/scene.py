@@ -21,7 +21,8 @@ for another:
   BRUTE_FORCE_MAX_TRIS, binary rows over union bounds with the motion
   triangle rows `tris_mb`;
 * the shading table (with authored tangents where meshes have them),
-  the material table, the texture atlas and the light list, with the
+  the material table, the texture atlas and the light list (every kind;
+  an HDRI light's image and distribution tables on the device), with the
   static facts the bounce reads off them: the lobe types in use and the
   material table's texture modes and bump maps (shading/materials.py
   table_gates).
@@ -51,6 +52,7 @@ from .geometry import primitives
 from .lights import lights as glights
 from .ops import grid as ggrid
 from .ops import pairs, traverse, treelets, wide
+from .sampling import distribution as gdist
 from .shading import materials as gmat
 from .shading import textures as gtex
 
@@ -103,10 +105,10 @@ class SceneBuilder:
         the binary tables; 'bvh4' raises where the collapse fails;
         'bvh4mb' requires motion geometry.  A motion scene's tree is built
         over union bounds and traversed by the motion kernel whatever
-        accel says.  The scene's `accel` records what runs.  Raises
-        ValueError for an unknown accel, RuntimeError for a CUDA device
-        when there is none, and NotImplementedError for non-triangle
-        lights."""
+        accel says.  The scene's `accel` records what runs.  Every light
+        gets the packed scene's bounds (the ambient dome's bounding
+        sphere).  Raises ValueError for an unknown accel and RuntimeError
+        for a CUDA device when there is none."""
         if accel not in ('default', 'bvh2', 'bvh4', 'bvh4mb'):
             raise ValueError(
                 f"unknown accel {accel!r}: expected 'default' "
@@ -228,6 +230,11 @@ class TorchScene:
     tex_modes: tuple              # texture modes the material table holds
     bump: bool                    # a material binds a bump map
 
+    @property
+    def env_lights(self):
+        """The lights that shine on escaped rays (ambient, HDRI)."""
+        return [l for l in self.lights if glights.is_env(l)]
+
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; None is the card.  Raises RuntimeError
@@ -251,8 +258,9 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
     GRID_KEYS and the packet's TREELET_KEYS (the reference keeps the
     dense binning's only where they fit its VMEM budget), and drops the
     lane-major planes; a scene without node tables is 'dense' whatever
-    the reference's accel says.  Raises NotImplementedError for lights
-    other than 'triangle', which this package cannot sample yet."""
+    the reference's accel says.  Lights of every kind carry across: their
+    arrays become float32 tensors (an HDRI's `dist` a
+    Distribution2D of them), their str and int fields stay."""
     device = resolve_device(device)
 
     def dev(x):
@@ -261,11 +269,12 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
     def table(key):
         return dev(packet[key]) if key in packet else None
 
+    def light_field(key, v):
+        if key == 'dist':
+            return gdist.Distribution2D(*(dev(x) for x in v))
+        return v if isinstance(v, (str, int)) else dev(v)
+
     tex_modes, bump = gmat.table_gates(materials)
-    for l in lights:
-        if l['kind'] != 'triangle':
-            raise NotImplementedError(
-                f"{l['kind']!r} lights are not ported yet ('triangle' only)")
     return TorchScene(
         device=device,
         tris=table('tris'),
@@ -281,9 +290,8 @@ def from_numpy_scene(geom, packet, materials, textures, lights, *,
         geom={'shade_tab': dev(geom['shade_tab'])},
         materials={k: dev(v) for k, v in materials.items()},
         textures={k: dev(v) for k, v in textures.items()},
-        lights=[{k: (v.item() if isinstance(v, np.generic) else
-                     v if isinstance(v, (str, int, float)) else dev(v))
-                 for k, v in l.items()} for l in lights],
+        lights=[{k: light_field(k, v) for k, v in l.items()}
+                for l in lights],
         leaf_size=int(leaf_size),
         bbox_lo=tuple(bbox_lo),
         bbox_hi=tuple(bbox_hi),
