@@ -55,7 +55,11 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     sphere_glass (leaf 32, under the ambient dome): the BVH4 pair over
     256^2 camera rays, the hemisphere rays from their hits and the dome's
     shadow rays from them, each with its finite tmax (the far hit of the
-    scene's bounding sphere x 1.5), bit-equal, K3 and K4 alone launched.
+    scene's bounding sphere x 1.5), bit-equal, K3 and K4 alone launched;
+    and test_stereo.ecs (the production strip's scene, 14,704 triangles):
+    the BVH4 pair over the 800^2 camera rays of the CLI rig's back face,
+    the hemisphere rays from their hits and the dome's shadow rays,
+    bit-equal, K3 and K4 alone launched.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -91,7 +95,22 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     and 3 frames each, with its per-bounce widths and live counts, the
     two modes' films of one seed bit-equal; and sphere_glass_512 (leaf 32,
     512^2, 32 spp, depth 8) the same way;
- 6. each kernel's bound: the larger of the bytes it must move (tables,
+ 6. the production output path: test_stereo.ecs's strip at its own
+    size (one rig at the CLI camera as `-stereo` builds it, 12 faces of
+    800^2 at 64 spp, depth 10, the dome cap 120, the b-spline filter)
+    through api/output.py render_rig_faces, assembled and written to
+    chiprun_out/test_stereo_view.ppm, with its seconds, camera rays and
+    Mrays/s, each face's seconds, Mrays/s and peak memory, and its K3/K4
+    launches (K3/K4 alone); the same strip at 32^2 faces, 4 spp with the
+    watermark, and test_room.dae as StartRT stages it
+    (session.collada_job: toe-in, the cap 120 x scene scale, the sky
+    ambient, the billboard committed at the rig; 64^2 faces, 4 spp, depth
+    10; K1/K2 alone), each held to the port's CPU strip (>= 40 dB,
+    trimmed-1% beside); cli.main's mono mode on cornell_box.ecs at 64^2
+    writing chiprun_out/cli_cornell.ppm, held to the CPU CLI's file; and
+    a scene of an HDRI light alone (no geometry) through render_mono,
+    held to the CPU;
+ 7. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3; K12's
     from its shapes; K1/K2's by stage, as they run the Woop test) times
@@ -107,12 +126,15 @@ The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
 """
+import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -121,6 +143,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'assets', 'golden')
+SCENES = os.path.join(ROOT, 'assets', 'scenes')
+OUT = os.path.join(ROOT, 'chiprun_out')
 SEED = 42
 TRI_MISMATCH_MAX = 1e-4      # ties only: equal t, another triangle
 MASK_MISMATCH_MAX = 1e-4     # hit/miss and occlusion masks
@@ -296,10 +320,11 @@ def main():
         return 1
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
-    from yulio_raytracer_tpu_torch.film import accum
+    from yulio_raytracer_tpu_torch.api import cli, output, session
+    from yulio_raytracer_tpu_torch.film import accum, stereo_strip
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
-    from yulio_raytracer_tpu_torch.io import ecs
+    from yulio_raytracer_tpu_torch.io import ecs, image
     from yulio_raytracer_tpu_torch.ops import (binning, cuda_build, dense,
                                                grid, pairs, splitleaf,
                                                traverse, treelets, wide)
@@ -955,6 +980,48 @@ def main():
         raise AssertionError(f"sphere_glass's sets did not launch K3 and K4 "
                              f"alone: {ran}")
     del g_cam, g_hemi, g_shadow, g_hit, dg, eps
+    # test_stereo.ecs, the production strip's scene (14,704 triangles, the
+    # commit's default leaf): K3/K4 on its tables, bit-equal, over the
+    # 800^2 camera rays of the CLI rig's face 2 (the back face, left eye:
+    # the face with the most hits), the hemisphere rays from their hits
+    # and the dome's shadow rays from those hits
+    stereo_st, stereo_sb = ecs.parse_ecs(os.path.join(SCENES,
+                                                      'test_stereo.ecs'))
+    stereo_rig = cli.stereo_rigs(stereo_st)[0][1]
+    stereo = stereo_sb.commit(
+        device=dev, view_pos=np.asarray(stereo_rig[0].local2world[3]),
+        view_up=stereo_st.cam_up, accel=stereo_st.accel)
+    gen_s = torch.Generator(device=dev).manual_seed(SEED)
+    org, dirn, _ = camera_rays(stereo, stereo_rig[2], stereo_st.width,
+                               stereo_st.height, dev, SEED)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    t_cam = (org, dirn, zeros, torch.full_like(zeros, float('inf')))
+    t_hit = wide.intersect_packet4(stereo.nodes4, stereo.tris, *t_cam)
+    *t_hemi, dg, eps = hemisphere_rays(stereo, org, dirn, t_hit, gen_s, dev)
+    back = (dg['Ng'] * dirn).sum(-1, keepdim=True) > 0
+    t_shadow = shadow_rays(stereo, dg, eps, t_hit.valid, gen_s, dev,
+                           torch.where(back, -dg['Ns'], dg['Ns']))
+    phase('kernels', f"test_stereo: {stereo.num_triangles} triangles, accel "
+          f"{stereo.accel}, {stereo.nodes4.shape[0]} BVH4 nodes, lights "
+          f"{[l['kind'] for l in stereo.lights]}; "
+          f"{int(t_hit.valid.sum())} of {org.shape[0]} camera rays of face "
+          "2 hit")
+    zero_counters()
+    t_stack = []
+    for what, rays, f in (('camera', t_cam, wide.intersect_packet4),
+                          ('hemisphere', t_hemi, wide.intersect_packet4),
+                          ('dome shadow', t_shadow, wide.occluded_packet4)):
+        counts = check(f, f'{f.__name__} (test_stereo {what})',
+                       (stereo.nodes4, stereo.tris, *rays), exact=True)
+        t_stack.append((f'{f.__name__} ({what})', [counts]))
+    stack_depth("BVH4 on test_stereo", t_stack)
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    phase('kernels', f"test_stereo's sets bit-equal to the plain versions; "
+          f"launches {ran}")
+    if set(ran) != {'intersect_packet4', 'occluded_packet4'}:
+        raise AssertionError(f"test_stereo's sets did not launch K3 and K4 "
+                             f"alone: {ran}")
+    del t_cam, t_hemi, t_shadow, t_hit, dg, eps
     phase('kernels', f"all kernels agree with their plain versions "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1228,7 +1295,157 @@ def main():
                 pt.PTParams(max_depth=8), 512, 32,
                 "512^2, 32 spp, depth 8, leaf 32")
 
-    # ---- 6. bounds ---------------------------------------------------------
+    # ---- 6. the production output path -----------------------------------
+    os.makedirs(OUT, exist_ok=True)
+
+    def launched(what, want):
+        """The kernels launched since zero_counters(), held to `want` (the
+        path's kernels, each launched); added to the main path's
+        launches."""
+        ran = [f.launches for f in counters]
+        counts = {f.__name__: n for f, n in zip(counters, ran) if n}
+        if set(counts) != set(want) or any(f.cuda_calls for f in plains):
+            raise AssertionError(f"{what}: launches {counts}, not each of "
+                                 f"{sorted(want)} alone, or a plain version "
+                                 "ran on CUDA tensors")
+        for i, n in enumerate(ran):
+            main_launches[i] += n
+        return counts
+
+    def held(what, img, ref, gate=PSNR_MIN):
+        """img (the card's) against ref (the port's CPU result), finite,
+        of ref's shape, >= gate dB; returns its line."""
+        if img.shape != ref.shape or not np.isfinite(img).all():
+            raise AssertionError(f"{what}: image {img.shape} not finite or "
+                                 f"not of the CPU's shape {ref.shape}")
+        db = psnr(img, ref)
+        if db < gate:
+            raise AssertionError(f"{what}: PSNR {db:.2f} < {gate}")
+        return (f"PSNR {db:.2f} dB (trimmed-1% {trimmed_psnr(img, ref):.2f})"
+                f" vs the port's CPU render (gate {gate})")
+
+    def rig_strip(st, sb, rig, name, device, wm, stage_cb=None):
+        """One rig's strip as render_stereo makes it: the scene committed
+        at the rig's origin, its 12 faces (render_rig_faces), the strip;
+        returns (strip, per-face FrameStats)."""
+        scene = sb.commit(device=device,
+                          view_pos=np.asarray(rig[0].local2world[3]),
+                          view_up=st.cam_up, accel=st.accel)
+        faces, fstats = output.render_rig_faces(scene, st, rig, name, wm,
+                                                stage_cb=stage_cb)
+        if len(faces) != 12:
+            raise AssertionError(f"{name}: {len(faces)} faces rendered")
+        return stereo_strip.assemble_strip(faces), fstats
+
+    # the production strip at its own size: test_stereo.ecs (800^2 faces,
+    # 64 spp, depth 10, the dome cap 120, the ambient dome, the b-spline
+    # filter), one rig at the CLI camera as cli._stereo_from_settings
+    # builds it, written as .ppm (the card's machine writes no .jpg)
+    peaks = []
+
+    def face_peak(stage, total):
+        if stage:
+            peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    wm = stereo_strip.load_watermark() if stereo_st.watermark else None
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strip, fstats = rig_strip(stereo_st, stereo_sb, stereo_rig, 'view', dev,
+                              wm, face_peak)
+    strip_s = time.perf_counter() - t0
+    peaks.append(torch.cuda.max_memory_allocated())
+    counts = launched('test_stereo strip', {'intersect_packet4',
+                                            'occluded_packet4'})
+    strip_path = os.path.join(OUT, 'test_stereo_view.ppm')
+    image.store(strip_path, strip)
+    size = max(stereo_st.width, stereo_st.height)
+    if strip.shape != (size, 12 * size, 3) or not np.isfinite(strip).all():
+        raise AssertionError(f"test_stereo strip: {strip.shape}, not a "
+                             "finite 12-face strip")
+    cam_rays = 12 * size * size * stereo_st.spp
+    rays = sum(st.num_rays for st in fstats)
+    phase('output', f"test_stereo strip ({size}^2 faces, {stereo_st.spp} "
+          f"spp, depth {stereo_st.depth}, t_max_shadow_ray "
+          f"{stereo_st.t_max_shadow_ray}, filter {stereo_st.pixel_filter}, "
+          f"accel {stereo.accel}): {strip_s:.3f} s for 12 faces, "
+          f"{cam_rays} camera rays ({cam_rays / strip_s / 1e6:.2f} M/s), "
+          f"{rays / 1e6:.1f} Mrays ({rays / strip_s / 1e6:.2f} Mrays/s); "
+          f"K3/K4 launches {counts}; written to {strip_path} on {card}")
+    for i, (st, peak) in enumerate(zip(fstats, peaks)):
+        phase('output', f"test_stereo face {i} ({stereo_strip.FACE_NAMES[i % 6]}"
+              f", {'left' if i < 6 else 'right'} eye): {st.seconds:.3f} s, "
+              f"{st.num_rays / 1e6:.1f} Mrays, {st.mrps:.2f} Mrays/s, peak "
+              f"mem {peak / 2**30:.2f} GiB")
+
+    # the same strip at reduced faces (32^2, 4 spp, depth 10, the
+    # watermark), and test_room.dae as StartRT stages it (session defaults
+    # but 64^2 faces and 4 spp: toe-in, the cap 120 x the scene scale, the
+    # sky ambient, the billboard committed at the rig), on the card against
+    # the port's CPU
+    small = (dataclasses.replace(stereo_st, width=32, height=32, spp=4,
+                                 watermark=True),
+             stereo_sb, stereo_rig, 'view',
+             {'intersect_packet4', 'occluded_packet4'})
+    room_st, room_sb, room_rigs = session.collada_job(
+        os.path.join(SCENES, 'test_room.dae'), session.ParamsRT(size=64,
+                                                                spp=4))
+    room = (room_st, room_sb, room_rigs[0][1], room_rigs[0][0],
+            {'intersect_dense', 'occluded_dense'})
+    for label, (st, sb, rig, name, want) in (('test_stereo_32', small),
+                                             ('test_room_64', room)):
+        wm = stereo_strip.load_watermark() if st.watermark else None
+        zero_counters()
+        got, _ = rig_strip(st, sb, rig, name, dev, wm)
+        counts = launched(label, want)
+        ref, _ = rig_strip(st, sb, rig, name, 'cpu', wm)
+        phase('output', f"{label} strip ({st.width}^2 faces, {st.spp} spp, "
+              f"depth {st.depth}, t_max_shadow_ray {st.t_max_shadow_ray}, "
+              f"watermark {st.watermark}): " + held(label, got, ref)
+              + f", kernel launches {counts}")
+
+    # the CLI's mono mode on the card and on the CPU; .ppm is written
+    # natively
+    cornell_ecs = os.path.join(SCENES, 'cornell_box.ecs')
+    outs = [os.path.join(OUT, n) for n in ('cli_cornell.ppm',
+                                           'cli_cornell_cpu.ppm')]
+    zero_counters()
+    if cli.main(['-c', cornell_ecs, '-size', '64', '64', '-o', outs[0]]):
+        raise AssertionError("cli.main on the card failed")
+    counts = launched('cli cornell', {'intersect_dense', 'occluded_dense'})
+    if cli.main(['-c', cornell_ecs, '-size', '64', '64', '-o', outs[1]],
+                device='cpu'):
+        raise AssertionError("cli.main on the CPU failed")
+    phase('output', f"cli.main -c cornell_box.ecs -size 64 64 -o "
+          f"{outs[0]}: " + held('cli cornell', image.load(outs[0]),
+                               image.load(outs[1]))
+          + f" ({outs[1]}), kernel launches {counts}")
+
+    # C6: a scene of sphere_mirror.xml's HDRI light alone, no geometry,
+    # through the mono entry point
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(SCENES, 'lines.ppm'), tmp)
+        xml = os.path.join(tmp, 'hdri_only.xml')
+        with open(xml, 'w') as f:
+            f.write('<?xml version="1.0"?>\n<scene><Group><HDRILight>'
+                    '<AffineSpace>1 0 0 0 0 1 0 0 0 0 1 0</AffineSpace>'
+                    '<L>2.0 1.5 1.2</L><image>"lines.ppm"</image>'
+                    '</HDRILight></Group></scene>\n')
+        hst, hsb = ecs.parse_ecs(os.path.join(SCENES, 'sphere_view.ecs'))
+        ecs.load_scene_file(xml, hst, hsb)
+    hst.width = hst.height = 64
+    hst.spp, hst.depth = 4, 3
+    zero_counters()
+    hdri = hsb.commit(device=dev)
+    img, hstats = output.render_mono(hdri, hst, '')
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    ref, _ = output.render_mono(hsb.commit(device='cpu'), hst, '',
+                                device='cpu')
+    phase('output', f"hdri_only_64 (no geometry, accel {hdri.accel}, depth "
+          f"3, 4 spp): " + held('hdri_only_64', img, ref)
+          + f", {hstats.num_rays:.0f} rays, kernel launches {ran}")
+
+    # ---- 7. bounds ---------------------------------------------------------
     summary = []
     for (f, _, src, replaces, pair_flops), n in zip(kernels, main_launches):
         res = results[f.__name__]

@@ -227,30 +227,35 @@ def test_tonemap_matches():
                                       np.asarray(jtm.to_srgb_u8(ref)))
 
 
-def _load_dae():
+def _precomputed_sampler():
+    from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
+    from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
+    from yulio_raytracer_tpu_torch import renderer
+    renderer.render_frame(bs.cornell_box().commit(device='cpu'),
+                          bs.cornell_camera(4, 4), pt.PTParams(max_depth=1),
+                          4, 4, 1, sampler='precomputed')
+
+
+def _mono_on_two_devices():
+    from yulio_raytracer_tpu_torch.api import output
+    from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
     from yulio_raytracer_tpu_torch.io import ecs
-    from yulio_raytracer_tpu_torch.scene import SceneBuilder
-    ecs.load_scene_file(os.path.join(ASSETS, 'test_room.dae'),
-                        ecs.RenderSettings(), SceneBuilder())
+    output.render_mono(bs.cornell_box().commit(device='cpu'),
+                       ecs.RenderSettings(width=4, height=4, devices=2), '',
+                       device='cpu')
 
 
-def _load_billboard_xml():
-    from yulio_raytracer_tpu_torch.io import xml_scene
-    from yulio_raytracer_tpu_torch.scene import SceneBuilder
-    xml_scene.load_xml(os.path.join(ASSETS, 'test_stereo.xml'),
-                       SceneBuilder())
-
-
-def _parse_stereo_entry():
-    from yulio_raytracer_tpu_torch.io import ecs
-    ecs.parse_ecs(os.path.join(ASSETS, 'test_stereo.ecs'))
+def _cli_connect():
+    from yulio_raytracer_tpu_torch.api import cli
+    cli.main(['-c', os.path.join(ASSETS, 'cornell_box.ecs'), '-connect',
+              '127.0.0.1:8282'], device='cpu')
 
 
 @pytest.mark.parametrize('make', [
-    _load_dae,                          # Collada (ROADMAP A6)
-    _load_billboard_xml,                # faceCamera billboards (A6)
+    _precomputed_sampler,               # the precomputed sampler (A9)
+    _mono_on_two_devices,               # several devices (A8)
     lambda: lights.le_area(lights.ambient((1, 1, 1)), None),
-    _parse_stereo_entry,                # the stereo entry scene (A6)
+    _cli_connect,                       # the TCP render servers (A8)
 ])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

@@ -10,7 +10,8 @@ calls), the cornell, stereo, motion, grid, treelet and dense colonnade
 goldens rendered through them, the StereoCube rays against the port's
 CPU rays, compaction 'auto' against 'off' on the colonnade, and the
 shading layer (the texture fetch, the shade context and the materials
-probe of every preset) against the port's CPU results.
+probe of every preset), a scene of an HDRI light alone and test_room.dae's
+12 stereo faces against the port's CPU results.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -19,6 +20,7 @@ tests/conftest.py, which configures jax, cannot load):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -1136,3 +1138,58 @@ def test_materials_probe_on_card_matches_cpu(cuda, preset):
     mse = ((imgs[1] - imgs[0]) ** 2).mean()
     assert np.isfinite(imgs[1]).all()
     assert 10 * np.log10(imgs[0].max() ** 2 / max(mse, 1e-20)) >= 40.0
+
+
+def _hdri_only_scene(tmp_path):
+    """sphere_view.ecs's settings and a scene of sphere_mirror.xml's HDRI
+    light alone (no geometry: the scene commits 'dense')."""
+    from yulio_raytracer_tpu_torch.io import ecs
+    assets = os.path.join(os.path.dirname(GOLDEN), 'scenes')
+    shutil.copy(os.path.join(assets, 'lines.ppm'), tmp_path)
+    xml = tmp_path / 'hdri_only.xml'
+    xml.write_text('<?xml version="1.0"?>\n<scene><Group><HDRILight>'
+                   '<AffineSpace>1 0 0 0 0 1 0 0 0 0 1 0</AffineSpace>'
+                   '<L>2.0 1.5 1.2</L><image>"lines.ppm"</image>'
+                   '</HDRILight></Group></scene>\n')
+    st, sb = ecs.parse_ecs(os.path.join(assets, 'sphere_view.ecs'))
+    ecs.load_scene_file(str(xml), st, sb)
+    st.width = st.height = 32
+    st.spp, st.depth = 4, 3
+    return st, sb
+
+
+@pytest.mark.cuda
+def test_hdri_only_scene_on_card_matches_cpu(cuda, tmp_path):
+    """The HDRI light with no geometry (C6) through the mono entry point on
+    the card and on the CPU: finite, not black, >= 60 dB."""
+    from yulio_raytracer_tpu_torch.api import output
+    st, sb = _hdri_only_scene(tmp_path)
+    imgs = [output.render_mono(sb.commit(device=dev), st, '', device=dev)[0]
+            for dev in ('cpu', cuda)]
+    mse = ((imgs[1] - imgs[0]) ** 2).mean()
+    assert np.isfinite(imgs[1]).all() and imgs[0].min() > 0.0
+    assert 10 * np.log10(imgs[0].max() ** 2 / max(mse, 1e-20)) >= 60.0
+
+
+@pytest.mark.cuda
+def test_collada_strip_faces_on_card_match_cpu(cuda):
+    """test_room.dae's 12 faces as StartRT renders them (session.collada_job
+    and render_rig_faces; 16^2, 2 spp, depth 2, toe-in, the watermark, the
+    billboard committed at the rig) on the card against the port's CPU
+    faces: >= 40 dB each."""
+    from yulio_raytracer_tpu_torch.api import output, session
+    from yulio_raytracer_tpu_torch.film import stereo_strip
+    assets = os.path.join(os.path.dirname(GOLDEN), 'scenes')
+    st, sb, rigs = session.collada_job(
+        os.path.join(assets, 'test_room.dae'),
+        session.ParamsRT(size=16, depth=2, spp=2, watermark=True))
+    name, cams = rigs[0]
+    origin = np.asarray(cams[0].local2world[3])
+    faces = [output.render_rig_faces(
+        sb.commit(device=dev, view_pos=origin), st, cams, name,
+        stereo_strip.load_watermark())[0] for dev in ('cpu', cuda)]
+    assert len(faces[1]) == 12
+    for a, b in zip(*faces):
+        mse = ((b - a) ** 2).mean()
+        assert np.isfinite(b).all()
+        assert 10 * np.log10(a.max() ** 2 / max(mse, 1e-20)) >= 40.0

@@ -39,11 +39,9 @@ LINES = os.path.join(ASSETS, 'lines.ppm')
 MESH_FIELDS = ('positions', 'triangles', 'normals', 'texcoords', 'motions',
                'tangent_x', 'tangent_y', 'material', 'light', 'cull',
                'illum_mask', 'shadow_mask')
-# the scene files, but the Collada one (not ported)
+# the scene files, but the Collada one (tests/test_torch_output.py)
 SCENE_FILES = sorted(f for f in os.listdir(ASSETS)
                      if f.endswith(('.ecs', '.xml', '.obj')))
-# files that hold a camera-aligned billboard (not ported)
-BILLBOARDS = ('test_stereo.ecs', 'test_stereo.xml')
 
 
 def _psnr(a, b):
@@ -179,13 +177,9 @@ def test_image_cache_holds_until_cleared(tmp_path):
 @pytest.mark.parametrize('name', SCENE_FILES)
 def test_scene_file_loads_like_jax(name):
     """Each scene file in assets/scenes through both packages: the staged
-    meshes, materials, textures, lights and settings equal.  The files
-    with a camera-aligned billboard raise NotImplementedError."""
+    meshes, materials, textures, lights and settings equal (test_stereo's
+    faceCamera quad a static mesh in both)."""
     path = os.path.join(ASSETS, name)
-    if name in BILLBOARDS:
-        with pytest.raises(NotImplementedError, match='faceCamera'):
-            _load_both(path)
-        return
     (st, sb), (jst, jsb) = _load_both(path)
     assert_settings_equal(st, jst)
     assert_builders_equal(sb, jsb)
@@ -381,9 +375,7 @@ def test_xml_every_tag_like_jax(tmp_path):
      '</scene>', FileNotFoundError),
     ('<scene><TriangleMesh><positions>0 0 0 1</positions></TriangleMesh>'
      '</scene>', ValueError),
-    ('<scene><TriangleMesh><faceCamera>1</faceCamera><positions>0 0 0 1 0 0'
-     ' 0 1 0</positions><triangles>0 1 2</triangles></TriangleMesh>'
-     '</scene>', NotImplementedError)])
+    ('<scene><extern src="field.ply"/></scene>', ValueError)])
 def test_xml_rejects_malformed_scenes(tmp_path, body, err):
     p = tmp_path / 'bad.xml'
     p.write_text(body)

@@ -15,5 +15,10 @@ Layers, from the entry point down:
   geometry     host-side packing and BVH build (numpy, native builder)
   ops          intersection: dense.py, wide.py, traverse.py, pairs.py
                and grid.py wrap the kernels
+  film / api   the accumulation film, the 12-face stereo strip, and
+               the entry points: api/output.py, the StartRT session
+               (api/session.py) and the CLI (api/cli.py)
 profile_frame.py profiles one frame of a timed cell on the card.
 """
+
+__version__ = "0.1.0"

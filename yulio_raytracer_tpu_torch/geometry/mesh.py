@@ -2,9 +2,10 @@
 
 The part of `yulio_raytracer_tpu/geometry/mesh.py` that the port's commit
 and loaders run, for static and moving meshes with or without authored
-tangents (no camera-aligned billboards): `HostMesh.transformed`,
-`pack_meshes`, `woop_matrices` and `add_shade_table` produce the same
-arrays, so a scene committed by either package holds identical tables.
+tangents, and camera-aligned billboards: `HostMesh.transformed`,
+`billboard_transform`, `pack_meshes`, `woop_matrices` and
+`add_shade_table` produce the same arrays, so a scene committed by either
+package holds identical tables.
 """
 from __future__ import annotations
 
@@ -37,6 +38,12 @@ class HostMesh:
     cull: int = CULL_NONE
     illum_mask: int = -1
     shadow_mask: int = -1
+    # camera-aligned billboards (YULIO_CAMERA_ALIGNED_ meshes): positions
+    # stay in local space; orig_transform ((4, 3) row affine) is the
+    # authored placement whose translation and scale seed the per-view
+    # transform (singleray_device.cpp:354-398)
+    face_camera: bool = False
+    orig_transform: Optional[np.ndarray] = None
 
     def transformed(self, xfm: np.ndarray) -> "HostMesh":
         """Bake an affine transform ((4, 3) rows [vx; vy; vz; p]) into the
@@ -59,6 +66,57 @@ class HostMesh:
                         vec(self.tangent_x), vec(self.tangent_y),
                         self.material, self.light, self.cull,
                         self.illum_mask, self.shadow_mask)
+
+
+def billboard_transform(orig_transform: np.ndarray, cam_pos, cam_up
+                        ) -> np.ndarray:
+    """The per-view transform of a camera-aligned billboard, as
+    rtUpdatePrimitive (singleray_device.cpp:354-398): the local geometry's
+    plane turned vertical and toward the camera (projected on the floor),
+    at the authored position and scale.  float64 arithmetic, rounded to
+    f32 at the end, as the reference's.  Returns a (4, 3) row affine for
+    HostMesh.transformed()."""
+    prim_pos = np.asarray(orig_transform[3], np.float64)
+    up = np.asarray(cam_up, np.float64)
+    up = up / max(np.linalg.norm(up), 1e-20)
+    to_eye = np.asarray(cam_pos, np.float64) - prim_pos
+    to_eye[1] = 0.0                      # project onto the floor
+    n = np.linalg.norm(to_eye)
+    to_eye = to_eye / n if n > 0 else np.asarray([0.0, 0.0, 1.0])
+
+    # lookAtPoint(0, toEye, camUp): vz = toEye (affinespace.h:73-78)
+    z = to_eye
+    x = np.cross(up, z)
+    x = x / max(np.linalg.norm(x), 1e-20)
+    y = np.cross(z, x)
+    look = np.stack([x, y, z])            # rows vx, vy, vz
+
+    # -90 degrees about `right` makes the quad vertical
+    right = np.cross(up, [0.0, 0.0, 1.0])
+    if np.linalg.norm(right) == 0:
+        right = np.cross(up, [0.0, 1.0, 0.0])
+    if np.linalg.norm(right) == 0:
+        right = np.cross(up, [1.0, 0.0, 0.0])
+    right = right / max(np.linalg.norm(right), 1e-20)
+    c, s = 0.0, -1.0                      # cos(-90), sin(-90)
+    rx, ry, rz = right
+    rot = np.asarray([
+        [c + rx * rx * (1 - c), rx * ry * (1 - c) + rz * s,
+         rx * rz * (1 - c) - ry * s],
+        [ry * rx * (1 - c) - rz * s, c + ry * ry * (1 - c),
+         ry * rz * (1 - c) + rx * s],
+        [rz * rx * (1 - c) + ry * s, rz * ry * (1 - c) - rx * s,
+         c + rz * rz * (1 - c)],
+    ])
+
+    # the scale: the authored transform's row lengths (glm::decompose)
+    scale = np.linalg.norm(np.asarray(orig_transform[:3], np.float64),
+                           axis=1)
+    # T(primPos) * look * makeVertical * scale applies right to left; in
+    # the row-vector convention x' = x @ (S L_vert L_look)
+    lin = np.diag(scale) @ rot @ look
+    return np.concatenate([lin, prim_pos[None]], axis=0).astype(
+        np.float32, copy=False)
 
 
 @dataclass

@@ -10,8 +10,7 @@ for tag.  Reproduces the reference's layered flag system (`renderer.cpp:974-1403
 The parser mutates a RenderSettings (the ~40 globals of renderer.cpp:
 243-304) and stages scene content into a SceneBuilder.  Tags that select
 what renders the frame (-devices, -connect, -display, -viewer, ...) only
-set their field here.  Collada (`.dae`) scenes are not ported yet and
-raise NotImplementedError.
+set their field here.
 """
 from __future__ import annotations
 
@@ -368,8 +367,8 @@ def load_scene_file(path: str, settings: RenderSettings, sb: SceneBuilder):
         from . import xml_scene
         xml_scene.load_xml(path, sb)
     elif ext == '.dae':
-        raise NotImplementedError(
-            f"Collada scenes are not ported to the torch package yet: {path}")
+        from . import collada
+        collada.load_dae(path, settings, sb)
     else:
         raise ValueError(f"unknown scene format: {path}")
 

@@ -5,9 +5,9 @@ tag for tag.  Reproduces `devices/device/loaders/xml_loader.cpp`:
 Transform/Group stacks (:509-537), material cache + <assign>/<ref> named
 materials (:631-645, :417-444), TriangleMesh/Sphere/Disk shapes
 (:446-507), the eight light tags (:276-395) and `.bin` sidecar binary
-arrays (:193-268).  Camera-aligned billboards (the faceCamera flag,
-:455) are not ported yet: a mesh flagged faceCamera raises
-NotImplementedError.
+arrays (:193-268).  A mesh's faceCamera flag (:455) is not read, as in
+the reference's loader: such a mesh loads static (only Collada's
+YULIO_CAMERA_ALIGNED_ nodes become billboards, io/collada.py).
 
 AffineSpace nodes accept translate/scale/rotate_x/y/z/rotate+axis
 attributes or a 12-float row-major 3x4 body (:157-191).
@@ -232,11 +232,8 @@ class XMLSceneLoader:
             return
 
         if tag == 'TriangleMesh':
-            fc = el.find('faceCamera')
-            if fc is not None and any(_body_floats(fc)):
-                raise NotImplementedError(
-                    "faceCamera: camera-aligned billboards are not ported "
-                    "to the torch package yet")
+            # a faceCamera flag is not read: the mesh is static, as in
+            # the reference's loader (only Collada makes billboards)
             mat = self._load_material(el.find('material'))
             pos = self._array(el.find('positions'), 3, np.float32)
             nrm = self._array(el.find('normals'), 3, np.float32)

@@ -4,10 +4,12 @@ torch.profiler on the card.
     python -m yulio_raytracer_tpu_torch.profile_frame [cell ...]
         [--compaction auto|on|off]
 
-The cells are the frames chip_smoke.py times and sphere_mirror_512, the
-HDRI light's (default: all of them), each under render_frame's
-`compaction` (default 'auto', which compacts only stereo_face_1536 and
-sphere_glass_512, the cells past the roulette start).  Each is
+The cells are the frames chip_smoke.py times, sphere_mirror_512 (the
+HDRI light's), and two faces of the production strip
+(test_stereo_back_800, test_stereo_front_800) (default: all of them),
+each under render_frame's `compaction` (default 'auto', which compacts
+the cells past the roulette start: stereo_face_1536, sphere_glass_512
+and the strip's faces).  Each is
 committed on the card and rendered once to warm up, three times with
 the clock alone, then once under the profiler.  One line per cell:
 the commit's seconds and the device bytes the committed scene holds, the
@@ -61,8 +63,29 @@ def sphere_mirror_camera(width: int, height: int):
 
 # the production config: depth 10 past rr_depth 5, the dome cap 120
 STEREO_PARAMS = dict(max_depth=10, t_max_shadow_ray=120.0)
+TEST_STEREO = os.path.join(os.path.dirname(SPHERE_MIRROR), 'test_stereo.ecs')
 
-# name: (commit, camera, resolution, spp, PTParams fields)
+
+def _test_stereo():
+    """test_stereo.ecs's settings, builder and the rig `-stereo` builds at
+    its camera (api/cli.py stereo_rigs)."""
+    from .api import cli
+    settings, sb = ecs.parse_ecs(TEST_STEREO)
+    return settings, sb, cli.stereo_rigs(settings)[0][1]
+
+
+def _test_stereo_cell(face: int):
+    """One face of the production strip at the strip's settings: 800^2,
+    64 spp, depth 10, the cap 120, the b-spline filter."""
+    def commit():
+        settings, sb, _ = _test_stereo()
+        return sb.commit(accel=settings.accel)
+    return (commit, lambda width, height: _test_stereo()[2][face], 800, 64,
+            dict(STEREO_PARAMS, pixel_filter='bspline'))
+
+
+# name: (commit, camera, resolution, spp, PTParams fields and, for the
+# strip's faces, render_frame's pixel_filter)
 CELLS = {
     'cornell_512': (lambda: bs.cornell_box().commit(), bs.cornell_camera,
                     512, 32, dict(max_depth=4)),
@@ -94,6 +117,11 @@ CELLS = {
     # map's distribution, its escaped rays read the map
     'sphere_mirror_512': (lambda: ecs.parse_ecs(SPHERE_MIRROR)[1].commit(),
                           sphere_mirror_camera, 512, 8, dict(max_depth=3)),
+    # two faces of the production strip (test_stereo.ecs): the back face,
+    # whose camera rays hit most, and the front face, whose camera rays
+    # all escape
+    'test_stereo_back_800': _test_stereo_cell(2),
+    'test_stereo_front_800': _test_stereo_cell(0),
 }
 # the bounce's profiler ranges: the shade context (its texture fetches
 # included), the texture fetches, the lobes' eval and sampling, the NEE's
@@ -123,6 +151,8 @@ def kernel_of(event_name: str):
 
 def profile_cell(name: str, compaction: str = 'auto') -> dict:
     commit, camera, res, spp, fields = CELLS[name]
+    fields = dict(fields)
+    pixel_filter = fields.pop('pixel_filter', 'box')
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -135,7 +165,8 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
 
     def frame(seed):
         return renderer.render_frame(scene, view, params, res, res, spp=spp,
-                                     seed=seed, compaction=compaction)
+                                     seed=seed, compaction=compaction,
+                                     pixel_filter=pixel_filter)
 
     torch.cuda.reset_peak_memory_stats()
     frame(42)

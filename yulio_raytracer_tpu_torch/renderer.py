@@ -10,7 +10,9 @@ one batch when the frame is small enough (the reference's sample-major
 batching), and any ray count is accepted.  Where the frame's paths run
 past the Russian-roulette start on a BVH scene, each pass runs
 `pathtracer.trace_compacted`, which drops dead rays between bounces
-(`compaction`, as the reference's render_frame).
+(`compaction`, as the reference's render_frame).  A frame adds to a
+film: progressive frames salt their sample ids with the iteration, as
+the reference's.
 """
 from __future__ import annotations
 
@@ -35,14 +37,23 @@ MAX_RAYS_PER_PASS = 1 << 22
 
 
 def _gen_rays(scene, camera, width, height, spp, pixel_ids, sample_ids,
-              seed):
+              seed, pixel_filter: str = 'box'):
     """Camera samples -> (org, dir, time, uv); time (R,) in [0, 1) for a
-    motion scene, else None; uv (R, 2) each ray's position on the film in
-    [0, 1)^2.  pixel_ids/sample_ids: (R,) int64; spp:
-    patterns.grid_scalars(spp)."""
+    motion scene, else None; uv (R, 2) each ray's position on the film
+    ([0, 1)^2 under the box filter; the b-spline's reaches 1.5 pixels
+    past it).  pixel_ids/sample_ids: (R,) int64; spp:
+    patterns.grid_scalars(spp); pixel_filter: 'box' or 'bspline'."""
     px = (pixel_ids % width).to(torch.float32)
     py = (pixel_ids // width).to(torch.float32)
-    juv = patterns.pixel_sample(seed, pixel_ids, sample_ids, spp, DIM_PIXEL)
+    if pixel_filter == 'bspline':
+        juv = patterns.pixel_sample_bspline(seed, pixel_ids, sample_ids,
+                                            spp, DIM_PIXEL)
+    elif pixel_filter == 'box':
+        juv = patterns.pixel_sample(seed, pixel_ids, sample_ids, spp,
+                                    DIM_PIXEL)
+    else:
+        raise ValueError(f"pixel_filter must be 'box' or 'bspline', got "
+                         f"{pixel_filter!r}")
     lens = patterns.sample_2d(seed, pixel_ids, sample_ids, DIM_LENS)
     uv = torch.stack([(px + juv[:, 0]) / width,
                       (py + juv[:, 1]) / height], dim=-1)
@@ -93,21 +104,47 @@ class FrameStats:
 
 def render_frame(scene, camera, params, width: int, height: int, spp: int,
                  seed: int = 0, device=None, compaction: str = 'auto',
-                 bounce_stats=None, backplate=None):
-    """Render spp samples per pixel into a new film on `device` (default:
-    the scene's; it must be the scene's device).
+                 bounce_stats=None, backplate=None, film=None,
+                 iteration: int = 0, accumulate: bool = True,
+                 pixel_filter: str = 'box', progress_cb=None,
+                 stop_flag=None, mesh=None, sampler: str = 'stateless'):
+    """Render spp samples per pixel into `film` (a new one when it is
+    None or accumulate is false) on `device` (default: the scene's; it
+    must be the scene's device).
 
+    iteration: the frame's index in a progressive run; its samples are
+    the ids iteration * spp + s, so frames 0..n-1 add up to one frame of
+    n * spp samples.  The film's weight grows by spp.
+    pixel_filter: 'box' or 'bspline' (the reference's default filter,
+    sampled by importance).
     backplate: an optional (H, W, 3) image (an array or a tensor; a
     fourth channel is dropped) that escaped rays no bounce has bent see
     at their position on the film, in place of the environment lights
     (as the reference's render_frame).
+    progress_cb(fraction) is called after each pass; stop_flag() is
+    checked before each pass, and a true value ends the frame there
+    (the film then holds the passes done, and its weight still grows by
+    spp, as the reference's).
 
     compaction ('auto', 'on' or 'off'; see `compacts`) picks
     trace_compacted or trace for every pass; both give the same film.
     bounce_stats: an optional list that collects trace_compacted's
     per-bounce {'depth', 'width', 'live', 'seconds'} dicts of every pass.
-    Deterministic per (scene, spp, seed).  Returns (film, FrameStats);
-    the stats' seconds end after the device finished."""
+    The reference's `mesh` (pixel parallelism over devices) and
+    `sampler='precomputed'` are not ported: they raise
+    NotImplementedError.  Deterministic per (scene, spp, seed,
+    iteration).  Returns (film, FrameStats); the stats' seconds end
+    after the device finished."""
+    if mesh is not None:
+        raise NotImplementedError("render_frame(mesh=): multi-device pixel "
+                                  "parallelism is not ported yet (ROADMAP "
+                                  "A8)")
+    if sampler == 'precomputed':
+        raise NotImplementedError("render_frame(sampler='precomputed'): the "
+                                  "precomputed sample sets are not ported "
+                                  "yet (ROADMAP A9)")
+    if sampler != 'stateless':
+        raise ValueError("sampler must be 'stateless' or 'precomputed'")
     compacted = compacts(scene, params, compaction)
     device = scene.device if device is None else torch.device(device)
     if device != scene.device:
@@ -115,7 +152,11 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
                          f"on {scene.device}")
     npix = width * height
     t0 = time.perf_counter()
-    rgb_flat = torch.zeros((npix, 3), device=device)
+    if film is None or not accumulate:
+        film = None
+        rgb_flat = torch.zeros((npix, 3), device=device)
+    else:
+        rgb_flat = film.rgb_sum.reshape(npix, 3).clone()
     total_rays = torch.zeros((), device=device)
     spp_grid = patterns.grid_scalars(spp)
     if backplate is not None:
@@ -125,29 +166,35 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     pix_per_pass = max(1, min(npix, MAX_RAYS_PER_PASS))
     # sample-major batching: fold k samples of every pixel into one batch
     fold = max(1, min(spp, MAX_RAYS_PER_PASS // npix))
-    for lo in range(0, npix, pix_per_pass):
+    work = [(lo, s0) for lo in range(0, npix, pix_per_pass)
+            for s0 in range(0, spp, fold)]
+    for wi, (lo, s0) in enumerate(work):
+        if stop_flag is not None and stop_flag():
+            break
         pix = order[lo:lo + pix_per_pass]
-        for s0 in range(0, spp, fold):
-            k = min(fold, spp - s0)
-            pixel_ids = pix.repeat(k)
-            sample_ids = (s0 + torch.arange(
-                k, device=device)).repeat_interleave(pix.shape[0])
-            org, dirn, ray_time, uv = _gen_rays(
-                scene, camera, width, height, spp_grid, pixel_ids,
-                sample_ids, seed)
-            if compacted:
-                rgb, nrays = pathtracer.trace_compacted(
-                    scene, params, org, dirn, seed, pixel_ids, sample_ids,
-                    ray_time, bounce_stats, uv, backplate)
-            else:
-                rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
-                                              pixel_ids, sample_ids, ray_time,
-                                              uv, backplate)
-            # pixels are unique within each of the k sample slices, so
-            # the scatter is a deterministic permutation add
-            rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))
-            total_rays = total_rays + nrays
-    film = accum.Film(rgb_flat.reshape(height, width, 3),
-                      torch.full((height, width), float(spp), device=device))
+        k = min(fold, spp - s0)
+        pixel_ids = pix.repeat(k)
+        sample_ids = (iteration * spp + s0 + torch.arange(
+            k, device=device)).repeat_interleave(pix.shape[0])
+        org, dirn, ray_time, uv = _gen_rays(
+            scene, camera, width, height, spp_grid, pixel_ids,
+            sample_ids, seed, pixel_filter)
+        if compacted:
+            rgb, nrays = pathtracer.trace_compacted(
+                scene, params, org, dirn, seed, pixel_ids, sample_ids,
+                ray_time, bounce_stats, uv, backplate)
+        else:
+            rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
+                                          pixel_ids, sample_ids, ray_time,
+                                          uv, backplate)
+        # pixels are unique within each of the k sample slices, so
+        # the scatter is a deterministic permutation add
+        rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))
+        total_rays = total_rays + nrays
+        if progress_cb is not None:
+            progress_cb((wi + 1) / len(work))
+    weight = (torch.full((height, width), float(spp), device=device)
+              if film is None else film.weight + float(spp))
+    film = accum.Film(rgb_flat.reshape(height, width, 3), weight)
     num_rays = float(total_rays)          # waits for the device
     return film, FrameStats(num_rays, time.perf_counter() - t0)

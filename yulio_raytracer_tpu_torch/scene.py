@@ -93,11 +93,18 @@ class SceneBuilder:
             self.add_mesh(tri)
         return lid
 
+    def has_billboards(self) -> bool:
+        return any(m.face_camera for m in self.meshes)
+
     def commit(self, device=None, leaf_size: int = 64,
                force_bvh: Optional[bool] = None,
-               accel: str = 'default') -> "TorchScene":
+               accel: str = 'default', view_pos=None,
+               view_up=(0.0, 1.0, 0.0)) -> "TorchScene":
         """Pack the staged scene onto `device` (a torch device or its
-        name; None is the card, and raises without one).  A BVH is built
+        name; None is the card, and raises without one).  Camera-aligned
+        billboards face view_pos (with view_up; the per-view
+        rtUpdatePrimitive + rtCommit of renderer.cpp:550-559), or keep
+        their authored placement without one.  A BVH is built
         above BRUTE_FORCE_MAX_TRIS triangles (or as force_bvh says).
         accel, as in the reference:
         'default' takes the BVH4 collapse and falls back to the binary
@@ -114,7 +121,13 @@ class SceneBuilder:
                 f"unknown accel {accel!r}: expected 'default' "
                 f"(auto-select), 'bvh2', 'bvh4', or 'bvh4mb' "
                 f"(motion scenes)")
-        packed = gmesh.pack_meshes(self.meshes)
+        meshes = [m if not (m.face_camera and m.orig_transform is not None)
+                  else m.transformed(
+                      m.orig_transform if view_pos is None else
+                      gmesh.billboard_transform(m.orig_transform, view_pos,
+                                                view_up))
+                  for m in self.meshes]
+        packed = gmesh.pack_meshes(meshes)
         n_tris = packed.num_triangles
         has_motion = packed.mv0 is not None
         if accel == 'bvh4mb' and not has_motion:

@@ -306,9 +306,15 @@ def sample_lobes(lobes, ns, ng, wo, s2, s1, type_mask: int = ALL,
             lobes, present, t, nsb, wob, ng, cos_o, cos_o_c, u, v, ns, tx,
             ty)
         c_gl = color * w_gl
-    else:
+    elif pdf_ch:
         # no glossy lobe: slots of no family (NONE) read zeros
         wi_gl, pdf_gl, c_gl = 0.0, 0.0, 0.0
+    else:
+        # no lobe family at all (a scene without materials): zero lanes,
+        # as tensors, since no chain gives the selects one
+        pdf_gl = torch.zeros(t.shape, dtype=color.dtype, device=color.device)
+        wi_gl = c_gl = torch.zeros(vshape, dtype=color.dtype,
+                                   device=color.device)
     wi = _select(wi_ch, wi_gl, vec=True)
     pdf = _select(pdf_ch, pdf_gl)
     c = _select(c_ch, c_gl, vec=True)
