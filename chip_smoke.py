@@ -110,7 +110,26 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     writing chiprun_out/cli_cornell.ppm, held to the CPU CLI's file; and
     a scene of an HDRI light alone (no geometry) through render_mono,
     held to the CPU;
- 7. each kernel's bound: the larger of the bytes it must move (tables,
+ 7. the single-device remainder: the colonnade committed at the three
+    BVH qualities ('normal', 'high', 'high-spatial'; leaf 32) with each
+    one's CommitStats and references, each timed at colonnade_1024's
+    config, K3/K4 bit-equal on the spatial-split tree's 256^2 camera,
+    hemisphere and shadow rays; the precomputed sampler: cornell_512 with
+    the b-spline filter (and build_tables' host seconds), stereo_face_1536
+    with compaction 'off' and 'auto' (films bit-equal), cornell_64 and
+    motion_field_64 against the port's CPU render (>= 60 dB); the debug
+    renderer on the colonnade at 1024^2, 8 rays a pixel, depth 4 (rays,
+    Mrays/s, K3's profiled share of the frame; 64^2 against the CPU);
+    the web viewer's interactive_loop on the colonnade at 512^2 driven by
+    queued events (a rotate, a pick that re-centres, 'q'; its fps, its
+    last PNG decoded equal to the tonemapped film); the display loop
+    writing chiprun_out/display.png (read back equal); four random scenes
+    at 32^2 against the port's CPU (>= 60 dB, or trimmed-1% >= 60), the
+    debug renderer on one; profiling.trace over a cornell_512 frame
+    (naming the shade range and the dense kernels); render_progressive
+    stopped and resumed, bit-equal to an uninterrupted run.  The
+    counters are zeroed before each path and only its kernels may run;
+ 8. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3; K12's
     from its shapes; K1/K2's by stage, as they run the Woop test) times
@@ -321,7 +340,7 @@ def main():
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from yulio_raytracer_tpu_torch.api import cli, output, session
-    from yulio_raytracer_tpu_torch.film import accum, stereo_strip
+    from yulio_raytracer_tpu_torch.film import accum, stereo_strip, tonemap
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
     from yulio_raytracer_tpu_torch.io import ecs, image
@@ -1445,7 +1464,319 @@ def main():
           f"3, 4 spp): " + held('hdri_only_64', img, ref)
           + f", {hstats.num_rays:.0f} rays, kernel launches {ran}")
 
-    # ---- 7. bounds ---------------------------------------------------------
+    # ---- 7. the single-device remainder ----------------------------------
+    from yulio_raytracer_tpu_torch.api import display, viewer
+    from yulio_raytracer_tpu_torch.integrator import debugrenderer
+    from yulio_raytracer_tpu_torch.profile_frame import kernel_of
+    from yulio_raytracer_tpu_torch.sampling import precomputed
+    from yulio_raytracer_tpu_torch.utils import profiling, regression
+    t_interactive = time.perf_counter()
+    k34 = {'intersect_packet4', 'occluded_packet4'}
+    k12 = {'intersect_dense', 'occluded_dense'}
+
+    def timed_frames(what, scene, cam, params, res, spp, want, **kw):
+        """A frame to warm up, then 3 with the counters zeroed; returns
+        (median frame_s, median Mrays/s, the line of both with min and
+        max, rays and launches a frame, the first timed frame's film)."""
+        renderer.render_frame(scene, cam, params, res, res, spp=spp,
+                              seed=SEED, **kw)
+        zero_counters()
+        films, runs = zip(*(renderer.render_frame(
+            scene, cam, params, res, res, spp=spp, seed=SEED + i, **kw)
+            for i in (1, 2, 3)))
+        counts = launched(what, want)
+        secs = sorted(s.seconds for s in runs)
+        mrps = sorted(s.mrps for s in runs)
+        line = (f"frame_s {secs[1]:.4f} (min {secs[0]:.4f}, max "
+                f"{secs[2]:.4f}), {mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, "
+                f"max {mrps[2]:.2f}), {runs[0].num_rays / 1e6:.2f} "
+                f"Mrays/frame, launches per frame "
+                f"{ {k: n / len(runs) for k, n in counts.items()} }")
+        return secs[1], mrps[1], line, films[0]
+
+    # the three quality trees of the colonnade (leaf 32) at colonnade_1024's
+    # config; K3/K4 held on the spatial-split tree's duplicated references
+    col_cam = bs.colonnade_camera(1024, 1024)
+    quality_mrps = {}
+    for q in ('normal', 'high', 'high-spatial'):
+        scene, cs = profiling.committed_stats(bs.colonnade(), device=dev,
+                                              leaf_size=32, quality=q)
+        fs, mrps, line, _ = timed_frames(f'colonnade_1024 ({q})', scene,
+                                         col_cam, pt.PTParams(max_depth=4),
+                                         1024, 8, k34)
+        quality_mrps[q] = mrps
+        phase('interactive', f"colonnade_1024 quality {q!r}: "
+              f"{cs.triangles} triangles, {scene.bvh_refs} references "
+              f"({scene.bvh_refs / cs.triangles:.4f} a triangle), "
+              f"{cs.bvh_nodes} binary nodes, {scene.nodes4.shape[0]} BVH4 "
+              f"nodes, accel {scene.accel}; BVH built in "
+              f"{cs.bvh_seconds:.3f} s, commit {cs.total_seconds:.2f} s; "
+              f"1024^2, 8 spp, depth 4: {line} on {card}")
+        if q == 'high-spatial':
+            org, dirn, _ = camera_rays(scene, bs.colonnade_camera(256, 256),
+                                       256, 256, dev, SEED)
+            z = torch.zeros(org.shape[0], device=dev)
+            cam_rays = (org, dirn, z, torch.full_like(z, float('inf')))
+            hit = wide.intersect_packet4(scene.nodes4, scene.tris, *cam_rays)
+            *hemi, dg, eps = hemisphere_rays(scene, org, dirn, hit, gen, dev)
+            shadow = shadow_rays(scene, dg, eps, hit.valid, gen, dev)
+            for what, rays, f in (
+                    ('camera', cam_rays, wide.intersect_packet4),
+                    ('hemisphere', hemi, wide.intersect_packet4),
+                    ('shadow', shadow, wide.occluded_packet4)):
+                check(f, f'{f.__name__} (colonnade high-spatial {what})',
+                      (scene.nodes4, scene.tris, *rays), exact=True)
+            del cam_rays, hemi, shadow, hit, dg, eps
+        del scene
+
+    # the precomputed sampler: cornell_512 with the b-spline filter, the
+    # host's table build apart; the stereo face's films of compaction off
+    # and auto; 64^2 cornell and motion field against the port's CPU
+    t0 = time.perf_counter()
+    precomputed.build_tables(32, 0, num_1d=4, num_2d=5,
+                             pixel_filter='bspline')
+    tables_s = time.perf_counter() - t0
+    fs, mrps, line, _ = timed_frames(
+        'cornell_512 (precomputed)', cornell, bs.cornell_camera(512, 512),
+        pt.PTParams(max_depth=4), 512, 32, k12, sampler='precomputed',
+        pixel_filter='bspline')
+    phase('interactive', f"cornell_512 (512^2, 32 spp, depth 4, b-spline, "
+          f"sampler precomputed): {line}; build_tables (64 sets x 32 "
+          f"samples, 4 1D and 5 2D dims) {tables_s:.3f} s on the host, in "
+          f"every frame's seconds, on {card}")
+    films = {}
+    for how in ('off', 'auto'):
+        fs, mrps, line, film = timed_frames(
+            f'stereo_face_1536 (precomputed, {how})', colonnade,
+            stereo_face_camera(1536, 1536), pt.PTParams(**STEREO_PARAMS),
+            1536, 2, k34, compaction=how, sampler='precomputed')
+        films[how] = film.rgb_sum
+        phase('interactive', f"stereo_face_1536 (1536^2, 2 spp, depth 10, "
+              f"sampler precomputed, compaction {how}): {line} on {card}")
+    if not torch.equal(films['off'], films['auto']):
+        raise AssertionError("stereo_face_1536 (precomputed): the films of "
+                             "compaction off and auto differ")
+    phase('interactive', "stereo_face_1536 (precomputed): the films of "
+          "compaction off and auto bit-equal")
+    del films
+    for name, sb, camf, want, spp, depth in (
+            ('cornell_64', bs.cornell_box(), bs.cornell_camera, k12, 2, 3),
+            ('motion_field_64', bs.motion_field(), bs.motion_field_camera,
+             {'intersect_packet_mb', 'occluded_packet_mb'}, 2, 2)):
+        imgs = []
+        for device in (dev, 'cpu'):
+            zero_counters()
+            film, st = renderer.render_frame(
+                sb.commit(device=device), camf(64, 64),
+                pt.PTParams(max_depth=depth), 64, 64, spp=spp, seed=SEED,
+                sampler='precomputed')
+            if device == dev:
+                counts = launched(f'{name} (precomputed)', want)
+            imgs.append(accum.resolve(film).cpu().numpy())
+        phase('interactive', f"{name} (sampler precomputed, {spp} spp, "
+              f"depth {depth}): " + held(name, *imgs, gate=60.0)
+              + f", launches {counts}")
+
+    # the debug renderer on the colonnade, K3's device time in it profiled
+    dparams = debugrenderer.DebugParams(max_depth=4, spp=8)
+    debugrenderer.render(colonnade, col_cam, dparams, 1024, 1024)
+    zero_counters()
+    runs = [debugrenderer.render(colonnade, col_cam, dparams, 1024, 1024,
+                                 seed=i)[1] for i in (1, 2, 3)]
+    counts = launched('debug renderer (colonnade)', {'intersect_packet4'})
+    mrps = sorted(s.mrps for s in runs)
+    secs = sorted(s.seconds for s in runs)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        img, st = debugrenderer.render(colonnade, col_cam, dparams, 1024,
+                                       1024, seed=4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    k3_ms = busy_ms = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy_ms += evt.self_device_time_total / 1e3
+            if kernel_of(evt.key) == 'intersect_wide_kernel':
+                k3_ms += evt.self_device_time_total / 1e3
+    vals = torch.unique(img * dparams.spp)
+    if not (torch.equal(vals, vals.round()) and float(vals.max()) <= 8):
+        raise AssertionError("debug renderer: pixels not whole multiples "
+                             "of 1/spp")
+    ref, _ = debugrenderer.render(colonnade, bs.colonnade_camera(64, 64),
+                                  dparams, 64, 64)
+    cpu_col = bs.colonnade().commit(device='cpu', leaf_size=32)
+    ref_cpu, _ = debugrenderer.render(cpu_col, bs.colonnade_camera(64, 64),
+                                      dparams, 64, 64)
+    same = float((ref.cpu() == ref_cpu).all(-1).float().mean())
+    if same < 0.99:
+        raise AssertionError(f"debug renderer: {same:.4f} of 64^2 pixels "
+                             "equal to the CPU's")
+    phase('interactive', f"debug renderer (colonnade, 1024^2, 8 rays a "
+          f"pixel, max_depth 4): {runs[0].num_rays / 1e6:.2f} Mrays traced, "
+          f"{mrps[1]:.2f} Mrays/s (min {mrps[0]:.2f}, max {mrps[2]:.2f}), "
+          f"frame_s {secs[1]:.4f}; profiled: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms, K3 {k3_ms:.1f} ms ({k3_ms / wall_ms:.1%} "
+          f"of the frame); launches per frame "
+          f"{ {k: n / len(runs) for k, n in counts.items()} }; beside "
+          f"colonnade_1024 path traced ('high') {quality_mrps['high']:.2f} "
+          f"Mrays/s; 64^2 against the CPU: {same:.4f} of pixels equal; "
+          f"on {card}")
+    del cpu_col
+
+    # the web viewer: interactive_loop on the colonnade at 512^2, 1 spp a
+    # frame, on a server of its own, driven by queued events
+    l2w = bs.colonnade_camera(512, 512).local2world.numpy().astype(
+        np.float64)
+    ctl = viewer.CameraController(pos=l2w[3], lookat=l2w[3] + l2w[2] * 10.0,
+                                  up=l2w[1], angle=65.0, aspect=1.0)
+    srv = viewer.ViewerServer(port=0)
+    script = {1: [{'type': 'rotate', 'dx': 30, 'dy': 10}],
+              2: [{'type': 'pick', 'x': 0.5, 'y': 0.55}],
+              12: [{'type': 'key', 'k': 'q'}]}
+    huds, stamps = [], []
+    publish = srv.submit_frame
+
+    def submit(img, hud=''):
+        publish(img, hud)
+        huds.append(hud)
+        stamps.append(time.perf_counter())
+        with srv._lock:
+            srv._events.extend(script.get(len(huds), []))
+    srv.submit_frame = submit
+    lookat0 = ctl.lookat.copy()
+    zero_counters()
+    try:
+        film = viewer.interactive_loop(colonnade, ctl,
+                                       pt.PTParams(max_depth=4), 512, 512,
+                                       spp_per_frame=1, server=srv,
+                                       max_frames=20)
+        counts = launched('viewer (colonnade)', k34)
+        png = srv._frame[1]
+    finally:
+        srv.close()
+    shown = stereo_strip.decode_png(png)
+    want_img = tonemap.to_srgb_u8(tonemap.tonemap(
+        accum.resolve(film))).cpu().numpy()
+    if len(huds) != 12 or not np.array_equal(shown, want_img):
+        raise AssertionError(f"viewer: {len(huds)} frames, or its last PNG "
+                             "differs from the tonemapped film")
+    if np.allclose(ctl.lookat, lookat0):
+        raise AssertionError("viewer: the pick did not re-centre the view")
+    fps = (len(stamps) - 3) / (stamps[-1] - stamps[2])
+    phase('interactive', f"viewer (colonnade, 512^2, 1 spp a frame, depth "
+          f"4): {len(huds)} frames, a rotate, a pick re-centring on "
+          f"{np.round(ctl.lookat, 3).tolist()}, then 'q'; {fps:.2f} fps over "
+          f"the 9 frames after the pick; last hud '{huds[-1]}'; the last "
+          f"PNG ({len(png)} bytes) decodes to the tonemapped film; launches "
+          f"{counts} on {card}")
+
+    # the display loop writing display.png (no Pillow on this machine)
+    shown_frames = []
+    out_png = os.path.join(OUT, 'display.png')
+
+    def keep_frame(i, img, st):
+        shown_frames.append(img)
+        return None, True
+    zero_counters()
+    display.display_loop(cornell, bs.cornell_camera(64, 64),
+                         pt.PTParams(max_depth=4), 64, 64, spp_per_frame=4,
+                         max_frames=4, out_path=out_png, frame_cb=keep_frame,
+                         use_matplotlib=False)
+    counts = launched('display loop (cornell)', k12)
+    with open(out_png, 'rb') as f:
+        if not np.array_equal(stereo_strip.decode_png(f.read()),
+                              shown_frames[-1]) or len(shown_frames) != 4:
+            raise AssertionError("display loop: display.png is not the last "
+                                 "frame")
+    phase('interactive', f"display loop (cornell, 64^2, 4 frames of 4 spp): "
+          f"{out_png} read back equal to the last frame; launches {counts}")
+
+    # the random-scene fuzzer against the port's CPU renders
+    c_orbit = cli.gecs_default_view(ecs.RenderSettings(width=32, height=32))
+    orbit = output.mono_camera(c_orbit)
+    for seed in range(4):
+        sb = regression.create_random_scene(seed)
+        imgs = []
+        for device in (dev, 'cpu'):
+            zero_counters()
+            film, st = renderer.render_frame(
+                sb.commit(device=device), orbit, pt.PTParams(max_depth=3),
+                32, 32, spp=2, seed=seed)
+            if device == dev:
+                counts = launched(f'random scene {seed}', k12)
+            imgs.append(accum.resolve(film).cpu().numpy())
+        db, tdb = psnr(*imgs), trimmed_psnr(*imgs)
+        if db < 60.0 and tdb < 60.0:
+            raise AssertionError(f"random scene {seed}: {db:.2f} dB, "
+                                 f"trimmed-1% {tdb:.2f} dB")
+        line = ''
+        if seed == 0:
+            scene = sb.commit(device=dev)
+            dimg, dst = debugrenderer.render(
+                scene, orbit, debugrenderer.DebugParams(4, 2), 32, 32)
+            dref, _ = debugrenderer.render(sb.commit(device='cpu'), orbit,
+                                           debugrenderer.DebugParams(4, 2),
+                                           32, 32)
+            line = (f"; its debug render {dst.num_rays:.0f} rays, "
+                    f"{float((dimg.cpu() == dref).all(-1).float().mean()):.4f}"
+                    " of pixels equal to the CPU's")
+        phase('interactive', f"random scene {seed} ({st.num_rays:.0f} rays, "
+              f"32^2, 2 spp, depth 3): {db:.2f} dB, trimmed-1% {tdb:.2f} dB "
+              f"against the CPU (gate 60, either); launches {counts}{line}")
+
+    # profiling.trace over one cornell_512 frame
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counters()
+        with profiling.trace(tmp) as prof:
+            renderer.render_frame(cornell, bs.cornell_camera(512, 512),
+                                  pt.PTParams(max_depth=4), 512, 512, spp=32,
+                                  seed=SEED)
+            torch.cuda.synchronize()
+        counts = launched('profiled cornell_512', k12)
+        size = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as f:
+            names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    kernels_named = sorted({kernel_of(n) for n in names} - {None})
+    if (pt.SPAN_SHADE not in names or kernels_named
+            != ['intersect_dense_kernel', 'occluded_dense_kernel']):
+        raise AssertionError(f"profiling.trace: the trace names "
+                             f"{kernels_named}, shade range "
+                             f"{pt.SPAN_SHADE in names}")
+    phase('interactive', f"profiling.trace of cornell_512: {size} bytes of "
+          f"Chrome trace naming {pt.SPAN_SHADE} and {kernels_named}; "
+          f"launches {counts}")
+
+    # render_progressive: stopped after 2 of 4 iterations, then resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'film.npz')
+        calls = []
+        args = (cornell, bs.cornell_camera(64, 64), pt.PTParams(max_depth=4),
+                64, 64, 4, 4)
+        zero_counters()
+        _, done = renderer.render_progressive(
+            *args, checkpoint_path=ckpt, seed=SEED,
+            stop_flag=lambda: calls.append(1) or len(calls) > 2)
+        film, done_b = renderer.render_progressive(*args,
+                                                   checkpoint_path=ckpt,
+                                                   seed=SEED)
+        counts = launched('render_progressive (cornell)', k12)
+    ref = None
+    for it in range(4):
+        ref, _ = renderer.render_frame(*args[:6], film=ref, iteration=it,
+                                       seed=SEED)
+    if (done, done_b) != (2, 4) or not torch.equal(film.rgb_sum, ref.rgb_sum):
+        raise AssertionError(f"render_progressive: {done}, {done_b} "
+                             "iterations, or not bit-equal to an "
+                             "uninterrupted run")
+    phase('interactive', f"render_progressive (cornell, 64^2, 4 x 4 spp): "
+          f"stopped after {done}, resumed to {done_b}, bit-equal to an "
+          f"uninterrupted run; launches {counts}")
+    phase('interactive', f"phase done in "
+          f"{time.perf_counter() - t_interactive:.1f} s")
+
+    # ---- 8. bounds ---------------------------------------------------------
     summary = []
     for (f, _, src, replaces, pair_flops), n in zip(kernels, main_launches):
         res = results[f.__name__]

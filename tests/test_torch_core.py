@@ -227,13 +227,12 @@ def test_tonemap_matches():
                                       np.asarray(jtm.to_srgb_u8(ref)))
 
 
-def _precomputed_sampler():
-    from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
-    from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
-    from yulio_raytracer_tpu_torch import renderer
-    renderer.render_frame(bs.cornell_box().commit(device='cpu'),
-                          bs.cornell_camera(4, 4), pt.PTParams(max_depth=1),
-                          4, 4, 1, sampler='precomputed')
+def _stereo_through_servers():
+    from yulio_raytracer_tpu_torch.api import output
+    from yulio_raytracer_tpu_torch.io import ecs
+    from yulio_raytracer_tpu_torch.scene import SceneBuilder
+    output.render_stereo(SceneBuilder(), ecs.RenderSettings(), [], 'x',
+                         client=object(), device='cpu')
 
 
 def _mono_on_two_devices():
@@ -252,7 +251,7 @@ def _cli_connect():
 
 
 @pytest.mark.parametrize('make', [
-    _precomputed_sampler,               # the precomputed sampler (A9)
+    _stereo_through_servers,            # the TCP render servers (A8)
     _mono_on_two_devices,               # several devices (A8)
     lambda: lights.le_area(lights.ambient((1, 1, 1)), None),
     _cli_connect,                       # the TCP render servers (A8)

@@ -11,7 +11,9 @@ goldens rendered through them, the StereoCube rays against the port's
 CPU rays, compaction 'auto' against 'off' on the colonnade, and the
 shading layer (the texture fetch, the shade context and the materials
 probe of every preset), a scene of an HDRI light alone and test_room.dae's
-12 stereo faces against the port's CPU results.
+12 stereo faces against the port's CPU results; the precomputed sampler,
+the three BVH qualities, pick, the debug renderer, render_progressive,
+the viewer's loop and profiling.trace on the card.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -19,6 +21,7 @@ tests/conftest.py, which configures jax, cannot load):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import json
 import os
 import shutil
 
@@ -1193,3 +1196,160 @@ def test_collada_strip_faces_on_card_match_cpu(cuda):
         mse = ((b - a) ** 2).mean()
         assert np.isfinite(b).all()
         assert 10 * np.log10(a.max() ** 2 / max(mse, 1e-20)) >= 40.0
+
+
+def _db(img, ref):
+    mse = ((img - ref) ** 2).mean()
+    return 10 * np.log10(max(ref.max(), 1e-9) ** 2 / max(mse, 1e-20))
+
+
+COLONNADE_SMALL = dict(cols_x=3, cols_z=2, tess=(8, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['cornell', 'motion', 'colonnade'])
+def test_precomputed_sampler_on_card_matches_cpu(cuda, which):
+    """sampler='precomputed' on the card against the port's CPU render of
+    the same tables (cornell 32^2 through K1/K2, the reduced motion field
+    through its time dimension, the reduced colonnade at depth 6 with
+    compaction 'on'): >= 60 dB, equal rays; the colonnade's 'off' film
+    bit-equal to its 'on' film on the card."""
+    sb, cam, depth = {
+        'cornell': (bs.cornell_box(), bs.cornell_camera(32, 32), 3),
+        'motion': (bs.motion_field(n_spheres=4),
+                   bs.motion_field_camera(32, 32), 2),
+        'colonnade': (bs.colonnade(**COLONNADE_SMALL),
+                      bs.colonnade_camera(32, 32), 6)}[which]
+    kw = dict(sampler='precomputed', seed=3, spp=2, pixel_filter='bspline',
+              compaction='on')
+    params = pt.PTParams(max_depth=depth)
+    out = [renderer.render_frame(sb.commit(device=dev, leaf_size=32), cam,
+                                 params, 32, 32, **kw)
+           for dev in ('cpu', cuda)]
+    (ref, rs), (film, st) = out
+    assert _db(accum.resolve(film).cpu().numpy(),
+               accum.resolve(ref).numpy()) >= 60.0
+    assert st.num_rays == rs.num_rays
+    if which == 'colonnade':
+        scene = sb.commit(device=cuda, leaf_size=32)
+        off, _ = renderer.render_frame(scene, cam, params, 32, 32,
+                                       **dict(kw, compaction='off'))
+        on, _ = renderer.render_frame(scene, cam, params, 32, 32, **kw)
+        assert torch.equal(off.rgb_sum, on.rgb_sum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('quality', ['normal', 'high', 'high-spatial'])
+def test_quality_trees_on_card_match_plain(cuda, quality):
+    """The reduced colonnade committed at each quality: K3/K4 bit-equal to
+    their plain versions on its 64^2 camera rays and their shadow rays to
+    the tree's first light, and its render >= 60 dB against the CPU."""
+    sb = bs.colonnade(**COLONNADE_SMALL)
+    scene = sb.commit(device=cuda, leaf_size=32, quality=quality)
+    org, d, _ = raysets.camera_rays(scene, bs.colonnade_camera(64, 64), 64,
+                                    64, cuda, 5)
+    z = torch.zeros(org.shape[0], device=cuda)
+    rays = (org, d, z, torch.full_like(z, float('inf')))
+    hit = wide.intersect_packet4(scene.nodes4, scene.tris, *rays)
+    ref = wide.intersect_wide_plain(scene.nodes4, scene.tris, *rays)
+    for a, b in zip(hit, ref):
+        assert torch.equal(a, b)
+    p = org + torch.where(hit.valid, hit.t, 0.0)[:, None] * d
+    to = scene.lights[0]['v0'].to(cuda) - p
+    dist = torch.linalg.norm(to, dim=-1)
+    srays = (p, to / dist[:, None], torch.full_like(z, 1e-3),
+             torch.where(hit.valid, dist * 0.999, -1.0))
+    assert torch.equal(wide.occluded_packet4(scene.nodes4, scene.tris,
+                                             *srays),
+                       wide.occluded_wide_plain(scene.nodes4, scene.tris,
+                                                *srays))
+    imgs = [accum.resolve(renderer.render_frame(
+        sb.commit(device=dev, leaf_size=32, quality=quality),
+        bs.colonnade_camera(24, 24), pt.PTParams(max_depth=3), 24, 24,
+        spp=2)[0]).cpu().numpy() for dev in ('cpu', cuda)]
+    assert _db(imgs[1], imgs[0]) >= 60.0
+
+
+@pytest.mark.cuda
+def test_pick_and_debug_renderer_on_card_match_cpu(cuda):
+    """renderer.pick on a 7 x 7 grid and the debug renderer's 32^2 frame
+    (3 rays a pixel, depth 4) on the reduced colonnade: hit flags equal,
+    points within 1e-5 of the extent, >= 99% of pixels equal, rays within
+    1%."""
+    from yulio_raytracer_tpu_torch.integrator import debugrenderer
+    sb = bs.colonnade(**COLONNADE_SMALL)
+    cpu, card = (sb.commit(device='cpu', leaf_size=32),
+                 sb.commit(device=cuda, leaf_size=32))
+    cam = bs.colonnade_camera(32, 32)
+    extent = float(np.linalg.norm(np.subtract(cpu.bbox_hi, cpu.bbox_lo)))
+    for x in np.linspace(-0.2, 1.2, 7):
+        for y in np.linspace(-0.2, 1.2, 7):
+            (ok, p), (rok, rp) = (renderer.pick(card, cam, x, y),
+                                  renderer.pick(cpu, cam, x, y))
+            assert ok == rok
+            np.testing.assert_allclose(p, rp, rtol=0, atol=1e-5 * extent)
+    dp = debugrenderer.DebugParams(max_depth=4, spp=3)
+    (img, st), (ref, rst) = (debugrenderer.render(s, cam, dp, 32, 32)
+                             for s in (card, cpu))
+    assert float((img.cpu() == ref).all(-1).float().mean()) >= 0.99
+    assert abs(st.num_rays - rst.num_rays) <= 0.01 * rst.num_rays
+
+
+@pytest.mark.cuda
+def test_progressive_viewer_and_trace_on_card(cuda, tmp_path):
+    """On the card: render_progressive stopped after 2 of 4 iterations and
+    resumed, bit-equal to an uninterrupted run; the viewer's loop with a
+    pick that hits and 'q', its last PNG the tonemapped film; a
+    profiling.trace that names the dense kernels and the shade range."""
+    from yulio_raytracer_tpu_torch.api import viewer
+    from yulio_raytracer_tpu_torch.film import stereo_strip, tonemap
+    from yulio_raytracer_tpu_torch.profile_frame import kernel_of
+    from yulio_raytracer_tpu_torch.utils import profiling
+    scene = bs.cornell_box().commit(device=cuda)
+    args = (scene, bs.cornell_camera(32, 32), pt.PTParams(max_depth=3), 32,
+            32, 2, 4)
+    ckpt = str(tmp_path / 'film.npz')
+    calls = []
+    _, done = renderer.render_progressive(
+        *args, checkpoint_path=ckpt, stop_flag=lambda: calls.append(1)
+        or len(calls) > 2)
+    film, done_b = renderer.render_progressive(*args, checkpoint_path=ckpt)
+    ref = None
+    for it in range(4):
+        ref, _ = renderer.render_frame(*args[:6], film=ref, iteration=it)
+    assert (done, done_b) == (2, 4) and torch.equal(film.rgb_sum, ref.rgb_sum)
+
+    l2w = bs.cornell_camera(32, 32).local2world.numpy().astype(np.float64)
+    ctl = viewer.CameraController(pos=l2w[3], lookat=l2w[3] + l2w[2],
+                                  up=l2w[1], angle=37.0)
+    srv = viewer.ViewerServer(port=0)
+    with srv._lock:
+        srv._events.append({'type': 'pick', 'x': 0.5, 'y': 0.5})
+    publish, n = srv.submit_frame, []
+
+    def submit(img, hud=''):
+        publish(img, hud)
+        n.append(1)
+        with srv._lock:
+            srv._events.append({'type': 'key', 'k': 'q'})
+    srv.submit_frame = submit
+    try:
+        film = viewer.interactive_loop(scene, ctl, pt.PTParams(max_depth=2),
+                                       32, 32, server=srv, max_frames=5)
+        png = srv._frame[1]
+    finally:
+        srv.close()
+    assert len(n) == 1 and not np.allclose(ctl.lookat, l2w[3] + l2w[2])
+    np.testing.assert_array_equal(
+        stereo_strip.decode_png(png),
+        tonemap.to_srgb_u8(tonemap.tonemap(
+            accum.resolve(film))).cpu().numpy())
+
+    with profiling.trace(str(tmp_path)) as prof:
+        renderer.render_frame(*args[:6])
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    assert pt.SPAN_SHADE in names
+    assert {kernel_of(n) for n in names} >= {'intersect_dense_kernel',
+                                             'occluded_dense_kernel'}

@@ -8,16 +8,23 @@ build/kernels/ and bound with ctypes (ops/cuda_build.py); on CPU tensors
 each kernel wrapper runs its plain torch version instead.
 
 Layers, from the entry point down:
-  renderer     render_frame: passes of camera-sample ray batches
-  integrator   wavefront path tracer (NEE, Russian roulette)
-  cameras / sampling / shading / lights / film   per-ray math in torch
-  scene        SceneBuilder.commit(device=None: the card) -> TorchScene
+  api          the entry points: api/output.py, the StartRT session
+               (api/session.py), the CLI (api/cli.py), the progressive
+               display loop (api/display.py) and the web viewer
+               (api/viewer.py)
+  renderer     render_frame: passes of camera-sample ray batches;
+               render_progressive (checkpointed) and pick
+  integrator   wavefront path tracer (NEE, Russian roulette) and the
+               debug renderer
+  cameras / sampling / shading / lights / film   per-ray math in torch;
+               sampling/precomputed.py the reference's sample sets
+  scene        SceneBuilder.commit(device=None: the card, quality=) ->
+               TorchScene
   geometry     host-side packing and BVH build (numpy, native builder)
   ops          intersection: dense.py, wide.py, traverse.py, pairs.py
                and grid.py wrap the kernels
-  film / api   the accumulation film, the 12-face stereo strip, and
-               the entry points: api/output.py, the StartRT session
-               (api/session.py) and the CLI (api/cli.py)
+  utils        logging, profiling (traces, commit stats) and the
+               random-scene fuzzer (utils/regression.py)
 profile_frame.py profiles one frame of a timed cell on the card.
 """
 

@@ -9,17 +9,24 @@ language as `.ecs` files (renderer.cpp:1406-1474):
                                              # at the camera
   cli scene.dae                              # the Yulio FPR stereo pipeline
                                              # (renderer.cpp:1410-1436)
+  cli -c scene.ecs -display -frames 8        # progressive, display.png
+  cli -c scene.ecs -viewer 8265              # the web viewer on that port
+  cli -regression -size 32 32                # endless random scenes
 
 It renders on the card; main(argv, device='cpu') runs the plain torch
-versions.  `-connect` and `-devices` (ROADMAP A8), `-display`,
-`-viewer` and `-regression` (A7) are not ported yet and raise
-NotImplementedError.
+versions.  `-connect` and `-devices` (ROADMAP A8) are not ported yet and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
+import copy
+import itertools
 import os
 import sys
 import time
+
+import numpy as np
+import torch
 
 _USAGE = """\
 yulio-raytracer-tpu renderer (PyTorch/CUDA port)
@@ -37,7 +44,10 @@ token language, recursively includable via -c):
   -vp/-vi/-vu/-fov       camera
   -ambientlight R G B    dome light (plus point/spot/directional/
                          distant/triangle/quad/hdri light flags)
-  -renderer pathtracer { spp = N depth = N ... }
+  -renderer pathtracer { spp = N depth = N sampler = precomputed ... }
+  -display [-viewer P]   progressive view (web viewer on port P)
+  -frames N              frames of -display / -viewer (0: endless)
+  -regression            random-scene stress loop
 """
 
 
@@ -68,20 +78,16 @@ def main(argv=None, device=None):
     gecs.parse(gecs.TokenStream.from_argv(argv), settings, sb, '.')
     glog.log_display = settings.log_display
     if '-regression' in argv:
-        raise NotImplementedError("-regression: the random-scene stress "
-                                  "loop is not ported yet (ROADMAP A7)")
+        return _regression_loop(settings, device)
     if settings.connect:
         raise NotImplementedError("-connect: the TCP render servers are "
                                   "not ported yet (ROADMAP A8)")
-    if settings.display:
-        raise NotImplementedError("-display / -viewer: the progressive "
-                                  "display and the web viewer are not "
-                                  "ported yet (ROADMAP A7)")
     if settings.stereo:
         # settings.scene_file = last -i path, argv or included .ecs alike
         return _stereo_from_settings(settings, sb, settings.scene_file,
                                      device)
-
+    if settings.display:
+        return _display_mode(settings, sb, device)
     from . import output as goutput
     scene = sb.commit(device=device, accel=settings.accel)
     out = settings.out_file or 'out.png'
@@ -95,6 +101,77 @@ def main(argv=None, device=None):
     print(f"wrote {out} ({settings.width}x{settings.height}, "
           f"{settings.spp} spp) in {time.time() - t0:.1f}s")
     return 0
+
+
+def _display_mode(settings, sb, device=None):
+    """-display: the progressive refinement loop (glutdisplay.cpp
+    analog), writing the -o file (display.png by default) each frame;
+    -viewer P: the interactive web viewer on port P with the mouse
+    camera and the reference's keys, its 't' mode cycling random
+    scenes.  Both run settings.num_frames frames (the viewer: endless at
+    1 or fewer, until 'q')."""
+    from . import display as gdisplay
+    from . import output as goutput
+    scene = sb.commit(device=device, accel=settings.accel)
+    camera = goutput.mono_camera(settings)
+    params = goutput.params_from_settings(settings)
+    if settings.viewer_port:
+        from ..utils import regression as greg
+        from . import viewer as gviewer
+        l2w = camera.local2world.cpu().numpy().astype(np.float64)
+        ctl = gviewer.CameraController(
+            pos=l2w[3], lookat=l2w[3] + l2w[2] * 10.0, up=l2w[1],
+            angle=getattr(camera, 'angle', 64.0),
+            aspect=settings.width / settings.height)
+        gviewer.interactive_loop(
+            scene, ctl, params, settings.width, settings.height,
+            spp_per_frame=settings.spp, port=settings.viewer_port,
+            max_frames=settings.num_frames if settings.num_frames > 1
+            else 0, gamma=settings.gamma,
+            scene_factory=lambda i: greg.create_random_scene(i).commit(
+                device=device))
+        return 0
+    gdisplay.display_loop(scene, camera, params, settings.width,
+                          settings.height, spp_per_frame=settings.spp,
+                          max_frames=settings.num_frames,
+                          gamma=settings.gamma,
+                          refine=bool(settings.accumulate),
+                          out_path=settings.out_file or 'display.png')
+    return 0
+
+
+def _regression_loop(settings, device=None):
+    """-regression: the endless random-scene stress mode
+    (regression.cpp): scene k is create_random_scene(k), rendered with
+    seed k from the fixed view of gecs_default_view.  Returns 1 at the
+    first non-finite image."""
+    from .. import renderer as grenderer
+    from ..film import accum
+    from ..utils import regression
+    from . import output as goutput
+    camera = goutput.mono_camera(gecs_default_view(settings))
+    params = goutput.params_from_settings(settings)
+    for seed in itertools.count():
+        scene = regression.create_random_scene(seed).commit(device=device)
+        film, stats = grenderer.render_frame(
+            scene, camera, params, settings.width, settings.height,
+            max(settings.spp, 1), seed=seed)
+        ok = bool(torch.isfinite(accum.resolve(film)).all())
+        print(f"regression scene {seed}: "
+              f"{'ok' if ok else 'NON-FINITE OUTPUT'} "
+              f"({stats.mrps:.2f} mrps)", flush=True)
+        if not ok:
+            return 1
+    return 0
+
+
+def gecs_default_view(settings):
+    """Regression scenes use a fixed orbit camera."""
+    s = copy.copy(settings)
+    s.cam_pos = (0.0, 3.0, -12.0)
+    s.cam_look_at = (0.0, 0.0, 0.0)
+    s.fov = 60.0
+    return s
 
 
 def stereo_rigs(settings):

@@ -1,13 +1,17 @@
 """Host-side BVH build and triangle permutation.
 
 The part of `yulio_raytracer_tpu/geometry/bvh.py` that the port's commit
-runs: for static scenes its default tree (`build(..., quality='high')`
-there: object-split binned SAH with leaf starts aligned to the packed
-8-triangle rows), built by `native/libyrt_native.so`; for motion scenes
-its numpy object-split binned-SAH builder over given per-triangle boxes
-(the union of each triangle's t=0 and t=1 boxes).  Layout: depth-first
-nodes with skip pointers; leaf triangle ranges are contiguous in the
-permuted triangle order (`permute_geom`).
+runs.  Static scenes build with `native/libyrt_native.so` at one of the
+reference's three qualities (bvh.py:174-265): 'high' (the default:
+object-split binned SAH with leaf starts aligned to the packed
+8-triangle rows), 'normal' (the object-split build without the
+alignment) and 'high-spatial' ('high' with SBVH spatial splits, which
+reference a triangle that straddles a split from both sides).  Motion
+scenes build with the reference's numpy object-split binned SAH over
+given per-triangle boxes (the union of each triangle's t=0 and t=1
+boxes).  Where the library is missing a static build raises.  Layout:
+depth-first nodes with skip pointers; leaf triangle ranges are
+contiguous in the gathered triangle order (`permute_geom`).
 """
 from __future__ import annotations
 
@@ -29,10 +33,18 @@ class FlatBVH:
     count: np.ndarray   # (N,) i32  leaf: #tris; 0 for interior nodes
     skip: np.ndarray    # (N,) i32  next node on miss / after leaf (N = done)
     # (R,) i64 gather list new position -> old triangle index; R >= T
-    # for the native build, whose aligned leaf starts pad the list, and
-    # R == T for the numpy build (permute_geom gathers)
+    # where aligned leaf starts pad the list or spatial splits duplicate
+    # triangles ('high', 'high-spatial'), R == T for 'normal' and the
+    # numpy build (permute_geom gathers)
     order: np.ndarray
     num_nodes: int
+
+    @property
+    def num_refs(self) -> int:
+        return int(len(self.order))
+
+
+QUALITIES = ('normal', 'high', 'high-spatial')
 
 
 _native = None
@@ -50,6 +62,11 @@ def _load_native():
         u8p = np.ctypeslib.ndpointer(np.uint8, flags='C')
         i32p = np.ctypeslib.ndpointer(np.int32, flags='C')
         i64p = np.ctypeslib.ndpointer(np.int64, flags='C')
+        lib.yrt_build_bvh.restype = ctypes.c_int64
+        lib.yrt_build_bvh.argtypes = [
+            f32p, f32p, f32p, u8p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, f32p, f32p, i32p, i32p, i32p, i64p,
+            ctypes.c_int64]
         lib.yrt_build_sbvh.restype = ctypes.c_int64
         lib.yrt_build_sbvh.argtypes = [
             f32p, f32p, f32p, u8p, ctypes.c_int64, ctypes.c_int32,
@@ -62,17 +79,25 @@ def _load_native():
 
 def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
           valid: np.ndarray, leaf_size: int = 64,
-          nbins: int = 16, bounds=None) -> FlatBVH:
-    """Build a flattened skip-pointer BVH over triangles (v0, v0+e1, v0+e2):
-    object splits, leaf starts aligned to the packed 8-triangle rows.
-    Invalid (padding/degenerate) triangles get empty bounds and are never
-    hit.  `bounds` = (lo, hi), each (T, 3), overrides the per-triangle
-    boxes and builds with the numpy builder instead (motion scenes)."""
+          nbins: int = 16, bounds=None, quality: str = 'high') -> FlatBVH:
+    """Build a flattened skip-pointer BVH over triangles (v0, v0+e1, v0+e2)
+    at `quality` (QUALITIES; the reference's build with the native
+    library).  Invalid (padding/degenerate) triangles get empty bounds
+    and are never hit.  `bounds` = (lo, hi), each (T, 3), overrides the
+    per-triangle boxes and builds with the numpy builder instead (motion
+    scenes), whatever the quality.  Raises ValueError for another
+    quality and RuntimeError where the native build fails."""
+    if quality not in QUALITIES:
+        raise ValueError(f"unknown BVH quality {quality!r}: expected one "
+                         f"of {QUALITIES}")
     if bounds is not None:
         return _build_numpy(valid, leaf_size, nbins, bounds)
     lib = _load_native()
     t = len(v0)
-    max_refs = 2 * max(t, 1) + 64
+    tris = tuple(np.ascontiguousarray(a, np.float32) for a in (v0, e1, e2))
+    valid = np.ascontiguousarray(valid, np.uint8)
+    # the reference's buffers: T references for 'normal', else 2T + 64
+    max_refs = t if quality == 'normal' else 2 * max(t, 1) + 64
     max_nodes = max(2 * max_refs + 8, 64)
     lo = np.empty((max_nodes, 3), np.float32)
     hi = np.empty((max_nodes, 3), np.float32)
@@ -80,22 +105,25 @@ def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     count = np.empty(max_nodes, np.int32)
     skip = np.empty(max_nodes, np.int32)
     order = np.empty(max_refs, np.int64)
-    nrefs = np.zeros(1, np.int64)
-    align_rows = 2                  # flags: no spatial splits (1)
-    n = lib.yrt_build_sbvh(
-        np.ascontiguousarray(v0, np.float32),
-        np.ascontiguousarray(e1, np.float32),
-        np.ascontiguousarray(e2, np.float32),
-        np.ascontiguousarray(valid, np.uint8),
-        t, leaf_size, nbins, np.float32(1e-5), align_rows,
-        np.float32(-1.0), lo, hi, start, count,
-        skip, order, max_nodes, max_refs, nrefs)
+    if quality == 'normal':
+        n = lib.yrt_build_bvh(*tris, valid, t, leaf_size, nbins, lo, hi,
+                              start, count, skip, order, max_nodes)
+        nrefs = t
+    else:
+        refs = np.zeros(1, np.int64)
+        # flags: 1 spatial splits, 2 leaf starts aligned to the rows
+        flags = 2 | (1 if quality == 'high-spatial' else 0)
+        n = lib.yrt_build_sbvh(*tris, valid, t, leaf_size, nbins,
+                               np.float32(1e-5), flags, np.float32(-1.0),
+                               lo, hi, start, count, skip, order, max_nodes,
+                               max_refs, refs)
+        nrefs = int(refs[0])
     if n < 0:
-        raise RuntimeError(f"native BVH build failed ({n}) on {t} triangles")
+        raise RuntimeError(f"native BVH build ({quality}) failed ({n}) on "
+                           f"{t} triangles")
     n = int(n)
     return FlatBVH(lo[:n].copy(), hi[:n].copy(), start[:n].copy(),
-                   count[:n].copy(), skip[:n].copy(),
-                   order[:int(nrefs[0])].copy(), n)
+                   count[:n].copy(), skip[:n].copy(), order[:nrefs].copy(), n)
 
 
 def _sah_split(lo, hi, cent, idx, nbins=16):

@@ -44,8 +44,15 @@ backplate, rays that no bounce has bent take its texel at their camera
 uv instead.  A scene without environment lights, rendered without a
 backplate, runs no op for them.
 
-Not in this slice: ray sorting under 'morton', the precomputed sampler,
-the triangle-sharded mesh axis.
+Under the precomputed sampler (`samples`, the reference's
+pathtracer.py:324-326, 395-401, 593-605) each ray carries its sample set
+and index ('sset', 'ssidx', gathered by compaction as every lane's
+state), and a bounce at depth d takes the shared NEE light sample from
+2D dim 0, the scatter direction from 2D dim 1 + d and the scatter type
+from 1D dim d, which Russian roulette reuses, as the reference does;
+the shadow cap's jitter stays on the stateless hash.
+
+Not ported: ray sorting under 'morton', the triangle-sharded mesh axis.
 """
 from __future__ import annotations
 
@@ -221,10 +228,11 @@ def _occluded_lights(scene, p, wi, tnear, tfar, time, sort_rays, binning):
     return torch.cat(occ)
 
 
-def _init_state(org, dirn, pixel_id, sample_id, time=None, pixel_uv=None):
+def _init_state(org, dirn, pixel_id, sample_id, time=None, pixel_uv=None,
+                samples=None):
     """Fresh wavefront state for primary rays (with each ray's time in a
-    motion scene, and its camera uv and unbent flag under a
-    backplate)."""
+    motion scene, its camera uv and unbent flag under a backplate, and
+    its precomputed sample set and index under that sampler)."""
     r, dev = org.shape[0], org.device
     ones = torch.ones((r,), device=dev)
     state = {
@@ -245,6 +253,9 @@ def _init_state(org, dirn, pixel_id, sample_id, time=None, pixel_uv=None):
     if pixel_uv is not None:
         state['uv'] = pixel_uv
         state['unbent'] = torch.ones((r,), dtype=torch.bool, device=dev)
+    if samples is not None:
+        state['sset'] = samples['set']
+        state['ssidx'] = samples['sidx']
     return state
 
 
@@ -317,10 +328,14 @@ def _escaped(state, miss, wo, env_lights, backplate):
     return torch.where(miss[:, None], state['throughput'] * env_l, 0.0)
 
 
-def _make_bounce(scene, params: PTParams, seed, backplate=None):
+def _make_bounce(scene, params: PTParams, seed, backplate=None,
+                 samples=None):
     """The per-bounce wavefront body: bounce(state, depth) -> state.
     backplate: an optional (H, W, 3) image that the state's unbent rays
-    see where they escape (the state then carries 'uv' and 'unbent')."""
+    see where they escape (the state then carries 'uv' and 'unbent').
+    samples: the precomputed sampler's tables, whose 's1d' (sets, spp,
+    >= max_depth) and 's2d' (sets, spp, >= 1 + max_depth, 2) replace the
+    bounce's stateless draws at the state's 'sset' and 'ssidx'."""
     lights = scene.lights
     env_lights = scene.env_lights
     dim_light, dim_stride = _dim_layout(len(lights))
@@ -335,6 +350,11 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None):
         base = _bounce_dims(depth, dim_stride)
         org, dirn = state['org'], state['dir']
         thr, L = state['throughput'], state['L']
+        if samples is not None:
+            pick = state['sset'], state['ssidx']
+            nee_u2 = samples['s2d'][pick + (0,)]
+            pre_s1 = samples['s1d'][pick + (depth,)]
+            pre_s2 = samples['s2d'][pick + (1 + depth,)]
 
         # terminate low-contribution paths (pathtraceintegrator.cpp:66-67)
         active = _live(state, params)
@@ -386,7 +406,8 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None):
             dims = torch.tensor([(base + dim_light + li) & rng._MASK
                                  for li in idxs], device=dev)[:, None]
             mask_ok = (torch.tensor(masks, device=dev)[:, None] & illum) != 0
-            u2 = rng.uniform2(seed, pixel_id, sample_id, dims)  # (nk, R, 2)
+            u2 = (nee_u2.expand(len(idxs), r, 2) if samples is not None
+                  else rng.uniform2(seed, pixel_id, sample_id, dims))
             with torch.profiler.record_function(SPAN_LIGHTS):
                 le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
             cand = (use_dl & mask_ok & (pdf > 0.0)
@@ -424,16 +445,21 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None):
                         max=0.95)
         rr_on = depth >= params.rr_depth - 1
         if rr_on:
-            rr_u = rng.uniform1(seed, pixel_id, sample_id, base + _DIM_RR)
+            rr_u = (pre_s1 if samples is not None else
+                    rng.uniform1(seed, pixel_id, sample_id, base + _DIM_RR))
             cont = cont & ~(rr_u >= q)
             rr_scale = 1.0 / torch.clamp(q, min=1e-3)
         else:
             rr_scale = torch.ones_like(q)
 
         # GI: sample one lobe (cpp:184-213)
-        s2 = rng.uniform2(seed, pixel_id, sample_id, base + _DIM_SCATTER)
-        s1 = rng.uniform1(seed, pixel_id, sample_id,
-                          base + _DIM_SCATTER_TYPE)
+        if samples is not None:
+            s2, s1 = pre_s2, pre_s1      # s1 is roulette's u, as cpp:179
+        else:
+            s2 = rng.uniform2(seed, pixel_id, sample_id,
+                              base + _DIM_SCATTER)
+            s1 = rng.uniform1(seed, pixel_id, sample_id,
+                              base + _DIM_SCATTER_TYPE)
         with torch.profiler.record_function(SPAN_LOBES):
             samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
                                    tx=dg['Tx'], ty=dg['Ty'],
@@ -493,17 +519,19 @@ def _backplate_uv(pixel_uv, backplate):
 
 
 def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id,
-          time=None, pixel_uv=None, backplate=None):
+          time=None, pixel_uv=None, backplate=None, samples=None):
     """Radiance along primary rays.  org/dirn: (R, 3) f32; pixel_id,
     sample_id: (R,) int64 holding u32 RNG keys; time: (R,) f32 in [0, 1]
     for a motion scene (every bounce and shadow ray of a path keeps it);
     backplate: an optional (H, W, 3) f32 image on the rays' device, seen
     by escaped rays that no bounce bent at their pixel_uv (R, 2) in
-    [0, 1)^2.  Returns (L (R, 3), num_rays (scalar tensor: closest-hit
-    rays plus shadow candidates))."""
+    [0, 1)^2; samples: the precomputed sampler's tables with each ray's
+    'set' and 'sidx' (R,) int64 (renderer._pass_samples), or None for
+    the stateless draws.  Returns (L (R, 3), num_rays (scalar tensor:
+    closest-hit rays plus shadow candidates))."""
     state = _init_state(org, dirn, pixel_id, sample_id, time,
-                        _backplate_uv(pixel_uv, backplate))
-    bounce = _make_bounce(scene, params, seed, backplate)
+                        _backplate_uv(pixel_uv, backplate), samples)
+    bounce = _make_bounce(scene, params, seed, backplate, samples)
     for depth in range(params.max_depth):
         state = bounce(state, depth)
     return state['L'], state['num_rays']
@@ -528,7 +556,7 @@ def _compact(state, live, n, l_out):
 
 def trace_compacted(scene, params: PTParams, org, dirn, seed, pixel_id,
                     sample_id, time=None, bounce_stats=None, pixel_uv=None,
-                    backplate=None):
+                    backplate=None, samples=None):
     """trace() one bounce at a time with live-ray compaction between
     bounces (pathtracer.py:862-931): after each bounce the live count is
     read (one host sync), and where it is below the width the dead
@@ -543,9 +571,9 @@ def trace_compacted(scene, params: PTParams, org, dirn, seed, pixel_id,
     num_rays) as trace()."""
     r = org.shape[0]
     state = _init_state(org, dirn, pixel_id, sample_id, time,
-                        _backplate_uv(pixel_uv, backplate))
+                        _backplate_uv(pixel_uv, backplate), samples)
     state['rid'] = torch.arange(r, device=org.device)
-    bounce = _make_bounce(scene, params, seed, backplate)
+    bounce = _make_bounce(scene, params, seed, backplate, samples)
     l_out = torch.zeros((r, 3), device=org.device)
     t0 = _time.perf_counter()
     for depth in range(params.max_depth):

@@ -4,14 +4,18 @@ The torch package's own copy of `yulio_raytracer_tpu/io/image.py`.  The
 reference dispatches codecs by extension with an image cache
 (`image/image.cpp:61-95`, caches in `loaders.cpp:29-66`).  We keep the
 dispatch + cache shape: PPM/PFM are decoded natively (exact semantics,
-`ppm.cpp` / `pfm.cpp`), everything else goes through Pillow (the
-C-backed host-side equivalent of FreeImage/libjpeg-turbo), imported only
-when such a file is read or written.
+`ppm.cpp` / `pfm.cpp`), PNG is written natively (`encode_png`: zlib,
+filter 0, so a machine without Pillow stores `.png`), everything else
+goes through Pillow (the C-backed host-side equivalent of
+FreeImage/libjpeg-turbo), imported only when such a file is read or
+written.
 Returns float32 RGB(A) arrays in [0,1] (LDR) or linear radiance (PFM).
 """
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -59,6 +63,10 @@ def store(path: str, img: np.ndarray, jpeg_quality: int = 90):
     if ext == '.ppm':
         _store_ppm(path, arr)
         return
+    if ext == '.png':
+        with open(path, 'wb') as f:
+            f.write(encode_png(arr))
+        return
     from PIL import Image
     im = Image.fromarray(arr)
     if ext in ('.jpg', '.jpeg'):
@@ -67,6 +75,26 @@ def store(path: str, img: np.ndarray, jpeg_quality: int = 90):
         im.save(path, quality=jpeg_quality)
     else:
         im.save(path)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """An (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image as PNG
+    bytes: 8-bit samples, every row unfiltered (filter 0), deflated by
+    zlib."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w = arr.shape[:2]
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    ctype = {1: 0, 3: 2, 4: 6}[ch]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          arr.reshape(h, w * ch)], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, ctype, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(raw, 6)) + chunk(b'IEND', b''))
 
 
 def _tokens(f):

@@ -4,7 +4,11 @@ Counterpart of `yulio_raytracer_tpu/renderer.py` (`render_frame` on one
 device, with `_gen_rays` and `_tile_order`).  Rays run in 32 x 32 pixel
 tile order; every (pixel, sample) ray is keyed by its absolute ids, so
 a render is deterministic and independent of how the frame is cut into
-passes.  Passes are sized by device memory alone: a pass holds at most
+passes.  Under `sampler='precomputed'` the camera samples, and the
+bounce's scatter, roulette and light samples, come instead from the
+reference's precomputed sample sets (sampling/precomputed.py), gathered
+by each pixel's tile-seeded set and each sample's index.  Passes are
+sized by device memory alone: a pass holds at most
 `MAX_RAYS_PER_PASS` rays, folding several samples of every pixel into
 one batch when the frame is small enough (the reference's sample-major
 batching), and any ray count is accepted.  Where the frame's paths run
@@ -12,10 +16,13 @@ past the Russian-roulette start on a BVH scene, each pass runs
 `pathtracer.trace_compacted`, which drops dead rays between bounces
 (`compaction`, as the reference's render_frame).  A frame adds to a
 film: progressive frames salt their sample ids with the iteration, as
-the reference's.
+the reference's, and `render_progressive` checkpoints the film after
+each iteration so a stopped run resumes to the same film.  `pick` traces
+one ray through a point of the image (the viewer's re-centring).
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from functools import lru_cache
@@ -26,6 +33,7 @@ import torch
 from .film import accum
 from .integrator import pathtracer
 from .sampling import patterns
+from .sampling import precomputed
 
 # RNG dims reserved for the camera
 DIM_PIXEL = 0
@@ -37,30 +45,63 @@ MAX_RAYS_PER_PASS = 1 << 22
 
 
 def _gen_rays(scene, camera, width, height, spp, pixel_ids, sample_ids,
-              seed, pixel_filter: str = 'box'):
+              seed, pixel_filter: str = 'box', samples=None):
     """Camera samples -> (org, dir, time, uv); time (R,) in [0, 1) for a
     motion scene, else None; uv (R, 2) each ray's position on the film
     ([0, 1)^2 under the box filter; the b-spline's reaches 1.5 pixels
     past it).  pixel_ids/sample_ids: (R,) int64; spp:
-    patterns.grid_scalars(spp); pixel_filter: 'box' or 'bspline'."""
-    px = (pixel_ids % width).to(torch.float32)
-    py = (pixel_ids // width).to(torch.float32)
-    if pixel_filter == 'bspline':
-        juv = patterns.pixel_sample_bspline(seed, pixel_ids, sample_ids,
-                                            spp, DIM_PIXEL)
-    elif pixel_filter == 'box':
-        juv = patterns.pixel_sample(seed, pixel_ids, sample_ids, spp,
-                                    DIM_PIXEL)
-    else:
+    patterns.grid_scalars(spp); pixel_filter: 'box' or 'bspline'.
+    samples: a pass's precomputed sample sets (_pass_samples), whose
+    pixel (filter applied), lens and time tables replace the stateless
+    draws, gathered at each ray's set and index."""
+    if pixel_filter not in ('box', 'bspline'):
         raise ValueError(f"pixel_filter must be 'box' or 'bspline', got "
                          f"{pixel_filter!r}")
-    lens = patterns.sample_2d(seed, pixel_ids, sample_ids, DIM_LENS)
+    px = (pixel_ids % width).to(torch.float32)
+    py = (pixel_ids // width).to(torch.float32)
+    if samples is not None:
+        pick = samples['set'], samples['sidx']
+        juv, lens = samples['pixel'][pick], samples['lens'][pick]
+    else:
+        sampler = (patterns.pixel_sample_bspline if pixel_filter == 'bspline'
+                   else patterns.pixel_sample)
+        juv = sampler(seed, pixel_ids, sample_ids, spp, DIM_PIXEL)
+        lens = patterns.sample_2d(seed, pixel_ids, sample_ids, DIM_LENS)
     uv = torch.stack([(px + juv[:, 0]) / width,
                       (py + juv[:, 1]) / height], dim=-1)
     org, dirn = camera.ray(uv, lens)
-    time = (patterns.sample_1d(seed, pixel_ids, sample_ids, DIM_TIME)
-            if scene.motion is not None else None)
+    time = None
+    if scene.motion is not None:
+        time = (samples['time'][pick] if samples is not None else
+                patterns.sample_1d(seed, pixel_ids, sample_ids, DIM_TIME))
     return org, dirn, time, uv
+
+
+def sample_tables(spp: int, iteration: int, max_depth: int,
+                  pixel_filter: str, width: int, height: int, device):
+    """A frame's precomputed sample sets on `device` (the reference's
+    render_frame, renderer.py:345-355): build_tables' arrays for (spp,
+    iteration, num_1d = max_depth, num_2d = 1 + max_depth, the filter),
+    the pixels' set picks 'set_ids' (tile_set_ids) and the frame's first
+    sample id 'base' (iteration * spp)."""
+    tabs = precomputed.build_tables(spp, iteration, num_1d=max_depth,
+                                    num_2d=1 + max_depth,
+                                    pixel_filter=pixel_filter)
+    tables = {k: torch.as_tensor(v, device=device) for k, v in tabs.items()}
+    tables['set_ids'] = torch.as_tensor(
+        precomputed.tile_set_ids(width, height), device=device).long()
+    tables['base'] = iteration * spp
+    return tables
+
+
+def _pass_samples(tables, pixel_ids, sample_ids):
+    """The frame's tables with each ray's set ('set', its pixel's pick)
+    and index ('sidx', its sample id less the frame's base); None under
+    the stateless sampler."""
+    if tables is None:
+        return None
+    return dict(tables, set=tables['set_ids'][pixel_ids],
+                sidx=sample_ids - tables['base'])
 
 
 @lru_cache(maxsize=8)
@@ -130,20 +171,18 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     trace_compacted or trace for every pass; both give the same film.
     bounce_stats: an optional list that collects trace_compacted's
     per-bounce {'depth', 'width', 'live', 'seconds'} dicts of every pass.
-    The reference's `mesh` (pixel parallelism over devices) and
-    `sampler='precomputed'` are not ported: they raise
-    NotImplementedError.  Deterministic per (scene, spp, seed,
-    iteration).  Returns (film, FrameStats); the stats' seconds end
-    after the device finished."""
+    sampler: 'stateless' (per-ray hashed stratification) or
+    'precomputed', the reference's 64 sample sets (sample_tables: built
+    on the host once a frame; tables cover RoundUpPow2(spp) samples).
+    The reference's `mesh` (pixel parallelism over devices) is not
+    ported: it raises NotImplementedError.  Deterministic per (scene,
+    spp, seed, iteration).  Returns (film, FrameStats); the stats'
+    seconds end after the device finished."""
     if mesh is not None:
         raise NotImplementedError("render_frame(mesh=): multi-device pixel "
                                   "parallelism is not ported yet (ROADMAP "
                                   "A8)")
-    if sampler == 'precomputed':
-        raise NotImplementedError("render_frame(sampler='precomputed'): the "
-                                  "precomputed sample sets are not ported "
-                                  "yet (ROADMAP A9)")
-    if sampler != 'stateless':
+    if sampler not in ('stateless', 'precomputed'):
         raise ValueError("sampler must be 'stateless' or 'precomputed'")
     compacted = compacts(scene, params, compaction)
     device = scene.device if device is None else torch.device(device)
@@ -162,6 +201,9 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     if backplate is not None:
         backplate = torch.as_tensor(backplate, dtype=torch.float32,
                                     device=device)[..., :3]
+    tables = (sample_tables(spp, iteration, params.max_depth, pixel_filter,
+                            width, height, device)
+              if sampler == 'precomputed' else None)
     order = torch.as_tensor(_tile_order(width, height), device=device)
     pix_per_pass = max(1, min(npix, MAX_RAYS_PER_PASS))
     # sample-major batching: fold k samples of every pixel into one batch
@@ -176,17 +218,18 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
         pixel_ids = pix.repeat(k)
         sample_ids = (iteration * spp + s0 + torch.arange(
             k, device=device)).repeat_interleave(pix.shape[0])
+        samples = _pass_samples(tables, pixel_ids, sample_ids)
         org, dirn, ray_time, uv = _gen_rays(
             scene, camera, width, height, spp_grid, pixel_ids,
-            sample_ids, seed, pixel_filter)
+            sample_ids, seed, pixel_filter, samples)
         if compacted:
             rgb, nrays = pathtracer.trace_compacted(
                 scene, params, org, dirn, seed, pixel_ids, sample_ids,
-                ray_time, bounce_stats, uv, backplate)
+                ray_time, bounce_stats, uv, backplate, samples)
         else:
             rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
                                           pixel_ids, sample_ids, ray_time,
-                                          uv, backplate)
+                                          uv, backplate, samples)
         # pixels are unique within each of the k sample slices, so
         # the scatter is a deterministic permutation add
         rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))
@@ -198,3 +241,58 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     film = accum.Film(rgb_flat.reshape(height, width, 3), weight)
     num_rays = float(total_rays)          # waits for the device
     return film, FrameStats(num_rays, time.perf_counter() - t0)
+
+
+def pick(scene, camera, x: float, y: float):
+    """rtPick (the reference's renderer.py:503-514): one ray through the
+    image point (x, y) in [0, 1]^2, with the lens at its centre, traced
+    by the scene's closest-hit path on its device (a motion scene at
+    time 0).  Returns (hit, p): a bool and the (3,) float32 world point
+    of the hit (zeros on a miss), on the host."""
+    dev = scene.device
+    uv = torch.tensor([[x, y]], dtype=torch.float32, device=dev)
+    org, dirn = camera.ray(uv, torch.full((1, 2), 0.5, device=dev))
+    hit = pathtracer._intersect(
+        scene, org, dirn, torch.zeros((1,), device=dev),
+        torch.full((1,), float('inf'), device=dev),
+        None if scene.motion is None else torch.zeros((1,), device=dev))
+    ok = bool(hit.valid[0])
+    p = org[0] + hit.t[0] * dirn[0]
+    return ok, (p.cpu().numpy() if ok else np.zeros(3, np.float32))
+
+
+def render_progressive(scene, camera, params, width: int, height: int,
+                       spp_per_iteration: int, iterations: int,
+                       checkpoint_path=None, seed: int = 0,
+                       progress_cb=None, stop_flag=None):
+    """Progressive refinement with a durable checkpoint (the reference's
+    renderer.py:517-551): iteration it renders spp_per_iteration samples
+    (render_frame's iteration it) into the film, then, with a
+    checkpoint_path, writes the film's rgb_sum and weight and the next
+    iteration to that .npz (atomically, through os.replace).  A run
+    finding the checkpoint resumes from it, its film restored onto the
+    scene's device, so a stopped and resumed run gives the film of an
+    uninterrupted one.  stop_flag() is checked before each iteration;
+    progress_cb(fraction) is called after each.  Returns (film, the
+    iterations completed)."""
+    film = None
+    start_iter = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path) as d:
+            film = accum.from_numpy_checkpoint(d, device=scene.device)
+            start_iter = int(d['iteration'])
+    for it in range(start_iter, iterations):
+        if stop_flag is not None and stop_flag():
+            break
+        film, _ = render_frame(scene, camera, params, width, height,
+                               spp_per_iteration, film=film, iteration=it,
+                               seed=seed)
+        if checkpoint_path:
+            tmp = checkpoint_path + '.tmp.npz'
+            np.savez(tmp, iteration=it + 1,
+                     **accum.to_numpy_checkpoint(film))
+            os.replace(tmp, checkpoint_path)
+        if progress_cb is not None:
+            progress_cb((it + 1) / iterations)
+        start_iter = it + 1
+    return film, start_iter

@@ -7,7 +7,10 @@ for another:
 
 * the packed triangle rows `tris` ((G, 128) f32, ops/wide.py pack_tris);
 * for scenes above BRUTE_FORCE_MAX_TRIS triangles, a binary SAH BVH
-  (geometry/bvh.py, leaf `leaf_size`) as the binary rows `nodes`
+  (geometry/bvh.py, leaf `leaf_size`, at the reference's `quality`:
+  'high' by default, 'normal' or 'high-spatial', whose duplicated
+  triangles are gathered into every per-triangle table) as the binary
+  rows `nodes`
   (ops/traverse.py) and, unless `accel='bvh2'` or the collapse fails its
   guards, its BVH4 collapse `nodes4` (the reference's default accel),
   with the uniform grid `grid` (ops/grid.py build_grid, GRID_RES^3
@@ -40,6 +43,8 @@ TorchScene from those arrays).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -99,14 +104,17 @@ class SceneBuilder:
     def commit(self, device=None, leaf_size: int = 64,
                force_bvh: Optional[bool] = None,
                accel: str = 'default', view_pos=None,
-               view_up=(0.0, 1.0, 0.0)) -> "TorchScene":
+               view_up=(0.0, 1.0, 0.0),
+               quality: str = 'high') -> "TorchScene":
         """Pack the staged scene onto `device` (a torch device or its
         name; None is the card, and raises without one).  Camera-aligned
         billboards face view_pos (with view_up; the per-view
         rtUpdatePrimitive + rtCommit of renderer.cpp:550-559), or keep
         their authored placement without one.  A BVH is built
-        above BRUTE_FORCE_MAX_TRIS triangles (or as force_bvh says).
-        accel, as in the reference:
+        above BRUTE_FORCE_MAX_TRIS triangles (or as force_bvh says), at
+        `quality` ('high', 'normal' or 'high-spatial', geometry/bvh.py;
+        a motion scene's tree is the numpy object-split build whatever
+        it says, as the reference's).  accel, as in the reference:
         'default' takes the BVH4 collapse and falls back to the binary
         tables when it fails its stack or exactness guard; 'bvh2' forces
         the binary tables; 'bvh4' raises where the collapse fails;
@@ -114,13 +122,18 @@ class SceneBuilder:
         over union bounds and traversed by the motion kernel whatever
         accel says.  The scene's `accel` records what runs.  Every light
         gets the packed scene's bounds (the ambient dome's bounding
-        sphere).  Raises ValueError for an unknown accel and RuntimeError
-        for a CUDA device when there is none."""
+        sphere).  The scene records the tree's build seconds and its
+        triangle references (`bvh_seconds`, `bvh_refs`).  Raises
+        ValueError for an unknown accel or quality and RuntimeError for a
+        CUDA device when there is none."""
         if accel not in ('default', 'bvh2', 'bvh4', 'bvh4mb'):
             raise ValueError(
                 f"unknown accel {accel!r}: expected 'default' "
                 f"(auto-select), 'bvh2', 'bvh4', or 'bvh4mb' "
                 f"(motion scenes)")
+        if quality not in gbvh.QUALITIES:
+            raise ValueError(f"unknown quality {quality!r}: expected one "
+                             f"of {gbvh.QUALITIES}")
         meshes = [m if not (m.face_camera and m.orig_transform is not None)
                   else m.transformed(
                       m.orig_transform if view_pos is None else
@@ -138,12 +151,17 @@ class SceneBuilder:
                    else n_tris > BRUTE_FORCE_MAX_TRIS)
         host = {k: getattr(packed, k) for k in gbvh.PER_TRIANGLE_KEYS
                 if getattr(packed, k) is not None}
+        bvh_seconds, bvh_refs = 0.0, 0
         if use_bvh:
+            t0 = time.perf_counter()
             bounds = (traverse.motion_bounds(
                 packed.v0, packed.e1, packed.e2, packed.mv0, packed.me1,
                 packed.me2) if has_motion else None)
             tree = gbvh.build(packed.v0, packed.e1, packed.e2, packed.valid,
-                              leaf_size=leaf_size, bounds=bounds)
+                              leaf_size=leaf_size, bounds=bounds,
+                              quality=quality)
+            bvh_seconds = time.perf_counter() - t0
+            bvh_refs = tree.num_refs
             host = gbvh.permute_geom(host, tree.order)
         if has_motion:
             # small motion scenes keep no tables: they trace every triangle
@@ -163,7 +181,7 @@ class SceneBuilder:
                 accel_used = 'bvh4' if 'nodes4' in packet else 'bvh2'
         lights = [glights.set_scene_bounds(l, packed.bbox_lo, packed.bbox_hi)
                   for l in self.lights]
-        return from_numpy_scene(
+        scene = from_numpy_scene(
             geom=gmesh.add_shade_table(host),
             packet=packet,
             materials=gmat.build_table(self.materials),
@@ -177,6 +195,8 @@ class SceneBuilder:
                                      for lo in ms.lobes})),
             accel=accel_used,
             device=device)
+        return dataclasses.replace(scene, bvh_seconds=bvh_seconds,
+                                   bvh_refs=bvh_refs)
 
 
 def _static_nodes(tree, accel: str) -> dict:
@@ -242,6 +262,8 @@ class TorchScene:
     accel: str
     tex_modes: tuple              # texture modes the material table holds
     bump: bool                    # a material binds a bump map
+    bvh_seconds: float = 0.0      # the commit's BVH build (0: none)
+    bvh_refs: int = 0             # the tree's triangle references
 
     @property
     def env_lights(self):
