@@ -129,7 +129,26 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     (naming the shade range and the dense kernels); render_progressive
     stopped and resumed, bit-equal to an uninterrupted run.  The
     counters are zeroed before each path and only its kernels may run;
- 8. each kernel's bound: the larger of the bytes it must move (tables,
+ 8. multi-device, TCP and the C ABI: render_frame over a mesh of two
+    slots of the card (and of every card where there are several) on
+    cornell_64 (K1/K2) and colonnade_64 (K3/K4), bit-equal to the
+    one-device films; cornell_64 over 2 px x 2 triangle slots
+    (render_frame_sharded, K1/K2 on each shard) within test_parallel.py's
+    bar; cornell_64 and colonnade_1024 timed on one slot and on two; two
+    RenderServer threads on the card serving cornell 64^2 in 'native'
+    (atol 1e-5 against the local film, bit-equality printed), 'rgbe8' and
+    'jpeg', and test_stereo's strip at 32^2 faces over the client
+    (render_rig_faces, each face >= 60 dB against the local face, the
+    equal ones counted); then, after every timed section, so that they
+    share the card with no timing, two processes joined by
+    init_distributed (gloo, one slot of the card each) whose films equal
+    one process's 2-slot film, and the C host examples/rt_test_host.c
+    through the port's shim
+    (native/build.py: g++ and cc, built beside the kernels) on
+    test_room.dae at 64^2, 4 spp on the card, 'done: state=4' with
+    lastError 0 and the strip StartRT writes in this process, byte for
+    byte;
+ 9. each kernel's bound: the larger of the bytes it must move (tables,
     rays and ranges read once, results written once) over 3.35 TB/s and
     its pair and box tests (counted by the plain versions in phase 3; K12's
     from its shapes; K1/K2's by stage, as they run the Woop test) times
@@ -154,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -333,6 +353,351 @@ def stack_depth(what, counts):
           "versions, in entries: " + '; '.join(depth))
 
 
+# one rank of the two-process gloo render in phase 8: the port joined by
+# init_distributed, one slot on the card each; writes its film and the
+# dense kernels' launches
+RANK_CHILD = r"""
+import json, sys
+sys.path.insert(0, %(root)r)
+import torch
+from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
+from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
+from yulio_raytracer_tpu_torch.ops import dense
+from yulio_raytracer_tpu_torch.parallel import sharding
+
+rank = int(sys.argv[1])
+sharding.init_distributed(%(coord)r, num_processes=2, process_id=rank,
+                          backend='gloo')
+mesh = sharding.make_mesh(devices=['cuda:0'])
+scene = bs.cornell_box().commit(device='cuda')
+dense.intersect_dense.launches = dense.occluded_dense.launches = 0
+film = sharding.render_frame_sharded(scene, bs.cornell_camera(64, 64),
+                                     pt.PTParams(max_depth=4), 64, 64, 8,
+                                     mesh, seed=%(seed)d)
+torch.save(film.rgb_sum.cpu(), %(out)r + '.%%d' %% rank)
+print(json.dumps({'rank': rank, 'px': mesh.shape['px'],
+                  'intersect_dense': dense.intersect_dense.launches,
+                  'occluded_dense': dense.occluded_dense.launches}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
+                       launched, k12, k34, shim_and_host):
+    """Phase 8: the mesh, the TCP servers, two gloo ranks and the C ABI on
+    the card (see the module docstring); returns its seconds."""
+    from yulio_raytracer_tpu_torch import renderer
+    from yulio_raytracer_tpu_torch.api import cli, output, session
+    from yulio_raytracer_tpu_torch.film import accum
+    from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
+    from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
+    from yulio_raytracer_tpu_torch.io import ecs
+    from yulio_raytracer_tpu_torch.parallel import network, sharding
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='yrt_phase8_')
+    ranks, c_host = [], None
+    try:
+        # the mesh: two slots of the card (and every card where there are
+        # several), each film bit-equal to the one-device film
+        meshes = [('2 slots of cuda:0', sharding.make_mesh(
+            devices=[torch.device('cuda', 0)] * 2))]
+        if torch.cuda.device_count() > 1:
+            meshes.append((f'{torch.cuda.device_count()} cards',
+                           sharding.make_mesh()))
+        for label, mesh in meshes:
+            for name, scene, cam, depth, spp, want in (
+                    ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32,
+                     k12),
+                    ('colonnade_64', colonnade, bs.colonnade_camera(64, 64),
+                     3, 8, k34)):
+                params = pt.PTParams(max_depth=depth)
+                one, st1 = renderer.render_frame(scene, cam, params, 64, 64,
+                                                 spp, seed=SEED)
+                zero_counters()
+                film, st = renderer.render_frame(scene, cam, params, 64, 64,
+                                                 spp, seed=SEED, mesh=mesh)
+                counts = launched(f'{name} over {label}', want)
+                if not torch.equal(film.rgb_sum, one.rgb_sum):
+                    raise AssertionError(f"{name} over {label}: the film is "
+                                         "not bit-equal to one device's")
+                phase('multi', f"{name} (64^2, {spp} spp, depth {depth}) "
+                      f"over the mesh of {label}: bit-equal to the one-device"
+                      f" film; {st.num_rays:.0f} rays ({st1.num_rays:.0f} on "
+                      f"one device); launches {counts}")
+        # the triangle axis: cornell's triangles in two shards, K1/K2 each
+        tri_mesh = sharding.make_mesh(devices=[torch.device('cuda', 0)] * 4,
+                                      tri_parallel=2)
+        cam, params = bs.cornell_camera(64, 64), pt.PTParams(max_depth=4)
+        one, _ = renderer.render_frame(cornell, cam, params, 64, 64, 32,
+                                       seed=SEED)
+        zero_counters()
+        film = sharding.render_frame_sharded(cornell, cam, params, 64, 64, 32,
+                                             tri_mesh, seed=SEED)
+        counts = launched('cornell_64 over 2 px x 2 tri slots', k12)
+        d = (accum.resolve(film) - accum.resolve(one)).abs().amax(-1)
+        within = float((d < 1e-4).float().mean())
+        if within <= 0.995 or float(d.mean()) >= 1e-3:
+            raise AssertionError(f"triangle-sharded cornell_64: {within:.4f}"
+                                 f" of pixels within 1e-4, mean "
+                                 f"{float(d.mean()):.3g}")
+        phase('multi', f"cornell_64 over 2 px x 2 tri slots of cuda:0 "
+              f"(render_frame_sharded): {within:.4f} of pixels within 1e-4 "
+              f"of the one-device film (gate 0.995), mean {float(d.mean()):.3g}"
+              f", bit-equal {torch.equal(film.rgb_sum, one.rgb_sum)}; "
+              f"launches {counts}")
+
+        # timed: the mesh's overhead on one card
+        def timed(scene, cam, params, res, spp, mesh):
+            renderer.render_frame(scene, cam, params, res, res, spp,
+                                  seed=SEED, mesh=mesh)
+            secs = sorted(renderer.render_frame(
+                scene, cam, params, res, res, spp, seed=SEED + i,
+                mesh=mesh)[1].seconds for i in (1, 2, 3))
+            return secs[1], secs[0], secs[2]
+        two = meshes[0][1]
+        for name, scene, cam, res, spp, depth in (
+                ('cornell_64', cornell, bs.cornell_camera(64, 64), 64, 32, 4),
+                ('colonnade_1024', colonnade, bs.colonnade_camera(1024, 1024),
+                 1024, 8, 4)):
+            params = pt.PTParams(max_depth=depth)
+            a = timed(scene, cam, params, res, spp, None)
+            b = timed(scene, cam, params, res, spp, two)
+            phase('multi', f"{name} frame_s on one slot {a[0]:.4f} (min "
+                  f"{a[1]:.4f}, max {a[2]:.4f}), over 2 slots of cuda:0 "
+                  f"{b[0]:.4f} (min {b[1]:.4f}, max {b[2]:.4f}): "
+                  f"{b[0] / a[0]:.3f}x on {card}")
+
+        # two TCP render servers, threads of this process on the card
+        servers = [network.RenderServer(0, device=dev) for _ in range(2)]
+        threads = [threading.Thread(target=srv.serve_forever, daemon=True)
+                   for srv in servers]
+        for t in threads:
+            t.start()
+        addrs = [('127.0.0.1', srv.port) for srv in servers]
+        try:
+            sb = bs.cornell_box()
+            cam, params = bs.cornell_camera(64, 64), pt.PTParams(max_depth=4)
+            local, st_local = renderer.render_frame(cornell, cam, params, 64,
+                                                    64, 32, seed=SEED)
+            local = local.rgb_sum.cpu().numpy()
+            client = network.NetworkClient(addrs)
+            client.set_scene(sb)
+            lines = []
+            zero_counters()
+            for enc in ('native', 'native', 'rgbe8', 'jpeg'):
+                t0 = time.perf_counter()
+                img, w = client.render(cam, params, 64, 64, 32, seed=SEED,
+                                       encoding=enc, jpeg_quality=95)
+                dt = time.perf_counter() - t0
+                if not (w == 32).all():
+                    raise AssertionError(f"servers ({enc}): weights {w}")
+                err = float(np.abs(img - local).max())
+                if enc == 'native':
+                    if err > 1e-5:
+                        raise AssertionError(f"servers (native): max abs "
+                                             f"{err} from the local film")
+                    tag = f"bit-equal {np.array_equal(img, local)}"
+                elif enc == 'rgbe8':
+                    bound = local.max(axis=-1, keepdims=True) / 128 + 1e-6
+                    if not (np.abs(img - local) <= bound).all():
+                        raise AssertionError("servers (rgbe8): beyond the "
+                                             "codec's error")
+                    tag = "within the codec's max/128"
+                else:
+                    de = np.abs(np.power(np.maximum(img, 0) / 32, 1 / 2.2)
+                                - np.power(np.clip(local / 32, 0, None),
+                                           1 / 2.2))
+                    if float(np.median(de)) >= 0.05:
+                        raise AssertionError(f"servers (jpeg): median "
+                                             f"display error {np.median(de)}")
+                    tag = f"median display error {float(np.median(de)):.4f}"
+                lines.append(f"{enc} {dt:.4f} s (max abs {err:.3g}, {tag})")
+            counts = launched('cornell_64 over two servers', k12)
+            client.close()
+            phase('multi', f"cornell_64 (64^2, 32 spp, depth 4) over two "
+                  f"servers on cuda:0 against the local film "
+                  f"({st_local.seconds:.4f} s): " + '; '.join(lines)
+                  + f" (the first with the servers' commit); launches "
+                  f"{counts}")
+            # where a round trip's time goes: one server alone, and the
+            # two bands rendered directly (as a server renders them) in
+            # turn and by two host threads at once, as the two server
+            # threads do
+            client = network.NetworkClient(addrs[:1])
+            client.set_scene(sb)
+            one_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                client.render(cam, params, 64, 64, 32, seed=SEED)
+                one_s.append(time.perf_counter() - t0)
+            client.close()
+            bands = [(r[:, None] * 64 + np.arange(64)).reshape(-1)
+                     for r in (network.active_rows(64, i, 2) for i in (0, 1))]
+            scene2 = sb.commit(device=dev)
+
+            def band(sc, pix):
+                renderer._frame(sc, cam, params, 64, 64, 32, seed=SEED,
+                                pixels=pix)[0].rgb_sum.cpu()
+
+            def turns():
+                band(cornell, bands[0])
+                band(scene2, bands[1])
+
+            def at_once():
+                ths = [threading.Thread(target=band, args=a)
+                       for a in ((cornell, bands[0]), (scene2, bands[1]))]
+                for t in ths:
+                    t.start()
+                for t in ths:
+                    t.join()
+            direct = []
+            for fn in (turns, at_once):
+                fn()
+                ts = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t0)
+                direct.append(sorted(ts)[1])
+            phase('multi', f"cornell_64 round trip through one server "
+                  f"{sorted(one_s)[1]:.4f} s (median of 3, the first with "
+                  f"its commit); its two bands rendered directly in turn "
+                  f"{direct[0]:.4f} s, by two host threads at once "
+                  f"{direct[1]:.4f} s ({direct[1] / direct[0]:.2f}x) on "
+                  f"{card}")
+            # test_stereo's strip at 32^2 faces over the client, each face
+            # against the local render
+            st, ssb = ecs.parse_ecs(os.path.join(SCENES, 'test_stereo.ecs'))
+            st = dataclasses.replace(st, width=32, height=32, spp=4)
+            rig = cli.stereo_rigs(st)[0][1]
+            origin = np.asarray(rig[0].local2world[3])
+            scene = ssb.commit(device=dev, view_pos=origin, view_up=st.cam_up,
+                               accel=st.accel)
+            ref, _ = output.render_rig_faces(scene, st, rig)
+            client = network.NetworkClient(addrs)
+            client.set_scene(ssb)
+            zero_counters()
+            t0 = time.perf_counter()
+            got, _ = output.render_rig_faces(None, st, rig, client=client,
+                                             origin=origin, device=dev)
+            dt = time.perf_counter() - t0
+            counts = launched('test_stereo_32 over two servers', k34)
+            client.close()
+            equal = [np.array_equal(a, b) for a, b in zip(got, ref)]
+            worst = min(psnr(a, b) for a, b in zip(got, ref))
+            if len(got) != 12 or worst < 60.0:
+                raise AssertionError(f"test_stereo_32 over two servers: "
+                                     f"{len(got)} faces, worst {worst:.2f} dB")
+            phase('multi', f"test_stereo strip (32^2 faces, 4 spp, depth "
+                  f"{st.depth}) over two servers: {dt:.3f} s, "
+                  f"{sum(equal)} of 12 faces equal to the local ones, the "
+                  f"worst {worst:.2f} dB (gate 60); launches {counts}")
+        finally:
+            for srv in servers:
+                srv.stop()
+            for t in threads:
+                t.join(timeout=30)
+
+        # the subprocesses only now, after every timed section, so that
+        # nothing else runs on the card while this process times: two
+        # gloo ranks, and the C host through the port's shim, at once
+        coord = f'127.0.0.1:{free_port()}'
+        rank_out = os.path.join(tmp, 'rank_film.pt')
+        script = RANK_CHILD % dict(root=ROOT, coord=coord, out=rank_out,
+                                   seed=SEED)
+        t_ranks = time.perf_counter()
+        ranks = [subprocess.Popen([sys.executable, '-c', script, str(r)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        shim, host = shim_and_host
+        room_dir = os.path.join(tmp, 'c_host')
+        os.makedirs(room_dir)
+        shutil.copy(os.path.join(SCENES, 'test_room.dae'), room_dir)
+        env = {k: v for k, v in os.environ.items() if k != 'YRT_DEVICE'}
+        env['PYTHONPATH'] = ROOT + os.pathsep + env.get('PYTHONPATH', '')
+        t_host = time.perf_counter()
+        c_host = subprocess.Popen(
+            [host, os.path.join(room_dir, 'test_room.dae'), shim, '64', '4'],
+            cwd=room_dir, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+        # the two gloo ranks against one process's 2-slot render
+        outs = [p.communicate(timeout=300) for p in ranks]
+        ranks_s = time.perf_counter() - t_ranks
+        for r, (p, (out, err)) in enumerate(zip(ranks, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {r} failed:\n{err[-3000:]}")
+        info = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+        ref = sharding.render_frame_sharded(
+            cornell, bs.cornell_camera(64, 64), pt.PTParams(max_depth=4), 64,
+            64, 8, sharding.make_mesh(devices=[torch.device('cuda', 0)] * 2),
+            seed=SEED)
+        for r in range(2):
+            got = torch.load(f'{rank_out}.{r}')
+            if not torch.equal(got, ref.rgb_sum.cpu()):
+                raise AssertionError(f"gloo rank {r}: its film is not the "
+                                     "one-process film")
+            if not (info[r]['intersect_dense'] and info[r]['occluded_dense']):
+                raise AssertionError(f"gloo rank {r}: {info[r]}")
+        phase('multi', f"two gloo ranks (one slot of cuda:0 each, px "
+              f"{info[0]['px']}), cornell 64^2, 8 spp, depth 4: both films "
+              f"bit-equal to one process's 2-slot render; launches "
+              f"{[{k: v for k, v in i.items() if k.endswith('dense')} for i in info]}"
+              f"; {ranks_s:.1f} s for the two processes")
+
+        # the C host through the port's shim, on the card
+        out, err = c_host.communicate(timeout=600)
+        host_s = time.perf_counter() - t_host
+        strips = sorted(f for f in os.listdir(room_dir) if f.endswith('.jpg'))
+        if (c_host.returncode != 0 or 'done: state=4' not in out
+                or 'lastError=0' not in out or not strips):
+            raise AssertionError(f"C host: rc {c_host.returncode}, {strips}, "
+                                 f"{out[-1000:]} {err[-3000:]}")
+        py_dir = os.path.join(tmp, 'py')
+        os.makedirs(py_dir)
+        shutil.copy(os.path.join(SCENES, 'test_room.dae'), py_dir)
+        s = session.RenderSession()
+        p = session.ParamsRT(size=64, depth=2, t_max_shadow_ray=120.0, spp=4,
+                             ambientlight=(0.83, 0.95, 0.98),
+                             eye_separation=2.5, toe_in=True,
+                             zero_parallax=75.0, jpeg_quality=90,
+                             watermark=False)
+        zero_counters()
+        if not (s.start(os.path.join(py_dir, 'test_room.dae'), p, device=dev)
+                and s.wait()):
+            raise AssertionError("StartRT from Python failed")
+        counts = launched('StartRT of test_room_64', k12)
+        with open(os.path.join(room_dir, strips[0]), 'rb') as f, \
+                open(s.written_files[0], 'rb') as g:
+            same = f.read() == g.read()
+        if not same:
+            raise AssertionError("C host: its strip differs from the one "
+                                 "StartRT writes in this process")
+        phase('multi', f"C host (examples/rt_test_host.c) through the port's "
+              f"shim ({os.path.basename(shim)}) on the card: "
+              f"'{out.strip().splitlines()[-1]}', {strips[0]} (test_room.dae"
+              f", 64^2 faces, 4 spp) equal to StartRT's in this process "
+              f"(launches {counts}); {host_s:.1f} s for the host process")
+    finally:
+        for p in (*ranks, c_host):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return time.perf_counter() - t_phase
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -348,6 +713,7 @@ def main():
                                                grid, pairs, splitleaf,
                                                traverse, treelets, wide)
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
+    from yulio_raytracer_tpu_torch.native import build as native_build
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.profile_frame import (
         SPHERE_MIRROR, STEREO_PARAMS, sphere_mirror_camera,
@@ -368,12 +734,17 @@ def main():
 
     t0 = time.perf_counter()
     names = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep')
-    with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
+    with ThreadPoolExecutor(len(names) + 2) as pool:  # one nvcc per source
+        # and the C ABI's shim (g++) and host (cc) beside them
+        shim_and_host = [pool.submit(f) for f in (native_build.shim,
+                                                  native_build.host)]
         libs = list(pool.map(cuda_build.build, names))
+        shim_and_host = [f.result() for f in shim_and_host]
     for name, lib in zip(names, libs):
         phase('build', f"{name}.cu: "
               f"{'; '.join(ptxas_report(lib[:-3] + '.log'))}")
-    phase('build', f"kernels built in {time.perf_counter() - t0:.2f} s")
+    phase('build', f"kernels built in {time.perf_counter() - t0:.2f} s; "
+          f"the C ABI: {', '.join(map(os.path.basename, shim_and_host))}")
 
     # every kernel: (wrapper, plain version, source, TPU kernel it replaces,
     # flops of its pair test: stage 1's for the dense kernels, whose later
@@ -1776,7 +2147,12 @@ def main():
     phase('interactive', f"phase done in "
           f"{time.perf_counter() - t_interactive:.1f} s")
 
-    # ---- 8. bounds ---------------------------------------------------------
+    # ---- 8. multi-device, TCP and the C ABI --------------------------------
+    multi_s = multi_device_phase(dev, card, cornell, colonnade, zero_counters,
+                                 launched, k12, k34, shim_and_host)
+    phase('multi', f"phase done in {multi_s:.1f} s")
+
+    # ---- 9. bounds ---------------------------------------------------------
     summary = []
     for (f, _, src, replaces, pair_flops), n in zip(kernels, main_launches):
         res = results[f.__name__]

@@ -227,34 +227,8 @@ def test_tonemap_matches():
                                       np.asarray(jtm.to_srgb_u8(ref)))
 
 
-def _stereo_through_servers():
-    from yulio_raytracer_tpu_torch.api import output
-    from yulio_raytracer_tpu_torch.io import ecs
-    from yulio_raytracer_tpu_torch.scene import SceneBuilder
-    output.render_stereo(SceneBuilder(), ecs.RenderSettings(), [], 'x',
-                         client=object(), device='cpu')
-
-
-def _mono_on_two_devices():
-    from yulio_raytracer_tpu_torch.api import output
-    from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
-    from yulio_raytracer_tpu_torch.io import ecs
-    output.render_mono(bs.cornell_box().commit(device='cpu'),
-                       ecs.RenderSettings(width=4, height=4, devices=2), '',
-                       device='cpu')
-
-
-def _cli_connect():
-    from yulio_raytracer_tpu_torch.api import cli
-    cli.main(['-c', os.path.join(ASSETS, 'cornell_box.ecs'), '-connect',
-              '127.0.0.1:8282'], device='cpu')
-
-
 @pytest.mark.parametrize('make', [
-    _stereo_through_servers,            # the TCP render servers (A8)
-    _mono_on_two_devices,               # several devices (A8)
     lambda: lights.le_area(lights.ambient((1, 1, 1)), None),
-    _cli_connect,                       # the TCP render servers (A8)
 ])
 def test_unported_features_raise(make):
     with pytest.raises(NotImplementedError):

@@ -25,6 +25,10 @@ Layers, from the entry point down:
                and grid.py wrap the kernels
   utils        logging, profiling (traces, commit stats) and the
                random-scene fuzzer (utils/regression.py)
+  parallel     pixel and triangle parallelism over devices and
+               processes (sharding.py) and the TCP render servers
+               (network.py)
+  native       the C ABI shim (yuliort_shim.cpp) and its build
 profile_frame.py profiles one frame of a timed cell on the card.
 """
 

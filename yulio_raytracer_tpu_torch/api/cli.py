@@ -12,10 +12,15 @@ language as `.ecs` files (renderer.cpp:1406-1474):
   cli -c scene.ecs -display -frames 8        # progressive, display.png
   cli -c scene.ecs -viewer 8265              # the web viewer on that port
   cli -regression -size 32 32                # endless random scenes
+  cli -c scene.ecs -devices 2 -o out.ppm     # frames over two cards
+  cli -c scene.ecs -connect host:8282 host2:8282 -o out.ppm
+                                             # over TCP render servers
+                                             # (parallel/network.py)
 
 It renders on the card; main(argv, device='cpu') runs the plain torch
-versions.  `-connect` and `-devices` (ROADMAP A8) are not ported yet and
-raise NotImplementedError.
+versions (-devices N then makes N CPU slots).  `-connect` renders every
+frame on the render servers named, mono or stereo, and tonemaps the
+merged frame on the device.
 """
 from __future__ import annotations
 
@@ -79,13 +84,12 @@ def main(argv=None, device=None):
     glog.log_display = settings.log_display
     if '-regression' in argv:
         return _regression_loop(settings, device)
-    if settings.connect:
-        raise NotImplementedError("-connect: the TCP render servers are "
-                                  "not ported yet (ROADMAP A8)")
     if settings.stereo:
         # settings.scene_file = last -i path, argv or included .ecs alike
         return _stereo_from_settings(settings, sb, settings.scene_file,
                                      device)
+    if settings.connect:
+        return _connect_mode(settings, sb, device)
     if settings.display:
         return _display_mode(settings, sb, device)
     from . import output as goutput
@@ -100,6 +104,59 @@ def main(argv=None, device=None):
               f"{dt * 1000.0:.2f} ms, {stats.mrps:.3f} mrps")
     print(f"wrote {out} ({settings.width}x{settings.height}, "
           f"{settings.spp} spp) in {time.time() - t0:.1f}s")
+    return 0
+
+
+def _make_client(settings):
+    """A NetworkClient of the -connect servers (host[:port], 8282 by
+    default).  Raises ValueError for -sampler precomputed, which the
+    render protocol does not carry."""
+    from ..parallel import network as gnet
+
+    def addr(tok):
+        host, _, port = tok.partition(':')
+        return (host, int(port) if port else 8282)
+
+    if settings.sampler != 'stateless':
+        raise ValueError(
+            "-sampler %s is not carried by the render protocol; "
+            "distributed renders use the stateless sampler"
+            % settings.sampler)
+    return gnet.NetworkClient([addr(t) for t in settings.connect])
+
+
+def _connect_mode(settings, sb, device=None):
+    """-connect host[:port] ...: one frame rendered by the TCP render
+    servers (the reference's network device, renderer.cpp:948-956), each
+    rendering its interleaved 4-row bands; the merged frame is tonemapped
+    on `device` and written locally, as render_mono writes its own."""
+    from ..film import accum
+    from ..io import image as gimage
+    from . import output as goutput
+
+    if settings.num_frames > 1:
+        raise ValueError("-frames N accumulates locally only; a TCP render "
+                         "renders one frame a request")
+    camera = goutput.mono_camera(settings)
+    params = goutput.params_from_settings(settings)
+    client = _make_client(settings)
+    t0 = time.time()
+    try:
+        client.set_scene(sb)
+        rgb_sum, weight = client.render(
+            camera, params, settings.width, settings.height, settings.spp,
+            seed=0, pixel_filter=settings.pixel_filter,
+            backplate=settings.backplate)
+    finally:
+        client.close()
+    film = accum.Film(torch.as_tensor(rgb_sum, device=device),
+                      torch.as_tensor(weight, device=device))
+    out = settings.out_file or 'out.png'
+    gimage.store(out, goutput._image(film, settings),
+                 jpeg_quality=settings.jpeg_quality)
+    print(f"wrote {out} ({settings.width}x{settings.height}, "
+          f"{settings.spp} spp, {len(settings.connect)} servers) in "
+          f"{time.time() - t0:.1f}s")
     return 0
 
 
@@ -191,9 +248,18 @@ def _stereo_from_settings(settings, sb, scene_file, device=None):
     scene_file = scene_file or settings.scene_file
     base = (os.path.splitext(os.path.basename(scene_file))[0]
             if scene_file else 'stereo')
-    written, _ = goutput.render_stereo(sb, settings, stereo_rigs(settings),
-                                       base, '.', debug_faces=settings.debug,
-                                       device=device)
+    # the TCP servers serve every output mode, stereo included
+    # (renderer.cpp:948-956: the device is chosen before outputMode)
+    client = _make_client(settings) if settings.connect else None
+    try:
+        if client is not None:
+            client.set_scene(sb)
+        written, _ = goutput.render_stereo(
+            sb, settings, stereo_rigs(settings), base, '.',
+            debug_faces=settings.debug, client=client, device=device)
+    finally:
+        if client is not None:
+            client.close()
     for w in written:
         print(f"wrote {w}")
     return 0

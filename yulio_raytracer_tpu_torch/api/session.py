@@ -64,8 +64,9 @@ class ParamsRT:
     threads_priority: int = 0      # accepted for parity; unused
     watermark: bool = False
     face_culling_mode: str = "default"
-    # multi-device pixel fan-out (the -connect analog): 1 = one device;
-    # others are not ported yet and end the render with UnknownError
+    # multi-device pixel fan-out (api/output.py settings_mesh): 1 = one
+    # device, 0 = every visible card, N = the first N (on the CPU, N
+    # CPU slots)
     devices: int = 1
 
 

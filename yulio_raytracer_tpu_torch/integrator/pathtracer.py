@@ -52,7 +52,12 @@ state), and a bounce at depth d takes the shared NEE light sample from
 from 1D dim d, which Russian roulette reuses, as the reference does;
 the shadow cap's jitter stays on the stateless hash.
 
-Not ported: ray sorting under 'morton', the triangle-sharded mesh axis.
+A triangle-sharded scene (parallel/sharding.py render_frame_sharded
+with a 'tri' axis) traces every shard's triangles through the dense
+kernels on the shard's device; _intersect takes the nearest shard's hit
+and _occluded the OR of the shards'.
+
+Not ported: ray sorting under 'morton'.
 """
 from __future__ import annotations
 
@@ -149,7 +154,10 @@ def _intersect(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
     """Closest hits, in the reference's order: a motion scene traces at
     each ray's time; sorted rays under binning 'grid', 'dense' or
     'treelet' take it where the scene has its tables; else the traversal
-    scene.accel names."""
+    scene.accel names; a triangle-sharded scene's shards through the
+    dense kernels, combined (_intersect_shards)."""
+    if scene.tri_shards is not None:
+        return _intersect_shards(scene.tri_shards, org, dirn, tnear, tfar)
     if scene.accel == 'bvh4mb':
         return traverse.intersect_packet_mb(scene.nodes, scene.tris_mb, org,
                                             dirn, tnear, tfar, time)
@@ -178,9 +186,38 @@ def _intersect(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
     return dense.intersect_dense(scene.tris, org, dirn, tnear, tfar)
 
 
+def _intersect_shards(shards, org, dirn, tnear, tfar):
+    """Closest hits over triangle shards ((start, rows), each on its own
+    device; the counterpart of the reference's cross-shard argmin,
+    pathtracer.py:194-214): the hit of least t, the first shard's where
+    several share it (the lowest global triangle id), its triangle id
+    offset by its shard's start.  The scene's shading table is indexed by
+    those global ids, so post_intersect reads the winner's record."""
+    dev = org.device
+    parts = []
+    for start, rows in shards:
+        d = rows.device
+        h = dense.intersect_dense(rows, org.to(d), dirn.to(d), tnear.to(d),
+                                  tfar.to(d))
+        tri = torch.where(h.tri >= 0, h.tri + start, -1).to(torch.int32)
+        parts.append([x.to(dev) for x in (h.t, tri, h.u, h.v)])
+    win = torch.argmin(torch.stack([p[0] for p in parts]), dim=0,
+                       keepdim=True)
+    return ops_i.Hit(*(torch.gather(torch.stack([p[i] for p in parts]), 0,
+                                    win)[0] for i in range(4)))
+
+
 def _occluded(scene, org, dirn, tnear, tfar, time=None, sort_rays=False,
               binning='morton'):
-    """Any-hit of each ray segment (as _intersect)."""
+    """Any-hit of each ray segment (as _intersect; over triangle shards,
+    the OR of theirs)."""
+    if scene.tri_shards is not None:
+        occ = torch.zeros(org.shape[:1], dtype=torch.bool, device=org.device)
+        for _, rows in scene.tri_shards:
+            d = rows.device
+            occ |= dense.occluded_dense(rows, org.to(d), dirn.to(d),
+                                        tnear.to(d), tfar.to(d)).to(org.device)
+        return occ
     if scene.accel == 'bvh4mb':
         return traverse.occluded_packet_mb(scene.nodes, scene.tris_mb, org,
                                            dirn, tnear, tfar, time)

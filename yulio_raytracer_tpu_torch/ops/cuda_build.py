@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -125,6 +126,17 @@ def table_arg(name, x, width, device):
                          f"float32 (N, {width}) tensor on {device}, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
     return x
+
+
+_BUMP_LOCK = threading.Lock()
+
+
+def bump(wrapper):
+    """Add one to wrapper.launches, the launch count of its kernel (under
+    a lock: a mesh's slots on distinct cards launch from threads of their
+    own)."""
+    with _BUMP_LOCK:
+        wrapper.launches += 1
 
 
 def count(counts, key, n):

@@ -143,7 +143,7 @@ def intersect_dense(tris, org, dirn, tnear, tfar) -> Hit:
     hit = cb.empty_hit(r, org.device)
     cb.launch(_lib().yrt_intersect_dense, 'intersect_dense', org.device,
               rows, live, org, dirn, tnear, tfar, r, *hit)
-    intersect_dense.launches += 1
+    cb.bump(intersect_dense)
     return Hit(*hit)
 
 
@@ -159,7 +159,7 @@ def occluded_dense(tris, org, dirn, tnear, tfar):
     occ = torch.empty((r,), dtype=torch.bool, device=org.device)
     cb.launch(_lib().yrt_occluded_dense, 'occluded_dense', org.device,
               rows, live, org, dirn, tnear, tfar, r, occ)
-    occluded_dense.launches += 1
+    cb.bump(occluded_dense)
     return occ
 
 

@@ -313,7 +313,7 @@ def march_raw(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
     slot = torch.empty((r,), dtype=torch.int32, device=dev)
     cb.launch(pairs.lib().yrt_grid_march, 'march_raw', dev, rows, *cells,
               *box, *rays, res, r, t, slot)
-    march_raw.launches += 1
+    cb.bump(march_raw)
     return t, slot
 
 

@@ -217,7 +217,7 @@ def bin_rays(gs, ge, tnear, tfar, n_tiles, t=None, slot=None, occ=None):
                           dtype=torch.int32, device=gs.device)
     cb.launch(lib().yrt_bin_pairs, 'bin_rays', gs.device, gs, ge, tnear,
               tfar, n_tiles, gs.shape[0], scratch, t, slot, occ)
-    bin_rays.launches += 1
+    cb.bump(bin_rays)
     return scratch
 
 
@@ -236,7 +236,7 @@ def intersect_pairs_raw(rows, org, dirn, tnear, tfar, gs=None, ge=None):
                                                t=t, slot=slot)
     cb.launch(lib().yrt_intersect_pairs, 'intersect_pairs_raw', dev, rows,
               *rays, ge, scratch, n_tiles, r, t, slot)
-    intersect_pairs_raw.launches += 1
+    cb.bump(intersect_pairs_raw)
     return t, slot
 
 
@@ -253,7 +253,7 @@ def occluded_pairs(rows, org, dirn, tnear, tfar, gs=None, ge=None):
                                                occ=occ)
     cb.launch(lib().yrt_occluded_pairs, 'occluded_pairs', dev, rows, *rays,
               ge, scratch, n_tiles, r, occ)
-    occluded_pairs.launches += 1
+    cb.bump(occluded_pairs)
     return occ
 
 

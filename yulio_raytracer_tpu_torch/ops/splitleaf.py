@@ -230,7 +230,7 @@ def intersect_packet_split(nodes, tris, org, dirn, tnear, tfar,
     hit = cb.empty_hit(r, dev)
     cb.launch(cb.library('splitleaf', _SIGNATURES).yrt_intersect_split,
               'intersect_packet_split', dev, *args, r, groups, *hit)
-    intersect_packet_split.launches += 1
+    cb.bump(intersect_packet_split)
     return Hit(*hit)
 
 

@@ -421,7 +421,7 @@ def intersect_packet(nodes, tris, org, dirn, tnear, tfar, roots=None) -> Hit:
     hit = cb.empty_hit(r, dev)
     cb.launch(_lib().yrt_intersect_binary, 'intersect_packet', dev, *args,
               _roots_arg(roots, r, dev), r, *hit)
-    intersect_packet.launches += 1
+    cb.bump(intersect_packet)
     return Hit(*hit)
 
 
@@ -436,7 +436,7 @@ def occluded_packet(nodes, tris, org, dirn, tnear, tfar, roots=None):
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     cb.launch(_lib().yrt_occluded_binary, 'occluded_packet', dev, *args,
               _roots_arg(roots, r, dev), r, occ)
-    occluded_packet.launches += 1
+    cb.bump(occluded_packet)
     return occ
 
 
@@ -453,7 +453,7 @@ def intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
     hit = cb.empty_hit(r, dev)
     cb.launch(_lib().yrt_intersect_motion, 'intersect_packet_mb', dev,
               *args, r, *hit)
-    intersect_packet_mb.launches += 1
+    cb.bump(intersect_packet_mb)
     return Hit(*hit)
 
 
@@ -471,7 +471,7 @@ def occluded_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar, time):
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     cb.launch(_lib().yrt_occluded_motion, 'occluded_packet_mb', dev, *args,
               r, occ)
-    occluded_packet_mb.launches += 1
+    cb.bump(occluded_packet_mb)
     return occ
 
 

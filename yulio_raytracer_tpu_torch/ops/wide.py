@@ -393,7 +393,7 @@ def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
     hit = cb.empty_hit(r, dev)
     cb.launch(_entry('yrt_intersect_wide', args[0]), 'intersect_packet4', dev,
               *args, r, *hit)
-    intersect_packet4.launches += 1
+    cb.bump(intersect_packet4)
     return Hit(*hit)
 
 
@@ -406,7 +406,7 @@ def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar):
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
     cb.launch(_entry('yrt_occluded_wide', args[0]), 'occluded_packet4', dev,
               *args, r, occ)
-    occluded_packet4.launches += 1
+    cb.bump(occluded_packet4)
     return occ
 
 

@@ -216,7 +216,7 @@ def sweep_rows(rows, org, dirn, reps=1):
     if org.device.type == 'cpu':
         return sweep_rows_plain(rows, org, dirn, reps)
     out = _launch('rows', *_kernel_args(rows, org, dirn), reps)
-    sweep_rows.launches += 1
+    cb.bump(sweep_rows)
     return out
 
 
@@ -231,7 +231,7 @@ def sweep_tiles(tiles, org, dirn, reps=1, switch=False):
         raise ValueError(f"{tiles.shape[0]} rows are not whole super-tiles "
                          "of 8 rows")
     out = _launch('tiles', tiles, org, dirn, reps, switch)
-    sweep_tiles.launches += 1
+    cb.bump(sweep_tiles)
     return out
 
 

@@ -143,6 +143,34 @@ class FrameStats:
         return self.num_rays / max(self.seconds, 1e-9) / 1e6
 
 
+def _render_pass(scene, camera, params, width, height, spp_grid, pix,
+                 sample0, k, seed, pixel_filter='box', tables=None,
+                 backplate=None, compacted=False, bounce_stats=None):
+    """One pass on the scene's device: samples sample0 .. sample0 + k - 1
+    of each pixel id in pix (n,) int64 (on that device), traced by
+    trace_compacted or trace.  Every ray depends on its own ids alone, so
+    a pixel's sum does not depend on the pixels beside it in the pass.
+    Returns ((n, 3) the pixels' radiance summed over the k samples in
+    sample order, the ray count as a scalar tensor)."""
+    dev = pix.device
+    pixel_ids = pix.repeat(k)
+    sample_ids = (sample0 + torch.arange(k, device=dev)).repeat_interleave(
+        pix.shape[0])
+    samples = _pass_samples(tables, pixel_ids, sample_ids)
+    org, dirn, ray_time, uv = _gen_rays(
+        scene, camera, width, height, spp_grid, pixel_ids, sample_ids, seed,
+        pixel_filter, samples)
+    if compacted:
+        rgb, nrays = pathtracer.trace_compacted(
+            scene, params, org, dirn, seed, pixel_ids, sample_ids, ray_time,
+            bounce_stats, uv, backplate, samples)
+    else:
+        rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
+                                      pixel_ids, sample_ids, ray_time, uv,
+                                      backplate, samples)
+    return rgb.reshape(k, -1, 3).sum(dim=0), nrays
+
+
 def render_frame(scene, camera, params, width: int, height: int, spp: int,
                  seed: int = 0, device=None, compaction: str = 'auto',
                  bounce_stats=None, backplate=None, film=None,
@@ -174,14 +202,43 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     sampler: 'stateless' (per-ray hashed stratification) or
     'precomputed', the reference's 64 sample sets (sample_tables: built
     on the host once a frame; tables cover RoundUpPow2(spp) samples).
-    The reference's `mesh` (pixel parallelism over devices) is not
-    ported: it raises NotImplementedError.  Deterministic per (scene,
-    spp, seed, iteration).  Returns (film, FrameStats); the stats'
-    seconds end after the device finished."""
+    mesh: a parallel.sharding.Mesh whose 'px' axis splits every pass's
+    pixels over its slots (and, after parallel.sharding.init_distributed,
+    over the processes); its 'tri' axis must be 1 (a triangle-sharded
+    mesh renders through parallel.sharding.render_frame_sharded, else
+    ValueError).  Each pixel's samples stay on one slot and are summed in
+    the same order, so the film is bit-equal to the one-device film.
+    Another kind of mesh (a jax.sharding.Mesh, say) raises
+    NotImplementedError.  Deterministic per (scene, spp, seed,
+    iteration).  Returns (film, FrameStats); the stats' seconds end after
+    the device finished."""
     if mesh is not None:
-        raise NotImplementedError("render_frame(mesh=): multi-device pixel "
-                                  "parallelism is not ported yet (ROADMAP "
-                                  "A8)")
+        from .parallel import sharding
+        if not isinstance(mesh, sharding.Mesh):
+            raise NotImplementedError(
+                f"render_frame(mesh=) takes a parallel.sharding.Mesh "
+                f"(make_mesh), not {type(mesh).__name__}")
+        if mesh.shape['tri'] > 1:
+            raise ValueError("render_frame meshes are pixel-parallel; use "
+                             "parallel.sharding.render_frame_sharded for a "
+                             "tri axis")
+    return _frame(scene, camera, params, width, height, spp, seed=seed,
+                  device=device, compaction=compaction,
+                  bounce_stats=bounce_stats, backplate=backplate, film=film,
+                  iteration=iteration, accumulate=accumulate,
+                  pixel_filter=pixel_filter, progress_cb=progress_cb,
+                  stop_flag=stop_flag, mesh=mesh, sampler=sampler)
+
+
+def _frame(scene, camera, params, width, height, spp, *, seed=0, device=None,
+           compaction='auto', bounce_stats=None, backplate=None, film=None,
+           iteration=0, accumulate=True, pixel_filter='box', progress_cb=None,
+           stop_flag=None, mesh=None, sampler='stateless', pixels=None):
+    """render_frame's body, over a mesh of any shape.  pixels: the ids
+    of the pixels to render (a render server's bands; None: all of them,
+    in tile order); the film's other pixels get no samples.  A pixel's
+    samples are grouped and summed as in the whole frame, so its sum
+    does not depend on which others are rendered with it."""
     if sampler not in ('stateless', 'precomputed'):
         raise ValueError("sampler must be 'stateless' or 'precomputed'")
     compacted = compacts(scene, params, compaction)
@@ -204,35 +261,33 @@ def render_frame(scene, camera, params, width: int, height: int, spp: int,
     tables = (sample_tables(spp, iteration, params.max_depth, pixel_filter,
                             width, height, device)
               if sampler == 'precomputed' else None)
-    order = torch.as_tensor(_tile_order(width, height), device=device)
-    pix_per_pass = max(1, min(npix, MAX_RAYS_PER_PASS))
-    # sample-major batching: fold k samples of every pixel into one batch
+    if mesh is not None:
+        from .parallel import sharding
+        slots = sharding.replicate(mesh, scene, camera, backplate, tables)
+    order = torch.as_tensor(_tile_order(width, height) if pixels is None
+                            else np.asarray(pixels), dtype=torch.int64,
+                            device=device)
+    # sample-major batching: fold k samples of every pixel into one pass
     fold = max(1, min(spp, MAX_RAYS_PER_PASS // npix))
-    work = [(lo, s0) for lo in range(0, npix, pix_per_pass)
+    pix_per_pass = max(1, min(order.shape[0], MAX_RAYS_PER_PASS // fold))
+    work = [(lo, s0) for lo in range(0, order.shape[0], pix_per_pass)
             for s0 in range(0, spp, fold)]
     for wi, (lo, s0) in enumerate(work):
         if stop_flag is not None and stop_flag():
             break
         pix = order[lo:lo + pix_per_pass]
-        k = min(fold, spp - s0)
-        pixel_ids = pix.repeat(k)
-        sample_ids = (iteration * spp + s0 + torch.arange(
-            k, device=device)).repeat_interleave(pix.shape[0])
-        samples = _pass_samples(tables, pixel_ids, sample_ids)
-        org, dirn, ray_time, uv = _gen_rays(
-            scene, camera, width, height, spp_grid, pixel_ids,
-            sample_ids, seed, pixel_filter, samples)
-        if compacted:
-            rgb, nrays = pathtracer.trace_compacted(
-                scene, params, org, dirn, seed, pixel_ids, sample_ids,
-                ray_time, bounce_stats, uv, backplate, samples)
+        kw = dict(params=params, width=width, height=height,
+                  spp_grid=spp_grid, sample0=iteration * spp + s0,
+                  k=min(fold, spp - s0), seed=seed, pixel_filter=pixel_filter,
+                  compacted=compacted, bounce_stats=bounce_stats)
+        if mesh is None:
+            rgb, nrays = _render_pass(scene, camera, pix=pix, tables=tables,
+                                      backplate=backplate, **kw)
         else:
-            rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
-                                          pixel_ids, sample_ids, ray_time,
-                                          uv, backplate, samples)
-        # pixels are unique within each of the k sample slices, so
-        # the scatter is a deterministic permutation add
-        rgb_flat.index_add_(0, pix, rgb.reshape(k, -1, 3).sum(dim=0))
+            rgb, nrays = sharding.mesh_pass(mesh, slots, pix, **kw)
+        # pixels are unique within a pass, so the scatter is a
+        # deterministic permutation add
+        rgb_flat.index_add_(0, pix, rgb)
         total_rays = total_rays + nrays
         if progress_cb is not None:
             progress_cb((wi + 1) / len(work))

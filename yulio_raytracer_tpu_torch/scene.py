@@ -264,11 +264,46 @@ class TorchScene:
     bump: bool                    # a material binds a bump map
     bvh_seconds: float = 0.0      # the commit's BVH build (0: none)
     bvh_refs: int = 0             # the tree's triangle references
+    # a triangle-sharded scene's shards ((start, (g, 128) rows on the
+    # shard's device), ...), traced by the dense kernels and combined by
+    # the integrator (parallel/sharding.py shard_triangles); None: whole
+    tri_shards: Optional[tuple] = None
 
     @property
     def env_lights(self):
         """The lights that shine on escaped rays (ambient, HDRI)."""
         return [l for l in self.lights if glights.is_env(l)]
+
+    def to(self, device) -> "TorchScene":
+        """This scene on `device`: every tensor copied there (self where
+        it lives there already), the static fields kept.  A triangle-
+        sharded scene's shards stay on their devices."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        moved = {f.name: to_device(getattr(self, f.name), device)
+                 for f in dataclasses.fields(self)
+                 if f.name not in ('device', 'tri_shards')}
+        return dataclasses.replace(self, device=device, **moved)
+
+
+def to_device(x, device):
+    """A copy of x with every tensor in it on `device`: tensors, and the
+    dicts, lists, tuples, named tuples and dataclasses holding them;
+    anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, '_fields'):
+        return type(x)(*(to_device(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, device) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: to_device(getattr(x, f.name), device)
+            for f in dataclasses.fields(x) if f.init})
+    return x
 
 
 def resolve_device(device) -> torch.device:
