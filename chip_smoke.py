@@ -15,6 +15,11 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     lights; the binary pair also with each ray started at its nearest
     treelet's root, and bit-equal on every call of one bounce-1 trace
     with accel 'bvh2' and through 'treelet', raysets.frame_binary_calls),
+    the width-8 kernels on the same tree as 8-wide rows (raysets.nodes8)
+    and the same sets, bit-equal, with the same t, hit mask and occlusion
+    as K3/K4 and timed beside them, the staged walks (K5/K6 a stage) on
+    the hemisphere and shadow rays, bit-equal to their plain versions and
+    timed against one K5/K6 walk,
     the pair kernels on the colonnade's grid (the
     hemisphere and shadow rays, each over its entry cell's tiles), bit-
     equal on every call of one bounce-1 trace through 'grid' and 'dense'
@@ -33,10 +38,11 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     intersect_packet_binned and intersect_dense_binned,
     and their any-hit forms) against the binary
     kernels on the same hemisphere and shadow rays, and K11 unsorted and
-    sorted against K5 on the hemisphere rays, timed in turns; the BVH4
-    and binary pairs again on the colonnade at leaf 512 (leaves of up to
-    504 triangles; 256^2 camera rays, hemisphere rays from their hits,
-    their shadow rays), bit-equal; the sweep prototype's kernels K12
+    sorted against K5 on the hemisphere rays, timed in turns; the BVH4,
+    binary and width-8 pairs again on the colonnade at leaf 512 (leaves of
+    up to 504 triangles, the *_slots forms; 256^2 camera rays, hemisphere
+    rays from their hits, their shadow rays), bit-equal; the sweep
+    prototype's kernels K12
     (proto_sublane_sweep.py) on the colonnade's 512 packed rows holding
     the most closest hits of its camera rays against every fourth of those
     rays (2^18, shape b) and every fourth of the hemisphere rays from
@@ -79,7 +85,10 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     point
     (grid.intersect_march on the colonnade's 1M hemisphere rays) and
     K11's (sorted on those rays, unsorted on its camera rays), whose t
-    and hit mask must equal K5's.
+    and hit mask must equal K5's; the width-8 walks' (intersect_packet4 /
+    occluded_packet4 at width=8) and the staged walks' on those rays and
+    the shadow rays, whose t and hit mask must equal K5's and whose
+    occlusion K6's (no render path takes either, nor in the reference).
     Every launch counter is set to 0 before each run and read after it:
     the path's kernels must have run, no other kernel (so K12, which no
     path runs, never), and no plain version on a CUDA tensor; the pair
@@ -156,10 +165,12 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     tests are those K5's plain version counts on the same rays, the tests
     their closest hits need; the tests K11's schedule makes (a lane per
     box of its packet's walk, 8 a row for the rays that hit its leaf) are
-    printed beside them as that schedule's waste.  Beside K10's bound, the
-    rows its kernel loads (a cell's rows once a round for each warp's
-    rays in it, as its plain version counts) in GB, and those one ray per
-    thread would load (a 64-byte row for every test).
+    printed beside them as that schedule's waste, and so are the box
+    tests of the wide kernels (K3/K4 and width 8), which test every slot
+    of a row where the function needs its non-empty ones.  Beside K10's
+    bound, the rows its kernel loads (a cell's rows once a round for each
+    warp's rays in it, as its plain version counts) in GB, and those one
+    ray per thread would load (a 64-byte row for every test).
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -189,25 +200,6 @@ TRI_MISMATCH_MAX = 1e-4      # ties only: equal t, another triangle
 MASK_MISMATCH_MAX = 1e-4     # hit/miss and occlusion masks
 T_REL_ERR_MAX = 1e-6         # where the triangle agrees
 PSNR_MIN = 40.0
-# the H100 SXM's published peaks: HBM3 bytes/s, and f32
-# flops/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = 67e12
-# flops of one test, counted from the sources: every multiply, add,
-# subtract, negate, divide, abs and compare (selects are free)
-WOOP_FLOPS = 55     # csrc/woop.cuh woop_test: six 3-term dot products
-#                     (33), |dwp| test (2), 1/dwp (1), th (2), u and v (4),
-#                     ng.d (5), cull (2), window tests (6); the dense
-#                     kernels run it in stages, counted per stage by their
-#                     plain versions (ops/dense.py staged_flops)
-MOTION_FLOPS = 87   # csrc/motion.cuh motion_test: edges at time s (12),
-#                     p, ng, q crosses (27), det, ng.d, u, v, th (28), tv (9),
-#                     |det| test and 1/det (3), cull (2), window tests (6)
-SLAB_FLOPS = 25     # csrc/bvh.cuh slab: 6 subtracts, 6 multiplies, 12
-#                     min/max, 1 compare
-PROTO_FLOPS = 48    # csrc/sweep.cu proto_test: six dot products (33), |dwp|
-#                     and its test (2), 1/dwp (1), th (2), u and v (4),
-#                     u + v and five compares (6)
 
 
 def phase(name, msg):
@@ -229,6 +221,13 @@ def ptxas_report(log):
         m = re.search(r'Function properties for _Z(\d+)(\w+)', line)
         if m:
             name = m.group(2)[:int(m.group(1))]
+            # a template's arguments, e.g. <0, 8> for ILb0ELi8EE
+            args = re.match(r'I((?:L[a-z]+\d+E)+)E',
+                            m.group(2)[int(m.group(1)):])
+            if args:
+                name += '<' + ', '.join(
+                    re.findall(r'L[a-z]+(\d+)E', args.group(1))) + '>'
+
         elif name and 'stack frame' in line:
             frame = line.strip()
         elif name and 'registers' in line:
@@ -238,11 +237,10 @@ def ptxas_report(log):
     return rows
 
 
-def cuda_ms(fn, reps=5, warm=True):
+def cuda_ms(fn, reps=5):
     """Median milliseconds of fn() over reps runs (CUDA events), after
-    one warm-up run unless warm is False."""
-    if warm:
-        fn()
+    one warm-up run."""
+    fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -292,8 +290,14 @@ def compare(name, kernel, plain, args, counts=None, labels=('kernel',
     every output must be bit-equal."""
     from yulio_raytracer_tpu_torch.ops.intersect import Hit
     k = kernel(*args)
+    # the plain versions are slow loops of torch ops and no yardstick of
+    # speed: the run that is checked is the one timed
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     p = plain(*args) if counts is None else plain(*args, counts=counts)
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     out = k if isinstance(k, tuple) else (k,)
     moved = nbytes(*args) + nbytes(*out)
     if exact and not all(torch.equal(a, b) for a, b in zip(
@@ -326,9 +330,6 @@ def compare(name, kernel, plain, args, counts=None, labels=('kernel',
         ok = (mask_mism <= MASK_MISMATCH_MAX and tri_mism <= TRI_MISMATCH_MAX
               and rel <= T_REL_ERR_MAX)
     ms = cuda_ms(lambda: kernel(*args))
-    # the plain versions are slow loops of torch ops and no yardstick of
-    # speed: one run, warmed by the one above
-    plain_ms = cuda_ms(lambda: plain(*args), reps=1, warm=False)
     r = next(a.shape[0] for a in args if isinstance(a, torch.Tensor)
              and a.dim() == 2 and a.shape[1] == 3)
     phase('kernels', f"{name} on {r} rays: {line}; {labels[0]} {ms:.3f} ms, "
@@ -714,15 +715,17 @@ def main():
                                                traverse, treelets, wide)
     from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
     from yulio_raytracer_tpu_torch.native import build as native_build
-    from yulio_raytracer_tpu_torch import renderer
+    from yulio_raytracer_tpu_torch import renderer, roofline
+    from yulio_raytracer_tpu_torch.roofline import (
+        MOTION_FLOPS, PEAK_FLOPS, PROTO_FLOPS, SLAB_FLOPS, WOOP_FLOPS)
     from yulio_raytracer_tpu_torch.profile_frame import (
         SPHERE_MIRROR, STEREO_PARAMS, sphere_mirror_camera,
         stereo_face_camera)
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
         frame_dense_calls, frame_motion_calls, frame_pair_calls,
-        from_treelet_roots, hemisphere_rays, scattered_rays, shadow_rays,
-        sweep_sets)
+        from_treelet_roots, hemisphere_rays, nodes8, scattered_rays,
+        shadow_rays, sweep_sets)
 
     dev = torch.device('cuda')
     card = smi_line()
@@ -757,6 +760,11 @@ def main():
         (wide.intersect_packet4, wide.intersect_wide_plain, 'wide.cu',
          'yulio_raytracer_tpu/ops/pallas_wide.py:507', WOOP_FLOPS),
         (wide.occluded_packet4, wide.occluded_wide_plain, 'wide.cu',
+         'yulio_raytracer_tpu/ops/pallas_wide.py:676', WOOP_FLOPS),
+        # the same pallas_calls at width=8 (pack_nodes8 rows)
+        (wide.intersect_packet8, wide.intersect_wide_plain, 'wide.cu',
+         'yulio_raytracer_tpu/ops/pallas_wide.py:507', WOOP_FLOPS),
+        (wide.occluded_packet8, wide.occluded_wide_plain, 'wide.cu',
          'yulio_raytracer_tpu/ops/pallas_wide.py:676', WOOP_FLOPS),
         (traverse.intersect_packet, traverse.intersect_binary_plain,
          'binary.cu', 'yulio_raytracer_tpu/ops/pallas_traverse.py:514',
@@ -820,11 +828,16 @@ def main():
         returns the tests the plain version counted.  `tests` gives the
         tests the function needs where that count is not it: K12's follow
         from the shapes; with schedule (K11) the plain version's count,
-        the tests of the kernel's schedule, is kept beside them."""
+        the tests of the kernel's schedule, is kept beside them.  The wide
+        kernels' schedule tests every slot of a row, empty ones too (the
+        plain versions' 'slots'), beside the function's pair tests."""
         counted = {} if tests is None or schedule else None
-        record(f, compare(name, f, plains[counters.index(f)], args,
-                          counted, exact=exact), tests or counted,
-               counted if schedule else {})
+        res = compare(name, f, plains[counters.index(f)], args, counted,
+                      exact=exact)
+        made = counted if schedule else {}
+        if counted and 'slots' in counted:
+            made = {'pair': counted['pair'], 'box': counted['slots']}
+        record(f, res, tests or counted, made)
         return counted
 
     t0 = time.perf_counter()
@@ -894,6 +907,41 @@ def main():
                 "without a push)", (
                     ('intersect_packet4 (camera + hemisphere)', k3_counts),
                     ('occluded_packet4 (shadow)', [k4_counts])))
+    # the width-8 kernels (pallas_wide's width=8 form) on the same tree as
+    # 8-wide rows, over the same sets: bit-equal to their plain versions,
+    # the same t, hit mask and occlusion as K3/K4, timed beside them
+    t1 = time.perf_counter()
+    tables8 = (nodes8(colonnade), colonnade.tris)
+    phase('kernels', f"colonnade as 8-wide rows: {tables8[0].shape[0]} "
+          f"(BVH4 {colonnade.nodes4.shape[0]}), read back from its binary "
+          f"rows in {time.perf_counter() - t1:.2f} s")
+    wide_ms, k8_counts = {}, []
+    for what, rays, f4, f8 in (
+            ('camera', cam_rays, wide.intersect_packet4,
+             wide.intersect_packet8),
+            ('hemisphere', hemi, wide.intersect_packet4,
+             wide.intersect_packet8),
+            ('shadow', shadow, wide.occluded_packet4,
+             wide.occluded_packet8)):
+        before = results.get(f8.__name__, {}).get('ms', 0.0)
+        k8_counts.append(check(f8, f'{f8.__name__} (colonnade {what})',
+                               (*tables8, *rays), exact=True))
+        out8, out4 = f8(*tables8, *rays), f4(*tables, *rays)
+        same = (torch.equal(out8, out4) if f8 is wide.occluded_packet8 else
+                torch.equal(out8.t, out4.t)
+                and torch.equal(out8.tri >= 0, out4.tri >= 0))
+        if not same:
+            raise AssertionError(f"width 8 and BVH4 disagree on the "
+                                 f"colonnade's {what} rays")
+        wide_ms[what] = (results[f8.__name__]['ms'] - before,
+                         cuda_ms(lambda: f4(*tables, *rays)))
+    stack_depth("BVH8 (the same STACK; a pop pushes up to 7)", (
+        ('intersect_packet8 (camera + hemisphere)', k8_counts[:2]),
+        ('occluded_packet8 (shadow)', k8_counts[2:])))
+    phase('kernels', "width 8 vs BVH4 on the colonnade (median of 5; the "
+          "same t, hit mask and occlusion): " + ', '.join(
+              f"{what} {a:.3f} vs {b:.3f} ms (BVH4 / width 8 {b / a:.2f})"
+              for what, (a, b) in wide_ms.items()) + f"; {card}")
     # the grid's kernels: each ray over its entry cell's tiles, and the
     # whole march (the tables it reads)
     check(pairs.intersect_pairs_raw,
@@ -1010,6 +1058,41 @@ def main():
         compare(f'occluded {how} path vs occluded_packet (colonnade shadow)',
                 anyhit, lambda *r: traverse.occluded_packet(*tables2, *r),
                 shadow, labels=(f'{how} path', 'K6'), other_tie_rule=True)
+    # the staged walks (K5/K6 a stage, caps at 0.07 and 0.3 of the box's
+    # diagonal, then uncapped) on the hemisphere and shadow rays: bit-equal
+    # to their plain versions (one run each: they are no kernels of their
+    # own, so their plain time is not wanted), the same t, hit mask and
+    # occlusion as one walk, timed against one K5/K6 walk
+    staged_ms = {}
+    for what, rays, staged, plain, one in (
+            ('hemisphere', hemi, traverse.intersect_packet_staged,
+             traverse.intersect_staged_plain, traverse.intersect_packet),
+            ('shadow', shadow, traverse.occluded_packet_staged,
+             traverse.occluded_staged_plain, traverse.occluded_packet)):
+        got = staged(*tables2, *rays, lo, hi)
+        ref, single = plain(*tables2, *rays, lo, hi), one(*tables2, *rays)
+        torch.cuda.synchronize()
+        if staged is traverse.occluded_packet_staged:
+            exact, same = torch.equal(got, ref), torch.equal(got, single)
+        else:
+            exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+            same = (torch.equal(got.t, single.t)
+                    and torch.equal(got.tri >= 0, single.tri >= 0))
+        if not (exact and same):
+            raise AssertionError(f"{staged.__name__} on the colonnade's "
+                                 f"{what} rays: bit-equal to its plain "
+                                 f"version {exact}, equal to one walk {same}")
+        staged_ms[what] = (cuda_ms(lambda: staged(*tables2, *rays, lo, hi)),
+                           cuda_ms(lambda: one(*tables2, *rays)))
+    del got, ref, single
+    phase('kernels', "staged walks on the colonnade, bit-equal to their "
+          "plain versions, the same t, hit mask and occlusion as one walk "
+          "(median of 5): " + ', '.join(
+              f"{what} ({rays[0].shape[0]} rays) staged {a:.3f} vs "
+              f"{'K5' if what != 'shadow' else 'K6'} {b:.3f} ms"
+              for (what, (a, b)), rays in zip(staged_ms.items(),
+                                              (hemi, shadow)))
+          + f"; {card}")
     # does sorting pay?  K11 unsorted and sorted against K5 on the same
     # 1M hemisphere rays, then all of them timed in turns
     split_runs = {
@@ -1170,15 +1253,23 @@ def main():
     *big_hemi, dg, eps = hemisphere_rays(big, org, dirn, big_hit, gen512,
                                          dev)
     # the binary table at leaf 512 (the commit's binary rows, as
-    # accel='bvh2' commits them) under K5/K6 on the same rays
+    # accel='bvh2' commits them) under K5/K6, and the tree as 8-wide rows
+    # under the width-8 kernels' *_slots forms, on the same rays
+    big8 = nodes8(big)
+    if float(big8.reshape(-1, 8)[:, 7].max()) < wide.SLOTS_MIN:
+        raise AssertionError("the colonnade's 8-wide rows at leaf 512 hold "
+                             "no leaf for the *_slots forms")
     for what, rays, fs in (
             ('camera', big_cam, (wide.intersect_packet4,
-                                 traverse.intersect_packet)),
+                                 traverse.intersect_packet,
+                                 wide.intersect_packet8)),
             ('hemisphere', big_hemi, (wide.intersect_packet4,
-                                      traverse.intersect_packet)),
+                                      traverse.intersect_packet,
+                                      wide.intersect_packet8)),
             ('shadow', shadow_rays(big, dg, eps, big_hit.valid, gen512, dev),
-             (wide.occluded_packet4, traverse.occluded_packet))):
-        for f, table in zip(fs, (big.nodes4, big.nodes)):
+             (wide.occluded_packet4, traverse.occluded_packet,
+              wide.occluded_packet8))):
+        for f, table in zip(fs, (big.nodes4, big.nodes, big8)):
             compare(f'{f.__name__} (colonnade leaf 512, {what})', f,
                     plains[counters.index(f)], (table, big.tris, *rays),
                     exact=True)
@@ -1234,10 +1325,10 @@ def main():
             acc[key] += v
     del calls
     for name, acc in dense_pass.items():
-        acc['pass_bound_ms'] = max(
-            acc['pass_bytes'] / PEAK_BYTES,
+        acc['pass_bound_ms'] = roofline.bound(
+            acc['pass_bytes'],
             dense.staged_flops({k: acc[f'pass_{k}_tests'] for k in (
-                'pair', 'stage2', 'stage3')}) / PEAK_FLOPS) * 1e3
+                'pair', 'stage2', 'stage3')}))[0]
         phase('kernels', f"{name} at cornell's pass size: "
               f"{acc['pass_calls']} calls, {acc['pass_rays']} rays, "
               f"{acc['pass_pair_tests']} pair tests on the {live} live rows "
@@ -1572,6 +1663,35 @@ def main():
         raise AssertionError("the grid march entry point did not run K10 "
                              "alone, or disagrees with K5")
     main_launches = [a + b for a, b in zip(main_launches, ran)]
+    # the 8-wide walks' entry points (intersect_packet4 / occluded_packet4
+    # at width=8, as the reference's bench_wide_ab.py calls them) and the
+    # staged walks', on the 1M hemisphere and the shadow rays: their hits
+    # are K5's, their occlusion K6's
+    k6_occ = traverse.occluded_packet(*tables2, *shadow)
+    zero_counters()
+    outs = (wide.intersect_packet4(*tables8, *hemi, width=8),
+            traverse.intersect_packet_staged(*tables2, *hemi, lo, hi),
+            wide.occluded_packet4(*tables8, *shadow, width=8),
+            traverse.occluded_packet_staged(*tables2, *shadow, lo, hi))
+    ran = [f.launches for f in counters]
+    counts = {f.__name__: n for f, n in zip(counters, ran) if n}
+    same = (all(torch.equal(h.t, k5_hits[0].t)
+                and torch.equal(h.tri >= 0, k5_hits[0].tri >= 0)
+                for h in outs[:2])
+            and all(torch.equal(o, k6_occ) for o in outs[2:]))
+    phase('golden', f"width-8 and staged entry points on the colonnade's "
+          f"{hemi[0].shape[0]} hemisphere and {shadow[0].shape[0]} shadow "
+          f"rays: t and hit mask equal to K5's, occlusion to K6's: {same}, "
+          f"kernel launches {counts}")
+    if not same or counts != {'intersect_packet8': 1, 'occluded_packet8': 1,
+                              'intersect_packet': 3,
+                              'occluded_packet': 3} or any(
+            f.cuda_calls for f in plains):
+        raise AssertionError("the width-8 and staged entry points did not "
+                             "run their kernels alone, or disagree with "
+                             "K5/K6")
+    main_launches = [a + b for a, b in zip(main_launches, ran)]
+    del outs, k6_occ
 
     # ---- 5. timed full-size frames ----------------------------------------
     frames = (
@@ -2163,10 +2283,8 @@ def main():
                   f"+ {res['stage3']} to stage 3 x {dense.CULL_FLOPS}"
                   if f in (dense.intersect_dense, dense.occluded_dense)
                   else '')
-        bytes_ms = res['bytes'] / PEAK_BYTES * 1e3
-        flops_ms = flops / PEAK_FLOPS * 1e3
-        bound_ms = max(bytes_ms, flops_ms)
-        bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+        bytes_ms, flops_ms = roofline.times(res['bytes'], flops)
+        bound_ms, bound_by = roofline.bound(res['bytes'], flops)
         waste = ''
         if res['rows']:
             waste = (f"; its kernel loaded {res['rows'] * 64 / 1e9:.2f} GB "

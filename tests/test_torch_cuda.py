@@ -1,7 +1,9 @@
 """The torch port's CUDA kernels on the card: each held against its plain
 torch version (the binary kernels also from per-ray roots, under both
 leaf schedules, on a frame's own calls and at leaf 512, the
-BVH4 kernels also on leaves of 128 triangles and more, the pair kernels
+BVH4 kernels and their width-8 forms also on leaves of 128 triangles and
+more and under both leaf schedules, the staged walks over K5/K6, the pair
+kernels
 K8/K9 also on a frame's own calls and on edge cases of their binning, the
 split-leaf kernel K11 and the sweep prototype's kernels K12, the motion
 kernel K7's closest and any-hit forms also on the motion field's entry
@@ -82,6 +84,7 @@ def _tables_and_rays(dev, n=1000):
             np.full((n,), 1e-4, np.float32), tf]
     return (torch.as_tensor(wide.pack_tris(woop, host)).to(dev),
             {'wide': torch.as_tensor(wide.pack_nodes4(tree)).to(dev),
+             'wide8': torch.as_tensor(wide.pack_nodes8(tree)).to(dev),
              'binary': torch.as_tensor(traverse.pack_nodes(tree)).to(dev),
              'grid': {k: torch.as_tensor(v).to(dev) for k, v in
                       grid.build_grid(woop, host).items()}},
@@ -89,7 +92,7 @@ def _tables_and_rays(dev, n=1000):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('which', ['dense', 'wide', 'binary'])
+@pytest.mark.parametrize('which', ['dense', 'wide', 'wide8', 'binary'])
 def test_kernels_match_plain_on_card(cuda, which):
     tris, nodes, rays = _tables_and_rays(cuda)
     if which == 'dense':
@@ -100,6 +103,10 @@ def test_kernels_match_plain_on_card(cuda, which):
         pairs = ((wide.intersect_packet4, wide.intersect_wide_plain),
                  (wide.occluded_packet4, wide.occluded_wide_plain))
         tables = (nodes['wide'], tris)
+    elif which == 'wide8':
+        pairs = ((wide.intersect_packet8, wide.intersect_wide_plain),
+                 (wide.occluded_packet8, wide.occluded_wide_plain))
+        tables = (nodes['wide8'], tris)
     else:
         pairs = ((traverse.intersect_packet, traverse.intersect_binary_plain),
                  (traverse.occluded_packet, traverse.occluded_binary_plain))
@@ -146,10 +153,10 @@ def _edge_rays(lo, hi, n, seed):
     return [torch.as_tensor(x).cuda() for x in (org, d, tn, tf)]
 
 
-def _assert_wide_matches_plain(nodes4, tris, rays):
-    hit = wide.intersect_packet4(nodes4, tris, *rays)
+def _assert_wide_matches_plain(nodes4, tris, rays, width=4):
+    hit = wide.intersect_packet4(nodes4, tris, *rays, width=width)
     ref = wide.intersect_wide_plain(nodes4, tris, *rays)
-    occ = wide.occluded_packet4(nodes4, tris, *rays)
+    occ = wide.occluded_packet4(nodes4, tris, *rays, width=width)
     occ_ref = wide.occluded_wide_plain(nodes4, tris, *rays)
     torch.cuda.synchronize()
     for g, r in zip(hit, ref):
@@ -201,14 +208,18 @@ def test_wide_kernels_on_edge_rays(cuda, colonnade_card, scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('width', [4, 8])
 @pytest.mark.parametrize('rays', ['camera', 'every_fourth_live', 'fifteen'])
-def test_wide_leaf_schedules_agree(colonnade_card, rays):
-    """K3 and K4 bit-equal to their plain versions whichever way the warp
-    tests its lanes' leaves: coherent camera rays, whose lanes reach
-    leaves together, mostly take each lane's own leaf loop; with only
-    every fourth ray live (8 lanes a warp), or 15 rays in all, fewer than
-    16 lanes can hold a leaf, so every leaf is tested across the warp."""
+def test_wide_leaf_schedules_agree(request, colonnade_card, rays, width):
+    """K3 and K4, and the width-8 kernels over the same tree's 8-wide
+    rows, bit-equal to their plain versions whichever way the warp tests
+    its lanes' leaves: coherent camera rays, whose lanes reach leaves
+    together, mostly take each lane's own leaf loop; with only every
+    fourth ray live (8 lanes a warp), or 15 rays in all, fewer than 16
+    lanes can hold a leaf, so every leaf is tested across the warp."""
     sc, dev = colonnade_card, torch.device('cuda')
+    nodes = (sc.nodes4 if width == 4
+             else request.getfixturevalue('colonnade_nodes8'))
     if rays == 'camera':
         org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128),
                                         128, 128, dev, 7)
@@ -219,8 +230,75 @@ def test_wide_leaf_schedules_agree(colonnade_card, rays):
         batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 13)
         if rays == 'every_fourth_live':
             batch[3][torch.arange(n, device=dev) % 4 != 0] = -1.0
-    ref, _ = _assert_wide_matches_plain(sc.nodes4, sc.tris, batch)
+    ref, _ = _assert_wide_matches_plain(nodes, sc.tris, batch, width)
     assert bool((ref.tri >= 0).any())
+
+
+@pytest.fixture(scope='module')
+def colonnade_nodes8(colonnade_card):
+    """The full colonnade's tree (leaf 32) as 8-wide rows on the card."""
+    return raysets.nodes8(colonnade_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [65_536, 65_537])
+def test_wide8_kernels_match_plain_on_colonnade(colonnade_card,
+                                                colonnade_nodes8, n):
+    """The width-8 kernels bit-equal to their plain versions on the full
+    colonnade tree at ~64k edge rays, their launches counted apart from
+    K3's and K4's, and the same t, hit mask and occlusion as K3/K4."""
+    sc = colonnade_card
+    rays = _edge_rays(sc.bbox_lo, sc.bbox_hi, n, 11)
+    before = [f.launches for f in (wide.intersect_packet4,
+                                   wide.occluded_packet4,
+                                   wide.intersect_packet8,
+                                   wide.occluded_packet8)]
+    ref, occ = _assert_wide_matches_plain(colonnade_nodes8, sc.tris, rays,
+                                          width=8)
+    assert [f.launches for f in (wide.intersect_packet4,
+                                 wide.occluded_packet4,
+                                 wide.intersect_packet8,
+                                 wide.occluded_packet8)] == [
+        before[0], before[1], before[2] + 1, before[3] + 1]
+    four = wide.intersect_packet4(sc.nodes4, sc.tris, *rays)
+    np.testing.assert_array_equal(ref.t.cpu().numpy(), four.t.cpu().numpy())
+    np.testing.assert_array_equal(
+        occ.cpu().numpy(),
+        wide.occluded_packet4(sc.nodes4, sc.tris, *rays).cpu().numpy())
+    assert 0.3 < float((ref.tri >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['hemisphere', 'shadow', 'edge'])
+def test_staged_walks_match_plain_on_card(colonnade_card, rays):
+    """The staged walks (K5/K6 a stage) bit-equal to their plain
+    versions on the colonnade: hemisphere rays from 128^2 camera hits,
+    the shadow rays from those hits, and edge rays."""
+    sc, dev = colonnade_card, torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(7)
+    org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128), 128,
+                                    128, dev, 7)
+    zeros = torch.zeros(org.shape[0], device=dev)
+    hit = wide.intersect_packet4(sc.nodes4, sc.tris, org, d, zeros,
+                                 torch.full_like(zeros, float('inf')))
+    *hemi, dg, eps = raysets.hemisphere_rays(sc, org, d, hit, gen, dev)
+    batch = {'hemisphere': lambda: hemi,
+             'shadow': lambda: raysets.shadow_rays(sc, dg, eps, hit.valid,
+                                                   gen, dev),
+             'edge': lambda: _edge_rays(sc.bbox_lo, sc.bbox_hi, 4000, 15)
+             }[rays]()
+    box = (sc.bbox_lo, sc.bbox_hi)
+    launches = traverse.intersect_packet.launches
+    got = traverse.intersect_packet_staged(sc.nodes, sc.tris, *batch, *box)
+    ref = traverse.intersect_staged_plain(sc.nodes, sc.tris, *batch, *box)
+    occ = traverse.occluded_packet_staged(sc.nodes, sc.tris, *batch, *box)
+    occ_ref = traverse.occluded_staged_plain(sc.nodes, sc.tris, *batch, *box)
+    torch.cuda.synchronize()
+    assert traverse.intersect_packet.launches == launches + 3
+    for g, r in zip((*got, occ), (*ref, occ_ref)):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy())
+    one = traverse.intersect_packet(sc.nodes, sc.tris, *batch)
+    np.testing.assert_array_equal(got.t.cpu().numpy(), one.t.cpu().numpy())
 
 
 @pytest.fixture(scope='module')
@@ -244,7 +322,22 @@ def test_wide_kernels_take_large_leaves(colonnade_leaf512, rays):
     hemisphere rays from their hits and edge rays, some with tfar <=
     tnear (leaves tested across the warp); empty segments neither hit
     nor are occluded."""
-    sc, dev = colonnade_leaf512, torch.device('cuda')
+    _assert_large_leaves(colonnade_leaf512, colonnade_leaf512.nodes4, rays,
+                         4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rays', ['camera', 'hemisphere', 'edge'])
+def test_wide8_kernels_take_large_leaves(colonnade_leaf512, rays):
+    """The width-8 kernels' *_slots forms on the same tree as 8-wide rows,
+    held as test_wide_kernels_take_large_leaves holds K3 and K4."""
+    nodes8 = raysets.nodes8(colonnade_leaf512)
+    assert float(nodes8.reshape(-1, 8)[:, 7].max()) >= wide.SLOTS_MIN
+    _assert_large_leaves(colonnade_leaf512, nodes8, rays, 8)
+
+
+def _assert_large_leaves(sc, nodes, rays, width):
+    dev = torch.device('cuda')
     org, d, _ = raysets.camera_rays(sc, bs.colonnade_camera(128, 128), 128,
                                     128, dev, 7)
     zeros = torch.zeros(org.shape[0], device=dev)
@@ -256,7 +349,7 @@ def test_wide_kernels_take_large_leaves(colonnade_leaf512, rays):
             dev)[:4])
     elif rays == 'edge':
         batch = _edge_rays(sc.bbox_lo, sc.bbox_hi, 4000, 14)
-    ref, occ = _assert_wide_matches_plain(sc.nodes4, sc.tris, batch)
+    ref, occ = _assert_wide_matches_plain(nodes, sc.tris, batch, width)
     assert bool((ref.tri >= 0).any())
     empty = (batch[3] <= batch[2]).cpu().numpy()
     assert not occ.cpu().numpy()[empty].any()

@@ -59,16 +59,12 @@ import sys
 import torch
 
 from . import raysets, wide_turns
+from .roofline import MOTION_FLOPS, SLAB_FLOPS, WOOP_FLOPS, bound
 from .io import builtin_scenes as bs
 from .ops import cuda_build as cb
 from .ops import traverse, wide
 
 SEED = 42
-PEAK_BYTES = 3.35e12        # the H100 SXM's HBM3 bytes/s
-PEAK_FLOPS = 67e12          # its f32 flops/s outside the tensor cores
-WOOP_FLOPS = 55             # one triangle test (chip_smoke.py WOOP_FLOPS)
-MOTION_FLOPS = 87           # one motion test (chip_smoke.py MOTION_FLOPS)
-SLAB_FLOPS = 25             # one box test (chip_smoke.py SLAB_FLOPS)
 # each wrapper's plain version and the flops of its triangle test
 PLAIN = {'intersect_packet': (traverse.intersect_binary_plain, WOOP_FLOPS),
          'occluded_packet': (traverse.occluded_binary_plain, WOOP_FLOPS),
@@ -209,12 +205,11 @@ def bound_of(calls, outs):
                      if x is not None)
     d = torch.cat(depth).float()
     q = torch.quantile(d, torch.tensor([0.5, 0.99], device=d.device))
+    bound_ms, bound_by = bound(moved, flops)
     return {'pair_tests': pair, 'box_tests': box, 'bytes': moved,
             'stack_median': float(q[0]), 'stack_p99': float(q[1]),
             'stack_max': float(d.max()),
-            'bound_ms': max(moved / PEAK_BYTES, flops / PEAK_FLOPS) * 1e3,
-            'bound_by': ('bytes' if moved / PEAK_BYTES >= flops / PEAK_FLOPS
-                         else 'operations')}
+            'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
 def main(argv=None):

@@ -1,17 +1,21 @@
-// BVH4 traversal kernels: closest hit and any hit.
+// Wide-BVH traversal kernels: closest hit and any hit, at width 4 (BVH4)
+// and 8.
 //
 // Replaces the TPU kernels of yulio_raytracer_tpu/ops/pallas_wide.py:
-//   yrt_intersect_wide <- _kernel4     (intersect_packet4, closest hit)
-//   yrt_occluded_wide  <- _kernel4_any (occluded_packet4, any hit)
-// The reference runs them as the default accel for scenes of more than
-// 2048 triangles, e.g. the 92k-triangle colonnade.
+//   yrt_intersect_wide  <- _kernel4     (intersect_packet4, closest hit)
+//   yrt_occluded_wide   <- _kernel4_any (occluded_packet4, any hit)
+//   yrt_intersect_wide8 <- _kernel4     at width=8 (pallas_call at :507)
+//   yrt_occluded_wide8  <- _kernel4_any at width=8 (pallas_call at :676)
+// The reference runs width 4 as the default accel for scenes of more than
+// 2048 triangles, e.g. the 92k-triangle colonnade; width 8 is its wide-BVH
+// ablation (no render path takes it), reached through the ops.
 //
-// Node rows (ops/wide.py pack_nodes4): (N4, 32) f32, 4 slots of
-// [lo.x lo.y lo.z hi.x hi.y hi.z A tag]; tag > 0 is a leaf of `tag`
-// triangles starting at packed triangle A, tag == -1 an interior slot
-// whose A is the child row, tag == 0 an empty slot.  A slot is decided by
-// its tag alone: an empty slot's +inf/-inf box still passes the min/max
-// slab test.
+// Node rows (ops/wide.py pack_nodes4 / pack_nodes8): (Nw, 8 W) f32, W
+// slots of [lo.x lo.y lo.z hi.x hi.y hi.z A tag]; tag > 0 is a leaf of
+// `tag` triangles starting at packed triangle A, tag == -1 an interior
+// slot whose A is the child row, tag == 0 an empty slot.  A slot is
+// decided by its tag alone: an empty slot's +inf/-inf box still passes
+// the min/max slab test.
 //
 // What bounds them on the H100.  A colonnade ray visits ~12 nodes and two
 // or three leaves of up to 32 triangles (22 on average), a few percent of
@@ -61,6 +65,14 @@
 //   node rows, and A + count, below 2^24.
 // The node and Woop arithmetic is bvh.cuh's slab_box and woop.cuh's
 // woop_test, compiled with --fmad=false like every source here.
+//
+// Width 8 is the same walk templated on W, with nothing of its own but
+// its sizes: a node is 16 float4 loads a lane, its slots ordered by the
+// reference's 19-comparator network (pallas_wide._SORT_NETS[8]), a pop
+// may push up to 7 entries (pack_nodes8's _check_packed holds 7 x depth +
+// 1 to STACK), and a slot word's k takes 3 bits (bits 24-26, under bit
+// 31).  The width-4 instances compile to the code they had before the
+// template.
 #include "bvh.cuh"
 
 #define WIDE_BLOCK 256
@@ -100,13 +112,14 @@ __device__ __forceinline__ bool is_leaf(unsigned w) {
 }
 
 // a leaf word's first triangle a and count c (under SLOTS, from its
-// slot's row for a leaf of WIDE_SLOT_MIN or more)
-template <bool SLOTS>
+// slot's row of W slots for a leaf of WIDE_SLOT_MIN or more)
+template <bool SLOTS, int W>
 __device__ __forceinline__ void leaf_range(const float4* __restrict__ nodes,
                                            unsigned w, int& a, int& c) {
     if (SLOTS && (w & WIDE_SLOT_BIT)) {
-        const float4 q = __ldg(nodes + 8 * static_cast<size_t>(w & WIDE_A_MASK)
-                               + 2 * ((w >> WIDE_COUNT_SHIFT) & 3) + 1);
+        const float4 q = __ldg(nodes
+                               + 2 * W * static_cast<size_t>(w & WIDE_A_MASK)
+                               + 2 * ((w >> WIDE_COUNT_SHIFT) & (W - 1)) + 1);
         a = static_cast<int>(q.z);
         c = static_cast<int>(q.w);
     } else {
@@ -115,37 +128,24 @@ __device__ __forceinline__ void leaf_range(const float4* __restrict__ nodes,
     }
 }
 
-// node row `row` as 8 float4s: slot k is q[2k] (lo.x lo.y lo.z hi.x) and
-// q[2k + 1] (hi.y hi.z A tag)
+// node row `row` of W slots as 2 W float4s: slot k is q[2k] (lo.x lo.y
+// lo.z hi.x) and q[2k + 1] (hi.y hi.z A tag)
+template <int W>
 __device__ __forceinline__ void load_node(const float4* __restrict__ nodes,
-                                          unsigned row, float4 (&q)[8]) {
+                                          unsigned row, float4 (&q)[2 * W]) {
     #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        q[k] = __ldg(nodes + 8 * static_cast<size_t>(row) + k);
+    for (int k = 0; k < 2 * W; ++k) {
+        q[k] = __ldg(nodes + 2 * W * static_cast<size_t>(row) + k);
     }
 }
 
-// The 4 slots of node q (row `row`) against the segment (r.tnear, tfar),
-// far first: each slot's hit flag (a slab hit of a non-empty slot), entry
-// t (-inf where not hit) and stack word, in the order of the reference's
-// descending sort network (pallas_wide._SORT_NETS[4]).
-template <bool SLOTS>
-__device__ __forceinline__ void sort_slots(const float4 (&q)[8],
-                                           unsigned row, const Ray& r,
-                                           const Slab& inv, float tfar,
-                                           bool (&has)[4], float (&m)[4],
-                                           unsigned (&w)[4]) {
+// the compare-exchanges net of a descending sort network over W slots
+template <int N, int W>
+__device__ __forceinline__ void sort_net(const int (&net)[N][2],
+                                         bool (&has)[W], float (&m)[W],
+                                         unsigned (&w)[W]) {
     #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        float tmin;
-        has[k] = slab4(q[2 * k], q[2 * k + 1], r, inv, r.tnear, tfar, tmin)
-            && q[2 * k + 1].w != 0.0f;
-        m[k] = has[k] ? tmin : -CUDART_INF_F;
-        w[k] = slot_word<SLOTS>(q[2 * k + 1], row, k);
-    }
-    const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
-    #pragma unroll
-    for (int s = 0; s < 5; ++s) {
+    for (int s = 0; s < N; ++s) {
         const int x = net[s][0], y = net[s][1];
         const bool lt = m[x] < m[y];
         cswap(lt, m[x], m[y]);
@@ -154,7 +154,40 @@ __device__ __forceinline__ void sort_slots(const float4 (&q)[8],
     }
 }
 
-template <bool SLOTS>
+// The W slots of node q (row `row`) against the segment (r.tnear, tfar),
+// far first: each slot's hit flag (a slab hit of a non-empty slot), entry
+// t (-inf where not hit) and stack word, in the order of the reference's
+// descending sort network (pallas_wide._SORT_NETS[W]).
+template <bool SLOTS, int W>
+__device__ __forceinline__ void sort_slots(const float4 (&q)[2 * W],
+                                           unsigned row, const Ray& r,
+                                           const Slab& inv, float tfar,
+                                           bool (&has)[W], float (&m)[W],
+                                           unsigned (&w)[W]) {
+    static_assert(W == 4 || W == 8, "wide nodes hold 4 or 8 slots");
+    #pragma unroll
+    for (int k = 0; k < W; ++k) {
+        float tmin;
+        has[k] = slab4(q[2 * k], q[2 * k + 1], r, inv, r.tnear, tfar, tmin)
+            && q[2 * k + 1].w != 0.0f;
+        m[k] = has[k] ? tmin : -CUDART_INF_F;
+        w[k] = slot_word<SLOTS>(q[2 * k + 1], row, k);
+    }
+    if constexpr (W == 4) {
+        const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
+        sort_net(net, has, m, w);
+    } else {
+        const int net[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7},
+                                {0, 2}, {1, 3}, {4, 6}, {5, 7},
+                                {1, 2}, {5, 6},
+                                {0, 4}, {1, 5}, {2, 6}, {3, 7},
+                                {2, 4}, {3, 5},
+                                {1, 2}, {3, 4}, {5, 6}};
+        sort_net(net, has, m, w);
+    }
+}
+
+template <bool SLOTS, int W>
 __global__ void __launch_bounds__(WIDE_BLOCK)
 intersect_wide_kernel(const float4* __restrict__ nodes,
                       const float4* __restrict__ tris,
@@ -202,12 +235,12 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
     }
     while (__ballot_sync(FULL_MASK, ray >= 0)) {
         if (ray >= 0 && !is_leaf(cur)) {
-            float4 q[8];
-            load_node(nodes, cur, q);
-            bool has[4];
-            float m[4];
-            unsigned w[4];
-            sort_slots<SLOTS>(q, cur, r, inv, b.t, has, m, w);
+            float4 q[2 * W];
+            load_node<W>(nodes, cur, q);
+            bool has[W];
+            float m[W];
+            unsigned w[W];
+            sort_slots<SLOTS, W>(q, cur, r, inv, b.t, has, m, w);
             // push the hit slots in order; the last one pushed would pop
             // next (its entry t passed the slab test against b.t), so it
             // is taken at once
@@ -215,7 +248,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
             unsigned nw = 0;
             float nt = 0.0f;
             #pragma unroll
-            for (int k = 0; k < 4; ++k) {
+            for (int k = 0; k < W; ++k) {
                 if (has[k]) {
                     if (any) {
                         ++sp;
@@ -237,7 +270,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
         if (__popc(leaves) >= WIDE_SERIAL_MIN) {
             if (leaf) {
                 int a, c;
-                leaf_range<SLOTS>(nodes, cur, a, c);
+                leaf_range<SLOTS, W>(nodes, cur, a, c);
                 for (int j = a; j < a + c; ++j) {
                     float s[16], th, uh, vh;
                     load_row<4>(tris, 4, j, s);
@@ -255,7 +288,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
             const unsigned w = __shfl_sync(FULL_MASK, cur, src);
             float tb = __shfl_sync(FULL_MASK, b.t, src);
             int a, c;
-            leaf_range<SLOTS>(nodes, w, a, c);
+            leaf_range<SLOTS, W>(nodes, w, a, c);
             for (int j0 = 0; j0 < c; j0 += 32) {
                 float th = 0.0f, uh = 0.0f, vh = 0.0f;
                 const bool h = lane_test(tris, q, tb, a, c, j0, th, uh, vh);
@@ -266,7 +299,7 @@ intersect_wide_kernel(const float4* __restrict__ nodes,
     }
 }
 
-template <bool SLOTS>
+template <bool SLOTS, int W>
 __global__ void __launch_bounds__(WIDE_BLOCK)
 occluded_wide_kernel(const float4* __restrict__ nodes,
                      const float4* __restrict__ tris,
@@ -301,17 +334,17 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
     }
     while (__ballot_sync(FULL_MASK, ray >= 0)) {
         if (ray >= 0 && !is_leaf(cur)) {
-            float4 q[8];
-            load_node(nodes, cur, q);
+            float4 q[2 * W];
+            load_node<W>(nodes, cur, q);
             // the nearest hit slot next, the others pushed far first
-            bool has[4];
-            float m[4];
-            unsigned w[4];
-            sort_slots<SLOTS>(q, cur, r, inv, r.tfar, has, m, w);
+            bool has[W];
+            float m[W];
+            unsigned w[W];
+            sort_slots<SLOTS, W>(q, cur, r, inv, r.tfar, has, m, w);
             bool any = false;
             unsigned nw = 0;
             #pragma unroll
-            for (int k = 0; k < 4; ++k) {
+            for (int k = 0; k < W; ++k) {
                 if (has[k]) {
                     if (any) st_w[++sp] = nw;
                     nw = w[k];
@@ -329,7 +362,7 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
         if (__popc(leaves) >= WIDE_SERIAL_MIN) {
             if (leaf) {
                 int a, c;
-                leaf_range<SLOTS>(nodes, cur, a, c);
+                leaf_range<SLOTS, W>(nodes, cur, a, c);
                 for (int j = a; j < a + c && !occ; ++j) {
                     float s[16], th, uh, vh;
                     load_row<4>(tris, 4, j, s);
@@ -344,7 +377,7 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
             const Ray q = shfl_ray(r, src);
             const unsigned w = __shfl_sync(FULL_MASK, cur, src);
             int a, c;
-            leaf_range<SLOTS>(nodes, w, a, c);
+            leaf_range<SLOTS, W>(nodes, w, a, c);
             bool hit = false;
             for (int j0 = 0; j0 < c && !hit; j0 += 32) {
                 float th, uh, vh;
@@ -360,15 +393,15 @@ occluded_wide_kernel(const float4* __restrict__ nodes,
     }
 }
 
-template <bool SLOTS>
+template <bool SLOTS, int W>
 int intersect_wide(const void* nodes, const void* tris, const void* org,
                    const void* dir, const void* tnear, const void* tfar,
                    int n_rays, void* t_out, void* tri_out, void* u_out,
                    void* v_out, void* stream) {
     if (n_rays > 0) {
         const int grid = (n_rays + WIDE_BLOCK - 1) / WIDE_BLOCK;
-        intersect_wide_kernel<SLOTS><<<grid, WIDE_BLOCK, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
+        intersect_wide_kernel<SLOTS, W><<<grid, WIDE_BLOCK, 0,
+                                          static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
@@ -380,14 +413,14 @@ int intersect_wide(const void* nodes, const void* tris, const void* org,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <bool SLOTS>
+template <bool SLOTS, int W>
 int occluded_wide(const void* nodes, const void* tris, const void* org,
                   const void* dir, const void* tnear, const void* tfar,
                   int n_rays, void* occ_out, void* stream) {
     if (n_rays > 0) {
         const int grid = (n_rays + WIDE_BLOCK - 1) / WIDE_BLOCK;
-        occluded_wide_kernel<SLOTS><<<grid, WIDE_BLOCK, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
+        occluded_wide_kernel<SLOTS, W><<<grid, WIDE_BLOCK, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(nodes),
             static_cast<const float4*>(tris),
             static_cast<const float*>(org), static_cast<const float*>(dir),
@@ -398,39 +431,26 @@ int occluded_wide(const void* nodes, const void* tris, const void* org,
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int yrt_intersect_wide(const void* nodes, const void* tris,
-                                  const void* org, const void* dir,
-                                  const void* tnear, const void* tfar,
-                                  int n_rays, void* t_out,
-                                  void* tri_out, void* u_out, void* v_out,
-                                  void* stream) {
-    return intersect_wide<false>(nodes, tris, org, dir, tnear, tfar, n_rays,
-                                 t_out, tri_out, u_out, v_out, stream);
-}
+// one C entry point a kernel: name, the slot form, the width
+#define WIDE_ENTRIES(NAME, SLOTS, W)                                        \
+    extern "C" int yrt_intersect_##NAME(                                  \
+        const void* nodes, const void* tris, const void* org,             \
+        const void* dir, const void* tnear, const void* tfar, int n_rays, \
+        void* t_out, void* tri_out, void* u_out, void* v_out,             \
+        void* stream) {                                                   \
+        return intersect_wide<SLOTS, W>(nodes, tris, org, dir, tnear,     \
+                                        tfar, n_rays, t_out, tri_out,     \
+                                        u_out, v_out, stream);            \
+    }                                                                     \
+    extern "C" int yrt_occluded_##NAME(                                   \
+        const void* nodes, const void* tris, const void* org,             \
+        const void* dir, const void* tnear, const void* tfar, int n_rays, \
+        void* occ_out, void* stream) {                                    \
+        return occluded_wide<SLOTS, W>(nodes, tris, org, dir, tnear,      \
+                                       tfar, n_rays, occ_out, stream);    \
+    }
 
-extern "C" int yrt_intersect_wide_slots(const void* nodes, const void* tris,
-                                        const void* org, const void* dir,
-                                        const void* tnear, const void* tfar,
-                                        int n_rays, void* t_out,
-                                        void* tri_out, void* u_out,
-                                        void* v_out, void* stream) {
-    return intersect_wide<true>(nodes, tris, org, dir, tnear, tfar, n_rays,
-                                t_out, tri_out, u_out, v_out, stream);
-}
-
-extern "C" int yrt_occluded_wide(const void* nodes, const void* tris,
-                                 const void* org, const void* dir,
-                                 const void* tnear, const void* tfar,
-                                 int n_rays, void* occ_out, void* stream) {
-    return occluded_wide<false>(nodes, tris, org, dir, tnear, tfar, n_rays,
-                                occ_out, stream);
-}
-
-extern "C" int yrt_occluded_wide_slots(const void* nodes, const void* tris,
-                                       const void* org, const void* dir,
-                                       const void* tnear, const void* tfar,
-                                       int n_rays, void* occ_out,
-                                       void* stream) {
-    return occluded_wide<true>(nodes, tris, org, dir, tnear, tfar, n_rays,
-                               occ_out, stream);
-}
+WIDE_ENTRIES(wide, false, 4)
+WIDE_ENTRIES(wide_slots, true, 4)
+WIDE_ENTRIES(wide8, false, 8)
+WIDE_ENTRIES(wide8_slots, true, 8)

@@ -45,15 +45,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from . import raysets, wide_turns
+from . import raysets, roofline, wide_turns
 from .io import builtin_scenes as bs
 from .ops import cuda_build as cb
 from .ops import dense
 
 SEED = 42
-PEAK_BYTES = 3.35e12        # the H100 SXM's HBM3 bytes/s
-PEAK_FLOPS = 67e12          # its f32 flops/s outside the tensor cores
-WOOP_FLOPS = 55             # one-pass test (chip_smoke.py WOOP_FLOPS)
 PLAIN = {'intersect_dense': dense.intersect_dense_plain,
          'occluded_dense': dense.occluded_dense_plain}
 # the sources whose machine instructions are compared
@@ -113,14 +110,12 @@ def bound_of(calls, outs):
                                  "version disagree")
         moved += sum(x.numel() * x.element_size() for x in (*args, *out))
     tests = {k: int(v) for k, v in counts.items()}
-    bytes_ms = moved / PEAK_BYTES * 1e3
-    flops_ms = dense.staged_flops(tests) / PEAK_FLOPS * 1e3
+    bound_ms, bound_by = roofline.bound(moved, dense.staged_flops(tests))
     return {'pair_tests': tests['pair'], 'stage2_tests': tests['stage2'],
             'stage3_tests': tests['stage3'], 'bytes': moved,
-            'bound_ms': max(bytes_ms, flops_ms),
-            'bound_by': 'bytes' if bytes_ms >= flops_ms else 'operations',
-            'one_pass_bound_ms': max(
-                bytes_ms, tests['pair'] * WOOP_FLOPS / PEAK_FLOPS * 1e3)}
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'one_pass_bound_ms': roofline.bound(
+                moved, tests['pair'] * roofline.WOOP_FLOPS)[0]}
 
 
 def main(argv=None):

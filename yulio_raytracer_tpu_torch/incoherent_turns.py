@@ -46,16 +46,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from . import raysets, wide_turns
+from . import raysets, roofline, wide_turns
 from .io import builtin_scenes as bs
 from .ops import binning, grid, pairs, splitleaf, traverse, wide
 from .ops import cuda_build as cb
 
 SEED = 42
-PEAK_BYTES = 3.35e12        # the H100 SXM's HBM3 bytes/s
-PEAK_FLOPS = 67e12          # its f32 flops/s outside the tensor cores
-WOOP_FLOPS = 55             # one pair test (chip_smoke.py WOOP_FLOPS)
-SLAB_FLOPS = 25             # one box test (chip_smoke.py SLAB_FLOPS)
 ROW_BYTES = 64              # one slot's row of the grid
 SASS_SOURCES = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep')
 # each kernel's source and C entry point, with this checkout's interface
@@ -163,10 +159,9 @@ def bound_of(calls, outs):
         b.update(pair_tests=int(k5['pair']), box_tests=int(k5['box']),
                  schedule_pair_tests=int(counts['pair']),
                  schedule_box_tests=int(counts['box']))
-    flops = b['pair_tests'] * WOOP_FLOPS + b['box_tests'] * SLAB_FLOPS
-    b['bound_ms'] = max(moved / PEAK_BYTES, flops / PEAK_FLOPS) * 1e3
-    b['bound_by'] = ('bytes' if moved / PEAK_BYTES >= flops / PEAK_FLOPS
-                     else 'operations')
+    b['bound_ms'], b['bound_by'] = roofline.bound(
+        moved, b['pair_tests'] * roofline.WOOP_FLOPS
+        + b['box_tests'] * roofline.SLAB_FLOPS)
     return b
 
 

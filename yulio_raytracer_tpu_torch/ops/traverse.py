@@ -15,7 +15,10 @@ kernels are held against on the card.  Any ray count is accepted.
 `intersect_packet` / `occluded_packet` take an optional start node per
 ray (`roots`), where the reference takes one per 1024-ray packet: the
 'treelet' binning (ops/treelets.py) starts each ray at the root of its
-nearest unvisited treelet.
+nearest unvisited treelet.  `intersect_packet_staged` /
+`occluded_packet_staged` walk each ray's segment in stages of growing
+length over the same kernels (the reference's staged-t walks); no render
+path takes them, nor in the reference.
 
 Node rows, (N, 8) f32 [lo.x lo.y lo.z hi.x hi.y hi.z A tag] in
 depth-first order: tag > 0 is a leaf of `tag` triangles from packed
@@ -34,6 +37,7 @@ over `motion_bounds`, so one node table serves every time.
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import partial
 
 import numpy as np
@@ -473,6 +477,102 @@ def occluded_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar, time):
               r, occ)
     cb.bump(occluded_packet_mb)
     return occ
+
+
+# ---------------------------------------------------------- staged walks
+#
+# The reference's staged-t walks (pallas_traverse.py intersect_packet_staged
+# and occluded_packet_staged): each ray's segment is walked in stages that
+# end at growing fractions of the scene's diagonal, then once to its own
+# tfar.  A closest hit found within a stage is the closest of all, and an
+# occluded ray is done, so a ray resolved in one stage is a dead lane
+# (tfar = -1) in the later ones.  Stage k + 1 starts a hair before stage
+# k's cap, cap * (1 - 1e-5), so that a hit at the cap is not lost between
+# them, or at the ray's own tnear where that is later (the reference
+# moves every live ray's start back to that point, even one whose tnear
+# lies past it, and can then report a hit in front of the ray: ROADMAP
+# C7).  The reference sorts the rays
+# first for its packets; a ray's result here does not depend on its place
+# in the batch, so the port does not.
+
+def _staged_caps(bbox_lo, bbox_hi, stages):
+    diag = math.sqrt(sum((h - l) ** 2 for l, h in zip(bbox_lo, bbox_hi)))
+    return [diag * s for s in stages]
+
+
+def _next_start(live, lo_t, cap):
+    """Where each live ray's next stage starts: a hair before the cap
+    just walked, never before the ray's own start."""
+    return torch.where(live, torch.clamp(lo_t, min=cap * (1.0 - 1e-5)), lo_t)
+
+
+def _closest_staged(closest, nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                    bbox_hi, stages) -> Hit:
+    best = Hit(torch.full_like(tnear, INF),
+               torch.full(tnear.shape, -1, dtype=torch.int32,
+                          device=tnear.device),
+               torch.zeros_like(tnear), torch.zeros_like(tnear))
+    lo_t = tnear
+    for cap in _staged_caps(bbox_lo, bbox_hi, stages) + [None]:
+        live = (best.tri < 0) & (tfar > lo_t)
+        tf_k = torch.where(live, tfar if cap is None
+                           else torch.clamp(tfar, max=cap), -1.0)
+        h = closest(nodes, tris, org, dirn, lo_t, tf_k)
+        upd = live & (h.tri >= 0)
+        best = Hit(*(torch.where(upd, x, y) for x, y in zip(h, best)))
+        if cap is not None:
+            lo_t = _next_start(live, lo_t, cap)
+    return best
+
+
+def _occluded_staged(occluded, nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                     bbox_hi, stages):
+    occ = torch.zeros(tnear.shape, dtype=torch.bool, device=tnear.device)
+    lo_t = tnear
+    for cap in _staged_caps(bbox_lo, bbox_hi, stages) + [None]:
+        live = ~occ & (tfar > lo_t)
+        tf_k = torch.where(live, tfar if cap is None
+                           else torch.clamp(tfar, max=cap), -1.0)
+        occ = occ | occluded(nodes, tris, org, dirn, lo_t, tf_k)
+        if cap is not None:
+            lo_t = _next_start(live, lo_t, cap)
+    return occ
+
+
+def intersect_packet_staged(nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                            bbox_hi, stages=(0.07, 0.3)) -> Hit:
+    """Closest hit of each ray through the binary tables, walked in
+    stages (K5 once a stage): caps at `stages` fractions of the diagonal
+    of the box bbox_lo / bbox_hi (tuples), then a last uncapped stage."""
+    return _closest_staged(intersect_packet, nodes, tris, org, dirn, tnear,
+                           tfar, bbox_lo, bbox_hi, stages)
+
+
+def occluded_packet_staged(nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                           bbox_hi, stages=(0.07, 0.3)):
+    """(R,) bool: is each ray segment (tnear, tfar) occluded, walked in
+    stages as intersect_packet_staged (K6 once a stage)."""
+    return _occluded_staged(occluded_packet, nodes, tris, org, dirn, tnear,
+                            tfar, bbox_lo, bbox_hi, stages)
+
+
+def intersect_staged_plain(nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                           bbox_hi, stages=(0.07, 0.3), counts=None) -> Hit:
+    """intersect_packet_staged over K5's plain version, which the staged
+    walk on the card is held against; counts gathers every stage's
+    tests (intersect_binary_plain)."""
+    return _closest_staged(partial(intersect_binary_plain, counts=counts),
+                           nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                           bbox_hi, stages)
+
+
+def occluded_staged_plain(nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                          bbox_hi, stages=(0.07, 0.3), counts=None):
+    """occluded_packet_staged over K6's plain version; counts as
+    intersect_staged_plain."""
+    return _occluded_staged(partial(occluded_binary_plain, counts=counts),
+                            nodes, tris, org, dirn, tnear, tfar, bbox_lo,
+                            bbox_hi, stages)
 
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors

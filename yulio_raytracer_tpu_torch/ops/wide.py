@@ -1,21 +1,26 @@
-"""BVH4 traversal: the default accel for scenes above 2048 triangles.
+"""Wide-BVH traversal: BVH4, the default accel for scenes above 2048
+triangles, and the 8-wide form of the same walks.
 
 Counterpart of `yulio_raytracer_tpu/ops/pallas_wide.py`
-(`intersect_packet4` / `occluded_packet4`, with `pack_nodes4`) and of the
-table packing in `yulio_raytracer_tpu/ops/pallas_traverse.py`
-(`pack_tris`), which imports jax and so is copied here.  On a CUDA tensor
-each wrapper launches its kernel from `csrc/wide.cu` (one ray per lane,
-leaves tested by each lane or across the warp; see its header), in its
-*_slots form for a table with a leaf of SLOTS_MIN triangles or more; on a
-CPU tensor it runs the plain torch version, a vectorized per-ray stack
-traversal of the same tables in the same order (the counterpart of
-`ops/traverse.py`), which the kernels are held against on the card.  Any
-ray count is accepted.
+(`intersect_packet4` / `occluded_packet4` at `width` 4 or 8, with
+`pack_nodes4` and `pack_nodes8`) and of the table packing in
+`yulio_raytracer_tpu/ops/pallas_traverse.py` (`pack_tris`), which imports
+jax and so is copied here.  On a CUDA tensor each wrapper launches its
+kernel from `csrc/wide.cu` (one ray per lane, leaves tested by each lane
+or across the warp; see its header), one per width, in its *_slots form
+for a table with a leaf of SLOTS_MIN triangles or more; on a CPU tensor
+it runs the plain torch version, a vectorized per-ray stack traversal of
+the same tables in the same order (the counterpart of `ops/traverse.py`),
+which the kernels are held against on the card.  Any ray count is
+accepted.  No render path takes width 8, nor in the reference: it is
+reached through these ops, the tests and `wide_ab`.
 
-Node rows, (N4, 32) f32, 4 slots of [lo.x lo.y lo.z hi.x hi.y hi.z A tag]:
-tag > 0 leaf of `tag` triangles from packed triangle A; tag == -1
-interior, A = child row; tag == 0 empty (its +inf/-inf box is don't-care:
-a slot is decided by its tag, never by its box).
+Node rows, (Nw, 8 * width) f32, `width` slots of [lo.x lo.y lo.z hi.x
+hi.y hi.z A tag]: tag > 0 leaf of `tag` triangles from packed triangle A;
+tag == -1 interior, A = child row; tag == 0 empty (its +inf/-inf box is
+don't-care: a slot is decided by its tag, never by its box).  The plain
+versions read the width from the rows (32 columns: 4, 64: 8); the
+wrappers raise where it is not their `width`.
 """
 from __future__ import annotations
 
@@ -41,13 +46,24 @@ _SIGNATURES = {
     'yrt_intersect_wide': [_V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _V, _V],
     'yrt_occluded_wide': [_V, _V, _V, _V, _V, _V, _I, _V, _V],
 }
+_SIGNATURES.update({name + '8': args for name, args in _SIGNATURES.items()})
 _SIGNATURES.update({name + '_slots': args
                     for name, args in _SIGNATURES.items()})
-# the largest leaf of each BVH4 table given to a kernel, with the
+# the largest leaf of each wide table given to a kernel, with the
 # tensor's version then: one read from the card per table
 _LARGEST_LEAF = WeakIdKeyDictionary()
-# descending compare-exchange network over the 4 slots (far first)
-_SORT_NET4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+# descending compare-exchange networks over the slots (far first),
+# pallas_wide._SORT_NETS: 4 odd-even transposition (5), 8 Batcher's
+# odd-even merge (19)
+_SORT_NETS = {
+    4: ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)),
+    8: ((0, 1), (2, 3), (4, 5), (6, 7),
+        (0, 2), (1, 3), (4, 6), (5, 7),
+        (1, 2), (5, 6),
+        (0, 4), (1, 5), (2, 6), (3, 7),
+        (2, 4), (3, 5),
+        (1, 2), (3, 4), (5, 6)),
+}
 
 
 # ---------------------------------------------------------------- tables
@@ -104,10 +120,13 @@ def _check_packed(out: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
-def pack_nodes4(bvh) -> np.ndarray:
-    """Collapse a binary FlatBVH (skip-pointer layout) into (N4, 32) f32
-    4-wide rows: each wide node holds a binary node's children, interior
-    children expanded one more level."""
+def _pack_wide(bvh, width, row_slots) -> np.ndarray:
+    """(Nw, 8 * width) f32 rows of a binary FlatBVH (skip-pointer
+    layout): the root's row, then the row of each interior slot's binary
+    node, breadth first, each row's slots the binary nodes that
+    row_slots(b, children) gives for its node b (children(b): b's two
+    children), leaves with their ranges and interior slots patched to
+    their child rows."""
     lo, hi = bvh.lo, bvh.hi
     start, count, skip = bvh.start, bvh.count, bvh.skip
     interior = count == 0
@@ -116,38 +135,25 @@ def pack_nodes4(bvh) -> np.ndarray:
         l = b + 1
         return l, int(skip[l])
 
-    def slot_of(b):
-        """(lo, hi, A, tag) for binary node b as a slot."""
-        if interior[b]:
-            return (lo[b], hi[b], b, -1.0)       # A patched to wide id
-        return (lo[b], hi[b], float(start[b]), float(count[b]))
-
     rows = []
     wide_of = {}            # binary interior node -> wide row index
     pending = []            # (wide_row, slot_k, binary_interior_node)
 
     def emit(b):
-        if not interior[b]:
-            slots = [slot_of(b)]
-        else:
-            slots = []
-            for c in children(b):
-                if interior[c]:
-                    slots.extend(slot_of(g) for g in children(c))
-                else:
-                    slots.append(slot_of(c))
-        row = np.zeros(32, np.float32)
+        slots = row_slots(b, children) if interior[b] else [b]
+        row = np.zeros(8 * width, np.float32)
         me = len(rows)
         rows.append(row)
-        for k, (slo, shi, a, tag) in enumerate(slots):
-            row[8 * k:8 * k + 3] = slo
-            row[8 * k + 3:8 * k + 6] = shi
-            row[8 * k + 7] = tag
-            if tag < 0:
-                pending.append((me, k, int(a)))
+        for k, s in enumerate(slots):
+            row[8 * k:8 * k + 3] = lo[s]
+            row[8 * k + 3:8 * k + 6] = hi[s]
+            if interior[s]:
+                row[8 * k + 7] = -1.0
+                pending.append((me, k, s))
             else:
-                row[8 * k + 6] = a
-        for k in range(len(slots), 4):
+                row[8 * k + 6] = float(start[s])
+                row[8 * k + 7] = float(count[s])
+        for k in range(len(slots), width):
             row[8 * k + 0:8 * k + 3] = INF
             row[8 * k + 3:8 * k + 6] = -INF
             row[8 * k + 7] = 0.0
@@ -161,7 +167,55 @@ def pack_nodes4(bvh) -> np.ndarray:
         if b not in wide_of:
             wide_of[b] = emit(b)
         rows[w][8 * k + 6] = float(wide_of[b])
-    return _check_packed(np.stack(rows).astype(np.float32), 4)
+    return _check_packed(np.stack(rows).astype(np.float32), width)
+
+
+def pack_nodes4(bvh) -> np.ndarray:
+    """Collapse a binary FlatBVH (skip-pointer layout) into (N4, 32) f32
+    4-wide rows: each wide node holds a binary node's children, interior
+    children expanded one more level."""
+    interior = bvh.count == 0
+
+    def row_slots(b, children):
+        slots = []
+        for c in children(b):
+            slots.extend(children(c) if interior[c] else (c,))
+        return slots
+    return _pack_wide(bvh, 4, row_slots)
+
+
+def pack_nodes8(bvh) -> np.ndarray:
+    """Collapse a binary FlatBVH into (N8, 64) f32 8-wide rows, slots as
+    pack_nodes4's.  A row starts as the binary node's two children and
+    replaces its interior slot of largest surface area by that slot's two
+    children while it has fewer than 8 slots (the first of equal
+    areas)."""
+    lo, hi, interior = bvh.lo, bvh.hi, bvh.count == 0
+
+    def area(b):
+        d = np.maximum(hi[b] - lo[b], 0.0)
+        return float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+    def row_slots(b, children):
+        slots = list(children(b))
+        while len(slots) < 8:
+            cand = [s for s in slots if interior[s]]
+            if not cand:
+                break
+            i = slots.index(max(cand, key=area))
+            slots[i:i + 1] = children(slots[i])
+        return slots
+    return _pack_wide(bvh, 8, row_slots)
+
+
+def table_width(nodes) -> int:
+    """The slots a row of the wide table nodes holds, from its row
+    length: 32 columns are 4 slots, 64 are 8; anything else raises."""
+    width = {32: 4, 64: 8}.get(nodes.shape[-1] if nodes.dim() == 2 else 0)
+    if width is None:
+        raise ValueError(f"wide nodes: expected (N, 32) or (N, 64) rows, "
+                         f"got shape {tuple(nodes.shape)}")
+    return width
 
 
 # ------------------------------------------------------- plain versions
@@ -172,8 +226,8 @@ def _safe_inv(d):
 
 
 def _slab(nd, o, inv, tnear, tfar):
-    """Slab test of (n, 4) slots nd (n, 4, 8) for rays o/inv (n, 1, 3);
-    returns (hit, tmin), each (n, 4), in the kernels' order."""
+    """Slab test of the (n, w) slots nd (n, w, 8) for rays o/inv (n, 1,
+    3); returns (hit, tmin), each (n, w), in the kernels' order."""
     t0x = (nd[..., 0] - o[..., 0]) * inv[..., 0]
     t1x = (nd[..., 3] - o[..., 0]) * inv[..., 0]
     t0y = (nd[..., 1] - o[..., 1]) * inv[..., 1]
@@ -223,6 +277,14 @@ def _push(stacks, sp, rid, mask, values):
         st[r, s] = val[mask]
 
 
+def _count_boxes(counts, tag):
+    """Count the box tests of the visited rows whose slot tags are tag
+    (n, width): 'box', those the function needs (the non-empty slots),
+    and 'slots', those the kernels make (all width slots of a row)."""
+    cb.count(counts, 'box', (tag != 0).sum())
+    cb.count(counts, 'slots', tag.numel())
+
+
 def _chunked(fn, tables, *rays):
     """Run fn(*tables, *rays) over slices of at most _PLAIN_RAYS rays
     (bounds the per-ray stacks' memory) and concatenate the results; a
@@ -238,11 +300,13 @@ def _chunked(fn, tables, *rays):
 
 def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar,
                          counts=None) -> Hit:
-    """Plain torch version of the closest-hit kernel: every ray walks the
-    tree with its own stack, in the kernel's order.  counts, a dict,
-    gathers the kernel's triangle ('pair') and slab ('box') tests, and
-    under 'stack' a list of (R,) tensors: each ray's largest stack
-    occupancy, in entries."""
+    """Plain torch version of the closest-hit kernels of both widths (the
+    width read from the rows): every ray walks the tree with its own
+    stack, in the kernel's order.  counts, a dict, gathers the triangle
+    ('pair') and slab ('box', the non-empty slots of each row visited)
+    tests the walk needs, the slab tests the kernel makes ('slots': empty
+    slots included), and under 'stack' a list of (R,) tensors: each ray's
+    largest stack occupancy, in entries."""
     if org.is_cuda:
         intersect_wide_plain.cuda_calls += 1
     return _chunked(partial(_closest_plain, counts=counts), (nodes4, tris),
@@ -250,8 +314,9 @@ def intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar,
 
 
 def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
-    """Plain torch version of the any-hit kernel; rays with
-    tfar <= tnear report not occluded.  counts as intersect_wide_plain."""
+    """Plain torch version of the any-hit kernels of both widths; rays
+    with tfar <= tnear report not occluded.  counts as
+    intersect_wide_plain."""
     if org.is_cuda:
         occluded_wide_plain.cuda_calls += 1
     return _chunked(partial(_any_plain, counts=counts), (nodes4, tris),
@@ -259,8 +324,8 @@ def occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
 
 
 def _closest_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None) -> Hit:
-    r, dev = org.shape[0], org.device
-    rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, 4, 8)
+    r, dev, width = org.shape[0], org.device, table_width(nodes4)
+    rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, width, 8)
     inv = _safe_inv(dirn)
     st_a = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
     st_t = torch.zeros((r, STACK), dtype=torch.float32, device=dev)
@@ -293,22 +358,22 @@ def _closest_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None) -> Hit:
         inner = live & (c == 0)
         if bool(inner.any()):
             rid = act[inner]
-            cb.count(counts, 'box', 4 * rid.numel())
-            nd = nodes[a[inner]]                         # (n, 4, 8)
+            nd = nodes[a[inner]]                     # (n, width, 8)
             tag = nd[..., 7].to(torch.int64)
+            _count_boxes(counts, tag)
             hit, tmin = _slab(nd, org[rid][:, None, :], inv[rid][:, None, :],
                               tnear[rid][:, None], t_b[rid][:, None])
             has = hit & (tag != 0)
             cols = [list(x.unbind(1)) for x in (
                 torch.where(has, tmin, -INF), nd[..., 6].to(torch.int64),
                 torch.clamp(tag, min=0), has)]
-            for x, y in _SORT_NET4:
+            for x, y in _SORT_NETS[width]:
                 lt = cols[0][x] < cols[0][y]
                 for col in cols:
                     col[x], col[y] = (torch.where(lt, col[y], col[x]),
                                       torch.where(lt, col[x], col[y]))
             m, ca, cc, hs = cols
-            for k in range(4):
+            for k in range(width):
                 _push((st_a, st_t, st_c), sp, rid, hs[k], (ca[k], m[k], cc[k]))
             if counts is not None:
                 deepest[rid] = torch.maximum(deepest[rid], sp[rid] + 1)
@@ -320,8 +385,8 @@ def _closest_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None) -> Hit:
 
 
 def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
-    r, dev = org.shape[0], org.device
-    rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, 4, 8)
+    r, dev, width = org.shape[0], org.device, table_width(nodes4)
+    rows, nodes = tris.reshape(-1, 16), nodes4.reshape(-1, width, 8)
     inv = _safe_inv(dirn)
     st_a = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
     st_c = torch.zeros((r, STACK), dtype=torch.int64, device=dev)
@@ -343,14 +408,14 @@ def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
         inner = ~leaf
         if bool(inner.any()):
             rid = act[inner]
-            cb.count(counts, 'box', 4 * rid.numel())
             nd = nodes[a[inner]]
             tag = nd[..., 7].to(torch.int64)
+            _count_boxes(counts, tag)
             hit, _ = _slab(nd, org[rid][:, None, :], inv[rid][:, None, :],
                            tnear[rid][:, None], tfar[rid][:, None])
             push = hit & (tag != 0)
             ca, cc = nd[..., 6].to(torch.int64), torch.clamp(tag, min=0)
-            for k in range(4):
+            for k in range(width):
                 _push((st_a, st_c), sp, rid, push[:, k], (ca[:, k], cc[:, k]))
             if counts is not None:
                 deepest[rid] = torch.maximum(deepest[rid], sp[rid] + 1)
@@ -362,9 +427,9 @@ def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
 
 # ------------------------------------------------------------- wrappers
 
-def _kernel_args(nodes4, tris, org, dirn, tnear, tfar):
+def _kernel_args(nodes4, tris, org, dirn, tnear, tfar, width=4):
     org, dirn, tnear, tfar = cb.ray_args(org, dirn, tnear, tfar)
-    return (cb.table_arg('nodes4', nodes4, 32, org.device),
+    return (cb.table_arg('nodes4', nodes4, 8 * width, org.device),
             cb.table_arg('tris', tris.reshape(-1, 16), 16, org.device),
             org, dirn, tnear, tfar)
 
@@ -379,39 +444,66 @@ def _entry(name, nodes4):
     more."""
     seen = _LARGEST_LEAF.get(nodes4)
     if seen is None or seen[0] != nodes4._version:
-        seen = (nodes4._version, int(nodes4.reshape(-1, 4, 8)[:, :, 7].max()))
+        seen = (nodes4._version, int(nodes4.reshape(-1, 8)[:, 7].max()))
         _LARGEST_LEAF[nodes4] = seen
     return getattr(_lib(), name + '_slots' if seen[1] >= SLOTS_MIN else name)
 
 
-def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar) -> Hit:
-    """Closest hit of each ray (R, 3) through the BVH4 tables."""
+def _check_width(nodes4, width):
+    """Raise unless nodes4 holds rows of `width` slots (4 or 8)."""
+    if width not in (4, 8) or table_width(nodes4) != width:
+        raise ValueError(f"wide nodes: a width-{width} walk takes (N, "
+                         f"{8 * width}) rows, got shape "
+                         f"{tuple(nodes4.shape)}")
+
+
+def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar,
+                      width=4) -> Hit:
+    """Closest hit of each ray (R, 3) through the wide tables: BVH4 rows
+    (pack_nodes4), or with width 8 pack_nodes8's."""
+    _check_width(nodes4, width)
     if org.device.type == 'cpu':
         return intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar)
-    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar)
+    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar, width)
     r, dev = args[2].shape[0], args[2].device
     hit = cb.empty_hit(r, dev)
-    cb.launch(_entry('yrt_intersect_wide', args[0]), 'intersect_packet4', dev,
-              *args, r, *hit)
-    cb.bump(intersect_packet4)
+    name = 'yrt_intersect_wide' if width == 4 else 'yrt_intersect_wide8'
+    cb.launch(_entry(name, args[0]), name, dev, *args, r, *hit)
+    cb.bump(intersect_packet4 if width == 4 else intersect_packet8)
     return Hit(*hit)
 
 
-def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar):
-    """(R,) bool: is each ray segment (tnear, tfar) occluded."""
+def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar, width=4):
+    """(R,) bool: is each ray segment (tnear, tfar) occluded; tables as
+    intersect_packet4's."""
+    _check_width(nodes4, width)
     if org.device.type == 'cpu':
         return occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar)
-    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar)
+    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar, width)
     r, dev = args[2].shape[0], args[2].device
     occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    cb.launch(_entry('yrt_occluded_wide', args[0]), 'occluded_packet4', dev,
-              *args, r, occ)
-    cb.bump(occluded_packet4)
+    name = 'yrt_occluded_wide' if width == 4 else 'yrt_occluded_wide8'
+    cb.launch(_entry(name, args[0]), name, dev, *args, r, occ)
+    cb.bump(occluded_packet4 if width == 4 else occluded_packet8)
     return occ
+
+
+def intersect_packet8(nodes8, tris, org, dirn, tnear, tfar) -> Hit:
+    """intersect_packet4 at width 8; its `launches` count the width-8
+    kernel's."""
+    return intersect_packet4(nodes8, tris, org, dirn, tnear, tfar, width=8)
+
+
+def occluded_packet8(nodes8, tris, org, dirn, tnear, tfar):
+    """occluded_packet4 at width 8; its `launches` count the width-8
+    kernel's."""
+    return occluded_packet4(nodes8, tris, org, dirn, tnear, tfar, width=8)
 
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 intersect_packet4.launches = 0
 occluded_packet4.launches = 0
+intersect_packet8.launches = 0
+occluded_packet8.launches = 0
 intersect_wide_plain.cuda_calls = 0
 occluded_wide_plain.cuda_calls = 0

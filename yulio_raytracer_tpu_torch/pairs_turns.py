@@ -44,15 +44,12 @@ import sys
 
 import torch
 
-from . import raysets, wide_turns
+from . import raysets, roofline, wide_turns
 from .io import builtin_scenes as bs
 from .ops import cuda_build as cb
 from .ops import grid, pairs, wide
 
 SEED = 42
-PEAK_BYTES = 3.35e12        # the H100 SXM's HBM3 bytes/s
-PEAK_FLOPS = 67e12          # its f32 flops/s outside the tensor cores
-WOOP_FLOPS = 55             # one pair test (chip_smoke.py WOOP_FLOPS)
 _V, _I = ctypes.c_void_p, ctypes.c_int
 # the one-ray-per-thread interface: per-ray gs and ge, no binning
 _PER_RAY_SIGNATURES = {
@@ -145,8 +142,8 @@ def bound_of(calls):
         moved += sum(x.numel() * x.element_size() for x in
                      (*args, *(out if isinstance(out, tuple) else (out,)))
                      if x is not None)
-    return tests, moved, max(moved / PEAK_BYTES, tests * WOOP_FLOPS
-                             / PEAK_FLOPS) * 1e3
+    return tests, moved, roofline.bound(moved,
+                                        tests * roofline.WOOP_FLOPS)[0]
 
 
 def main(argv=None):

@@ -3,22 +3,24 @@ bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
 roots, the dense kernels' entry sets, the sweep prototype's rows and
 rays on a scene, and the dense, pair, binary and motion kernels' own
-calls in a frame.  `chip_smoke.py`, `wide_turns`, `pairs_turns`,
-`binary_turns`, `dense_turns` and `sweep_turns` make them with these
-functions.
+calls in a frame; and a committed scene's tree as 8-wide rows.
+`chip_smoke.py`, `wide_turns`, `wide_ab`, `pairs_turns`, `binary_turns`,
+`dense_turns` and `sweep_turns` make them with these functions.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from . import renderer
 from .integrator import pathtracer as pt
 from .lights import lights as glights
 from .ops import intersect as ops_i
-from .ops import dense, pairs, traverse, treelets
+from .ops import dense, pairs, traverse, treelets, wide
 from .sampling import patterns
 from .sampling import shapesampler as ss
 
@@ -30,6 +32,24 @@ def camera_rays(scene, cam, width, height, dev, seed):
     sid = torch.zeros_like(order)
     return renderer._gen_rays(scene, cam, width, height,
                               patterns.grid_scalars(1), order, sid, seed)[:3]
+
+
+def nodes8(scene):
+    """The committed scene's tree as 8-wide rows (ops/wide.py
+    pack_nodes8) on its device, read back from its binary rows
+    (ops/traverse.py pack_nodes): their boxes and leaf ranges, and for
+    each interior node the skip of its left child, its right child, which
+    is all of the tree that pack_nodes8 reads."""
+    rows = scene.nodes.cpu().numpy()
+    a, tag = rows[:, 6].astype(np.int64), rows[:, 7].astype(np.int64)
+    leaf = tag > 0
+    skip = np.zeros(rows.shape[0], np.int64)
+    inner = np.nonzero(~leaf)[0]
+    skip[inner + 1] = a[inner]
+    tree = SimpleNamespace(lo=rows[:, 0:3], hi=rows[:, 3:6],
+                           start=np.where(leaf, a, 0),
+                           count=np.where(leaf, tag, 0), skip=skip)
+    return torch.as_tensor(wide.pack_nodes8(tree), device=scene.device)
 
 
 def scattered_rays(scene, n, gen, dev):

@@ -54,15 +54,12 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import proto_sublane_sweep as sweep
-from . import raysets, wide_turns
+from . import raysets, roofline, wide_turns
 from .io import builtin_scenes as bs
 from .ops import cuda_build as cb
 from .ops import wide
 
 SEED = 42
-PEAK_BYTES = 3.35e12        # the H100 SXM's HBM3 bytes/s
-PEAK_FLOPS = 67e12          # its f32 flops/s outside the tensor cores
-PROTO_FLOPS = 48            # one test (chip_smoke.py PROTO_FLOPS)
 SCHEDULERS = 4              # warp schedulers of an SM, one issue a clock
 TEST_FMULS = 21             # multiplies of one test (csrc/sweep.cu)
 SASS_SOURCES = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep')
@@ -361,13 +358,13 @@ def main(argv=None):
         if key not in passes:
             passes[key] = stage_passes(tris, org, dirn, reps)
         c = passes[key]
+        flops = c['pair'] * roofline.PROTO_FLOPS
         moved = sum(x.numel() * x.element_size()
                     for x in (table, org, dirn, *outs[0]))
         b = {'pair_tests': c['pair'], 'sign_tests': c['sign'],
              'window_tests': c['window'], 'bytes': moved,
-             'bound_ms': max(moved / PEAK_BYTES,
-                             c['pair'] * PROTO_FLOPS / PEAK_FLOPS) * 1e3,
-             'unfused_ms': c['pair'] * PROTO_FLOPS / (PEAK_FLOPS / 2) * 1e3,
+             'bound_ms': roofline.bound(moved, flops)[0],
+             'unfused_ms': 2 * roofline.times(0, flops)[1],
              'sm_mhz': clock.median_mhz(), 'max_sm_mhz': clock.max_mhz}
         text = (f"; {c['pair']} tests, {c['sign'] / c['pair']:.2%} past "
                 f"the sign test, {c['window'] / c['pair']:.2%} past the t "
