@@ -15,7 +15,8 @@ shading layer (the texture fetch, the shade context and the materials
 probe of every preset), a scene of an HDRI light alone and test_room.dae's
 12 stereo faces against the port's CPU results; the precomputed sampler,
 the three BVH qualities, pick, the debug renderer, render_progressive,
-the viewer's loop and profiling.trace on the card.
+the viewer's loop and profiling.trace on the card, and a frame's host
+syncs with the port's tracer on and off.
 
 Every test here is marked `cuda` and skips without a CUDA device.  The
 file imports no jax, so it also runs on a GPU machine without JAX (where
@@ -1446,3 +1447,42 @@ def test_progressive_viewer_and_trace_on_card(cuda, tmp_path):
     assert pt.SPAN_SHADE in names
     assert {kernel_of(n) for n in names} >= {'intersect_dense_kernel',
                                              'occluded_dense_kernel'}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compaction', ['off', 'auto'])
+def test_tracer_adds_no_sync_on_card(colonnade_card, compaction):
+    """A colonnade frame (depth 8 with the dome cap: 'auto' compacts)
+    under torch.cuda.set_sync_debug_mode('warn') makes as many
+    synchronising calls with the port's tracer on as off, gives the same
+    film, and its bounce counts, numbers by its end, add up to
+    num_rays."""
+    import warnings
+    from yulio_raytracer_tpu_torch.utils import profiling
+    cam = bs.colonnade_camera(64, 64)
+    params = pt.PTParams(max_depth=8, t_max_shadow_ray=12.0)
+
+    def frame():
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                out = renderer.render_frame(colonnade_card, cam, params, 64,
+                                            64, spp=2, seed=9,
+                                            compaction=compaction)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum('synchronizing' in str(w.message) for w in caught)
+
+    frame()                                 # first calls fill the caches
+    (f_off, s_off), n_off = frame()
+    with profiling.tracing() as t:
+        (f_on, s_on), n_on = frame()
+    assert n_off > 0 and n_on == n_off
+    assert torch.equal(f_off.rgb_sum, f_on.rgb_sum)
+    b = [s for s in t.spans() if s.name == profiling.BOUNCE]
+    assert len(b) == params.max_depth or b[-1].attrs['live'] == 0
+    assert all(type(v) in (int, float) for s in b for v in s.attrs.values())
+    assert sum(s.attrs['rays'] + s.attrs['shadow'] for s in b) == \
+        s_on.num_rays == s_off.num_rays

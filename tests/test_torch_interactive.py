@@ -226,11 +226,11 @@ def test_commit_stats_match_jax():
 
 def test_profiling_trace_names_the_ranges(tmp_path):
     """trace() writes a Chrome trace of a render that names the bounce's
-    yrt.* ranges and an annotated one; a second trace does not overwrite
+    yrt.* ranges and a span of its own; a second trace does not overwrite
     the first."""
     scene = bs.cornell_box().commit(device='cpu')
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate('yrt.test_frame'):
+        with profiling.span('yrt.test_frame'):
             renderer.render_frame(scene, bs.cornell_camera(8, 8),
                                   pt.PTParams(max_depth=2), 8, 8, spp=1)
     assert os.path.dirname(prof.trace_path) == str(tmp_path)

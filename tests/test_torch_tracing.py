@@ -1,0 +1,291 @@
+"""The port's tracer (utils/profiling.py) on the CPU: the span tree of a
+frame with its parents and frame serials, under `trace` and
+`trace_compacted`; the off path, which enters no record_function and
+keeps nothing; the spans as torch.profiler ranges with the tracer off;
+films bit-equal with the tracer on and off; the bounce counts against
+FrameStats.num_rays; a two-thread mesh frame, one tree a thread;
+bounce_stats read from the bounce records; and profile_frame's readings
+of a trace (idle_by_span, span_summary) on synthetic events."""
+from types import SimpleNamespace as NS
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from yulio_raytracer_tpu_torch import profile_frame, renderer
+from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
+from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
+from yulio_raytracer_tpu_torch.parallel import sharding
+from yulio_raytracer_tpu_torch.utils import profiling as prof
+
+torch.set_num_threads(2)
+RES, SPP = 10, 2
+# the spans each span opens inside (utils/profiling.py's tree)
+PARENTS = {prof.FRAME: {None}, prof.PASS: {prof.FRAME},
+           prof.RAYGEN: {prof.PASS}, prof.BOUNCE: {prof.PASS},
+           prof.INTERSECT: {prof.BOUNCE}, prof.ENV: {prof.BOUNCE},
+           prof.SHADE: {prof.BOUNCE}, prof.FETCH: {prof.SHADE},
+           prof.NEE: {prof.BOUNCE}, prof.LIGHTS: {prof.NEE},
+           prof.LOBES: {prof.NEE, prof.SCATTER}, prof.OCCLUDED: {prof.NEE},
+           prof.SCATTER: {prof.BOUNCE}, prof.COMPACT: {prof.PASS},
+           prof.SYNC: {prof.COMPACT, prof.FRAME}, prof.FILM: {prof.FRAME}}
+
+
+@pytest.fixture(scope='module')
+def colonnade():
+    return bs.colonnade(cols_x=2, cols_z=2, tess=(8, 10)).commit(
+        device='cpu', leaf_size=32)
+
+
+@pytest.fixture(scope='module')
+def textured():
+    return bs.sponza_like(stories=1, cols_x=2, cols_z=2, clutter=4,
+                          num_textures=3).commit(device='cpu', leaf_size=32)
+
+
+def _frame(scene, camera, compaction, seed=3, **kw):
+    return renderer.render_frame(scene, camera(RES, RES),
+                                 pt.PTParams(max_depth=6, rr_depth=2),
+                                 RES, RES, spp=SPP, seed=seed,
+                                 compaction=compaction, **kw)
+
+
+def _parent(s):
+    return None if s.parent is None else s.parent.name
+
+
+def _root(s):
+    while s.parent is not None:
+        s = s.parent
+    return s
+
+
+@pytest.mark.parametrize('compaction', ['off', 'on'])
+def test_span_tree(colonnade, compaction):
+    """Two frames under the tracer: every span opens inside the span the
+    tree names, each frame is one tree whose spans share its serial, a
+    pass holds its bounces (and, compacted, a compaction after each but
+    the last), and a frame ends with its film and its sync."""
+    with prof.tracing() as t:
+        for seed in (3, 4):
+            _frame(colonnade, bs.colonnade_camera, compaction, seed)
+    spans = t.spans()
+    assert {s.name for s in spans} >= set(prof.SPANS) - {
+        prof.FETCH, prof.ENV} - ({prof.COMPACT} if compaction == 'off'
+                                 else set())
+    for s in spans:
+        assert _parent(s) in PARENTS[s.name], (s.name, _parent(s))
+        assert s.start <= s.end and s.frame == _root(s).frame
+        if s.parent is not None:
+            assert s.parent.start <= s.start and s.end <= s.parent.end
+    frames = [s for s in spans if s.name == prof.FRAME]
+    assert [f.frame for f in frames] == [0, 1]
+    assert frames[0].attrs == {'width': RES, 'height': RES, 'spp': SPP}
+    passes = [s for s in spans if s.name == prof.PASS]
+    assert [p.attrs['rays'] for p in passes] == [RES * RES * SPP] * 2
+    for p in passes:
+        kids = [s.name for s in spans if s.parent is p]
+        assert kids[0] == prof.RAYGEN
+        bounces = kids[1:]
+        if compaction == 'on':
+            assert bounces[1::2] == [prof.COMPACT] * (len(bounces) // 2)
+            bounces = bounces[::2]
+        assert bounces == [prof.BOUNCE] * 6
+    for f in frames:
+        assert [s.name for s in spans if s.parent is f][-3:] == [
+            prof.FILM, prof.FILM, prof.SYNC]
+    depths = [s.attrs['depth'] for s in spans if s.name == prof.BOUNCE]
+    assert depths == list(range(6)) * 2
+
+
+def test_off_path_enters_nothing(colonnade, monkeypatch):
+    """With the tracer off and no profiler a span is the shared no-op
+    context: a frame enters no record_function and leaves no span open,
+    and a span with counts runs no torch op.  A profiler turns the
+    ranges on."""
+    entered = []
+    base = torch.autograd.profiler.record_function
+
+    class Counting(base):
+        def __enter__(self):
+            entered.append(self.name)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.autograd.profiler, 'record_function', Counting)
+    assert prof.span(prof.BOUNCE, depth=0, width=8) is prof.OFF
+    _frame(colonnade, bs.colonnade_camera, 'on')
+    assert entered == [] and prof._stack() == [] and prof._tracer is None
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    x = torch.ones(4)
+    with Ops():
+        with prof.span(prof.BOUNCE, depth=0, width=4) as s:
+            s.set(rays=x, live=4)
+    assert Ops.n == 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        _frame(colonnade, bs.colonnade_camera, 'on')
+    assert set(entered) >= {prof.FRAME, prof.BOUNCE, prof.COMPACT}
+
+
+def test_profiler_ranges_nest_with_the_tracer_off(colonnade):
+    """Under a CPU torch.profiler, with the tracer off, every span is a
+    yrt.* range, each inside a range of the span the tree names on its
+    thread, and nothing is kept."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as p:
+        _frame(colonnade, bs.colonnade_camera, 'on')
+    assert prof._tracer is None
+    ev = [(e.name, e.time_range.start, e.time_range.end, e.thread)
+          for e in p.events() if e.name in prof.SPANS]
+    assert {e[0] for e in ev} >= {prof.FRAME, prof.PASS, prof.BOUNCE,
+                                  prof.COMPACT, prof.SYNC, prof.NEE}
+    for name, s, e, th in ev:
+        if name == prof.FRAME:
+            continue
+        # the innermost range around it: the latest started that holds it
+        around = [o for o in ev if o[3] == th and o[1] <= s and e <= o[2]
+                  and o != (name, s, e, th)]
+        assert around, name
+        assert max(around, key=lambda o: o[1])[0] in PARENTS[name], name
+
+
+@pytest.mark.parametrize('which', ['compacted', 'uncompacted', 'textured'])
+def test_film_bit_equal_with_the_tracer(which, colonnade, textured):
+    """The tracer changes no op of the render: the film and the ray count
+    with it on equal those with it off, bit for bit."""
+    scene, camera, how = {
+        'compacted': (colonnade, bs.colonnade_camera, 'on'),
+        'uncompacted': (colonnade, bs.colonnade_camera, 'off'),
+        'textured': (textured, bs.sponza_like_camera, 'on')}[which]
+    off, st_off = _frame(scene, camera, how)
+    with prof.tracing() as t:
+        on, st_on = _frame(scene, camera, how)
+    assert torch.equal(off.rgb_sum, on.rgb_sum)
+    assert torch.equal(off.weight, on.weight)
+    assert st_off.num_rays == st_on.num_rays
+    if which == 'textured':
+        fetches = [s for s in t.spans() if s.name == prof.FETCH]
+        assert fetches and all(_parent(s) in PARENTS[prof.FETCH]
+                               for s in fetches)
+
+
+@pytest.mark.parametrize('compaction', ['off', 'on'])
+def test_bounce_counts_add_up_to_num_rays(colonnade, compaction):
+    """Each bounce's rays and shadow candidates, numbers once the frame
+    has ended, add up to FrameStats.num_rays; a compacted bounce's live
+    lanes are the next bounce's width, every one of them traced."""
+    with prof.tracing() as t:
+        _, st = _frame(colonnade, bs.colonnade_camera, compaction)
+    b = [s for s in t.spans() if s.name == prof.BOUNCE]
+    assert all(type(v) in (int, float) for s in t.spans()
+               for v in s.attrs.values())
+    assert sum(s.attrs['rays'] + s.attrs.get('shadow', 0)
+               for s in b) == st.num_rays
+    assert all(0 <= s.attrs['rays'] <= s.attrs['width'] for s in b)
+    if compaction == 'on':
+        for s, nxt in zip(b, b[1:]):
+            assert nxt.attrs['width'] == s.attrs['live'] == nxt.attrs['rays']
+        assert 'live' not in b[-1].attrs
+    else:
+        assert {s.attrs['width'] for s in b} == {RES * RES * SPP}
+    summ = profile_frame.span_summary(t.spans(), 1)
+    assert summ['bounces'] == 6
+    assert summ['live_pct'] == pytest.approx(
+        100 * sum(s.attrs['rays'] for s in b)
+        / sum(s.attrs['width'] for s in b))
+    assert summ['enqueue_ms'] == pytest.approx(
+        sum(s.end - s.start for s in b) / 1e6)
+
+
+def test_mesh_frame_one_tree_per_thread(colonnade):
+    """A frame over two CPU slots on threads of their own: the frame's
+    tree on the calling thread, each slot's pass a tree of its own
+    thread, all of one frame serial; the film is the one-device film."""
+    mesh = sharding.make_mesh(devices=['cpu', 'cpu:0'])
+    one, _ = _frame(colonnade, bs.colonnade_camera, 'on')
+    with prof.tracing() as t:
+        two, st = _frame(colonnade, bs.colonnade_camera, 'on', mesh=mesh)
+    assert torch.equal(one.rgb_sum, two.rgb_sum)
+    spans = t.spans()
+    roots = {}
+    for s in spans:
+        if s.parent is None:
+            roots.setdefault(s.thread, []).append(s.name)
+        else:
+            assert s.parent.thread == s.thread
+    assert len(roots) == 3 and sorted(roots.values()) == [
+        [prof.FRAME], [prof.PASS], [prof.PASS]]
+    assert {s.frame for s in spans} == {0}
+    b = [s for s in spans if s.name == prof.BOUNCE]
+    assert len({s.thread for s in b}) == 2
+    assert sum(s.attrs['rays'] + s.attrs['shadow'] for s in b) == st.num_rays
+
+
+def test_bounce_stats_read_from_the_bounce_records(colonnade):
+    """bounce_stats' dicts carry the bounce records' depth, width and
+    live count, with the tracer on or off."""
+    stats_off, stats_on = [], []
+    _frame(colonnade, bs.colonnade_camera, 'on', bounce_stats=stats_off)
+    with prof.tracing() as t:
+        _frame(colonnade, bs.colonnade_camera, 'on', bounce_stats=stats_on)
+    b = [s.attrs for s in t.spans() if s.name == prof.BOUNCE]
+    assert [(d['depth'], d['width'], d['live']) for d in stats_on] == [
+        (a['depth'], a['width'], a['live']) for a in b]
+    assert [(d['depth'], d['width'], d['live']) for d in stats_off] == [
+        (d['depth'], d['width'], d['live']) for d in stats_on]
+    assert all(d['seconds'] > 0 for d in stats_off + stats_on)
+
+
+def test_tracing_is_one_block_at_a_time():
+    with prof.tracing() as t:
+        with pytest.raises(RuntimeError):
+            with prof.tracing():
+                pass
+        with prof.span(prof.FRAME, width=1) as f:
+            with prof.span(prof.SYNC) as s:
+                s.set(n=torch.tensor(3))
+    assert t.spans() == [f, s] and s.parent is f and s.frame == f.frame == 0
+    assert s.attrs == {'n': 3}
+    assert prof._tracer is None and prof.span(prof.SYNC) is prof.OFF
+
+
+def test_idle_by_span_on_synthetic_events():
+    """Each idle gap goes to the class of the spans open at its middle;
+    the classes add up to the gaps' total; a gap under a long-open outer
+    span, hundreds of host events after it opened, is still found; the
+    spans' device markers are no activity."""
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+
+    def ev(name, dev, start, end):
+        return NS(name=name, device_type=dev,
+                  time_range=NS(start=start, end=end))
+
+    host = [ev(prof.FRAME, cpu, 0, 10000), ev(prof.PASS, cpu, 100, 9000),
+            ev(prof.BOUNCE, cpu, 200, 3000), ev(prof.COMPACT, cpu, 3000, 3500),
+            ev(prof.SYNC, cpu, 3400, 3500), ev(prof.BOUNCE, cpu, 3500, 6000),
+            ev(prof.FILM, cpu, 9000, 9500)]
+    host += [ev('aten::mul', cpu, 6000 + 5 * i, 6002 + 5 * i)
+             for i in range(600)]
+    dev = [ev('k', cuda, a, b) for a, b in (
+        (0, 1100), (1300, 3100), (1400, 1500), (3300, 6500), (6700, 9600),
+        (9800, 10100), (10300, 10400))]
+    dev += [ev(prof.BOUNCE, cuda, 200, 6000), ev(prof.FRAME, cuda, 0, 10400)]
+
+    class Prof:
+        def events(self):
+            return host + dev
+
+    got = profile_frame.idle_by_span(Prof())
+    want = {'bounce': 200e-6, 'compact': 200e-6, 'frame': 400e-6,
+            'outside': 200e-6}
+    assert got == pytest.approx(dict(want, total=1000e-6))
+    assert sum(got[c] for c in profile_frame.IDLE_CLASSES) == pytest.approx(
+        got['total'])

@@ -23,13 +23,22 @@ Layers, from the entry point down:
   geometry     host-side packing and BVH build (numpy, native builder)
   ops          intersection: dense.py, wide.py, traverse.py, pairs.py
                and grid.py wrap the kernels
-  utils        logging, profiling (traces, commit stats) and the
-               random-scene fuzzer (utils/regression.py)
+  utils        logging, profiling (the render path's span tree, its
+               tracer, traces, commit stats) and the random-scene
+               fuzzer (utils/regression.py)
   parallel     pixel and triangle parallelism over devices and
                processes (sharding.py) and the TCP render servers
                (network.py)
   native       the C ABI shim (yuliort_shim.cpp) and its build
 profile_frame.py profiles one frame of a timed cell on the card.
+
+Where a frame's time goes: `with profiling.tracing() as t:
+render_frame(...)`, then `t.spans()` holds a record of every span of the
+render path (utils/profiling.py has the tree), with its host times, its
+parent, its frame serial and thread, and a bounce's counts (width, rays,
+shadow, live), read with the frame's own ray count, so tracing adds no
+host sync.  `profiling.trace(log_dir)` writes the same tree as ranges of
+a Chrome trace beside the device's kernels, on one clock.
 """
 
 __version__ = "0.1.0"

@@ -76,19 +76,19 @@ from ..ops import grid as ggrid
 from ..ops import intersect as ops_i
 from ..shading import lobes as lb
 from ..shading import materials as gmat
+from ..utils import profiling as prof
+from ..utils.profiling import span
 
 # the reference assigns ULP twice (pathtracer.py:44-46); this value wins
 ULP = 1.1920929e-7
 # PTParams.ray_binning: the reference's five
 BINNINGS = ('morton', 'none', 'grid', 'dense', 'treelet')
-# profiler ranges of the bounce (profile_frame reads their device time):
-# the shade context (its texture fetches included), the lobes' eval and
-# sampling, the light samples of the NEE and the escaped rays' radiance
-SPAN_SHADE = 'yrt.shade_context'
-SPAN_LOBES = 'yrt.lobes'
-SPAN_LIGHTS = 'yrt.light_sample'
-SPAN_ENV = 'yrt.env'
-
+# spans of the bounce that readers of a trace name (utils/profiling.py
+# has the tree): the shade context (its texture fetches included), the
+# lobes' eval and sampling and the light samples of the NEE
+SPAN_SHADE = prof.SHADE
+SPAN_LOBES = prof.LOBES
+SPAN_LIGHTS = prof.LIGHTS
 
 
 @dataclass(frozen=True)
@@ -379,7 +379,9 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
     groups = _light_groups(lights)
     has_shadow_cap = math.isfinite(params.t_max_shadow_ray)
 
-    def bounce(state, depth: int):
+    def bounce(state, depth: int, rec=prof.OFF):
+        """One bounce; rec, its yrt.bounce span, gets the rays it traced
+        ('rays') and its shadow candidates ('shadow')."""
         r, dev = state['org'].shape[0], state['org'].device
         # the reference bins rays on every bounce after the first
         binned = (depth > 0, params.ray_binning)
@@ -397,14 +399,17 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
         active = _live(state, params)
         # dead lanes get tfar < tnear: every kernel rejects them at once
         tfar_live = torch.where(active, float('inf'), -1.0)
-        hit = _intersect(scene, org, dirn, torch.zeros((r,), device=dev),
-                         tfar_live, state['time'], *binned)
+        with span(prof.INTERSECT):
+            hit = _intersect(scene, org, dirn, torch.zeros((r,), device=dev),
+                             tfar_live, state['time'], *binned)
+            dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
         state = dict(state)
-        state['num_rays'] = state['num_rays'] + torch.sum(active)
-        dg = ops_i.post_intersect(scene.geom, org, dirn, hit)
+        traced = torch.sum(active)
+        state['num_rays'] = state['num_rays'] + traced
+        rec.set(rays=traced)
         wo = -dirn
         if env_lights or backplate is not None:
-            with torch.profiler.record_function(SPAN_ENV):
+            with span(prof.ENV):
                 L = L + _escaped(state, active & ~hit.valid, wo, env_lights,
                                  backplate)
         active = active & hit.valid
@@ -416,7 +421,7 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
 
         # shade: material -> lobe context (cpp:108-111), with the
         # bump-mapped shading normal where a material binds a bump map
-        with torch.profiler.record_function(SPAN_SHADE):
+        with span(prof.SHADE):
             lobed, aux = gmat.shade_context(
                 scene.materials, scene.textures, dg['mat_id'], dg['st'],
                 state['medium_eta'], state['medium_trans'], ns=ns,
@@ -435,112 +440,122 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
 
         # NEE: shadow rays to every light, all occlusion tests in one
         # call (split into whole-light launches only past a launch's rays)
-        use_dl = lb.has_type(lobed, lb.DIFFUSE) & active
-        err_eps = dg['error'] * params.epsilon
-        cand_gs, contrib_gs, wi_gs, tfar_gs = [], [], [], []
-        illum = dg['illum_mask'] & rng._MASK
-        for idxs, light, masks in groups:
-            dims = torch.tensor([(base + dim_light + li) & rng._MASK
-                                 for li in idxs], device=dev)[:, None]
-            mask_ok = (torch.tensor(masks, device=dev)[:, None] & illum) != 0
-            u2 = (nee_u2.expand(len(idxs), r, 2) if samples is not None
-                  else rng.uniform2(seed, pixel_id, sample_id, dims))
-            with torch.profiler.record_function(SPAN_LIGHTS):
-                le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
-            cand = (use_dl & mask_ok & (pdf > 0.0)
-                    & torch.any(le > 0.0, dim=-1))
-            with torch.profiler.record_function(SPAN_LOBES):
-                brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE,
-                                     types_present=scene.lobe_types)
-            cand = cand & torch.any(brdf > 0.0, dim=-1)
-            if has_shadow_cap:
-                tmax = _shadow_cap(params, seed, pixel_id, sample_id, wi,
-                                   torch.tensor([(base + _DIM_SHADOW + li)
-                                                 & rng._MASK for li in idxs],
-                                                device=dev)[:, None])
-            contrib = thr * le * brdf / torch.clamp(pdf, min=1e-20)[..., None]
-            cand_gs.append(cand)
-            contrib_gs.append(contrib)
-            wi_gs.append(wi)
-            tfar_gs.append(torch.where(cand, tmax - err_eps, -1.0))
-        if cand_gs:
-            cand_all = torch.cat(cand_gs)              # (nl, R)
-            nl = cand_all.shape[0]
-            state['num_rays'] = state['num_rays'] + torch.sum(cand_all)
-            occ_all = _occluded_lights(scene, dg['P'], torch.cat(wi_gs),
-                                       err_eps, torch.cat(tfar_gs),
-                                       state['time'], *binned)
-            lit = cand_all & ~occ_all.reshape(nl, r)
-            L = L + torch.sum(torch.where(lit[:, :, None],
-                                          torch.cat(contrib_gs), 0.0), dim=0)
+        with span(prof.NEE):
+            use_dl = lb.has_type(lobed, lb.DIFFUSE) & active
+            err_eps = dg['error'] * params.epsilon
+            cand_gs, contrib_gs, wi_gs, tfar_gs = [], [], [], []
+            illum = dg['illum_mask'] & rng._MASK
+            for idxs, light, masks in groups:
+                dims = torch.tensor([(base + dim_light + li) & rng._MASK
+                                     for li in idxs], device=dev)[:, None]
+                mask_ok = (torch.tensor(masks, device=dev)[:, None]
+                           & illum) != 0
+                u2 = (nee_u2.expand(len(idxs), r, 2) if samples is not None
+                      else rng.uniform2(seed, pixel_id, sample_id, dims))
+                with span(prof.LIGHTS):
+                    le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
+                cand = (use_dl & mask_ok & (pdf > 0.0)
+                        & torch.any(le > 0.0, dim=-1))
+                with span(prof.LOBES):
+                    brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE,
+                                         types_present=scene.lobe_types)
+                cand = cand & torch.any(brdf > 0.0, dim=-1)
+                if has_shadow_cap:
+                    tmax = _shadow_cap(
+                        params, seed, pixel_id, sample_id, wi,
+                        torch.tensor([(base + _DIM_SHADOW + li) & rng._MASK
+                                      for li in idxs], device=dev)[:, None])
+                contrib = (thr * le * brdf
+                           / torch.clamp(pdf, min=1e-20)[..., None])
+                cand_gs.append(cand)
+                contrib_gs.append(contrib)
+                wi_gs.append(wi)
+                tfar_gs.append(torch.where(cand, tmax - err_eps, -1.0))
+            if cand_gs:
+                cand_all = torch.cat(cand_gs)              # (nl, R)
+                nl = cand_all.shape[0]
+                shadow = torch.sum(cand_all)
+                state['num_rays'] = state['num_rays'] + shadow
+                rec.set(shadow=shadow)
+                with span(prof.OCCLUDED):
+                    occ_all = _occluded_lights(
+                        scene, dg['P'], torch.cat(wi_gs), err_eps,
+                        torch.cat(tfar_gs), state['time'], *binned)
+                lit = cand_all & ~occ_all.reshape(nl, r)
+                L = L + torch.sum(torch.where(lit[:, :, None],
+                                              torch.cat(contrib_gs), 0.0),
+                                  dim=0)
 
-        # depth cut (cpp:169-170)
-        cont = active & (depth < params.max_depth - 1)
+        with span(prof.SCATTER):
+            # depth cut (cpp:169-170)
+            cont = active & (depth < params.max_depth - 1)
 
-        # russian roulette (cpp:172-182, with 1/q compensation)
-        q = torch.clamp(torch.amax(thr, dim=-1) * state['eta_rr'] ** 2,
-                        max=0.95)
-        rr_on = depth >= params.rr_depth - 1
-        if rr_on:
-            rr_u = (pre_s1 if samples is not None else
-                    rng.uniform1(seed, pixel_id, sample_id, base + _DIM_RR))
-            cont = cont & ~(rr_u >= q)
-            rr_scale = 1.0 / torch.clamp(q, min=1e-3)
-        else:
-            rr_scale = torch.ones_like(q)
+            # russian roulette (cpp:172-182, with 1/q compensation)
+            q = torch.clamp(torch.amax(thr, dim=-1) * state['eta_rr'] ** 2,
+                            max=0.95)
+            rr_on = depth >= params.rr_depth - 1
+            if rr_on:
+                rr_u = (pre_s1 if samples is not None else
+                        rng.uniform1(seed, pixel_id, sample_id,
+                                     base + _DIM_RR))
+                cont = cont & ~(rr_u >= q)
+                rr_scale = 1.0 / torch.clamp(q, min=1e-3)
+            else:
+                rr_scale = torch.ones_like(q)
 
-        # GI: sample one lobe (cpp:184-213)
-        if samples is not None:
-            s2, s1 = pre_s2, pre_s1      # s1 is roulette's u, as cpp:179
-        else:
-            s2 = rng.uniform2(seed, pixel_id, sample_id,
-                              base + _DIM_SCATTER)
-            s1 = rng.uniform1(seed, pixel_id, sample_id,
-                              base + _DIM_SCATTER_TYPE)
-        with torch.profiler.record_function(SPAN_LOBES):
-            samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
-                                   tx=dg['Tx'], ty=dg['Ty'],
-                                   types_present=scene.lobe_types)
-        cont = (cont & samp['valid'] & (samp['pdf'] > 0.0)
-                & torch.any(samp['weight'] > 0.0, dim=-1))
+            # GI: sample one lobe (cpp:184-213)
+            if samples is not None:
+                s2, s1 = pre_s2, pre_s1      # s1 is roulette's u, as cpp:179
+            else:
+                s2 = rng.uniform2(seed, pixel_id, sample_id,
+                                  base + _DIM_SCATTER)
+                s1 = rng.uniform1(seed, pixel_id, sample_id,
+                                  base + _DIM_SCATTER_TYPE)
+            with span(prof.LOBES):
+                samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
+                                       tx=dg['Tx'], ty=dg['Ty'],
+                                       types_present=scene.lobe_types)
+            cont = (cont & samp['valid'] & (samp['pdf'] > 0.0)
+                    & torch.any(samp['weight'] > 0.0, dim=-1))
 
-        # Beer attenuation through the current medium (cpp:197-201)
-        trans_med = state['medium_trans']
-        absorbing = torch.any(trans_med < 1.0, dim=-1)
-        beer = torch.where(absorbing[:, None],
-                           torch.pow(torch.clamp(trans_med, min=1e-20),
-                                     hit.t[:, None]), 1.0)
-        w = samp['weight'] * beer / torch.clamp(samp['pdf'], min=1e-20)[:, None]
-        new_thr = thr * w * rr_scale[:, None]
+            # Beer attenuation through the current medium (cpp:197-201)
+            trans_med = state['medium_trans']
+            absorbing = torch.any(trans_med < 1.0, dim=-1)
+            beer = torch.where(absorbing[:, None],
+                               torch.pow(torch.clamp(trans_med, min=1e-20),
+                                         hit.t[:, None]), 1.0)
+            w = (samp['weight'] * beer
+                 / torch.clamp(samp['pdf'], min=1e-20)[:, None])
+            new_thr = thr * w * rr_scale[:, None]
 
-        # medium transition on sampled transmission (cpp:203-206)
-        trans_bit = (samp['type_bits'] & lb.TRANSMISSION_BITS) != 0
-        new_eta_m, new_trans_m = gmat.next_medium(
-            aux, trans_bit, state['medium_eta'], state['medium_trans'])
+            # medium transition on sampled transmission (cpp:203-206)
+            trans_bit = (samp['type_bits'] & lb.TRANSMISSION_BITS) != 0
+            new_eta_m, new_trans_m = gmat.next_medium(
+                aux, trans_bit, state['medium_eta'], state['medium_trans'])
 
-        # new ray from the hit point, pushed by the error-scaled epsilon
-        # (cpp:210: Ray(dg.P, dir, err*eps, inf)) with tnear = 0
-        new_dir = samp['wi']
-        new_org = dg['P'] + new_dir * err_eps[:, None]
-        # diffuse-sampled -> ignore directly visible lights next bounce
-        new_ignore = (samp['type_bits'] & lb.DIFFUSE) != 0
+            # new ray from the hit point, pushed by the error-scaled epsilon
+            # (cpp:210: Ray(dg.P, dir, err*eps, inf)) with tnear = 0
+            new_dir = samp['wi']
+            new_org = dg['P'] + new_dir * err_eps[:, None]
+            # diffuse-sampled -> ignore directly visible lights next bounce
+            new_ignore = (samp['type_bits'] & lb.DIFFUSE) != 0
 
-        state['org'] = torch.where(cont[:, None], new_org, org)
-        state['dir'] = torch.where(cont[:, None], new_dir, dirn)
-        state['throughput'] = torch.where(cont[:, None], new_thr, thr)
-        state['L'] = L
-        state['active'] = cont
-        state['ignore_vl'] = torch.where(cont, new_ignore,
-                                         state['ignore_vl'])
-        state['medium_eta'] = torch.where(cont, new_eta_m,
-                                          state['medium_eta'])
-        state['medium_trans'] = torch.where(cont[:, None], new_trans_m,
-                                            state['medium_trans'])
-        state['eta_rr'] = torch.where(cont, state['eta_rr'] * samp['eta'],
-                                      state['eta_rr'])
-        if 'unbent' in state:
-            state['unbent'] = state['unbent'] & torch.all(
-                torch.abs(state['dir'] - dirn) < 1e-12, dim=-1)
+            state['org'] = torch.where(cont[:, None], new_org, org)
+            state['dir'] = torch.where(cont[:, None], new_dir, dirn)
+            state['throughput'] = torch.where(cont[:, None], new_thr, thr)
+            state['L'] = L
+            state['active'] = cont
+            state['ignore_vl'] = torch.where(cont, new_ignore,
+                                             state['ignore_vl'])
+            state['medium_eta'] = torch.where(cont, new_eta_m,
+                                              state['medium_eta'])
+            state['medium_trans'] = torch.where(cont[:, None], new_trans_m,
+                                                state['medium_trans'])
+            state['eta_rr'] = torch.where(cont, state['eta_rr'] * samp['eta'],
+                                          state['eta_rr'])
+            if 'unbent' in state:
+                state['unbent'] = state['unbent'] & torch.all(
+                    torch.abs(state['dir'] - dirn) < 1e-12, dim=-1)
         return state
 
     return bounce
@@ -570,7 +585,8 @@ def trace(scene, params: PTParams, org, dirn, seed, pixel_id, sample_id,
                         _backplate_uv(pixel_uv, backplate), samples)
     bounce = _make_bounce(scene, params, seed, backplate, samples)
     for depth in range(params.max_depth):
-        state = bounce(state, depth)
+        with span(prof.BOUNCE, depth=depth, width=org.shape[0]) as rec:
+            state = bounce(state, depth, rec)
     return state['L'], state['num_rays']
 
 
@@ -602,32 +618,42 @@ def trace_compacted(scene, params: PTParams, org, dirn, seed, pixel_id,
     width.  Bit-identical per ray to trace().
 
     bounce_stats: an optional list; one {'depth', 'width', 'live',
-    'seconds'} dict is appended a bounce: the width it ran at, the live
-    count entering the next bounce, and the seconds since the previous
-    entry, which end with the device synchronised.  Returns (L (R, 3),
-    num_rays) as trace()."""
+    'seconds'} dict is appended a bounce, read from its yrt.bounce and
+    yrt.sync spans: the width it ran at, the live count entering the
+    next bounce, and the seconds since the previous entry, which end
+    with the device synchronised (the last bounce's count is then read
+    too).  Returns (L (R, 3), num_rays) as trace()."""
     r = org.shape[0]
     state = _init_state(org, dirn, pixel_id, sample_id, time,
                         _backplate_uv(pixel_uv, backplate), samples)
     state['rid'] = torch.arange(r, device=org.device)
     bounce = _make_bounce(scene, params, seed, backplate, samples)
     l_out = torch.zeros((r, 3), device=org.device)
-    t0 = _time.perf_counter()
+    # bounce_stats reads the records, so they are kept without a tracer
+    keep = bounce_stats is not None
+    opened = prof.Span if keep else span
+    t0 = _time.perf_counter_ns()
     for depth in range(params.max_depth):
-        state = bounce(state, depth)
+        w = state['org'].shape[0]
+        with opened(prof.BOUNCE, depth=depth, width=w) as rec:
+            state = bounce(state, depth, rec)
         last = depth == params.max_depth - 1
-        if last and bounce_stats is None:
+        if last and not keep:
             break
-        live = _live(state, params)
-        n = int(torch.sum(live))             # the bounce's one sync
-        if bounce_stats is not None:
-            t1 = _time.perf_counter()
-            bounce_stats.append({'depth': depth, 'width': live.shape[0],
-                                 'live': n, 'seconds': t1 - t0})
-            t0 = t1
-        if last or n == 0:
-            break
-        if n < live.shape[0]:
-            state = _compact(state, live, n, l_out)
+        with span(prof.COMPACT):
+            live = _live(state, params)
+            with opened(prof.SYNC) as sync:
+                n = int(torch.sum(live))     # the bounce's one sync
+            rec.set(live=n)
+            if keep:
+                a = rec.attrs
+                bounce_stats.append({'depth': a['depth'], 'width': a['width'],
+                                     'live': a['live'],
+                                     'seconds': (sync.end - t0) * 1e-9})
+                t0 = sync.end
+            if last or n == 0:
+                break
+            if n < w:
+                state = _compact(state, live, n, l_out)
     l_out.index_copy_(0, state['rid'], state['L'])
     return l_out, state['num_rays']

@@ -18,17 +18,22 @@ frame, the device's busy time (the sum of the device activities' time;
 the port runs one stream, so they do not overlap) and its share of the
 wall, the device launches, each port kernel's calls and device time,
 the rest of the device time (the torch glue of the bounce), the device
-time of the glue's ranges (SPANS: the shade context, its texture
-fetches, the lobes, the light samples, the environment lookups), the glue's largest device activities by name, and
-the frames' peak device memory.  The last line is the same as one JSON
-object.  Needs a CUDA device.
+time of each span of the render path (utils/profiling.py SPANS; a span
+holds the time of the spans inside it), the glue's largest device
+activities by name, and the frames' peak device memory; then what the
+port's tracer reads over three more frames (profiling.tracing(), no
+profiler: span_summary) and the profiled frame's device idle time by
+the span open on the host (idle_by_span).  The last line is the same as
+one JSON object.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import re
+import statistics
 import sys
 import time
 
@@ -39,7 +44,7 @@ from .cameras import cameras as cam
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
 from .io import ecs
-from .shading import textures as gtex
+from .utils import profiling
 
 SPHERE_MIRROR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets', 'scenes', 'sphere_mirror.ecs')
@@ -123,11 +128,10 @@ CELLS = {
     'test_stereo_back_800': _test_stereo_cell(2),
     'test_stereo_front_800': _test_stereo_cell(0),
 }
-# the bounce's profiler ranges: the shade context (its texture fetches
-# included), the texture fetches, the lobes' eval and sampling, the NEE's
-# light samples and the escaped rays' environment and backplate lookups
-SPANS = (pt.SPAN_SHADE, gtex.SPAN_FETCH, pt.SPAN_LOBES, pt.SPAN_LIGHTS,
-         pt.SPAN_ENV)
+SPANS = profiling.SPANS
+# idle_by_span's classes, by the spans that hold a gap's middle: a
+# compaction, else a bounce, else any other span of a frame, else none
+IDLE_CLASSES = ('compact', 'bounce', 'frame', 'outside')
 # the glue's device activities reported by name, largest first
 TOP_GLUE = 6
 # the port's kernels by their __global__ names (csrc/*.cu)
@@ -147,6 +151,72 @@ def kernel_of(event_name: str):
     ident = (event_name[m.end():m.end() + int(m.group(1))] if m else
              event_name.removeprefix('void ').split('(')[0].split('<')[0])
     return ident if ident in KERNELS else None
+
+
+def _is_device(evt) -> bool:
+    return evt.device_type == torch.autograd.DeviceType.CUDA
+
+
+def _covers(intervals):
+    """A test of whether a time lies in the union of intervals [(start,
+    end)]: the union as sorted disjoint intervals, found by bisection."""
+    merged = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    starts = [m[0] for m in merged]
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and merged[i][1] >= t
+    return inside
+
+
+def idle_by_span(prof) -> dict:
+    """The device's idle seconds in a profiled window (the gaps between
+    its activities, first to last), by the port's spans open on the host
+    (any thread) at each gap's middle: 'compact' inside a yrt.compact,
+    'bounce' inside a yrt.bounce and no yrt.compact, 'frame' inside any
+    other span, 'outside' in none (IDLE_CLASSES); 'total' their sum.  A
+    span also shows on the device under its own name; that marker is no
+    activity."""
+    dev, spans = [], {}
+    for e in prof.events():
+        tr = e.time_range
+        if not _is_device(e):
+            if e.name in SPANS:
+                spans.setdefault(e.name, []).append((tr.start, tr.end))
+        elif e.name not in SPANS:
+            dev.append((tr.start, tr.end))
+    tests = (('compact', _covers(spans.get(profiling.COMPACT, []))),
+             ('bounce', _covers(spans.get(profiling.BOUNCE, []))),
+             ('frame', _covers([iv for ivs in spans.values() for iv in ivs])))
+    out = dict.fromkeys(IDLE_CLASSES, 0.0)
+    dev.sort()
+    end = dev[0][1] if dev else 0
+    for s, e in dev[1:]:
+        if s > end:
+            mid = 0.5 * (s + end)
+            cls = next((c for c, inside in tests if inside(mid)), 'outside')
+            out[cls] += (s - end) * 1e-6
+        end = max(end, e)
+    out['total'] = sum(out[c] for c in IDLE_CLASSES)
+    return out
+
+
+def span_summary(spans, frames: int) -> dict:
+    """What the tracer's records (Tracer.spans()) of `frames` frames
+    say, a frame: enqueue_ms, the host ms inside yrt.bounce spans;
+    live_pct, 100 x the rays the bounces traced over their lanes;
+    bounces, the yrt.bounce spans."""
+    b = [s for s in spans if s.name == profiling.BOUNCE]
+    lanes = sum(s.attrs['width'] for s in b)
+    return {'enqueue_ms': sum(s.end - s.start for s in b) / 1e6 / frames,
+            'live_pct': (100.0 * sum(s.attrs['rays'] for s in b) / lanes
+                         if lanes else None),
+            'bounces': len(b) / frames}
 
 
 def profile_cell(name: str, compaction: str = 'auto') -> dict:
@@ -172,6 +242,9 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
     frame(42)
     frames = sorted(frame(44 + i)[1].seconds for i in range(3))
     peak = torch.cuda.max_memory_allocated()
+    with profiling.tracing() as tracer:
+        traced = statistics.median(frame(47 + i)[1].seconds
+                                   for i in range(3))
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -183,7 +256,7 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
     busy_us, launches, kernels, spans, glue = 0.0, 0, {}, {}, []
     for evt in prof.key_averages():
         if evt.key in SPANS:
-            # a range's host event holds the device time of the kernels
+            # a span's host event holds the device time of the kernels
             # launched inside it; its device-side marker is no launch
             if evt.device_type == torch.autograd.DeviceType.CPU:
                 spans[evt.key] = {'calls': evt.count,
@@ -213,7 +286,10 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
             'glue_ms': (busy_us - kernel_us) / 1e3, 'spans': spans,
             'top_glue': [{'op': name[:80], 'calls': n, 'ms': us / 1e3}
                          for us, n, name in sorted(glue, reverse=True)[
-                             :TOP_GLUE]]}
+                             :TOP_GLUE]],
+            'traced': dict(span_summary(tracer.spans(), 3),
+                           frame_s=traced),
+            'idle_s': idle_by_span(prof)}
 
 
 def main(argv) -> int:
@@ -238,20 +314,26 @@ def main(argv) -> int:
         rows.append(r)
         ks = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms"
                        for k, v in r['kernels'].items())
-        sp = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms "
-                       f"({v['ms'] / max(r['glue_ms'], 1e-9):.1%} of the glue)"
+        sp = ', '.join(f"{k} {v['calls']} calls {v['ms']:.1f} ms"
                        for k, v in r['spans'].items())
+        tr, idle = r['traced'], r['idle_s']
         print(f"[profile] {name} (compaction {args.compaction}, "
               f"compacted {r['compacted']}): commit {r['commit_s']:.3f} s, scene "
               f"{r['scene_bytes']} device bytes, frame_s {r['frame_s']:.4f} "
               f"(median of 3); profiled wall {r['wall_ms']:.1f} ms, device busy "
               f"{r['busy_ms']:.1f} ms ({r['busy_share']:.1%}), "
               f"{r['device_launches']} device launches; {ks}; glue "
-              f"{r['glue_ms']:.1f} ms; of it {sp or 'no span'}; largest "
+              f"{r['glue_ms']:.1f} ms; spans {sp or 'none'}; largest "
               "glue activities " + ', '.join(
                   f"{g['op']} {g['calls']} calls {g['ms']:.1f} ms"
                   for g in r['top_glue'])
-              + f"; peak mem {r['peak_gib']:.2f} GiB; on {card}", flush=True)
+              + f"; peak mem {r['peak_gib']:.2f} GiB; traced frame_s "
+              f"{tr['frame_s']:.4f} (median of 3), enqueue "
+              f"{tr['enqueue_ms']:.1f} ms, live {tr['live_pct']:.1f}%, "
+              f"{tr['bounces']:.0f} bounces; idle ms " + ', '.join(
+                  f"{c} {idle[c] * 1e3:.1f}"
+                  for c in IDLE_CLASSES + ('total',))
+              + f"; on {card}", flush=True)
     print(json.dumps({'card': card, 'cells': rows}))
     return 0
 

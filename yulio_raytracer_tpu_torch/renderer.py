@@ -34,6 +34,7 @@ from .film import accum
 from .integrator import pathtracer
 from .sampling import patterns
 from .sampling import precomputed
+from .utils import profiling as prof
 
 # RNG dims reserved for the camera
 DIM_PIXEL = 0
@@ -152,23 +153,25 @@ def _render_pass(scene, camera, params, width, height, spp_grid, pix,
     a pixel's sum does not depend on the pixels beside it in the pass.
     Returns ((n, 3) the pixels' radiance summed over the k samples in
     sample order, the ray count as a scalar tensor)."""
-    dev = pix.device
-    pixel_ids = pix.repeat(k)
-    sample_ids = (sample0 + torch.arange(k, device=dev)).repeat_interleave(
-        pix.shape[0])
-    samples = _pass_samples(tables, pixel_ids, sample_ids)
-    org, dirn, ray_time, uv = _gen_rays(
-        scene, camera, width, height, spp_grid, pixel_ids, sample_ids, seed,
-        pixel_filter, samples)
-    if compacted:
-        rgb, nrays = pathtracer.trace_compacted(
-            scene, params, org, dirn, seed, pixel_ids, sample_ids, ray_time,
-            bounce_stats, uv, backplate, samples)
-    else:
-        rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
-                                      pixel_ids, sample_ids, ray_time, uv,
-                                      backplate, samples)
-    return rgb.reshape(k, -1, 3).sum(dim=0), nrays
+    with prof.span(prof.PASS, rays=pix.shape[0] * k):
+        with prof.span(prof.RAYGEN):
+            dev = pix.device
+            pixel_ids = pix.repeat(k)
+            sample_ids = (sample0 + torch.arange(k, device=dev)
+                          ).repeat_interleave(pix.shape[0])
+            samples = _pass_samples(tables, pixel_ids, sample_ids)
+            org, dirn, ray_time, uv = _gen_rays(
+                scene, camera, width, height, spp_grid, pixel_ids,
+                sample_ids, seed, pixel_filter, samples)
+        if compacted:
+            rgb, nrays = pathtracer.trace_compacted(
+                scene, params, org, dirn, seed, pixel_ids, sample_ids,
+                ray_time, bounce_stats, uv, backplate, samples)
+        else:
+            rgb, nrays = pathtracer.trace(scene, params, org, dirn, seed,
+                                          pixel_ids, sample_ids, ray_time,
+                                          uv, backplate, samples)
+        return rgb.reshape(k, -1, 3).sum(dim=0), nrays
 
 
 def render_frame(scene, camera, params, width: int, height: int, spp: int,
@@ -246,56 +249,63 @@ def _frame(scene, camera, params, width, height, spp, *, seed=0, device=None,
     if device != scene.device:
         raise ValueError(f"render_frame on {device}, but the scene lives "
                          f"on {scene.device}")
-    npix = width * height
-    t0 = time.perf_counter()
-    if film is None or not accumulate:
-        film = None
-        rgb_flat = torch.zeros((npix, 3), device=device)
-    else:
-        rgb_flat = film.rgb_sum.reshape(npix, 3).clone()
-    total_rays = torch.zeros((), device=device)
-    spp_grid = patterns.grid_scalars(spp)
-    if backplate is not None:
-        backplate = torch.as_tensor(backplate, dtype=torch.float32,
-                                    device=device)[..., :3]
-    tables = (sample_tables(spp, iteration, params.max_depth, pixel_filter,
-                            width, height, device)
-              if sampler == 'precomputed' else None)
-    if mesh is not None:
-        from .parallel import sharding
-        slots = sharding.replicate(mesh, scene, camera, backplate, tables)
-    order = torch.as_tensor(_tile_order(width, height) if pixels is None
-                            else np.asarray(pixels), dtype=torch.int64,
-                            device=device)
-    # sample-major batching: fold k samples of every pixel into one pass
-    fold = max(1, min(spp, MAX_RAYS_PER_PASS // npix))
-    pix_per_pass = max(1, min(order.shape[0], MAX_RAYS_PER_PASS // fold))
-    work = [(lo, s0) for lo in range(0, order.shape[0], pix_per_pass)
-            for s0 in range(0, spp, fold)]
-    for wi, (lo, s0) in enumerate(work):
-        if stop_flag is not None and stop_flag():
-            break
-        pix = order[lo:lo + pix_per_pass]
-        kw = dict(params=params, width=width, height=height,
-                  spp_grid=spp_grid, sample0=iteration * spp + s0,
-                  k=min(fold, spp - s0), seed=seed, pixel_filter=pixel_filter,
-                  compacted=compacted, bounce_stats=bounce_stats)
-        if mesh is None:
-            rgb, nrays = _render_pass(scene, camera, pix=pix, tables=tables,
-                                      backplate=backplate, **kw)
+    with prof.span(prof.FRAME, width=width, height=height, spp=spp):
+        npix = width * height
+        t0 = time.perf_counter()
+        if film is None or not accumulate:
+            film = None
+            rgb_flat = torch.zeros((npix, 3), device=device)
         else:
-            rgb, nrays = sharding.mesh_pass(mesh, slots, pix, **kw)
-        # pixels are unique within a pass, so the scatter is a
-        # deterministic permutation add
-        rgb_flat.index_add_(0, pix, rgb)
-        total_rays = total_rays + nrays
-        if progress_cb is not None:
-            progress_cb((wi + 1) / len(work))
-    weight = (torch.full((height, width), float(spp), device=device)
-              if film is None else film.weight + float(spp))
-    film = accum.Film(rgb_flat.reshape(height, width, 3), weight)
-    num_rays = float(total_rays)          # waits for the device
-    return film, FrameStats(num_rays, time.perf_counter() - t0)
+            rgb_flat = film.rgb_sum.reshape(npix, 3).clone()
+        total_rays = torch.zeros((), device=device)
+        spp_grid = patterns.grid_scalars(spp)
+        if backplate is not None:
+            backplate = torch.as_tensor(backplate, dtype=torch.float32,
+                                        device=device)[..., :3]
+        tables = (sample_tables(spp, iteration, params.max_depth, pixel_filter,
+                                width, height, device)
+                  if sampler == 'precomputed' else None)
+        if mesh is not None:
+            from .parallel import sharding
+            slots = sharding.replicate(mesh, scene, camera, backplate, tables)
+        order = torch.as_tensor(_tile_order(width, height) if pixels is None
+                                else np.asarray(pixels), dtype=torch.int64,
+                                device=device)
+        # sample-major batching: fold k samples of every pixel into one pass
+        fold = max(1, min(spp, MAX_RAYS_PER_PASS // npix))
+        pix_per_pass = max(1, min(order.shape[0], MAX_RAYS_PER_PASS // fold))
+        work = [(lo, s0) for lo in range(0, order.shape[0], pix_per_pass)
+                for s0 in range(0, spp, fold)]
+        for wi, (lo, s0) in enumerate(work):
+            if stop_flag is not None and stop_flag():
+                break
+            pix = order[lo:lo + pix_per_pass]
+            kw = dict(params=params, width=width, height=height,
+                      spp_grid=spp_grid, sample0=iteration * spp + s0,
+                      k=min(fold, spp - s0), seed=seed,
+                      pixel_filter=pixel_filter, compacted=compacted,
+                      bounce_stats=bounce_stats)
+            if mesh is None:
+                rgb, nrays = _render_pass(scene, camera, pix=pix,
+                                          tables=tables, backplate=backplate,
+                                          **kw)
+            else:
+                rgb, nrays = sharding.mesh_pass(mesh, slots, pix, **kw)
+            # pixels are unique within a pass, so the scatter is a
+            # deterministic permutation add
+            with prof.span(prof.FILM):
+                rgb_flat.index_add_(0, pix, rgb)
+            total_rays = total_rays + nrays
+            if progress_cb is not None:
+                progress_cb((wi + 1) / len(work))
+        with prof.span(prof.FILM):
+            weight = (torch.full((height, width), float(spp), device=device)
+                      if film is None else film.weight + float(spp))
+            film = accum.Film(rgb_flat.reshape(height, width, 3), weight)
+        with prof.span(prof.SYNC):
+            # waits for the device (under the tracer, for its counts too)
+            num_rays = prof.settle(total_rays)
+        return film, FrameStats(num_rays, time.perf_counter() - t0)
 
 
 def pick(scene, camera, x: float, y: float):

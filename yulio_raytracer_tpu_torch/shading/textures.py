@@ -18,6 +18,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 FILTER_NEAREST = 0
 FILTER_BILINEAR = 1
 
@@ -78,14 +80,14 @@ class TextureTableBuilder:
         }
 
 
-# the profiler range of every fetch (profile_frame reads its device time)
-SPAN_FETCH = 'yrt.texture_fetch'
+# the span of every fetch, as readers of a trace name it
+SPAN_FETCH = profiling.FETCH
 
 
 def fetch(table: dict, tid, uv):
     """Gathered texel fetch.  tid: (...,) int texture ids (< 0: white);
     uv: (..., 2).  Returns (..., 4) RGBA."""
-    with torch.profiler.record_function(SPAN_FETCH):
+    with profiling.span(SPAN_FETCH):
         return _fetch(table, tid, uv)
 
 
