@@ -6,7 +6,7 @@
 Phases, one line each (a failure raises and the exit code is nonzero):
  1. toolchain: torch / CUDA / nvcc versions, the card's name and power limit;
  2. build: the CUDA kernels from yulio_raytracer_tpu_torch/csrc, one nvcc
-    per source (six), all started together;
+    per source (seven), all started together;
  3. every kernel against its plain torch version on the card, at the main
     paths' shapes: the dense pair on cornell (64^2 camera rays plus
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
@@ -65,7 +65,12 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     and test_stereo.ecs (the production strip's scene, 14,704 triangles):
     the BVH4 pair over the 800^2 camera rays of the CLI rig's back face,
     the hemisphere rays from their hits and the dome's shadow rays,
-    bit-equal, K3 and K4 alone launched.
+    bit-equal, K3 and K4 alone launched; and the fetch kernel F1
+    (textures.fetch) on every fetch call of bounces 0 and 1 of a
+    sponza_like frame at 1024^2 and 4 spp (2^22 hits x 4 lobe slots a
+    call, raysets.frame_fetch_calls), bit-equal to the plain fetch on
+    sponza's own atlas and on an atlas of sponza.frame_1024's size (24
+    maps of 1024^2, 402.7 MB), F1 alone launched, once a call.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -77,7 +82,7 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     'dense' (BVH4 on bounce 0, then the grid's or the treelets' kernels),
     motion_64 through the motion kernel's two forms, sponza_64 (the
     textured sponza_like of phase 3, depth 2, 4 spp) through the BVH4
-    kernels alone and again with ray_binning 'grid', sphere_glass_64
+    kernels and F1 alone and again with ray_binning 'grid', sphere_glass_64
     (depth 8, 32 spp, the ambient dome, compacted) through the BVH4
     kernels, each with its trimmed-1% PSNR beside; sphere_mirror_64 (the
     HDRI light, sphere_mirror.ecs through the port's loader, depth 3, 8
@@ -91,7 +96,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     occlusion K6's (no render path takes either, nor in the reference).
     Every launch counter is set to 0 before each run and read after it:
     the path's kernels must have run, no other kernel (so K12, which no
-    path runs, never), and no plain version on a CUDA tensor; the pair
+    path runs, never), and no plain version on a CUDA tensor; F1 runs on
+    the textured paths (sponza, sphere_glass, sphere_mirror, test_stereo
+    and the random scenes) and on no other; the pair
     kernels' binning (ops/pairs.py bin_rays) ran once for each of their
     ranged calls and on no other path;
  5. timed full-size frames (cornell_512, colonnade_1024,
@@ -110,7 +117,7 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     through api/output.py render_rig_faces, assembled and written to
     chiprun_out/test_stereo_view.ppm, with its seconds, camera rays and
     Mrays/s, each face's seconds, Mrays/s and peak memory, and its K3/K4
-    launches (K3/K4 alone); the same strip at 32^2 faces, 4 spp with the
+    launches (K3/K4 and F1 alone); the same strip at 32^2 faces, 4 spp with the
     watermark, and test_room.dae as StartRT stages it
     (session.collada_job: toe-in, the cap 120 x scene scale, the sky
     ambient, the billboard committed at the rig; 64^2 faces, 4 spp, depth
@@ -170,7 +177,11 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     of a row where the function needs its non-empty ones.  Beside K10's
     bound, the rows its kernel loads (a cell's rows once a round for each
     warp's rays in it, as its plain version counts) in GB, and those one
-    ray per thread would load (a 64-byte row for every test).
+    ray per thread would load (a 64-byte row for every test).  F1's
+    bound is bytes alone: ids and uv read once, the result written once,
+    the texture rows, and 16 B a tap of each slot's own filter (4
+    bilinear, 1 nearest, none for an id < 0), over its calls on the
+    1024^2 atlas.
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -339,6 +350,21 @@ def compare(name, kernel, plain, args, counts=None, labels=('kernel',
                              f"version: {line}")
     return {'rays': r, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'bytes': moved}
+
+
+def fetch_bytes(table, tid):
+    """(bytes, texel slots) of one call of the fetch kernel F1: the ids
+    (int64) and the hits' (R, 2) f32 uv read once, the (..., 4) f32
+    result written once, the texture rows, and 16 B a tap of each slot's
+    own filter (4 bilinear, 1 nearest, none where the id is < 0)."""
+    from yulio_raytracer_tpu_torch.shading.textures import FILTER_BILINEAR
+    own = tid >= 0
+    bilinear = int((own & (table['filter'][tid.clamp(min=0)]
+                           == FILTER_BILINEAR)).sum())
+    texel = int(own.sum())
+    rows = nbytes(*(table[k] for k in ('off', 'w', 'h', 'filter', 'invert')))
+    return (tid.numel() * (8 + 16) + tid.shape[0] * 2 * 4 + rows
+            + 16 * (4 * bilinear + texel - bilinear)), texel
 
 
 def stack_depth(what, counts):
@@ -592,7 +618,8 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
             got, _ = output.render_rig_faces(None, st, rig, client=client,
                                              origin=origin, device=dev)
             dt = time.perf_counter() - t0
-            counts = launched('test_stereo_32 over two servers', k34)
+            counts = launched('test_stereo_32 over two servers',
+                              k34 | {'fetch'})
             client.close()
             equal = [np.array_equal(a, b) for a, b in zip(got, ref)]
             worst = min(psnr(a, b) for a, b in zip(got, ref))
@@ -718,12 +745,14 @@ def main():
     from yulio_raytracer_tpu_torch import renderer, roofline
     from yulio_raytracer_tpu_torch.roofline import (
         MOTION_FLOPS, PEAK_FLOPS, PROTO_FLOPS, SLAB_FLOPS, WOOP_FLOPS)
+    from yulio_raytracer_tpu_torch.shading import textures
     from yulio_raytracer_tpu_torch.profile_frame import (
         SPHERE_MIRROR, STEREO_PARAMS, sphere_mirror_camera,
         stereo_face_camera)
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
-        frame_dense_calls, frame_motion_calls, frame_pair_calls,
+        frame_dense_calls, frame_fetch_calls, frame_motion_calls,
+        frame_pair_calls,
         from_treelet_roots, hemisphere_rays, nodes8, scattered_rays,
         shadow_rays, sweep_sets)
 
@@ -736,7 +765,8 @@ def main():
           f"{nvcc.stdout.strip().splitlines()[-1]}; card: {card}")
 
     t0 = time.perf_counter()
-    names = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep')
+    names = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep',
+             'texture')
     with ThreadPoolExecutor(len(names) + 2) as pool:  # one nvcc per source
         # and the C ABI's shim (g++) and host (cc) beside them
         shim_and_host = [pool.submit(f) for f in (native_build.shim,
@@ -792,6 +822,9 @@ def main():
          'scripts/proto_sublane_sweep.py:36', PROTO_FLOPS),
         (sweep.sweep_tiles, sweep.sweep_tiles_plain, 'sweep.cu',
          'scripts/proto_sublane_sweep.py:99', PROTO_FLOPS),
+        # F1 replaces no TPU kernel (the reference's fetch is jnp
+        # gathers) and makes no ray tests: its bytes bound it
+        (textures.fetch, textures._fetch, 'texture.cu', None, 0),
     )
     counters = [k[0] for k in kernels]
     plains = [k[1] for k in kernels]
@@ -1406,9 +1439,10 @@ def main():
         s_calls += len(calls)
         del calls
     ix = {f.__name__: i for i, f in enumerate(counters)}
-    k3, k4, k5, k6, k8, k9 = (ix[n] for n in (
+    k3, k4, k5, k6, k8, k9, fx = (ix[n] for n in (
         'intersect_packet4', 'occluded_packet4', 'intersect_packet',
-        'occluded_packet', 'intersect_pairs_raw', 'occluded_pairs'))
+        'occluded_packet', 'intersect_pairs_raw', 'occluded_pairs',
+        'fetch'))
     ran = {counters[k].__name__: counters[k].launches
            for k in (k3, k4, k5, k6, k8, k9)}
     phase('kernels', f"sponza's sets bit-equal to the plain versions "
@@ -1418,6 +1452,83 @@ def main():
         raise AssertionError(f"sponza's sets did not launch every kernel "
                              f"of its golden paths: {ran}")
     del s_cam, s_hemi, s_shadow, s_hit, dg, eps
+    # F1 on the slots of sponza_like's bounces at the main path's size:
+    # the fetch calls of bounces 0 and 1 of a 1024^2, 4 spp frame (2^22
+    # hits x 4 lobe slots a call, the hits' (R, 2) uv expanded over the
+    # slots), bit-equal to the plain fetch on sponza's own atlas and on
+    # one of sponza.frame_1024's size (its 24 maps of 1024^2, 402.7 MB,
+    # here random texels, with sponza's filters and inverts); timed on
+    # the large atlas, one launch a call
+    zero_counters()
+    f_calls = frame_fetch_calls(sponza, bs.sponza_like_camera(1024, 1024),
+                                1024, 1024, spp=4, seed=SEED)
+    if [tuple(c['args'][1].shape) for c in f_calls] != [(2**22, 4)] * 2 or (
+            textures.fetch.launches != 2):
+        raise AssertionError(f"sponza's fetch calls: "
+                             f"{[tuple(c['args'][1].shape) for c in f_calls]}"
+                             f", {textures.fetch.launches} launches, not two"
+                             f" of 2^22 x 4 slots, one launch each")
+    own = f_calls[0]['args'][0]
+    n_maps, side = 24, 1024
+    if own['off'].numel() > n_maps:
+        raise AssertionError(f"sponza_like binds {own['off'].numel()} "
+                             f"textures, more than {n_maps}")
+    pad = n_maps - own['off'].numel()
+    maps = torch.full((n_maps,), side, dtype=torch.int32, device=dev)
+    large = {'data': torch.rand((n_maps * side * side, 4), generator=gen,
+                                device=dev),
+             'off': torch.arange(n_maps, dtype=torch.int32, device=dev)
+             * side * side, 'w': maps, 'h': maps.clone(),
+             'filter': torch.cat([own['filter'], torch.full(
+                 (pad,), textures.FILTER_BILINEAR, dtype=torch.int32,
+                 device=dev)]),
+             'invert': torch.cat([own['invert'], torch.zeros(
+                 pad, dtype=torch.int32, device=dev)])}
+    fetch_res = {'calls': 0, 'slots': 0, 'texel_slots': 0, 'ms': 0.0,
+                 'plain_ms': 0.0, 'bytes': 0, 'atlas_bytes': nbytes(
+                     large['data'])}
+    zero_counters()
+    for atlas, table in (('its own atlas', own), (
+            f"{n_maps} maps of {side}^2", large)):
+        for n, c in enumerate(f_calls):
+            tid, uv = c['args'][1:]
+            launches = textures.fetch.launches
+            got = textures.fetch(table, tid, uv)
+            if textures.fetch.launches != launches + 1:
+                raise AssertionError("F1: a fetch call was not one launch")
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            plain = textures._fetch(table, tid, uv)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            if not torch.equal(got, plain):
+                raise AssertionError(f"F1 on sponza's call {n + 1} over "
+                                     f"{atlas}: not bit-equal to the plain "
+                                     "fetch")
+            del got, plain
+            ms = cuda_ms(lambda: textures.fetch(table, tid, uv), reps=20)
+            moved, texel = fetch_bytes(table, tid)
+            bound_ms = roofline.bound(moved, 0)[0]
+            phase('kernels', f"fetch (sponza 1024^2 frame, bounce {n}, "
+                  f"{atlas}, {nbytes(table['data']) / 1e6:.1f} MB): "
+                  f"{tid.numel()} slots, {texel} with an id >= 0, bit-equal "
+                  f"to the plain fetch; kernel {ms:.3f} ms (median of 20), "
+                  f"plain {plain_ms:.3f} ms; {moved} bytes, bound "
+                  f"{bound_ms:.4f} ms: {bound_ms / ms:.2%} of it; {card}")
+            if table is large:
+                for key, v in (('calls', 1), ('slots', tid.numel()),
+                               ('texel_slots', texel), ('ms', ms),
+                               ('plain_ms', plain_ms), ('bytes', moved)):
+                    fetch_res[key] += v
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    if set(ran) != {'fetch'} or any(f.cuda_calls for f in plains
+                                    if f is not textures._fetch):
+        raise AssertionError(f"sponza's fetch calls launched {ran}, not F1 "
+                             f"alone")
+    results['fetch'] = fetch_res
+    del f_calls, own, large
     # sphere_glass (bench.py bench_tpu_psnr_glass): 4,992 triangles under
     # the ambient dome, at the sphere_glass_512 frame's leaf 32.  K3/K4 on
     # its tables, bit-equal: 256^2 camera rays, the hemisphere rays from
@@ -1529,13 +1640,13 @@ def main():
         # above the reference's VMEM budget, so its 'grid' render takes
         # the sorted BVH there and the grid's kernels here
         ('sponza_64', sponza, bs.sponza_like_camera(64, 64), 2, 4, 'morton',
-         (k3, k4)),
+         (k3, k4, fx)),
         ('sponza_64', sponza, bs.sponza_like_camera(64, 64), 2, 4, 'grid',
-         (k3, k4, k5, k6, k8, k9)),
+         (k3, k4, k5, k6, k8, k9, fx)),
         # glass and Beer media under the ambient dome, depth 8 past the
         # roulette start ('auto' compacts), at the commit's default leaf
         ('sphere_glass_64', bs.sphere_glass().commit(device=dev),
-         bs.sphere_glass_camera(64, 64), 8, 32, 'morton', (k3, k4)),
+         bs.sphere_glass_camera(64, 64), 8, 32, 'morton', (k3, k4, fx)),
     )
     for name, scene, cam, depth, spp, binning, used in goldens:
         zero_counters()
@@ -1618,11 +1729,12 @@ def main():
           f" vs the port's CPU render (gate {PSNR_MIN}), "
           f"{stats.num_rays:.0f} rays, kernel launches {counts}")
     if (not np.isfinite(img).all() or db < PSNR_MIN
-            or set(counts) != {'intersect_packet4', 'occluded_packet4'}
+            or set(counts) != {'intersect_packet4', 'occluded_packet4',
+                               'fetch'}
             or any(f.cuda_calls for f in plains)):
         raise AssertionError(f"sphere_mirror_64: PSNR {db:.2f}, launches "
-                             f"{counts}: not K3/K4 alone, or disagrees with "
-                             "the CPU")
+                             f"{counts}: not K3/K4 and F1 alone, or "
+                             "disagrees with the CPU")
     main_launches = [a + b for a, b in zip(main_launches, ran)]
     # K11's entry points, the reference's bench_incoherent.py 'split'
     # runs: sorted on the 1M bounce-1 rays, unsorted on the camera rays;
@@ -1737,10 +1849,11 @@ def main():
               + (f", commit {commits[name]:.2f} s" if name in commits else '')
               + f" on {card}")
 
-    def timed_modes(name, scene, cam, params, res, spp, desc):
+    def timed_modes(name, scene, cam, params, res, spp, desc, want):
         """A frame past the roulette start with compaction 'off' and
         'auto', 1 warm-up and 3 frames each: frame_s, Mrays/s, peak
-        memory, launches per frame (BVH4's alone), the 'auto' passes'
+        memory, launches per frame (the kernels `want` alone), the 'auto'
+        passes'
         per-bounce widths and live counts, and the two modes' films of
         one seed held bit-equal."""
         films, lives = {}, {}
@@ -1769,9 +1882,9 @@ def main():
                   f"Mrays/frame, peak mem "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
                   f"launches per frame {per_frame} on {card}")
-            if set(per_frame) != {'intersect_packet4', 'occluded_packet4'}:
+            if set(per_frame) != want:
                 raise AssertionError(f"{name} ({how}) ran other kernels "
-                                     f"than BVH4's: {per_frame}")
+                                     f"than {sorted(want)}: {per_frame}")
         starts = [i for i, b in enumerate(lives['auto']) if b['depth'] == 0]
         if lives['off'] or not starts or starts[0] != 0:
             raise AssertionError(f"{name}: compaction 'off' compacted, or "
@@ -1797,13 +1910,15 @@ def main():
     # rays
     timed_modes('stereo_face_1536', colonnade, stereo_face_camera(1536, 1536),
                 pt.PTParams(**STEREO_PARAMS), 1536, 2,
-                "1536^2, 2 spp, depth 10, t_max_shadow_ray 120")
+                "1536^2, 2 spp, depth 10, t_max_shadow_ray 120",
+                {'intersect_packet4', 'occluded_packet4'})
     # sphere_glass at its camera's own size with the golden's spp and
     # depth: the ambient dome's NEE and escaped rays, glass chains past the
     # roulette start; two passes of 2^22 rays
     timed_modes('sphere_glass_512', glass, bs.sphere_glass_camera(512, 512),
                 pt.PTParams(max_depth=8), 512, 32,
-                "512^2, 32 spp, depth 8, leaf 32")
+                "512^2, 32 spp, depth 8, leaf 32",
+                {'intersect_packet4', 'occluded_packet4', 'fetch'})
 
     # ---- 6. the production output path -----------------------------------
     os.makedirs(OUT, exist_ok=True)
@@ -1866,7 +1981,7 @@ def main():
     strip_s = time.perf_counter() - t0
     peaks.append(torch.cuda.max_memory_allocated())
     counts = launched('test_stereo strip', {'intersect_packet4',
-                                            'occluded_packet4'})
+                                            'occluded_packet4', 'fetch'})
     strip_path = os.path.join(OUT, 'test_stereo_view.ppm')
     image.store(strip_path, strip)
     size = max(stereo_st.width, stereo_st.height)
@@ -1881,7 +1996,7 @@ def main():
           f"accel {stereo.accel}): {strip_s:.3f} s for 12 faces, "
           f"{cam_rays} camera rays ({cam_rays / strip_s / 1e6:.2f} M/s), "
           f"{rays / 1e6:.1f} Mrays ({rays / strip_s / 1e6:.2f} Mrays/s); "
-          f"K3/K4 launches {counts}; written to {strip_path} on {card}")
+          f"launches {counts}; written to {strip_path} on {card}")
     for i, (st, peak) in enumerate(zip(fstats, peaks)):
         phase('output', f"test_stereo face {i} ({stereo_strip.FACE_NAMES[i % 6]}"
               f", {'left' if i < 6 else 'right'} eye): {st.seconds:.3f} s, "
@@ -1896,7 +2011,7 @@ def main():
     small = (dataclasses.replace(stereo_st, width=32, height=32, spp=4,
                                  watermark=True),
              stereo_sb, stereo_rig, 'view',
-             {'intersect_packet4', 'occluded_packet4'})
+             {'intersect_packet4', 'occluded_packet4', 'fetch'})
     room_st, room_sb, room_rigs = session.collada_job(
         os.path.join(SCENES, 'test_room.dae'), session.ParamsRT(size=64,
                                                                 spp=4))
@@ -2196,7 +2311,7 @@ def main():
                 sb.commit(device=device), orbit, pt.PTParams(max_depth=3),
                 32, 32, spp=2, seed=seed)
             if device == dev:
-                counts = launched(f'random scene {seed}', k12)
+                counts = launched(f'random scene {seed}', k12 | {'fetch'})
             imgs.append(accum.resolve(film).cpu().numpy())
         db, tdb = psnr(*imgs), trimmed_psnr(*imgs)
         if db < 60.0 and tdb < 60.0:
@@ -2276,6 +2391,24 @@ def main():
     summary = []
     for (f, _, src, replaces, pair_flops), n in zip(kernels, main_launches):
         res = results[f.__name__]
+        if f is textures.fetch:
+            bound_ms = roofline.bound(res['bytes'], 0)[0]
+            phase('bounds', f"fetch on {res['calls']} calls of sponza's "
+                  f"{res['slots']} slots, {res['texel_slots']} with an id "
+                  f">= 0, over {res['atlas_bytes'] / 1e6:.1f} MB of texels: "
+                  f"{res['bytes']} bytes; bound {bound_ms:.4f} ms by bytes, "
+                  f"kernel {res['ms']:.3f} ms: {bound_ms / res['ms']:.2%} of "
+                  f"the bound's rate; the plain fetch {res['plain_ms']:.3f} "
+                  f"ms")
+            summary.append({
+                'name': f.__name__, 'route': 'cuda',
+                'source': 'yulio_raytracer_tpu_torch/csrc/' + src,
+                'replaces': replaces, 'launches': n, 'max_abs_err': 0.0,
+                'ms': res['ms'], 'plain_ms': res['plain_ms'],
+                'bound_ms': bound_ms, 'bound_by': 'bytes',
+                'library_ms': None, 'slots': res['slots'],
+                'texel_slots': res['texel_slots'], 'bytes': res['bytes']})
+            continue
         flops = (res['pair'] * pair_flops + res['box'] * SLAB_FLOPS
                  + res['stage2'] * dense.INSIDE_FLOPS
                  + res['stage3'] * dense.CULL_FLOPS)

@@ -10,7 +10,8 @@ kernel K7's closest and any-hit forms also on the motion field's entry
 sets, leaves of 33-64 rows, dead lanes, 65,537 rays and a frame's own
 calls), the cornell, stereo, motion, grid, treelet and dense colonnade
 goldens rendered through them, the StereoCube rays against the port's
-CPU rays, compaction 'auto' against 'off' on the colonnade, and the
+CPU rays, compaction 'auto' against 'off' on the colonnade, the fetch
+kernel against the plain fetch on the card, and the
 shading layer (the texture fetch, the shade context and the materials
 probe of every preset), a scene of an HDRI light alone and test_room.dae's
 12 stereo faces against the port's CPU results; the precomputed sampler,
@@ -27,6 +28,8 @@ tests/conftest.py, which configures jax, cannot load):
 import json
 import os
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1217,6 +1220,109 @@ def test_texture_fetch_and_shade_context_on_card_match_cpu(cuda):
         else:
             np.testing.assert_allclose(g.numpy(), v.numpy(), rtol=0,
                                        atol=1e-6, err_msg=k)
+
+
+def _fetch_case(case, dev):
+    """(atlas, tid, uv) of one fetch case on dev: ids with -1 and -5, both
+    filters and an inverted map; uvs outside [0, 1) and on texel edges."""
+    rs = np.random.RandomState(31)
+    b = tex.TextureTableBuilder()
+    if case == 'large_atlas':
+        # 4 maps of 1024^2, 67 MB: larger than the 50 MB L2
+        for k in range(4):
+            b.add(rs.rand(1024, 1024, 4).astype(np.float32),
+                  filter=(tex.FILTER_NEAREST if k == 3
+                          else tex.FILTER_BILINEAR), invert=k == 2)
+    else:
+        b.add(rs.rand(9, 13, 4).astype(np.float32))
+        b.add(rs.rand(6, 5, 3).astype(np.float32), invert=True)
+        b.add(rs.rand(7, 3).astype(np.float32), filter=tex.FILTER_NEAREST)
+        b.add(rs.rand(4, 6, 4).astype(np.float32), filter=tex.FILTER_NEAREST,
+              invert=True)
+        # 1 texel wide, 1 texel high, one texel: the max(W-2, 0) clamp
+        b.add(rs.rand(5, 1, 4).astype(np.float32))
+        b.add(rs.rand(1, 5, 4).astype(np.float32))
+        b.add(rs.rand(1, 1, 4).astype(np.float32))
+        b.add(rs.rand(1, 4, 4).astype(np.float32), filter=tex.FILTER_NEAREST)
+    atlas = b.build()
+    n_tex = len(atlas['off'])
+    r = {'slots': 4096, 'bump': 4096, 'edges': 4096, 'thin': 4096,
+         'empty_slots': 0, 'empty_bump': 0, 'large_atlas': 65_536}[case]
+    shape = (r, 4) if case in ('slots', 'empty_slots', 'large_atlas') else (r,)
+    tid = rs.randint(-1, n_tex, shape)
+    tid[rs.rand(*shape) < 0.05] = -5
+    if case == 'thin':
+        tid = np.where(tid >= 0, 4 + tid % 4, tid)
+    uv = rs.uniform(-1.5, 2.5, (r, 2)).astype(np.float32)
+    if case in ('edges', 'thin'):
+        # texel edges and centres of every size in the atlas, whole
+        # numbers, and a hair below 0 (s rounds to 1)
+        size = np.stack([atlas['w'], atlas['h']])[:, np.maximum(tid, 0)]
+        j = rs.randint(-2 * size, 3 * size + 1)
+        uv = ((j + 0.5 * rs.randint(0, 2, (2, r))) / size).T
+        uv = uv.astype(np.float32)
+        uv[::7] = np.round(uv[::7])
+        uv[3::11] = -1e-9
+    t_atlas = {k: torch.as_tensor(v).to(dev) for k, v in atlas.items()}
+    t_uv = torch.as_tensor(uv).to(dev)
+    if len(shape) == 2:
+        t_uv = t_uv[:, None, :].expand(r, 4, 2)
+    return t_atlas, torch.as_tensor(tid).to(dev), t_uv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['slots', 'bump', 'edges', 'thin',
+                                  'empty_slots', 'empty_bump', 'large_atlas'])
+def test_fetch_kernel_matches_plain_on_card(cuda, case):
+    """The fetch kernel against the plain fetch run on the same card, bit
+    for bit: both filters, invert, ids < 0, uvs outside [0, 1) and on
+    texel edges, maps 1 texel wide or high, the (R, 4) slots over an
+    expanded (R, 2) uv and the (R,) bump shape, empty inputs and an atlas
+    larger than L2.  Each non-empty call is one launch; an empty one
+    launches nothing."""
+    atlas, tid, uv = _fetch_case(case, cuda)
+    before = tex.fetch.launches
+    got = tex.fetch(atlas, tid, uv)
+    ref = tex._fetch(atlas, tid, uv)
+    torch.cuda.synchronize()
+    assert tex.fetch.launches - before == (1 if tid.numel() else 0)
+    assert got.shape == ref.shape == tid.shape + (4,)
+    assert got.dtype == ref.dtype == torch.float32
+    assert torch.equal(got, ref)
+    if tid.numel():
+        assert bool((got[tid < 0] == 1.0).all())
+        assert bool((tid >= 0).any()) and bool((tid < 0).any())
+
+
+@pytest.mark.cuda
+def test_fetch_kernel_stops_on_an_id_past_the_table(cuda):
+    """An id past the texture table stops the fetch kernel with a device
+    error, as it stops the plain fetch's gather, where it would read
+    outside the table.  In a process of its own: the error leaves that
+    process's CUDA context unusable."""
+    code = ("import torch\n"
+            "from yulio_raytracer_tpu_torch.shading import textures as t\n"
+            "b = t.TextureTableBuilder()\n"
+            "b.add(torch.rand(4, 4, 4).numpy())\n"
+            "a = {k: torch.as_tensor(v).cuda() for k, v in b.build().items()}"
+            "\n"
+            "ok = t.fetch(a, torch.tensor([0, -1], device='cuda'),\n"
+            "             torch.zeros(2, 2, device='cuda'))\n"
+            "torch.cuda.synchronize()\n"
+            "try:\n"
+            "    t.fetch(a, torch.tensor([0, 1], device='cuda'),\n"
+            "            torch.zeros(2, 2, device='cuda'))\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError as e:\n"
+            "    print('stopped', t.fetch.launches, flush=True)\n"
+            "else:\n"
+            "    print('ran', flush=True)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    out = subprocess.run([sys.executable, '-c', code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.stdout.strip() == 'stopped 2', (out.stdout, out.stderr[-2000:])
 
 
 @pytest.mark.cuda

@@ -4,18 +4,23 @@ frame with its parents and frame serials, under `trace` and
 keeps nothing; the spans as torch.profiler ranges with the tracer off;
 films bit-equal with the tracer on and off; the bounce counts against
 FrameStats.num_rays; a two-thread mesh frame, one tree a thread;
-bounce_stats read from the bounce records; and profile_frame's readings
-of a trace (idle_by_span, span_summary) on synthetic events."""
+bounce_stats read from the bounce records; the texture fetch's slot
+counts, made only under the tracer; and profile_frame's readings of a
+trace (idle_by_span, span_summary) on synthetic events."""
+import os
+import subprocess
+import sys
 from types import SimpleNamespace as NS
 
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from yulio_raytracer_tpu_torch import profile_frame, renderer
+from yulio_raytracer_tpu_torch import profile_frame, raysets, renderer
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.parallel import sharding
+from yulio_raytracer_tpu_torch.shading import textures as tex
 from yulio_raytracer_tpu_torch.utils import profiling as prof
 
 torch.set_num_threads(2)
@@ -254,6 +259,167 @@ def test_tracing_is_one_block_at_a_time():
     assert t.spans() == [f, s] and s.parent is f and s.frame == f.frame == 0
     assert s.attrs == {'n': 3}
     assert prof._tracer is None and prof.span(prof.SYNC) is prof.OFF
+
+
+def _atlas_and_slots(n=64):
+    """A two-map atlas and (n, 4) ids (some < 0) with an (n, 2) uv."""
+    b = tex.TextureTableBuilder()
+    b.add(torch.rand(4, 5, 3, generator=torch.Generator().manual_seed(1))
+          .numpy())
+    b.add(torch.rand(3, 3, generator=torch.Generator().manual_seed(2))
+          .numpy(), filter=tex.FILTER_NEAREST)
+    atlas = {k: torch.as_tensor(v) for k, v in b.build().items()}
+    g = torch.Generator().manual_seed(3)
+    tid = torch.randint(-1, 2, (n, 4), generator=g)
+    uv = torch.rand((n, 2), generator=g) * 3 - 1
+    return atlas, tid, uv[:, None, :].expand(n, 4, 2)
+
+
+class _Ops(TorchDispatchMode):
+    """The aten ops run inside the block, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_fetch_counts_slots_under_the_tracer():
+    """Under the tracer a fetch's span counts its slots (a host int) and
+    those with an id >= 0 (a tensor until the frame's settle reads it);
+    the result is the fetch's without the tracer."""
+    atlas, tid, uv = _atlas_and_slots()
+    off = tex.fetch(atlas, tid, uv)
+    with prof.tracing() as t:
+        with prof.span(prof.FRAME, width=8):
+            on = tex.fetch(atlas, tid, uv)
+            rec = [s for s in t.spans() if s.name == prof.FETCH][0]
+            assert rec.attrs['slots'] == tid.numel() == 256
+            assert isinstance(rec.attrs['texel_slots'], torch.Tensor)
+            prof.settle(torch.tensor(1.0))
+        assert rec.attrs['texel_slots'] == int((tid >= 0).sum())
+        assert type(rec.attrs['texel_slots']) is int
+        # a fetch outside any frame: read when the block ends
+        tex.fetch(atlas, tid[:5, 0], uv[:5, 0])
+    bump = [s for s in t.spans() if s.name == prof.FETCH][1]
+    assert bump.attrs == {'slots': 5, 'texel_slots': int((tid[:5, 0]
+                                                          >= 0).sum())}
+    assert torch.equal(off, on)
+
+
+def test_fetch_counts_no_slots_off_the_tracer():
+    """With the tracer off, and under a bare profiler, a fetch makes no
+    count: none of the tracer's ops (ge, sum) runs and its span keeps
+    no attribute; under the tracer they run."""
+    atlas, tid, uv = _atlas_and_slots()
+    launches = tex.fetch.launches
+    for how in ('off', 'profiler', 'tracer'):
+        ops = _Ops()
+        if how == 'profiler':
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU]) as p:
+                with ops:
+                    tex.fetch(atlas, tid, uv)
+            assert [e for e in p.events() if e.name == prof.FETCH]
+        elif how == 'tracer':
+            with prof.tracing() as t:
+                with ops:
+                    tex.fetch(atlas, tid, uv)
+            assert set(t.spans()[0].attrs) == {'slots', 'texel_slots'}
+        else:
+            with ops:
+                tex.fetch(atlas, tid, uv)
+        counted = {'ge', 'sum'} & set(ops.names)
+        assert counted == ({'ge', 'sum'} if how == 'tracer' else set()), how
+    assert tex.fetch.launches == launches
+
+
+def test_textured_frame_counts_its_fetches(textured):
+    """A textured frame under the tracer: every fetch span carries its
+    slots (4 a hit for the lobes' maps) and the slots that bind a map,
+    numbers once the frame has ended, no more than its slots."""
+    with prof.tracing() as t:
+        _frame(textured, bs.sponza_like_camera, 'on')
+    fetches = [s for s in t.spans() if s.name == prof.FETCH]
+    assert fetches
+    for s in fetches:
+        assert s.attrs['slots'] % 4 == 0
+        assert type(s.attrs['texel_slots']) is int
+        assert 0 < s.attrs['texel_slots'] <= s.attrs['slots']
+
+
+def test_textures_import_without_cuda():
+    """textures.py imports, and fetches on the CPU, where no card is
+    visible, building and loading no library."""
+    code = ("import torch\n"
+            "from yulio_raytracer_tpu_torch.ops import cuda_build as cb\n"
+            "from yulio_raytracer_tpu_torch.shading import textures as t\n"
+            "b = t.TextureTableBuilder()\n"
+            "a = {k: torch.as_tensor(v) for k, v in b.build().items()}\n"
+            "c = t.fetch(a, torch.tensor([0, -1]), torch.zeros(2, 2))\n"
+            "assert torch.equal(c, torch.ones(2, 4)), c\n"
+            "assert not torch.cuda.is_available()\n"
+            "assert t.fetch.launches == 0 and cb._LIBS == {}\n"
+            "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='',
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get('PYTHONPATH')] if p]))
+    out = subprocess.run([sys.executable, '-c', code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == 'ok', out.stderr
+
+
+def test_fetch_op_is_declared_for_cuda_alone():
+    """The fetch's operator (yrt::texture_fetch) is declared at import,
+    writing its `out` alone, with a CUDA kernel only: CPU tensors reach
+    no launch and no count.  A second copy of the package declares one of
+    its own."""
+    args = tex._op.default._schema.arguments
+    assert str(tex._op).startswith('yrt.texture_fetch')
+    assert args[-1].name == 'out' and args[-1].alias_info.is_write
+    assert not any(a.alias_info for a in args[:-1])
+    launches = tex.fetch.launches
+    with pytest.raises(NotImplementedError):
+        tex._op(*[torch.zeros(1)] * 9)
+    assert tex.fetch.launches == launches
+    code = ("import importlib.util, os, sys\n"
+            "import yulio_raytracer_tpu_torch.shading.textures as a\n"
+            "pkg = os.path.dirname(os.path.dirname(a.__file__))\n"
+            "spec = importlib.util.spec_from_file_location('_other_yrt', "
+            "os.path.join(pkg, '__init__.py'), "
+            "submodule_search_locations=[pkg])\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "sys.modules['_other_yrt'] = m\n"
+            "spec.loader.exec_module(m)\n"
+            "b = importlib.import_module('_other_yrt.shading.textures')\n"
+            "print(a._op, b._op)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, '-c', code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    first, second = out.stdout.split()
+    assert first == 'yrt.texture_fetch' and second == 'yrt.texture_fetch_'
+
+
+
+def test_frame_fetch_calls_record_each_bounce(textured):
+    """raysets.frame_fetch_calls: one call a bounce, over the (R, 4) lobe
+    slots with the hits' (R, 2) uv expanded, not copied; each call's
+    result is the fetch's on its arguments, and the fetch is put back."""
+    fetch = tex.fetch
+    calls = raysets.frame_fetch_calls(textured, bs.sponza_like_camera(16, 16),
+                                      16, 16, spp=1, seed=5)
+    assert tex.fetch is fetch and len(calls) == 2
+    for c in calls:
+        table, tid, uv = c['args']
+        assert c['kernel'] == 'fetch' and tid.dim() == 2
+        assert tid.shape[1] == 4 and bool((tid >= 0).any())
+        assert uv.shape == tid.shape + (2,) and uv.stride(1) == 0
+        assert torch.equal(c['out'], tex.fetch(table, tid, uv))
 
 
 def test_idle_by_span_on_synthetic_events():

@@ -2,8 +2,9 @@
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
 roots, the dense kernels' entry sets, the sweep prototype's rows and
-rays on a scene, and the dense, pair, binary and motion kernels' own
-calls in a frame; and a committed scene's tree as 8-wide rows.
+rays on a scene, and the dense, pair, binary and motion kernels' and
+the texture fetch's own calls in a frame; and a committed scene's tree
+as 8-wide rows.
 `chip_smoke.py`, `wide_turns`, `wide_ab`, `pairs_turns`, `binary_turns`,
 `dense_turns` and `sweep_turns` make them with these functions.
 """
@@ -23,6 +24,7 @@ from .ops import intersect as ops_i
 from .ops import dense, pairs, traverse, treelets, wide
 from .sampling import patterns
 from .sampling import shapesampler as ss
+from .shading import textures
 
 
 def camera_rays(scene, cam, width, height, dev, seed):
@@ -213,6 +215,13 @@ def recorded_dense_calls():
     return _recorded(dense, ('intersect_dense', 'occluded_dense'), 5)
 
 
+def recorded_fetch_calls():
+    """Record every call of the texture fetch (shading/textures.py
+    fetch, the fetch kernel on the card) made inside the block, as
+    _recorded does; 'args' is (table, tid, uv)."""
+    return _recorded(textures, ('fetch',), 3)
+
+
 def _bounce_one(scene, camera, binning, width, height, spp, seed):
     """Render a frame of max_depth 2 with ray_binning `binning`: bounce 0
     and bounce 1 over a pass of width * height * spp rays (up to the
@@ -268,6 +277,18 @@ def frame_dense_calls(scene, camera, width, height, spp=1, seed=42):
     list."""
     return _frame_calls(scene, 'dense', recorded_dense_calls, camera, width,
                         height, spp, seed)
+
+
+def frame_fetch_calls(scene, camera, width, height, spp=1, seed=42):
+    """The texture fetch's calls in bounces 0 and 1 of a textured scene
+    (ray_binning 'morton'), one a bounce and one more where a material
+    binds a bump map: tid (R, 4), the lobe slots' texture ids of the
+    bounce's R hits, with uv their (R, 2) coordinates expanded over the
+    slots (a bump map's call: tid and uv of R).  Returns
+    recorded_fetch_calls' list."""
+    with recorded_fetch_calls() as calls:
+        _bounce_one(scene, camera, 'morton', width, height, spp, seed)
+    return calls
 
 
 def _frame_calls(scene, accel, recorder, camera, width, height, spp, seed):

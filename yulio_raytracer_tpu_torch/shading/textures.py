@@ -10,14 +10,21 @@ reference's semantics:
   (the rightmost texel column is reached only as the +1 neighbour);
 * nearest (nearestneighbor.h): floor(s*W) clamped to [0, W-1];
 * then `invert`, and a texture id < 0 reads opaque white.
+
+On a CUDA tensor `fetch` launches the kernel of csrc/texture.cu, one
+thread a slot, which reads only the texels its slot's own filter needs
+(none where the id is < 0); on a CPU tensor it runs `_fetch`, the plain
+version, whose arithmetic the kernel repeats op for op (bit-equal).
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..ops import cuda_build as cb
 from ..utils import profiling
 
 FILTER_NEAREST = 0
@@ -84,14 +91,82 @@ class TextureTableBuilder:
 SPAN_FETCH = profiling.FETCH
 
 
+_V, _L = ctypes.c_void_p, ctypes.c_longlong
+_SIGNATURES = {'yrt_texture_fetch': [_V] * 8 + [_L] * 6 + [_V]}
+
+
 def fetch(table: dict, tid, uv):
     """Gathered texel fetch.  tid: (...,) int texture ids (< 0: white);
-    uv: (..., 2).  Returns (..., 4) RGBA."""
-    with profiling.span(SPAN_FETCH):
-        return _fetch(table, tid, uv)
+    uv: (..., 2), broadcast over tid's shape.  Returns (..., 4) RGBA.
+    Under profiling.tracing() the span counts the slots fetched
+    (`slots`) and those with an id >= 0 (`texel_slots`)."""
+    with profiling.span(SPAN_FETCH) as rec:
+        if profiling.tracer_on():
+            rec.set(slots=tid.numel(), texel_slots=torch.sum(tid >= 0))
+        if tid.device.type == 'cpu':
+            return _fetch(table, tid, uv)
+        return _fetch_kernel(table, tid, uv)
+
+
+def _fetch_kernel(table, tid, uv):
+    """The fetch on the card: csrc/texture.cu over tid's slots, uv read
+    through its strides (an expanded view is not copied).  Every id must
+    be < the number of textures: the kernel traps on one past the table,
+    as the plain version's gather fails on it."""
+    dev, shape = tid.device, tid.shape
+    out = torch.empty(shape + (4,), dtype=torch.float32, device=dev)
+    n = tid.numel()
+    if n == 0:
+        return out
+    if uv.dtype != torch.float32 or uv.device != dev:
+        raise ValueError(f"uv: expected float32 on {dev}, got {uv.dtype} "
+                         f"on {uv.device}")
+    k = shape[-1] if shape else 1
+    uv = uv.expand(shape + (2,)).reshape(-1, k, 2)
+    rows = [cb.table_arg('data', table['data'], 4, dev)]
+    for name in ('off', 'w', 'h', 'filter', 'invert'):
+        x = table[name]
+        if (x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous()
+                or x.device != dev):
+            raise ValueError(f"{name}: expected a contiguous int32 (T,) "
+                             f"tensor on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        rows.append(x)
+    _op(*rows, tid.to(torch.int64).contiguous(), uv, out)
+    return out
+
+
+def _launch(data, off, w, h, filt, inv, tid, uv, out):
+    """The operator _op on CUDA tensors: the kernel over tid's slots,
+    uv (R, k, 2) read through its strides; counted in fetch.launches."""
+    cb.launch(cb.library('texture', _SIGNATURES).yrt_texture_fetch,
+              'fetch', out.device, data, off, w, h, filt, inv, tid, uv,
+              off.numel(), tid.numel(), uv.shape[1], *uv.stride(), out)
+    cb.bump(fetch)
+
+
+# The launch as a torch operator, so that a profiler links the kernel to
+# it, and through it to the span open around the fetch (a kernel launched
+# straight from a profiler range is linked to nothing).  Declared with
+# torch.library.Library, not custom_op: custom_op's first call imports
+# some 800 modules, seconds of a run's set-up.  A second copy of the
+# package in the process (the *_turns scripts import another checkout's)
+# declares an operator of its own, so that each runs its own kernel.
+_LIB = torch.library.Library('yrt', 'FRAGMENT')
+_OP_NAME = 'texture_fetch'
+while hasattr(torch.ops.yrt, _OP_NAME):
+    _OP_NAME += '_'
+_LIB.define(_OP_NAME + '(Tensor data, Tensor off, Tensor w, Tensor h, '
+            'Tensor filter, Tensor invert, Tensor tid, Tensor uv, '
+            'Tensor(a!) out) -> ()')
+_LIB.impl(_OP_NAME, _launch, 'CUDA')
+_op = getattr(torch.ops.yrt, _OP_NAME)
 
 
 def _fetch(table, tid, uv):
+    """The plain fetch: torch ops over every slot, both filters' taps."""
+    if tid.is_cuda:
+        _fetch.cuda_calls += 1
     safe_tid = torch.clamp(tid, min=0).long()
     off = table['off'][safe_tid].long()
     w = table['w'][safe_tid].long()
@@ -132,3 +207,9 @@ def _fetch(table, tid, uv):
     c = torch.where((filt == FILTER_BILINEAR)[..., None], c_bi, c_nn)
     c = torch.where((inv != 0)[..., None], 1.0 - c, c)
     return torch.where((tid < 0)[..., None], 1.0, c)
+
+
+# launch counts: the fetch kernel launched, and the plain fetch run on CUDA
+# tensors
+fetch.launches = 0
+_fetch.cuda_calls = 0

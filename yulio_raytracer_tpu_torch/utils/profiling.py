@@ -211,6 +211,12 @@ def span(name: str, **attrs):
     return Span(name, **attrs)
 
 
+def tracer_on() -> bool:
+    """Whether a tracing() block is open: counts that cost a launch are
+    made only then, never under a bare profiler."""
+    return _tracer is not None
+
+
 @contextlib.contextmanager
 def tracing():
     """Turn the port's tracer on for the block; yields the Tracer, whose
