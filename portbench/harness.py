@@ -16,6 +16,8 @@ and frames.  Two modes of traffic:
                95th percentile of every refinement's latency
 A cell reports the end-to-end metrics of BENCHMARK.json whose workloads
 hold it (setup_s in every one).
+The configuration names its generator and, where its scene needs them,
+its own plain reference and adapter to the program (parts, spec.py).
 The window runs at least the traffic's min_frames (default 1) frames
 or refinements; with --trace 1 its trace_frames more follow it under
 torch.profiler (after a profiler the host runs slower a while, so the
@@ -29,9 +31,12 @@ import time
 import numpy as np
 import torch
 
-from . import check, port, reference, scenes, spec, tracing
+from . import check, scenes, spec, tracing
 
 SETUP_T0 = time.perf_counter()
+# the keys of a scene description that port.py and reference/ read
+DEFAULT_KEYS = frozenset({'meshes', 'materials', 'textures', 'quad_lights',
+                          'ambient'})
 
 
 def _sync(device):
@@ -53,6 +58,35 @@ def load(workload: str, overrides=None) -> dict:
     return {'config': _merge(spec.config(c['config']), ov.get('config')),
             'traffic': _merge(spec.traffic(c['traffic']), ov.get('traffic')),
             'limits': _merge(c['limits'], ov.get('limits'))}
+
+
+def parts(cfg: dict):
+    """(generator, description, reference, adapter) of a configuration,
+    each found by name: its scene drawn from its scene_seed, its plain
+    reference and its adapter to the program.  A description with a key
+    beyond DEFAULT_KEYS raises unless the configuration names both a
+    reference and an adapter of its own, which the defaults would
+    ignore and so render another scene."""
+    gen = scenes.generator(cfg['generator'])
+    desc = gen.generate(cfg['scene_seed'], **cfg.get('generator_params', {}))
+    extra = sorted(set(desc) - DEFAULT_KEYS)
+    if extra and not ('port' in cfg and 'reference' in cfg):
+        raise ValueError(
+            f"generator {cfg['generator']!r} describes {extra}, which "
+            "port.py and reference/ do not read: the configuration names "
+            "a \"port\" and a \"reference\" of its own")
+    return (gen, desc, spec.reference(cfg.get('reference')),
+            spec.port(cfg.get('port')))
+
+
+def reference_traffic(cfg: dict, traffic: dict) -> dict:
+    """The traffic as the plain reference reads it: with the
+    configuration's shadow cap, and for a reference of the
+    configuration's own the whole configuration under 'config'."""
+    tr = dict(traffic, t_max_shadow_ray=cfg.get('t_max_shadow_ray'))
+    if 'reference' in cfg:
+        tr['config'] = cfg
+    return tr
 
 
 def draws(seed: int, tr: dict, npix: int) -> dict:
@@ -83,8 +117,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     cfg, tr = cs['config'], cs['traffic']
     w, h = tr['width'], tr['height']
     d = draws(seed, tr, w * h)
-    desc = scenes.GENERATORS[cfg['generator']](
-        cfg['scene_seed'], **cfg.get('generator_params', {}))
+    gen, desc, ref, port = parts(cfg)
     cam_spec = cfg['cameras'][tr['camera']]
     scene = port.commit(desc, device, cfg['leaf_size'])
     cam = port.camera(cam_spec, w, h)
@@ -158,7 +191,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     if torch.device(device).type == 'cuda':
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers = compare(cs, d, desc, cam_spec, n, program, device, control)
+    numbers = compare(cs, d, desc, cam_spec, n, program, device, control,
+                      ref)
     check_s = time.perf_counter() - t_check
     correct, shown = check.verdict(numbers, cs['limits'])
 
@@ -176,7 +210,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     else:
         red = tracing.reduce(prof, set(port.span_names().values()))
         ctx = dict(red, mode=tr['mode'], frames=n_traced, wall_s=traced_wall,
-                   num_rays=rays[1], num_triangles=scenes.num_triangles(desc),
+                   num_rays=rays[1], num_triangles=gen.num_triangles(desc),
                    window_frames=n_window, window_rays=rays[0],
                    window_wall_s=window, present_s=pres,
                    spans=port.span_names())
@@ -191,13 +225,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     return out
 
 
-def compare(cs, d, desc, cam_spec, n, program, device, control) -> dict:
+def compare(cs, d, desc, cam_spec, n, program, device, control,
+            reference) -> dict:
     """The reference at the checked pixels of the checked frames (or of
     every refinement), and the numbers against what the program made.
     control=True replaces the program's answers by the reference's own
     in bfloat16."""
-    tr = dict(cs['traffic'],
-              t_max_shadow_ray=cs['config'].get('t_max_shadow_ray'))
+    tr = reference_traffic(cs['config'], cs['traffic'])
     prep = reference.prepare(desc, device)
     low = reference.prepare(desc, device, torch.bfloat16) if control else None
     if tr['mode'] == 'progressive':

@@ -9,13 +9,25 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import harness, port, reference, scenes, spec
+from portbench import harness, port, spec
 from portbench.reference import render as rr
 from portbench.tests import tiny
 
-CELLS = ('sponza.frame_1024', 'colonnade.stereo_face_1536',
-         'colonnade.progressive_1024')
+CELLS = spec.names('cells')
 SEED = 2 ** 31 + 777
+# what each cell compared at the tiny overrides and SEED on the CPU
+# before the generator, reference and adapter were found by name
+PINNED = {
+    'sponza.frame_1024': {'rel_median': 8.548490828991222e-07,
+                          'rel_l1': 4.672662174932036e-06,
+                          'off_share': 0.0},
+    'colonnade.stereo_face_1536': {'rel_median': 0.0,
+                                   'rel_l1': 9.596173201607372e-09,
+                                   'off_share': 0.0},
+    'colonnade.progressive_1024': {'u8_off_share': 0.0,
+                                   'film_rel_median': 0.0,
+                                   'film_rel_l1': 1.0771224465242878e-09},
+}
 
 
 @pytest.mark.parametrize('camera', ['view', 'stereo_face_1'])
@@ -29,22 +41,37 @@ def test_camera_rays_match_the_port(camera):
     assert torch.allclose(d, rd, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize('gen,cam,depth', [
-    ('colonnade', 'view', 4), ('colonnade', 'stereo_face_1', 8),
-    ('sponza_like', 'view', 4)])
-def test_reference_matches_the_ports_plain_path(gen, cam, depth):
-    """Every pixel of a small frame of a reduced scene: the paths agree
-    to rounding, save the few that part at an edge."""
-    cfg = spec.config('sponza' if gen == 'sponza_like' else 'colonnade')
-    desc = scenes.GENERATORS[gen](SEED, **dict(cfg['generator_params'],
-                                               **tiny.SCENES[gen]))
+def _views():
+    """(configuration, camera, depth up to 8, pixel filter) of every
+    cell."""
+    out = set()
+    for name in CELLS:
+        c = spec.cell(name)
+        tr = spec.traffic(c['traffic'])
+        out.add((c['config'], tr['camera'], min(tr['max_depth'], 8),
+                 tr['pixel_filter']))
+    return sorted(out)
+
+
+@pytest.mark.parametrize('config,cam,depth,pixel_filter', _views())
+def test_reference_matches_the_ports_plain_path(config, cam, depth,
+                                                pixel_filter):
+    """Every pixel of a small frame of a reduced scene, drawn by the
+    configuration's own generator and rendered by its own adapter and
+    reference: the paths agree to rounding, save the few that part at
+    an edge."""
+    cfg = spec.config(config)
+    cfg['generator_params'] = dict(cfg['generator_params'],
+                                   **tiny.scene_params(cfg['generator']))
+    cfg['scene_seed'] = SEED
+    _, desc, reference, adapter = harness.parts(cfg)
     cam_spec = cfg['cameras'][cam]
-    tr = {'width': 16, 'height': 16, 'spp': 2, 'max_depth': depth,
-          'pixel_filter': 'box', 'compaction': 'auto',
-          't_max_shadow_ray': cfg['t_max_shadow_ray']}
-    sc = port.commit(desc, 'cpu', 32)
-    film, _ = port.render(sc, port.camera(cam_spec, 16, 16),
-                          port.params(cfg, tr), tr, 12345)
+    tr = harness.reference_traffic(cfg, {
+        'width': 16, 'height': 16, 'spp': 2, 'max_depth': depth,
+        'pixel_filter': pixel_filter, 'compaction': 'auto'})
+    sc = adapter.commit(desc, 'cpu', 32)
+    film, _ = adapter.render(sc, adapter.camera(cam_spec, 16, 16),
+                             adapter.params(cfg, tr), tr, 12345)
     prep = reference.prepare(desc, 'cpu')
     ref = reference.pixels(prep, tr, cam_spec,
                            torch.full((256,), 12345, dtype=torch.int64),
@@ -69,6 +96,15 @@ def test_the_program_passes_and_the_control_fails(cell):
     assert list(ok) [-1] == 'compared'
     bad = _run(cell, control=True)
     assert not bad['correct'], bad['compared']
+
+
+@pytest.mark.parametrize('cell', sorted(PINNED))
+def test_the_lookups_by_name_move_no_number(cell):
+    """The cells that were there before the lookups by name compare
+    exactly what they compared without them."""
+    out = _run(cell)
+    assert {k: v['value'] for k, v in out['compared'].items()} == \
+        PINNED[cell]
 
 
 def _unchanged(render):

@@ -1,6 +1,7 @@
 """The benchmark's files: every one loads, agrees with BENCHMARK.json
-and keeps the contract's rules; a cell, configuration or metric is
-added by adding files; the scenes' sizes; no JAX anywhere."""
+and keeps the contract's rules; a cell, configuration, metric,
+generator, reference or adapter is added by adding files; the scenes'
+sizes; no JAX anywhere."""
 from __future__ import annotations
 
 import ast
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from portbench import harness, run, scenes, spec
+from portbench.tests import tiny
 
 KEYS = {'command', 'paths', 'run_seconds', 'configs', 'workloads',
         'end_to_end', 'per_layer'}
@@ -264,26 +266,173 @@ def test_an_added_cell_reports_existing_metrics(tmp_path, monkeypatch):
     assert sorted(os.listdir(pb / 'metrics')) == before
 
 
-def _top_imports(path):
+TINTED_SCENE = '''"""The colonnade with a tint of each material: a key of the
+description that port.py and reference/ do not read."""
+from portbench.scenes.procedural import colonnade
+
+TINY = {'cols_x': 2, 'cols_z': 1, 'clutter': 2, 'tess': [6, 8]}
+
+
+def generate(seed, tint=(1.0, 1.0, 1.0), **params):
+    desc = colonnade(seed, **params)
+    desc['tint'] = [tuple(tint) for _ in desc['materials']]
+    return desc
+'''
+TINTED_REFERENCE = '''"""The plain reference of the tinted colonnade."""
+import torch
+
+from portbench import reference as plain
+
+from . import tint
+
+
+def prepare(desc, device, dtype=torch.float32):
+    return plain.prepare(tint.applied(desc), device, dtype)
+
+
+pixels = plain.pixels
+'''
+TINT = '''"""A description's tints multiplied into its materials."""
+
+
+def applied(desc):
+    mats = [dict(m, reflectance=tuple(r * t for r, t in zip(
+        m['reflectance'], tint))) for m, tint in zip(desc['materials'],
+                                                    desc['tint'])]
+    return dict({k: v for k, v in desc.items() if k != 'tint'},
+                materials=mats)
+'''
+TINTED_PORT = '''"""The tinted colonnade staged in the port: the tints taken into the
+materials, the rest as port.py stages it."""
+from portbench import port
+
+
+def commit(desc, device, leaf_size):
+    mats = [dict(m, reflectance=tuple(r * t for r, t in zip(
+        m['reflectance'], tint))) for m, tint in zip(desc['materials'],
+                                                    desc['tint'])]
+    return port.commit(dict(desc, materials=mats), device, leaf_size)
+'''
+UNTINTED_PORT = '''"""The tinted colonnade staged with its tints left out."""
+from portbench import port
+
+
+def commit(desc, device, leaf_size):
+    return port.commit(desc, device, leaf_size)
+'''
+
+
+def _tree(root):
+    return {os.path.relpath(os.path.join(d, f), root):
+            open(os.path.join(d, f), 'rb').read()
+            for d, _, files in os.walk(root) for f in files
+            if '__pycache__' not in d}
+
+
+def test_a_configuration_of_a_new_kind_is_new_files(tmp_path, monkeypatch):
+    """A configuration whose scene has a key of its own (a tint of each
+    material) brings its generator, plain reference and adapter as new
+    files: its cell runs and is correct; with the adapter's handling of
+    the tint left out it is not; without its own adapter and reference
+    it cannot run; and no file of portbench/ that was there changes
+    (BENCHMARK.json gains its entries)."""
+    pb = tmp_path / 'portbench'
+    shutil.copytree(spec.HERE, pb,
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    shutil.copy(os.path.join(spec.ROOT, 'BENCHMARK.json'), tmp_path)
+    before = _tree(pb)
+    (pb / 'scenes' / 'tinted_hall.py').write_text(TINTED_SCENE)
+    (pb / 'references' / 'tinted').mkdir(parents=True)
+    (pb / 'references' / 'tinted' / '__init__.py').write_text(
+        TINTED_REFERENCE)
+    (pb / 'references' / 'tinted' / 'tint.py').write_text(TINT)
+    (pb / 'ports').mkdir()
+    (pb / 'ports' / 'tinted.py').write_text(TINTED_PORT)
+    (pb / 'ports' / 'untinted.py').write_text(UNTINTED_PORT)
+    cfg = dict(spec.config('colonnade'), name='tinted_hall',
+               generator='tinted_hall', reference='tinted', port='tinted')
+    cfg['generator_params'] = dict(cfg['generator_params'],
+                                   tint=[0.5, 0.9, 1.0])
+    (pb / 'configs' / 'tinted_hall.json').write_text(json.dumps(cfg))
+    name = 'tinted_hall.frame_1024'
+    cell = dict(spec.cell('colonnade.stereo_face_1536'), config='tinted_hall',
+                traffic='frame_1024', why='added')
+    (pb / 'cells' / f'{name}.json').write_text(json.dumps(cell))
+    b = spec.benchmark()
+    b['configs'].append({k: cfg[k] for k in ('name', 'source', 'reduced',
+                                             'why')}
+                        | {'file': 'portbench/configs/tinted_hall.json'})
+    b['workloads'].append({'name': name, 'config': 'tinted_hall',
+                           'traffic': 'frame_1024', 'chips': 1,
+                           'why': 'added'})
+    next(m for m in b['end_to_end'] if m['name'] == 'frame_s')[
+        'workloads'].append(name)
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(b))
+    monkeypatch.setattr(spec, 'HERE', str(pb))
+    monkeypatch.setattr(spec, 'ROOT', str(tmp_path))
+    _keeps_the_import_rules(str(pb))
+
+    ov = tiny.overrides(name)
+    assert ov['config']['generator_params']['cols_z'] == 1  # its TINY
+    out = harness.run(name, 11, 0.01, False, device='cpu', overrides=ov)
+    assert out['correct'], out['compared']
+    assert set(out['metrics']) == {'frame_s', 'setup_s'}
+    out = harness.run(name, 11, 0.01, False, device='cpu',
+                      overrides=dict(ov, config=dict(ov['config'],
+                                                     port='untinted')))
+    assert not out['correct'], out['compared']
+    for drop in (('port',), ('reference',), ('port', 'reference')):
+        c = {k: v for k, v in cfg.items() if k not in drop}
+        with pytest.raises(ValueError, match='tint'):
+            harness.parts(c)
+    # the tinted reference sees the configuration; reference/ does not
+    assert harness.reference_traffic(cfg, {})['config'] is cfg
+    assert 'config' not in harness.reference_traffic(
+        spec.config('colonnade'), {})
+    after = _tree(pb)
+    assert {k: after.get(k) for k in before} == before
+
+
+def _imports(path):
+    """Every module a file imports by its whole dotted name (an imported
+    name counts as a module: `from a import b` gives a.b), and each
+    relative one with its leading dots."""
     tree = ast.parse(open(path).read())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names |= {a.name.split('.')[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split('.')[0])
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = '.' * node.level + (node.module or '')
+            names |= {base + ('' if base.endswith('.') else '.') + a.name
+                      for a in node.names}
     return names
 
 
-def test_no_jax_and_a_reference_apart_from_the_program():
+def _keeps_the_import_rules(here):
+    """No file under `here` imports JAX or the JAX package, by the whole
+    top-level name; the plain references (reference/ and every package
+    of references/) import nothing of the program, nor of the benchmark
+    but reference/."""
     banned = set(run.FORBIDDEN)
-    for dirpath, _, files in os.walk(spec.HERE):
+    for dirpath, _, files in os.walk(here):
+        kind = os.path.relpath(dirpath, here).split(os.sep)[0]
         for f in files:
-            if f.endswith('.py'):
-                got = _top_imports(os.path.join(dirpath, f))
-                assert not got & banned, (f, got & banned)
-                if os.path.basename(dirpath) == 'reference':
-                    assert 'yulio_raytracer_tpu_torch' not in got, f
+            if not f.endswith('.py'):
+                continue
+            got = _imports(os.path.join(dirpath, f))
+            tops = {g.split('.')[0] for g in got if not g.startswith('.')}
+            assert not tops & banned, (f, tops & banned)
+            if kind in ('reference', 'references'):
+                assert 'yulio_raytracer_tpu_torch' not in tops, f
+                assert not any(g.startswith('..') for g in got), f
+                assert all(g == 'portbench.reference'
+                           or g.startswith('portbench.reference.')
+                           for g in got if g.split('.')[0] == 'portbench'), f
+
+
+def test_no_jax_and_a_reference_apart_from_the_program():
+    _keeps_the_import_rules(spec.HERE)
     # what a run loads, compared whole by the top-level name
     code = (
         "import sys; sys.path.insert(0, %r)\n"

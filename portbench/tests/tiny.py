@@ -1,6 +1,7 @@
 """Tiny overrides that let a whole run of a cell go through on the CPU:
 small frames, few samples, scenes with fewer columns and clutter, a
-short check.  The cell's limits stay as they are."""
+short check.  The cell's limits stay as they are.  A generator other
+than the frozen two gives its reduced params as its own TINY."""
 from __future__ import annotations
 
 SCENES = {
@@ -9,6 +10,14 @@ SCENES = {
                     'num_textures': 6, 'texture_size': 16, 'shaft': [12, 3],
                     'cap_tess': [4, 6], 'clutter_tess': [6, 8]},
 }
+
+
+def scene_params(generator: str) -> dict:
+    """A generator's reduced params: SCENES', else its own TINY."""
+    from portbench import scenes
+    if generator in SCENES:
+        return SCENES[generator]
+    return scenes.generator(generator).TINY
 
 
 def overrides(workload: str, width: int = 20) -> dict:
@@ -24,6 +33,5 @@ def overrides(workload: str, width: int = 20) -> dict:
     else:
         traffic['spp'] = max(2, min(tr['spp'], 4))
         traffic['check'] = {'frames': 2, 'pixels': 64, 'pixel_sets': 2}
-    return {'config': {'generator_params': dict(cfg['generator_params'],
-                                                **SCENES[cfg['generator']])},
-            'traffic': traffic}
+    params = dict(cfg['generator_params'], **scene_params(cfg['generator']))
+    return {'config': {'generator_params': params}, 'traffic': traffic}
