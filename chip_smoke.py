@@ -1906,7 +1906,7 @@ def main():
                                  "auto differ")
 
     # the production stereo face (bench.py bench_stereo_face): BVH4, depth
-    # 10 past the roulette start, the dome cap 120, two passes of 1536^2
+    # 10 past the roulette start, the dome cap 120, one pass of 2 x 1536^2
     # rays
     timed_modes('stereo_face_1536', colonnade, stereo_face_camera(1536, 1536),
                 pt.PTParams(**STEREO_PARAMS), 1536, 2,
@@ -1914,7 +1914,7 @@ def main():
                 {'intersect_packet4', 'occluded_packet4'})
     # sphere_glass at its camera's own size with the golden's spp and
     # depth: the ambient dome's NEE and escaped rays, glass chains past the
-    # roulette start; two passes of 2^22 rays
+    # roulette start; one pass of 2^23 rays
     timed_modes('sphere_glass_512', glass, bs.sphere_glass_camera(512, 512),
                 pt.PTParams(max_depth=8), 512, 32,
                 "512^2, 32 spp, depth 8, leaf 32",

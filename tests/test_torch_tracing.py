@@ -5,11 +5,13 @@ keeps nothing; the spans as torch.profiler ranges with the tracer off;
 films bit-equal with the tracer on and off; the bounce counts against
 FrameStats.num_rays; a two-thread mesh frame, one tree a thread;
 bounce_stats read from the bounce records; the texture fetch's slot
-counts, made only under the tracer; and profile_frame's readings of a
-trace (idle_by_span, span_summary) on synthetic events."""
+counts and the environment's escaped rays, made only under the tracer;
+and profile_frame's readings of a trace (idle_by_span, span_summary) on
+synthetic events."""
 import os
 import subprocess
 import sys
+from collections import Counter
 from types import SimpleNamespace as NS
 
 import pytest
@@ -420,6 +422,89 @@ def test_frame_fetch_calls_record_each_bounce(textured):
         assert tid.shape[1] == 4 and bool((tid >= 0).any())
         assert uv.shape == tid.shape + (2,) and uv.stride(1) == 0
         assert torch.equal(c['out'], tex.fetch(table, tid, uv))
+
+
+@pytest.fixture(scope='module')
+def test_stereo():
+    """test_stereo.ecs (an HDRI and the dome) as -stereo commits it, and
+    face 2 of its rig."""
+    from yulio_raytracer_tpu_torch.api import cli
+    from yulio_raytracer_tpu_torch.io import ecs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    settings, sb = ecs.parse_ecs(os.path.join(root, 'assets', 'scenes',
+                                              'test_stereo.ecs'))
+    return (sb.commit(device='cpu', accel=settings.accel),
+            cli.stereo_rigs(settings)[0][1][2])
+
+
+def _stereo_frame(scene_cam):
+    scene, camera = scene_cam
+    return renderer.render_frame(
+        scene, camera, pt.PTParams(max_depth=6, rr_depth=2,
+                                   t_max_shadow_ray=120.0),
+        RES, RES, spp=SPP, seed=3, compaction='on', pixel_filter='bspline')
+
+
+def test_env_counts_the_escaped_rays(test_stereo, monkeypatch):
+    """Under the tracer each bounce's yrt.env record counts the rays that
+    missed (`escaped`, a number once the frame has ended): bounce for
+    bounce, the misses counted from each closest-hit call's own result
+    (live lanes, tfar > 0, without a hit); profile_frame's escaped share
+    is their sum over the rays traced."""
+    calls = []
+    closest = pt._intersect
+
+    def counted(scene, org, dirn, tnear, tfar, *args, **kw):
+        hit = closest(scene, org, dirn, tnear, tfar, *args, **kw)
+        calls.append(int(torch.sum((tfar > 0) & ~hit.valid)))
+        return hit
+    monkeypatch.setattr(pt, '_intersect', counted)
+    with prof.tracing() as t:
+        _stereo_frame(test_stereo)
+    env = [s for s in t.spans() if s.name == prof.ENV]
+    b = [s for s in t.spans() if s.name == prof.BOUNCE]
+    assert len(env) == len(b) == len(calls) > 1
+    assert all(_parent(s) == prof.BOUNCE and type(s.attrs['escaped']) is int
+               for s in env)
+    assert [s.attrs['escaped'] for s in env] == calls
+    rays = sum(s.attrs['rays'] for s in b)
+    assert 0 < sum(calls) < rays
+    assert profile_frame.span_summary(t.spans(), 1)['escaped_pct'] == \
+        pytest.approx(100.0 * sum(calls) / rays)
+
+
+def test_env_count_adds_no_op_off_the_tracer(test_stereo):
+    """With the tracer off the frame runs the aten ops it runs under a
+    bare profiler (which adds its ranges' enter and exit alone), and the
+    tracer adds only its counts: a sum a yrt.env record (over the misses'
+    mask the escaped radiance takes, made once), a ge and a sum a fetch,
+    and the frame's one read of them all."""
+    runs = {}
+    for how in ('off', 'profiler', 'tracer'):
+        ops = _Ops()
+        if how == 'profiler':
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU]):
+                with ops:
+                    _stereo_frame(test_stereo)
+        elif how == 'tracer':
+            with prof.tracing() as t:
+                with ops:
+                    _stereo_frame(test_stereo)
+        else:
+            with ops:
+                _stereo_frame(test_stereo)
+        runs[how] = ops.names
+    assert [n for n in runs['profiler']
+            if not n.startswith('_record_function')] == runs['off']
+    n_env = sum(s.name == prof.ENV for s in t.spans())
+    n_fetch = sum(s.name == prof.FETCH for s in t.spans())
+    assert n_env > 1 and n_fetch > 1
+    extra = Counter(runs['tracer']) - Counter(runs['off'])
+    assert extra['sum'] == n_env + n_fetch and extra['ge'] == n_fetch
+    assert set(extra) <= {'sum', 'ge', 'stack', '_to_copy', 'view'}
+    assert Counter(runs['off']) - Counter(runs['tracer']) == Counter(
+        {'_local_scalar_dense': 1})
 
 
 def test_idle_by_span_on_synthetic_events():

@@ -381,7 +381,8 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
 
     def bounce(state, depth: int, rec=prof.OFF):
         """One bounce; rec, its yrt.bounce span, gets the rays it traced
-        ('rays') and its shadow candidates ('shadow')."""
+        ('rays') and its shadow candidates ('shadow'); under the tracer
+        its yrt.env span gets the rays that missed ('escaped')."""
         r, dev = state['org'].shape[0], state['org'].device
         # the reference bins rays on every bounce after the first
         binned = (depth > 0, params.ray_binning)
@@ -409,9 +410,11 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
         rec.set(rays=traced)
         wo = -dirn
         if env_lights or backplate is not None:
-            with span(prof.ENV):
-                L = L + _escaped(state, active & ~hit.valid, wo, env_lights,
-                                 backplate)
+            with span(prof.ENV) as env_rec:
+                miss = active & ~hit.valid
+                if prof.tracer_on():
+                    env_rec.set(escaped=torch.sum(miss))
+                L = L + _escaped(state, miss, wo, env_lights, backplate)
         active = active & hit.valid
 
         # face-forward normals (cpp:94-98)

@@ -22,7 +22,8 @@ time of each span of the render path (utils/profiling.py SPANS; a span
 holds the time of the spans inside it), the glue's largest device
 activities by name, and the frames' peak device memory; then what the
 port's tracer reads over three more frames (profiling.tracing(), no
-profiler: span_summary) and the profiled frame's device idle time by
+profiler: span_summary, with the share of traced rays that escaped to
+the environment) and the profiled frame's device idle time by
 the span open on the host (idle_by_span).  The last line is the same as
 one JSON object.  Needs a CUDA device.
 """
@@ -210,12 +211,17 @@ def span_summary(spans, frames: int) -> dict:
     """What the tracer's records (Tracer.spans()) of `frames` frames
     say, a frame: enqueue_ms, the host ms inside yrt.bounce spans;
     live_pct, 100 x the rays the bounces traced over their lanes;
+    escaped_pct, 100 x the rays that missed (the yrt.env records'
+    `escaped`) over the rays traced, None without an environment;
     bounces, the yrt.bounce spans."""
     b = [s for s in spans if s.name == profiling.BOUNCE]
     lanes = sum(s.attrs['width'] for s in b)
+    rays = sum(s.attrs['rays'] for s in b)
+    env = [s for s in spans if s.name == profiling.ENV]
     return {'enqueue_ms': sum(s.end - s.start for s in b) / 1e6 / frames,
-            'live_pct': (100.0 * sum(s.attrs['rays'] for s in b) / lanes
-                         if lanes else None),
+            'live_pct': 100.0 * rays / lanes if lanes else None,
+            'escaped_pct': (100.0 * sum(s.attrs['escaped'] for s in env)
+                            / rays if env and rays else None),
             'bounces': len(b) / frames}
 
 
@@ -330,7 +336,9 @@ def main(argv) -> int:
               + f"; peak mem {r['peak_gib']:.2f} GiB; traced frame_s "
               f"{tr['frame_s']:.4f} (median of 3), enqueue "
               f"{tr['enqueue_ms']:.1f} ms, live {tr['live_pct']:.1f}%, "
-              f"{tr['bounces']:.0f} bounces; idle ms " + ', '.join(
+              + ('escaped n/a' if tr['escaped_pct'] is None else
+                 f"escaped {tr['escaped_pct']:.2f}%")
+              + f", {tr['bounces']:.0f} bounces; idle ms " + ', '.join(
                   f"{c} {idle[c] * 1e3:.1f}"
                   for c in IDLE_CLASSES + ('total',))
               + f"; on {card}", flush=True)

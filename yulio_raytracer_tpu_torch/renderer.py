@@ -40,9 +40,14 @@ from .utils import profiling as prof
 DIM_PIXEL = 0
 DIM_LENS = 1
 DIM_TIME = 2   # motion-blur time sample
-# rays per pass: ~1 KB of wavefront state per ray (shadow batches
-# included) keeps a pass within a few GB of device memory
-MAX_RAYS_PER_PASS = 1 << 22
+# rays per pass: ~2 KB of device memory per ray at the pass's peak
+# (wavefront state, shadow batches and the compaction's copies), so a
+# pass of 2^24 rays peaks near 35 GB, under half an 80 GB H100.  Fewer,
+# wider passes cut the frame's bounces, and with them its host-paced
+# launches and syncs, with no more device time per ray (a 64 spp
+# 800^2 stereo face on an H100: 11 passes, ~115k launches and 2.5 s at
+# 2^22; 3 passes, ~38k launches and 1.7 s at 2^24)
+MAX_RAYS_PER_PASS = 1 << 24
 
 
 def _gen_rays(scene, camera, width, height, spp, pixel_ids, sample_ids,

@@ -22,8 +22,9 @@ here
   render_frame it belongs to (`frame`), its thread and its attributes.
   A bounce's record also counts its lanes (`width`), the rays it traced
   (`rays`), its shadow candidates (`shadow`) and, compacted, the lanes
-  live after it (`live`); tensor counts are read with the frame's own
-  ray count (`settle`), so tracing adds no host sync;
+  live after it (`live`), and a bounce's yrt.env record the rays that
+  missed every triangle (`escaped`); tensor counts are read with the
+  frame's own ray count (`settle`), so tracing adds no host sync;
 * `trace(log_dir)` wraps `torch.profiler.profile` (with the card's
   activity when there is a card) and writes a Chrome trace (a
   `trace*.json` in log_dir, viewable in Perfetto or chrome://tracing)
@@ -42,7 +43,8 @@ their own thread):
         yrt.raygen        the pass's sample sets and camera rays
         yrt.bounce        one call of the bounce: depth, width
           yrt.intersect   closest hits and their differential geometry
-          yrt.env         the escaped rays' environment and backplate
+          yrt.env         the escaped rays' environment and backplate;
+                          escaped
           yrt.shade_context > yrt.texture_fetch
           yrt.nee         light samples and shadow rays
             yrt.light_sample, yrt.lobes
