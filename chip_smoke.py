@@ -6,7 +6,7 @@
 Phases, one line each (a failure raises and the exit code is nonzero):
  1. toolchain: torch / CUDA / nvcc versions, the card's name and power limit;
  2. build: the CUDA kernels from yulio_raytracer_tpu_torch/csrc, one nvcc
-    per source (seven), all started together;
+    per source (eight), all started together;
  3. every kernel against its plain torch version on the card, at the main
     paths' shapes: the dense pair on cornell (64^2 camera rays plus
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
@@ -70,7 +70,13 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     sponza_like frame at 1024^2 and 4 spp (2^22 hits x 4 lobe slots a
     call, raysets.frame_fetch_calls), bit-equal to the plain fetch on
     sponza's own atlas and on an atlas of sponza.frame_1024's size (24
-    maps of 1024^2, 402.7 MB), F1 alone launched, once a call.
+    maps of 1024^2, 402.7 MB), F1 alone launched, once a call; and the
+    lobe kernels F2 (lobes.eval_lobes, lobes.sample_lobes) on every eval
+    and sample call of a sponza_like frame at 1024^2, 8 spp and depth 4
+    (sponza.frame_1024's traffic: 2^23 hits a bounce, its 6 triangle
+    lights in one eval, raysets.frame_lobe_calls), bit-equal in every
+    output to the plain versions on the card and to the frame's own
+    results, F2 alone launched, once a call.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -98,7 +104,8 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     the path's kernels must have run, no other kernel (so K12, which no
     path runs, never), and no plain version on a CUDA tensor; F1 runs on
     the textured paths (sponza, sphere_glass, sphere_mirror, test_stereo
-    and the random scenes) and on no other; the pair
+    and the random scenes) and on no other; F2 on every path-traced
+    frame (its NEE's eval, its scatter's sample); the pair
     kernels' binning (ops/pairs.py bin_rays) ran once for each of their
     ranged calls and on no other path;
  5. timed full-size frames (cornell_512, colonnade_1024,
@@ -181,7 +188,9 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     bound is bytes alone: ids and uv read once, the result written once,
     the texture rows, and 16 B a tap of each slot's own filter (4
     bilinear, 1 nearest, none for an id < 0), over its calls on the
-    1024^2 atlas.
+    1024^2 atlas.  F2's is bytes too (lobe_bytes): a hit's types, the
+    parameters of each slot its kernel evaluates or samples, the per-hit
+    vectors and the outputs, each once, over sponza's frame's calls.
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -211,6 +220,9 @@ TRI_MISMATCH_MAX = 1e-4      # ties only: equal t, another triangle
 MASK_MISMATCH_MAX = 1e-4     # hit/miss and occlusion masks
 T_REL_ERR_MAX = 1e-6         # where the triangle agrees
 PSNR_MIN = 40.0
+# the lobe kernels' wrappers, which every path-traced frame launches (its
+# NEE evaluates the lobes, its scatter samples them)
+F2 = frozenset({'eval_lobes', 'sample_lobes'})
 
 
 def phase(name, msg):
@@ -367,6 +379,31 @@ def fetch_bytes(table, tid):
             + 16 * (4 * bilinear + texel - bilinear)), texel
 
 
+def lobe_bytes(kind, a, lb):
+    """(bytes, lanes) of one call of the lobe kernel F2 `kind`
+    ('eval_lobes' or 'sample_lobes') on the arguments `a` by name: every
+    hit's L int64 types; of each slot the kernel evaluates or samples (a
+    type of the call's mask; for the eval the cosine family alone) its
+    color, eta and exp (20 B), and a conductor's ceta and k (24 B); ns
+    and wo; the eval's wi and brdf (12 B each a light and hit); the
+    sample's ng, s2 and s1, the tangents of hits with an anisotropic
+    slot, and its wi, pdf, weight, type bits, eta and valid (41 B a hit).
+    The lanes: hits x lights for an eval, hits for a sample."""
+    t = a['lobes']['type'].to(torch.int64)
+    r, slots = t.shape
+    live = (t != lb.NONE) & ((lb.type_bits(t) & a['type_mask']) != 0)
+    if kind == 'eval_lobes':
+        nl = a['wi'].numel() // (3 * r)
+        live = live & (t <= lb.DIELECTRIC_LAYER_LAMB)
+        return r * (8 * slots + 24 + 24 * nl) + 20 * int(live.sum()), r * nl
+    cond = live & ((t == lb.CONDUCTOR) | (t == lb.MICROFACET_CONDUCTOR)
+                   | (t == lb.MICROFACET_CONDUCTOR_ANISO))
+    aniso = (live & (t == lb.MICROFACET_CONDUCTOR_ANISO)).any(dim=1)
+    framed = a['tx'] is not None and a['ty'] is not None
+    return (r * (8 * slots + 24 + 24 + 41) + 20 * int(live.sum())
+            + 24 * int(cond.sum()) + 24 * framed * int(aniso.sum())), r
+
+
 def stack_depth(what, counts):
     """The plain versions' largest stack occupancy per ray on the sets of
     one table (median, 99th percentile, max), from each set's counts."""
@@ -417,9 +454,11 @@ def free_port():
 
 
 def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
-                       launched, k12, k34, shim_and_host):
+                       launched, dense_path, bvh4_path, shim_and_host):
     """Phase 8: the mesh, the TCP servers, two gloo ranks and the C ABI on
-    the card (see the module docstring); returns its seconds."""
+    the card (see the module docstring); returns its seconds.  dense_path
+    and bvh4_path: the kernels a path-traced frame launches through the
+    dense kernels or the BVH4 ones (F2 with each)."""
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.api import cli, output, session
     from yulio_raytracer_tpu_torch.film import accum
@@ -442,9 +481,9 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
         for label, mesh in meshes:
             for name, scene, cam, depth, spp, want in (
                     ('cornell_64', cornell, bs.cornell_camera(64, 64), 4, 32,
-                     k12),
+                     dense_path),
                     ('colonnade_64', colonnade, bs.colonnade_camera(64, 64),
-                     3, 8, k34)):
+                     3, 8, bvh4_path)):
                 params = pt.PTParams(max_depth=depth)
                 one, st1 = renderer.render_frame(scene, cam, params, 64, 64,
                                                  spp, seed=SEED)
@@ -468,7 +507,7 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
         zero_counters()
         film = sharding.render_frame_sharded(cornell, cam, params, 64, 64, 32,
                                              tri_mesh, seed=SEED)
-        counts = launched('cornell_64 over 2 px x 2 tri slots', k12)
+        counts = launched('cornell_64 over 2 px x 2 tri slots', dense_path)
         d = (accum.resolve(film) - accum.resolve(one)).abs().amax(-1)
         within = float((d < 1e-4).float().mean())
         if within <= 0.995 or float(d.mean()) >= 1e-3:
@@ -547,7 +586,7 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
                                              f"display error {np.median(de)}")
                     tag = f"median display error {float(np.median(de)):.4f}"
                 lines.append(f"{enc} {dt:.4f} s (max abs {err:.3g}, {tag})")
-            counts = launched('cornell_64 over two servers', k12)
+            counts = launched('cornell_64 over two servers', dense_path)
             client.close()
             phase('multi', f"cornell_64 (64^2, 32 spp, depth 4) over two "
                   f"servers on cuda:0 against the local film "
@@ -619,7 +658,7 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
                                              origin=origin, device=dev)
             dt = time.perf_counter() - t0
             counts = launched('test_stereo_32 over two servers',
-                              k34 | {'fetch'})
+                              bvh4_path | {'fetch'})
             client.close()
             equal = [np.array_equal(a, b) for a, b in zip(got, ref)]
             worst = min(psnr(a, b) for a, b in zip(got, ref))
@@ -705,7 +744,7 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
         if not (s.start(os.path.join(py_dir, 'test_room.dae'), p, device=dev)
                 and s.wait()):
             raise AssertionError("StartRT from Python failed")
-        counts = launched('StartRT of test_room_64', k12)
+        counts = launched('StartRT of test_room_64', dense_path)
         with open(os.path.join(room_dir, strips[0]), 'rb') as f, \
                 open(s.written_files[0], 'rb') as g:
             same = f.read() == g.read()
@@ -745,14 +784,15 @@ def main():
     from yulio_raytracer_tpu_torch import renderer, roofline
     from yulio_raytracer_tpu_torch.roofline import (
         MOTION_FLOPS, PEAK_FLOPS, PROTO_FLOPS, SLAB_FLOPS, WOOP_FLOPS)
+    from yulio_raytracer_tpu_torch.shading import lobes as lb
     from yulio_raytracer_tpu_torch.shading import textures
     from yulio_raytracer_tpu_torch.profile_frame import (
         SPHERE_MIRROR, STEREO_PARAMS, sphere_mirror_camera,
         stereo_face_camera)
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
-        frame_dense_calls, frame_fetch_calls, frame_motion_calls,
-        frame_pair_calls,
+        frame_dense_calls, frame_fetch_calls, frame_lobe_calls,
+        frame_motion_calls, frame_pair_calls,
         from_treelet_roots, hemisphere_rays, nodes8, scattered_rays,
         shadow_rays, sweep_sets)
 
@@ -766,7 +806,7 @@ def main():
 
     t0 = time.perf_counter()
     names = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep',
-             'texture')
+             'texture', 'lobes')
     with ThreadPoolExecutor(len(names) + 2) as pool:  # one nvcc per source
         # and the C ABI's shim (g++) and host (cc) beside them
         shim_and_host = [pool.submit(f) for f in (native_build.shim,
@@ -825,6 +865,9 @@ def main():
         # F1 replaces no TPU kernel (the reference's fetch is jnp
         # gathers) and makes no ray tests: its bytes bound it
         (textures.fetch, textures._fetch, 'texture.cu', None, 0),
+        # F2 likewise (the reference's lobes are jnp)
+        (lb.eval_lobes, lb._eval_lobes, 'lobes.cu', None, 0),
+        (lb.sample_lobes, lb._sample_lobes, 'lobes.cu', None, 0),
     )
     counters = [k[0] for k in kernels]
     plains = [k[1] for k in kernels]
@@ -1529,6 +1572,72 @@ def main():
                              f"alone")
     results['fetch'] = fetch_res
     del f_calls, own, large
+    # F2 on every lobe call of a sponza_like 1024^2, 8 spp frame of depth
+    # 4 (sponza.frame_1024's traffic: one pass of 2^23 hits a bounce, the
+    # 6 triangle lights in one group): each bounce's eval and sample
+    # through the kernels' wrappers and through the plain versions on the
+    # card, bit-equal in every output and to the frame's own result, one
+    # launch a call; timed (median of 10), bound by bytes (lobe_bytes)
+    zero_counters()
+    l_calls = frame_lobe_calls(sponza, bs.sponza_like_camera(1024, 1024),
+                               1024, 1024, spp=8, max_depth=4, seed=SEED)
+    shapes = [(c['kernel'], c['args']['lobes']['type'].shape[0])
+              for c in l_calls]
+    if shapes != [('eval_lobes', 2**23), ('sample_lobes', 2**23)] * 4 or (
+            lb.eval_lobes.launches, lb.sample_lobes.launches) != (4, 4) or (
+            lb._eval_lobes.cuda_calls or lb._sample_lobes.cuda_calls):
+        raise AssertionError(f"sponza's lobe calls: {shapes}, launches "
+                             f"{lb.eval_lobes.launches} + "
+                             f"{lb.sample_lobes.launches}, not an eval and "
+                             f"a sample of 2^23 hits a bounce, 4 bounces, "
+                             f"one launch each")
+    zero_counters()
+    for n, c in enumerate(l_calls):
+        a, name = c['args'], c['kernel']
+        f, plain_f = ((lb.eval_lobes, lb._eval_lobes) if name == 'eval_lobes'
+                      else (lb.sample_lobes, lb._sample_lobes))
+        launches = f.launches
+        got = f(**a)
+        if f.launches != launches + 1:
+            raise AssertionError(f"F2: a {name} call was not one launch")
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        plain = plain_f(**a)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        outs = [x if isinstance(x, dict) else {'brdf': x}
+                for x in (got, c['out'], plain)]
+        differ = [k for k in outs[2] if not (
+            torch.equal(outs[0][k], outs[2][k])
+            and torch.equal(outs[1][k], outs[2][k]))]
+        if differ:
+            raise AssertionError(f"F2 on sponza's {name} of bounce {n // 2}:"
+                                 f" {differ} not bit-equal to the plain "
+                                 f"version's")
+        del got, plain, outs
+        ms = cuda_ms(lambda: f(**a), reps=10)
+        moved, lanes = lobe_bytes(name, a, lb)
+        bound_ms = roofline.bound(moved, 0)[0]
+        phase('kernels', f"{name} (sponza_like 1024^2 frame, bounce "
+              f"{n // 2}, {lanes} lanes): bit-equal to the plain version "
+              f"and to the frame's own result; kernel {ms:.3f} ms (median "
+              f"of 10), plain {plain_ms:.3f} ms; {moved} bytes, bound "
+              f"{bound_ms:.4f} ms: {bound_ms / ms:.2%} of it; {card}")
+        acc = results.setdefault(name, {'calls': 0, 'lanes': 0, 'ms': 0.0,
+                                        'plain_ms': 0.0, 'bytes': 0})
+        for key, v in (('calls', 1), ('lanes', lanes), ('ms', ms),
+                       ('plain_ms', plain_ms), ('bytes', moved)):
+            acc[key] += v
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    if set(ran) != F2 or (lb._eval_lobes.cuda_calls,
+                          lb._sample_lobes.cuda_calls) != (4, 4) or any(
+            f.cuda_calls for f in plains
+            if f not in (lb._eval_lobes, lb._sample_lobes)):
+        raise AssertionError(f"sponza's lobe calls launched {ran}, not F2 "
+                             f"alone, or another plain version ran")
+    del l_calls
     # sphere_glass (bench.py bench_tpu_psnr_glass): 4,992 triangles under
     # the ambient dome, at the sphere_glass_512 frame's leaf 32.  K3/K4 on
     # its tables, bit-equal: 256^2 camera rays, the hemisphere rays from
@@ -1648,7 +1757,9 @@ def main():
         ('sphere_glass_64', bs.sphere_glass().commit(device=dev),
          bs.sphere_glass_camera(64, 64), 8, 32, 'morton', (k3, k4, fx)),
     )
+    le, ls = ix['eval_lobes'], ix['sample_lobes']
     for name, scene, cam, depth, spp, binning, used in goldens:
+        used = (*used, le, ls)      # and F2: every golden shades
         zero_counters()
         film, stats = renderer.render_frame(
             scene, cam, pt.PTParams(max_depth=depth, ray_binning=binning),
@@ -1730,10 +1841,10 @@ def main():
           f"{stats.num_rays:.0f} rays, kernel launches {counts}")
     if (not np.isfinite(img).all() or db < PSNR_MIN
             or set(counts) != {'intersect_packet4', 'occluded_packet4',
-                               'fetch'}
+                               'fetch', *F2}
             or any(f.cuda_calls for f in plains)):
         raise AssertionError(f"sphere_mirror_64: PSNR {db:.2f}, launches "
-                             f"{counts}: not K3/K4 and F1 alone, or "
+                             f"{counts}: not K3/K4, F1 and F2 alone, or "
                              "disagrees with the CPU")
     main_launches = [a + b for a, b in zip(main_launches, ran)]
     # K11's entry points, the reference's bench_incoherent.py 'split'
@@ -1911,14 +2022,14 @@ def main():
     timed_modes('stereo_face_1536', colonnade, stereo_face_camera(1536, 1536),
                 pt.PTParams(**STEREO_PARAMS), 1536, 2,
                 "1536^2, 2 spp, depth 10, t_max_shadow_ray 120",
-                {'intersect_packet4', 'occluded_packet4'})
+                {'intersect_packet4', 'occluded_packet4', *F2})
     # sphere_glass at its camera's own size with the golden's spp and
     # depth: the ambient dome's NEE and escaped rays, glass chains past the
     # roulette start; one pass of 2^23 rays
     timed_modes('sphere_glass_512', glass, bs.sphere_glass_camera(512, 512),
                 pt.PTParams(max_depth=8), 512, 32,
                 "512^2, 32 spp, depth 8, leaf 32",
-                {'intersect_packet4', 'occluded_packet4', 'fetch'})
+                {'intersect_packet4', 'occluded_packet4', 'fetch', *F2})
 
     # ---- 6. the production output path -----------------------------------
     os.makedirs(OUT, exist_ok=True)
@@ -1981,7 +2092,8 @@ def main():
     strip_s = time.perf_counter() - t0
     peaks.append(torch.cuda.max_memory_allocated())
     counts = launched('test_stereo strip', {'intersect_packet4',
-                                            'occluded_packet4', 'fetch'})
+                                            'occluded_packet4', 'fetch',
+                                            *F2})
     strip_path = os.path.join(OUT, 'test_stereo_view.ppm')
     image.store(strip_path, strip)
     size = max(stereo_st.width, stereo_st.height)
@@ -2011,12 +2123,12 @@ def main():
     small = (dataclasses.replace(stereo_st, width=32, height=32, spp=4,
                                  watermark=True),
              stereo_sb, stereo_rig, 'view',
-             {'intersect_packet4', 'occluded_packet4', 'fetch'})
+             {'intersect_packet4', 'occluded_packet4', 'fetch', *F2})
     room_st, room_sb, room_rigs = session.collada_job(
         os.path.join(SCENES, 'test_room.dae'), session.ParamsRT(size=64,
                                                                 spp=4))
     room = (room_st, room_sb, room_rigs[0][1], room_rigs[0][0],
-            {'intersect_dense', 'occluded_dense'})
+            {'intersect_dense', 'occluded_dense', *F2})
     for label, (st, sb, rig, name, want) in (('test_stereo_32', small),
                                              ('test_room_64', room)):
         wm = stereo_strip.load_watermark() if st.watermark else None
@@ -2037,7 +2149,8 @@ def main():
     zero_counters()
     if cli.main(['-c', cornell_ecs, '-size', '64', '64', '-o', outs[0]]):
         raise AssertionError("cli.main on the card failed")
-    counts = launched('cli cornell', {'intersect_dense', 'occluded_dense'})
+    counts = launched('cli cornell', {'intersect_dense', 'occluded_dense',
+                                      *F2})
     if cli.main(['-c', cornell_ecs, '-size', '64', '64', '-o', outs[1]],
                 device='cpu'):
         raise AssertionError("cli.main on the CPU failed")
@@ -2077,8 +2190,9 @@ def main():
     from yulio_raytracer_tpu_torch.sampling import precomputed
     from yulio_raytracer_tpu_torch.utils import profiling, regression
     t_interactive = time.perf_counter()
-    k34 = {'intersect_packet4', 'occluded_packet4'}
-    k12 = {'intersect_dense', 'occluded_dense'}
+    # a path-traced frame's kernels: the walk's, and F2
+    bvh4_path = {'intersect_packet4', 'occluded_packet4', *F2}
+    dense_path = {'intersect_dense', 'occluded_dense', *F2}
 
     def timed_frames(what, scene, cam, params, res, spp, want, **kw):
         """A frame to warm up, then 3 with the counters zeroed; returns
@@ -2109,7 +2223,7 @@ def main():
                                               leaf_size=32, quality=q)
         fs, mrps, line, _ = timed_frames(f'colonnade_1024 ({q})', scene,
                                          col_cam, pt.PTParams(max_depth=4),
-                                         1024, 8, k34)
+                                         1024, 8, bvh4_path)
         quality_mrps[q] = mrps
         phase('interactive', f"colonnade_1024 quality {q!r}: "
               f"{cs.triangles} triangles, {scene.bvh_refs} references "
@@ -2144,7 +2258,7 @@ def main():
     tables_s = time.perf_counter() - t0
     fs, mrps, line, _ = timed_frames(
         'cornell_512 (precomputed)', cornell, bs.cornell_camera(512, 512),
-        pt.PTParams(max_depth=4), 512, 32, k12, sampler='precomputed',
+        pt.PTParams(max_depth=4), 512, 32, dense_path, sampler='precomputed',
         pixel_filter='bspline')
     phase('interactive', f"cornell_512 (512^2, 32 spp, depth 4, b-spline, "
           f"sampler precomputed): {line}; build_tables (64 sets x 32 "
@@ -2155,7 +2269,7 @@ def main():
         fs, mrps, line, film = timed_frames(
             f'stereo_face_1536 (precomputed, {how})', colonnade,
             stereo_face_camera(1536, 1536), pt.PTParams(**STEREO_PARAMS),
-            1536, 2, k34, compaction=how, sampler='precomputed')
+            1536, 2, bvh4_path, compaction=how, sampler='precomputed')
         films[how] = film.rgb_sum
         phase('interactive', f"stereo_face_1536 (1536^2, 2 spp, depth 10, "
               f"sampler precomputed, compaction {how}): {line} on {card}")
@@ -2166,9 +2280,10 @@ def main():
           "compaction off and auto bit-equal")
     del films
     for name, sb, camf, want, spp, depth in (
-            ('cornell_64', bs.cornell_box(), bs.cornell_camera, k12, 2, 3),
+            ('cornell_64', bs.cornell_box(), bs.cornell_camera, dense_path,
+             2, 3),
             ('motion_field_64', bs.motion_field(), bs.motion_field_camera,
-             {'intersect_packet_mb', 'occluded_packet_mb'}, 2, 2)):
+             {'intersect_packet_mb', 'occluded_packet_mb', *F2}, 2, 2)):
         imgs = []
         for device in (dev, 'cpu'):
             zero_counters()
@@ -2258,7 +2373,7 @@ def main():
                                        pt.PTParams(max_depth=4), 512, 512,
                                        spp_per_frame=1, server=srv,
                                        max_frames=20)
-        counts = launched('viewer (colonnade)', k34)
+        counts = launched('viewer (colonnade)', bvh4_path)
         png = srv._frame[1]
     finally:
         srv.close()
@@ -2290,7 +2405,7 @@ def main():
                          pt.PTParams(max_depth=4), 64, 64, spp_per_frame=4,
                          max_frames=4, out_path=out_png, frame_cb=keep_frame,
                          use_matplotlib=False)
-    counts = launched('display loop (cornell)', k12)
+    counts = launched('display loop (cornell)', dense_path)
     with open(out_png, 'rb') as f:
         if not np.array_equal(stereo_strip.decode_png(f.read()),
                               shown_frames[-1]) or len(shown_frames) != 4:
@@ -2311,7 +2426,8 @@ def main():
                 sb.commit(device=device), orbit, pt.PTParams(max_depth=3),
                 32, 32, spp=2, seed=seed)
             if device == dev:
-                counts = launched(f'random scene {seed}', k12 | {'fetch'})
+                counts = launched(f'random scene {seed}',
+                                  dense_path | {'fetch'})
             imgs.append(accum.resolve(film).cpu().numpy())
         db, tdb = psnr(*imgs), trimmed_psnr(*imgs)
         if db < 60.0 and tdb < 60.0:
@@ -2340,7 +2456,7 @@ def main():
                                   pt.PTParams(max_depth=4), 512, 512, spp=32,
                                   seed=SEED)
             torch.cuda.synchronize()
-        counts = launched('profiled cornell_512', k12)
+        counts = launched('profiled cornell_512', dense_path)
         size = os.path.getsize(prof.trace_path)
         with open(prof.trace_path) as f:
             names = {e.get('name', '') for e in json.load(f)['traceEvents']}
@@ -2367,7 +2483,7 @@ def main():
         film, done_b = renderer.render_progressive(*args,
                                                    checkpoint_path=ckpt,
                                                    seed=SEED)
-        counts = launched('render_progressive (cornell)', k12)
+        counts = launched('render_progressive (cornell)', dense_path)
     ref = None
     for it in range(4):
         ref, _ = renderer.render_frame(*args[:6], film=ref, iteration=it,
@@ -2384,7 +2500,8 @@ def main():
 
     # ---- 8. multi-device, TCP and the C ABI --------------------------------
     multi_s = multi_device_phase(dev, card, cornell, colonnade, zero_counters,
-                                 launched, k12, k34, shim_and_host)
+                                 launched, dense_path, bvh4_path,
+                                 shim_and_host)
     phase('multi', f"phase done in {multi_s:.1f} s")
 
     # ---- 9. bounds ---------------------------------------------------------
@@ -2408,6 +2525,23 @@ def main():
                 'bound_ms': bound_ms, 'bound_by': 'bytes',
                 'library_ms': None, 'slots': res['slots'],
                 'texel_slots': res['texel_slots'], 'bytes': res['bytes']})
+            continue
+        if f in (lb.eval_lobes, lb.sample_lobes):
+            bound_ms = roofline.bound(res['bytes'], 0)[0]
+            phase('bounds', f"{f.__name__} on {res['calls']} calls of "
+                  f"sponza's frame, {res['lanes']} lanes: {res['bytes']} "
+                  f"bytes; bound {bound_ms:.4f} ms by bytes, kernel "
+                  f"{res['ms']:.3f} ms: {bound_ms / res['ms']:.2%} of the "
+                  f"bound's rate; the plain version {res['plain_ms']:.3f} "
+                  f"ms")
+            summary.append({
+                'name': f.__name__, 'route': 'cuda',
+                'source': 'yulio_raytracer_tpu_torch/csrc/' + src,
+                'replaces': replaces, 'launches': n, 'max_abs_err': 0.0,
+                'ms': res['ms'], 'plain_ms': res['plain_ms'],
+                'bound_ms': bound_ms, 'bound_by': 'bytes',
+                'library_ms': None, 'calls': res['calls'],
+                'lanes': res['lanes'], 'bytes': res['bytes']})
             continue
         flops = (res['pair'] * pair_flops + res['box'] * SLAB_FLOPS
                  + res['stage2'] * dense.INSIDE_FLOPS

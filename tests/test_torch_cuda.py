@@ -11,7 +11,9 @@ sets, leaves of 33-64 rows, dead lanes, 65,537 rays and a frame's own
 calls), the cornell, stereo, motion, grid, treelet and dense colonnade
 goldens rendered through them, the StereoCube rays against the port's
 CPU rays, compaction 'auto' against 'off' on the colonnade, the fetch
-kernel against the plain fetch on the card, and the
+kernel against the plain fetch on the card, the lobe kernels against the
+plain eval and sample (every lobe type, the cells' material tables, edge
+inputs, whole sponza and test_stereo frames), and the
 shading layer (the texture fetch, the shade context and the materials
 probe of every preset), a scene of an HDRI light alone and test_room.dae's
 12 stereo faces against the port's CPU results; the precomputed sampler,
@@ -42,6 +44,7 @@ from yulio_raytracer_tpu_torch.ops import (binning, dense, grid, pairs,
                                            splitleaf, traverse, treelets,
                                            wide)
 from yulio_raytracer_tpu_torch.scene import SceneBuilder
+from yulio_raytracer_tpu_torch.shading import lobes as lb
 from yulio_raytracer_tpu_torch.shading import materials as mat
 from yulio_raytracer_tpu_torch.shading import textures as tex
 from yulio_raytracer_tpu_torch import raysets, renderer
@@ -1592,3 +1595,210 @@ def test_tracer_adds_no_sync_on_card(colonnade_card, compaction):
     assert all(type(v) in (int, float) for s in b for v in s.attrs.values())
     assert sum(s.attrs['rays'] + s.attrs['shadow'] for s in b) == \
         s_on.num_rays == s_off.num_rays
+
+
+# ------------------------------------------------------------ lobe kernels
+
+LOBE_HITS = 65_537
+
+
+def _unit_rows(gen, n, dev):
+    v = torch.randn((n, 3), generator=gen, device=dev)
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
+def _lobe_record(case, gen, n, dev):
+    """A lobe record of n hits on dev.  'type_<k>': type k in slot 0 on
+    every hit, a Lambertian in slot 1 on half of them, NONE in the rest,
+    the parameters of tests/test_torch_shading.py's cases; 'mixed': every
+    type in every slot, a third of the slots NONE.  Then the edges: every
+    slot NONE on 1/16 of the hits, a zero color on 1/8 of the slots, eta
+    2.5 on 1/8 (total internal reflection at grazing angles)."""
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+    t = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    if case == 'mixed':
+        t = torch.randint(1, lb.NUM_LOBE_TYPES, (n, 4), generator=gen,
+                          device=dev)
+        t[uni(0, 1, n, 4) < 1 / 3] = lb.NONE
+        k = None
+    else:
+        k = int(case.split('_')[1])
+        t[:, 0] = k
+        t[: n // 2, 1] = lb.LAMBERTIAN
+    color = uni(0.05, 1.0, n, 4, 3)
+    eta = uni(0.4, 2.5, n, 4)
+    exp = uni(0.0, 200.0, n, 4)
+    aniso = t == lb.MICROFACET_CONDUCTOR_ANISO
+    eta = torch.where(aniso, uni(1.0, 1000.0, n, 4), eta)
+    exp = torch.where(aniso, uni(1.0, 1000.0, n, 4), exp)
+    exp = torch.where(t == lb.THIN_DIELECTRIC_TRANSMIT, uni(0.0, 0.5, n, 4),
+                      exp)
+    unlayered = (t == lb.MICROFACET_CONDUCTOR) & (uni(0, 1, n, 4) < 0.25)
+    eta = torch.where(unlayered, 1.0, eta)
+    t[uni(0, 1, n) < 1 / 16] = lb.NONE
+    color[uni(0, 1, n, 4) < 1 / 8] = 0.0
+    eta = torch.where(uni(0, 1, n, 4) < 1 / 8, 2.5, eta)
+    return {'type': t, 'color': color, 'eta': eta, 'exp': exp,
+            'ceta': uni(0.2, 3.0, n, 4, 3), 'ck': uni(0.0, 5.0, n, 4, 3)}
+
+
+@pytest.fixture(scope='module')
+def lobe_scenes():
+    """The cells' scenes committed on the card, for their material tables:
+    sponza's mattetextured and plastic, test_stereo's MetallicPaint, Uber
+    and textured ground, the colonnade's matte."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from yulio_raytracer_tpu_torch.io import ecs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    settings, sb = ecs.parse_ecs(os.path.join(root, 'assets', 'scenes',
+                                              'test_stereo.ecs'))
+    return {'sponza': bs.sponza_like(stories=1, cols_x=2, cols_z=2,
+                                     clutter=4, num_textures=3).commit(
+                                         leaf_size=32),
+            'test_stereo': sb.commit(accel=settings.accel),
+            'colonnade': bs.colonnade(cols_x=2, cols_z=2,
+                                      tess=(8, 10)).commit(leaf_size=32)}
+
+
+def _lobe_case(case, request, gen, dev, n=LOBE_HITS):
+    """(lobes, ns, ng, wo, tx, ty) of one case: a record of _lobe_record,
+    or a scene's shade context (its (R, 4) record over random material
+    ids and uvs, with the views into its material rows) at random hits.
+    wo lies below ns on a quarter of the hits (cos_o <= 0)."""
+    ns = _unit_rows(gen, n, dev)
+    ng = ns + 0.3 * _unit_rows(gen, n, dev)
+    ng = ng / torch.linalg.norm(ng, dim=-1, keepdim=True)
+    wo = _unit_rows(gen, n, dev)
+    up = torch.sign(torch.sum(wo * ns, dim=-1, keepdim=True))
+    wo = torch.where(torch.arange(n, device=dev)[:, None] % 4 != 0,
+                     wo * up, wo)
+    tx = torch.linalg.cross(ns, _unit_rows(gen, n, dev))
+    tx = tx / torch.linalg.norm(tx, dim=-1, keepdim=True)
+    ty = torch.linalg.cross(ns, tx)
+    if case in ('sponza', 'test_stereo', 'colonnade'):
+        scene = request.getfixturevalue('lobe_scenes')[case]
+        n_mat = scene.materials['mat_tab'].shape[0]
+        mid = torch.randint(-1, n_mat, (n,), generator=gen, device=dev)
+        st = torch.rand((n, 2), generator=gen, device=dev) * 4 - 1
+        lobes, aux = mat.shade_context(
+            scene.materials, scene.textures, mid, st,
+            torch.ones((n,), device=dev), torch.ones((n, 3), device=dev),
+            ns=ns, tx=tx, ty=ty, tex_modes=scene.tex_modes, bump=scene.bump)
+        ns = aux.get('ns', ns)
+    else:
+        lobes = _lobe_record(case, gen, n, dev)
+    return lobes, ns, ng, wo, tx, ty
+
+
+LOBE_CASES = [f'type_{k}' for k in range(lb.NUM_LOBE_TYPES)] + [
+    'mixed', 'sponza', 'test_stereo', 'colonnade']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', LOBE_CASES)
+def test_lobe_kernels_match_plain_on_card(cuda, request, case):
+    """The lobe kernels against the plain eval and sample run on the same
+    card, bit for bit in every output: each lobe type alone in a slot, a
+    mixed record with NONE slots, and the cells' material tables (read
+    through the shade context's strided views); 1, 2 and 6 lights; the
+    masks DIFFUSE and ALL; the tangent frame given and not; hits with
+    cos_o <= 0, total internal reflection, zero-luminance slots, every
+    slot dead, and s1 at 0 and a hair below 1.  Each call is one launch,
+    and the plain versions count their CUDA calls."""
+    gen = torch.Generator(device=cuda).manual_seed(
+        7 + LOBE_CASES.index(case))
+    lobes, ns, ng, wo, tx, ty = _lobe_case(case, request, gen, cuda)
+    n = ns.shape[0]
+    for nl in (1, 2, 6):
+        wi = torch.stack([_unit_rows(gen, n, cuda) for _ in range(nl)])
+        if nl == 1:
+            wi = wi[0]
+        for mask in (lb.DIFFUSE, lb.ALL):
+            launches, plain = lb.eval_lobes.launches, lb._eval_lobes.cuda_calls
+            got = lb.eval_lobes(lobes, ns, ng, wo, wi, mask)
+            ref = lb._eval_lobes(lobes, ns, ng, wo, wi, mask)
+            torch.cuda.synchronize()
+            assert lb.eval_lobes.launches == launches + 1
+            assert lb._eval_lobes.cuda_calls == plain + 1
+            assert got.shape == ref.shape == wi.shape
+            assert torch.equal(got, ref), (case, nl, mask, torch.nonzero(
+                got != ref)[:4].tolist())
+    s2 = torch.rand((n, 2), generator=gen, device=cuda)
+    s1 = torch.rand((n,), generator=gen, device=cuda)
+    s1[::13] = 0.0
+    s1[5::13] = 1.0 - 2.0 ** -24
+    for mask in (lb.DIFFUSE, lb.ALL):
+        for frame in ((tx, ty), (None, None)):
+            launches = lb.sample_lobes.launches
+            got = lb.sample_lobes(lobes, ns, ng, wo, s2, s1, mask, *frame)
+            ref = lb._sample_lobes(lobes, ns, ng, wo, s2, s1, mask, *frame)
+            torch.cuda.synchronize()
+            assert lb.sample_lobes.launches == launches + 1
+            assert set(got) == set(ref)
+            for k, v in ref.items():
+                assert got[k].dtype == v.dtype and got[k].shape == v.shape
+                assert torch.equal(got[k], v), (case, mask, frame[0] is None,
+                                                k, torch.nonzero(
+                                                    got[k] != v)[:4].tolist())
+            valid = ref['valid']
+            if case != 'type_0' and mask == lb.ALL:
+                assert float(valid.float().mean()) > 0.2
+
+
+def _lobe_frames(scene, camera, params, res, spp, monkeypatch, **kw):
+    """One frame through the lobe kernels and one through the plain
+    versions on the card: (films, stats, the kernels' launches, the plain
+    versions' CUDA calls)."""
+    out = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(lb, 'eval_lobes', lb._eval_lobes)
+            monkeypatch.setattr(lb, 'sample_lobes', lb._sample_lobes)
+        before = (lb.eval_lobes.launches if not plain else 0,
+                  lb.sample_lobes.launches if not plain else 0,
+                  lb._eval_lobes.cuda_calls, lb._sample_lobes.cuda_calls)
+        film, stats = renderer.render_frame(scene, camera, params, res, res,
+                                            spp=spp, seed=42, **kw)
+        torch.cuda.synchronize()
+        after = (lb.eval_lobes.launches if not plain else 0,
+                 lb.sample_lobes.launches if not plain else 0,
+                 lb._eval_lobes.cuda_calls, lb._sample_lobes.cuda_calls)
+        out.append((film, stats, [a - b for a, b in zip(after, before)]))
+    monkeypatch.undo()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['sponza_64', 'test_stereo_32'])
+def test_lobe_kernels_render_the_plain_frame_on_card(cuda, which,
+                                                     monkeypatch):
+    """A whole frame with the lobe kernels equals the frame with the plain
+    eval and sample on the card, bit for bit: sponza_like at 64^2 (4 spp,
+    depth 4: mattetextured and plastic) and test_stereo's back face at
+    32^2 (4 spp, depth 10, the cap 120, the b-spline filter, compacted:
+    MetallicPaint, Uber and the textured ground).  Every eval and sample
+    call of the kernels' frame launches its kernel; no plain version runs
+    there."""
+    if which == 'sponza_64':
+        scene = bs.sponza_like().commit(leaf_size=32)
+        camera, params, res, kw = (bs.sponza_like_camera(64, 64),
+                                   pt.PTParams(max_depth=4), 64, {})
+    else:
+        from yulio_raytracer_tpu_torch.api import cli
+        from yulio_raytracer_tpu_torch.io import ecs
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        settings, sb = ecs.parse_ecs(os.path.join(root, 'assets', 'scenes',
+                                                  'test_stereo.ecs'))
+        scene = sb.commit(accel=settings.accel)
+        camera = cli.stereo_rigs(settings)[0][1][2]
+        params = pt.PTParams(max_depth=10, t_max_shadow_ray=120.0)
+        res, kw = 32, dict(compaction='auto', pixel_filter='bspline')
+    (f_k, s_k, n_k), (f_p, s_p, n_p) = _lobe_frames(
+        scene, camera, params, res, 4, monkeypatch, **kw)
+    assert n_k[0] > 0 and n_k[1] > 0 and n_k[2:] == [0, 0]
+    assert n_p[2] > 0 and n_p[3] > 0
+    assert s_k.num_rays == s_p.num_rays
+    assert torch.equal(f_k.rgb_sum, f_p.rgb_sum)
+    assert torch.equal(accum.resolve(f_k), accum.resolve(f_p))

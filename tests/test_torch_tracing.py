@@ -5,9 +5,10 @@ keeps nothing; the spans as torch.profiler ranges with the tracer off;
 films bit-equal with the tracer on and off; the bounce counts against
 FrameStats.num_rays; a two-thread mesh frame, one tree a thread;
 bounce_stats read from the bounce records; the texture fetch's slot
-counts and the environment's escaped rays, made only under the tracer;
-and profile_frame's readings of a trace (idle_by_span, span_summary) on
-synthetic events."""
+counts, the lobes' lanes and the environment's escaped rays, made only
+under the tracer; the fetch's and the lobes' operators, declared for
+CUDA alone, and the plain lobes on CPU tensors; and profile_frame's
+readings of a trace (idle_by_span, span_summary) on synthetic events."""
 import os
 import subprocess
 import sys
@@ -22,6 +23,9 @@ from yulio_raytracer_tpu_torch import profile_frame, raysets, renderer
 from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.parallel import sharding
+from yulio_raytracer_tpu_torch.ops import cuda_build as cb
+from yulio_raytracer_tpu_torch.shading import lobes as lb
+from yulio_raytracer_tpu_torch.shading import materials as mat
 from yulio_raytracer_tpu_torch.shading import textures as tex
 from yulio_raytracer_tpu_torch.utils import profiling as prof
 
@@ -422,6 +426,275 @@ def test_frame_fetch_calls_record_each_bounce(textured):
         assert tid.shape[1] == 4 and bool((tid >= 0).any())
         assert uv.shape == tid.shape + (2,) and uv.stride(1) == 0
         assert torch.equal(c['out'], tex.fetch(table, tid, uv))
+
+
+def test_frame_lobe_calls_record_each_bounce(textured):
+    """raysets.frame_lobe_calls: each bounce's eval (NEE, one a light
+    group, wi (lights, R, 3)) then its sample (the scatter), every
+    argument by name with the defaults filled in; each call's result is
+    the function's on its arguments, the functions and their launch
+    counts are put back, and no plain call on CUDA tensors is counted."""
+    fns = (lb.eval_lobes, lb.sample_lobes)
+    counts = (lb.eval_lobes.launches, lb.sample_lobes.launches)
+    calls = raysets.frame_lobe_calls(textured, bs.sponza_like_camera(16, 16),
+                                     16, 16, spp=1, max_depth=3, seed=5)
+    assert (lb.eval_lobes, lb.sample_lobes) == fns
+    assert (lb.eval_lobes.launches, lb.sample_lobes.launches) == counts
+    assert [c['kernel'] for c in calls] == ['eval_lobes',
+                                            'sample_lobes'] * 3
+    for c in calls:
+        a = c['args']
+        r = a['lobes']['type'].shape[0]
+        assert a['types_present'] == textured.lobe_types
+        if c['kernel'] == 'eval_lobes':
+            assert a['type_mask'] == lb.DIFFUSE
+            assert a['wi'].shape[1:] == (r, 3)
+            assert torch.equal(c['out'], lb.eval_lobes(**a))
+        else:
+            assert a['type_mask'] == lb.ALL and a['s1'].shape == (r,)
+            ref = lb.sample_lobes(**a)
+            assert all(torch.equal(c['out'][k], ref[k]) for k in ref)
+    assert lb._eval_lobes.cuda_calls == lb._sample_lobes.cuda_calls == 0
+
+
+def _lobe_record(n=64, seed=4):
+    """A lobe record of every type in every slot (a quarter NONE), with
+    the hits' normals, directions, samples and tangents, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+
+    def unit(k):
+        v = torch.randn((k, 3), generator=g)
+        return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    t = torch.randint(0, lb.NUM_LOBE_TYPES, (n, 4), generator=g)
+    lobes = {'type': t, 'color': torch.rand((n, 4, 3), generator=g),
+             'eta': 0.4 + 2 * torch.rand((n, 4), generator=g),
+             'exp': 100 * torch.rand((n, 4), generator=g),
+             'ceta': 0.2 + 2 * torch.rand((n, 4, 3), generator=g),
+             'ck': 3 * torch.rand((n, 4, 3), generator=g)}
+    return (lobes, unit(n), unit(n), unit(n), torch.rand((n, 2), generator=g),
+            torch.rand((n,), generator=g), unit(n), unit(n))
+
+
+def test_lobes_take_the_plain_path_on_the_cpu():
+    """On CPU tensors eval_lobes and sample_lobes are their plain versions
+    (equal results, with and without types_present), launch no kernel,
+    load no library, and count no plain call on CUDA tensors."""
+    lobes, ns, ng, wo, s2, s1, tx, ty = _lobe_record()
+    wi = torch.stack([ns, wo, -ns])
+    counts = (lb.eval_lobes.launches, lb.sample_lobes.launches,
+              lb._eval_lobes.cuda_calls, lb._sample_lobes.cuda_calls)
+    present = tuple(range(1, lb.NUM_LOBE_TYPES))
+    for types_present in (None, present):
+        assert torch.equal(
+            lb.eval_lobes(lobes, ns, ng, wo, wi, lb.DIFFUSE, types_present),
+            lb._eval_lobes(lobes, ns, ng, wo, wi, lb.DIFFUSE, types_present))
+        got = lb.sample_lobes(lobes, ns, ng, wo, s2, s1, lb.ALL, tx, ty,
+                              types_present)
+        ref = lb._sample_lobes(lobes, ns, ng, wo, s2, s1, lb.ALL, tx, ty,
+                               types_present)
+        assert set(got) == set(ref)
+        assert all(torch.equal(got[k], ref[k]) for k in ref)
+    assert (lb.eval_lobes.launches, lb.sample_lobes.launches,
+            lb._eval_lobes.cuda_calls, lb._sample_lobes.cuda_calls) == counts
+    assert counts[2:] == (0, 0)
+    assert not any(name == 'lobes' for name, _ in cb._LIBS)
+
+
+def test_lobe_kernel_arguments_are_views_of_the_record(monkeypatch):
+    """The kernels' wrappers hand their operators the record as (R, L)
+    and (R, L, 3) rows read through the shade context's strides (no copy
+    of a view into the material rows), wi as (lights, R, 3), s1 as (R,),
+    and a frame's null tangents as None; what the operators write is what
+    the calls return.  Checked on the CPU with the operators replaced by
+    the plain versions over the same arguments."""
+    seen = {}
+
+    def fake_eval(ltype, color, eta, exp, ns, wo, wi, mask, out):
+        seen['eval'] = (ltype, color, exp, wi, mask)
+        out.copy_(lb._eval_lobes({'type': ltype, 'color': color, 'eta': eta,
+                                  'exp': exp}, ns, None, wo, wi,
+                                 mask).reshape(out.shape))
+
+    def fake_sample(ltype, color, eta, exp, ceta, ck, ns, ng, wo, s2, s1,
+                    tx, ty, mask, *outs):
+        seen['sample'] = (ltype, exp, ceta, s1, tx, ty, mask)
+        ref = lb._sample_lobes({'type': ltype, 'color': color, 'eta': eta,
+                                'exp': exp, 'ceta': ceta, 'ck': ck}, ns, ng,
+                               wo, s2, s1, mask, tx, ty)
+        for o, k in zip(outs, ('wi', 'pdf', 'weight', 'type_bits', 'eta',
+                               'valid')):
+            o.copy_(ref[k])
+    monkeypatch.setattr(lb, '_eval_op', fake_eval)
+    monkeypatch.setattr(lb, '_sample_op', fake_sample)
+    lobes, ns, ng, wo, s2, s1, tx, ty = _lobe_record()
+    tab = torch.rand((64, 78))                   # material rows, as views
+    lobes = dict(lobes, exp=tab[:, 24:28],
+                 ceta=tab[:, 28:40].reshape(64, 4, 3))
+    wi = torch.stack([ns, wo])
+    got = lb._eval_kernel(lobes, ns, wo, wi, lb.DIFFUSE)
+    ltype, color, exp, wi_arg, mask = seen['eval']
+    assert ltype.shape == (64, 4) and color.shape == (64, 4, 3)
+    assert exp.data_ptr() == tab[:, 24].data_ptr() and exp.stride() == (78, 1)
+    assert wi_arg.shape == (2, 64, 3) and mask == lb.DIFFUSE
+    assert torch.equal(got, lb._eval_lobes(lobes, ns, ng, wo, wi, lb.DIFFUSE))
+    one = lb._eval_kernel(lobes, ns, wo, wo, lb.ALL)
+    assert seen['eval'][3].shape == (1, 64, 3) and one.shape == (64, 3)
+    for frame in ((tx, ty), (None, None)):
+        got = lb._sample_kernel(lobes, ns, ng, wo, s2, s1, lb.ALL, *frame)
+        ref = lb._sample_lobes(lobes, ns, ng, wo, s2, s1, lb.ALL, *frame)
+        _, exp, ceta, s1_arg, tx_arg, ty_arg, _ = seen['sample']
+        assert ceta.data_ptr() == tab[:, 28].data_ptr()
+        assert ceta.stride() == (78, 3, 1) and s1_arg.shape == (64,)
+        assert (tx_arg is None) == (frame[0] is None) == (ty_arg is None)
+        assert all(torch.equal(got[k], ref[k]) for k in ref)
+    with pytest.raises(ValueError):
+        lb._eval_kernel(lobes, ns.double(), wo, wi, lb.DIFFUSE)
+    with pytest.raises(ValueError):
+        lb._sample_kernel(dict(lobes, type=lobes['type'][:, :0]), ns, ng, wo,
+                          s2, s1, lb.ALL, None, None)
+
+
+@pytest.mark.parametrize('bad', ['record', 'ns', 'wi', 's1', 'tx'])
+def test_lobe_kernels_take_the_pathtracer_shapes_alone(bad, monkeypatch):
+    """The kernels' wrappers take an (R, L) record, (R, 3) vectors, wi as
+    (R, 3) or (nl, R, 3) and s1 as (R,), and raise ValueError, before any
+    launch, on any other shape: a record with hit axes of its own, a
+    vector broadcast over the hits, wi with two light axes, s1 of (R, 1),
+    a tangent of another R."""
+    monkeypatch.setattr(lb, '_eval_op', lambda *a: pytest.fail('launched'))
+    monkeypatch.setattr(lb, '_sample_op', lambda *a: pytest.fail('launched'))
+    lobes, ns, ng, wo, s2, s1, tx, ty = _lobe_record()
+    wi = torch.stack([ns, wo])
+    if bad == 'record':
+        lobes = {k: v[None] for k, v in lobes.items()}
+    elif bad == 'ns':
+        ns = ns[:1]
+    elif bad == 'wi':
+        wi = wi[None]
+    elif bad == 's1':
+        s1 = s1[:, None]
+    else:
+        tx = tx[1:]
+    with pytest.raises(ValueError):
+        if bad in ('s1', 'tx'):
+            lb._sample_kernel(lobes, ns, ng, wo, s2, s1, lb.ALL, tx, ty)
+        else:
+            lb._eval_kernel(lobes, ns, wo, wi, lb.DIFFUSE)
+    if bad in ('record', 'ns'):
+        with pytest.raises(ValueError):
+            lb._sample_kernel(lobes, ns, ng, wo, s2, s1, lb.ALL, tx, ty)
+
+
+def test_material_table_refuses_a_lobe_type_past_the_table():
+    """materials.build_table, the one place lobe ids enter a scene, raises
+    on an id outside 0..NUM_LOBE_TYPES-1, so no such id reaches a kernel
+    (which reads one as a dead slot)."""
+    for t in (-1, lb.NUM_LOBE_TYPES):
+        spec = mat.MaterialSpec(lobes=[mat.LobeSpec(type=lb.LAMBERTIAN),
+                                       mat.LobeSpec(type=t)])
+        with pytest.raises(ValueError, match='lobe 1'):
+            mat.build_table([spec])
+    table = mat.build_table([mat.MaterialSpec(lobes=[
+        mat.LobeSpec(type=lb.NUM_LOBE_TYPES - 1)])])
+    assert table['lobe_type'][0, 0] == lb.NUM_LOBE_TYPES - 1
+
+
+def test_lobe_kernel_wrappers_import_nothing_at_their_first_call():
+    """The kernels' wrappers load no module at their first call (as
+    torch.broadcast_shapes' first call would: sympy and some 500 modules,
+    seconds of every run's set-up): a fresh process that runs both
+    wrappers, their operators replaced, loads none."""
+    code = ("import sys, torch\n"
+            "import yulio_raytracer_tpu_torch.shading.lobes as lb\n"
+            "lb._eval_op = lb._sample_op = lambda *a: None\n"
+            "t = torch.zeros((4, 4), dtype=torch.int64)\n"
+            "v, s = torch.zeros((4, 4)), torch.zeros((4, 4, 3))\n"
+            "lobes = {'type': t, 'color': s, 'eta': v, 'exp': v, "
+            "'ceta': s, 'ck': s}\n"
+            "n, u = torch.ones((4, 3)), torch.zeros((4, 2))\n"
+            "before = set(sys.modules)\n"
+            "lb._eval_kernel(lobes, n, n, torch.stack([n, n]), lb.DIFFUSE)\n"
+            "lb._sample_kernel(lobes, n, n, n, u, u[:, 0], lb.ALL, n, n)\n"
+            "print(sorted(set(sys.modules) - before))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, '-c', code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == '[]'
+
+
+def test_lobe_ops_are_declared_for_cuda_alone():
+    """The lobes' operators (yrt::lobes_eval, yrt::lobes_sample) are
+    declared at import, writing their outputs alone, with CUDA kernels
+    only: CPU tensors reach no launch.  A second copy of the package in
+    one process declares operators of its own."""
+    for op, n_out in ((lb._eval_op, 1), (lb._sample_op, 6)):
+        args = op.default._schema.arguments
+        assert all(a.alias_info.is_write for a in args[-n_out:])
+        assert not any(a.alias_info for a in args[:-n_out])
+    assert str(lb._eval_op).startswith('yrt.lobes_eval')
+    assert str(lb._sample_op).startswith('yrt.lobes_sample')
+    launches = (lb.eval_lobes.launches, lb.sample_lobes.launches)
+    with pytest.raises(NotImplementedError):
+        lb._eval_op(*[torch.zeros(1)] * 7, 1, torch.zeros(1))
+    assert (lb.eval_lobes.launches, lb.sample_lobes.launches) == launches
+    code = ("import importlib.util, os, sys\n"
+            "import yulio_raytracer_tpu_torch.shading.lobes as a\n"
+            "pkg = os.path.dirname(os.path.dirname(a.__file__))\n"
+            "spec = importlib.util.spec_from_file_location('_other_yrt', "
+            "os.path.join(pkg, '__init__.py'), "
+            "submodule_search_locations=[pkg])\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "sys.modules['_other_yrt'] = m\n"
+            "spec.loader.exec_module(m)\n"
+            "b = importlib.import_module('_other_yrt.shading.lobes')\n"
+            "print(a._eval_op, a._sample_op, b._eval_op, b._sample_op)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, '-c', code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ['yrt.lobes_eval', 'yrt.lobes_sample',
+                                  'yrt.lobes_eval_', 'yrt.lobes_sample_']
+
+
+def test_lobes_count_lanes_under_the_tracer(textured, monkeypatch):
+    """Under the tracer each yrt.lobes record carries its call's lanes, a
+    host int: the bounce's width times the lights of the group for an
+    eval (in yrt.nee), the bounce's width for a sample (in yrt.scatter);
+    profile_frame sums them.  A bare profiler and the tracer off set no
+    lanes."""
+    with prof.tracing() as t:
+        _frame(textured, bs.sponza_like_camera, 'on')
+    spans = t.spans()
+    lobes = [s for s in spans if s.name == prof.LOBES]
+    assert lobes and all(type(s.attrs['lanes']) is int for s in lobes)
+    for s in lobes:
+        width = _root_bounce(s).attrs['width']
+        if _parent(s) == prof.SCATTER:
+            assert s.attrs['lanes'] == width
+        else:
+            assert s.attrs['lanes'] % width == 0 and s.attrs['lanes'] > width
+    summ = profile_frame.span_summary(spans, 1)
+    assert summ['lobe_calls'] == len(lobes)
+    assert summ['lobe_lanes'] == sum(s.attrs['lanes'] for s in lobes)
+    counted = []
+    base = prof.Span.set
+
+    def count(self, **counts):
+        counted.extend(counts)
+        return base(self, **counts)
+    monkeypatch.setattr(prof.Span, 'set', count)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        _frame(textured, bs.sponza_like_camera, 'on')
+    _frame(textured, bs.sponza_like_camera, 'on')
+    assert counted and 'lanes' not in counted
+
+
+def _root_bounce(s):
+    while s.name != prof.BOUNCE:
+        s = s.parent
+    return s
 
 
 @pytest.fixture(scope='module')

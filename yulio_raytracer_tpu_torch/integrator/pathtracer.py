@@ -459,7 +459,9 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
                     le, wi, pdf, tmax = glights.sample(light, dg['P'], ns, u2)
                 cand = (use_dl & mask_ok & (pdf > 0.0)
                         & torch.any(le > 0.0, dim=-1))
-                with span(prof.LOBES):
+                with span(prof.LOBES) as lobes_rec:
+                    if prof.tracer_on():
+                        lobes_rec.set(lanes=wi.numel() // 3)
                     brdf = lb.eval_lobes(lobed, ns, ng, wo, wi, lb.DIFFUSE,
                                          types_present=scene.lobe_types)
                 cand = cand & torch.any(brdf > 0.0, dim=-1)
@@ -514,7 +516,9 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
                                   base + _DIM_SCATTER)
                 s1 = rng.uniform1(seed, pixel_id, sample_id,
                                   base + _DIM_SCATTER_TYPE)
-            with span(prof.LOBES):
+            with span(prof.LOBES) as lobes_rec:
+                if prof.tracer_on():
+                    lobes_rec.set(lanes=r)
                 samp = lb.sample_lobes(lobed, ns, ng, wo, s2, s1, lb.ALL,
                                        tx=dg['Tx'], ty=dg['Ty'],
                                        types_present=scene.lobe_types)

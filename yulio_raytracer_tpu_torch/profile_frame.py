@@ -45,6 +45,7 @@ from .cameras import cameras as cam
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
 from .io import ecs
+from .shading import lobes as lb
 from .utils import profiling
 
 SPHERE_MIRROR = os.path.join(os.path.dirname(os.path.dirname(
@@ -213,16 +214,20 @@ def span_summary(spans, frames: int) -> dict:
     live_pct, 100 x the rays the bounces traced over their lanes;
     escaped_pct, 100 x the rays that missed (the yrt.env records'
     `escaped`) over the rays traced, None without an environment;
-    bounces, the yrt.bounce spans."""
+    bounces, the yrt.bounce spans; lobe_calls, the yrt.lobes spans (the
+    lobes' evals and samples), and lobe_lanes, their `lanes` summed."""
     b = [s for s in spans if s.name == profiling.BOUNCE]
     lanes = sum(s.attrs['width'] for s in b)
     rays = sum(s.attrs['rays'] for s in b)
     env = [s for s in spans if s.name == profiling.ENV]
+    lobes = [s for s in spans if s.name == profiling.LOBES]
     return {'enqueue_ms': sum(s.end - s.start for s in b) / 1e6 / frames,
             'live_pct': 100.0 * rays / lanes if lanes else None,
             'escaped_pct': (100.0 * sum(s.attrs['escaped'] for s in env)
                             / rays if env and rays else None),
-            'bounces': len(b) / frames}
+            'bounces': len(b) / frames,
+            'lobe_calls': len(lobes) / frames,
+            'lobe_lanes': sum(s.attrs['lanes'] for s in lobes) / frames}
 
 
 def profile_cell(name: str, compaction: str = 'auto') -> dict:
@@ -248,9 +253,12 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
     frame(42)
     frames = sorted(frame(44 + i)[1].seconds for i in range(3))
     peak = torch.cuda.max_memory_allocated()
+    launched = lb.eval_lobes.launches + lb.sample_lobes.launches
     with profiling.tracing() as tracer:
         traced = statistics.median(frame(47 + i)[1].seconds
                                    for i in range(3))
+    launched = lb.eval_lobes.launches + lb.sample_lobes.launches - launched
+    summary = span_summary(tracer.spans(), 3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -293,8 +301,11 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
             'top_glue': [{'op': name[:80], 'calls': n, 'ms': us / 1e3}
                          for us, n, name in sorted(glue, reverse=True)[
                              :TOP_GLUE]],
-            'traced': dict(span_summary(tracer.spans(), 3),
-                           frame_s=traced),
+            'traced': dict(summary, frame_s=traced,
+                           lobe_kernel_share=(launched / 3
+                                              / summary['lobe_calls']
+                                              if summary['lobe_calls']
+                                              else None)),
             'idle_s': idle_by_span(prof)}
 
 
@@ -338,7 +349,12 @@ def main(argv) -> int:
               f"{tr['enqueue_ms']:.1f} ms, live {tr['live_pct']:.1f}%, "
               + ('escaped n/a' if tr['escaped_pct'] is None else
                  f"escaped {tr['escaped_pct']:.2f}%")
-              + f", {tr['bounces']:.0f} bounces; idle ms " + ', '.join(
+              + f", {tr['bounces']:.0f} bounces, lobes "
+              + ('n/a' if tr['lobe_kernel_share'] is None else
+                 f"{tr['lobe_calls']:.0f} calls, "
+                 f"{tr['lobe_kernel_share']:.0%} by the kernels, "
+                 f"{tr['lobe_lanes']:.0f} lanes")
+              + "; idle ms " + ', '.join(
                   f"{c} {idle[c] * 1e3:.1f}"
                   for c in IDLE_CLASSES + ('total',))
               + f"; on {card}", flush=True)

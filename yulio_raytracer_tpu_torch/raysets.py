@@ -2,9 +2,9 @@
 bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
 roots, the dense kernels' entry sets, the sweep prototype's rows and
-rays on a scene, and the dense, pair, binary and motion kernels' and
-the texture fetch's own calls in a frame; and a committed scene's tree
-as 8-wide rows.
+rays on a scene, and the dense, pair, binary and motion kernels', the
+texture fetch's and the lobes' own calls in a frame; and a committed
+scene's tree as 8-wide rows.
 `chip_smoke.py`, `wide_turns`, `wide_ab`, `pairs_turns`, `binary_turns`,
 `dense_turns` and `sweep_turns` make them with these functions.
 """
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 from types import SimpleNamespace
 
 import numpy as np
@@ -24,7 +25,7 @@ from .ops import intersect as ops_i
 from .ops import dense, pairs, traverse, treelets, wide
 from .sampling import patterns
 from .sampling import shapesampler as ss
-from .shading import textures
+from .shading import lobes, textures
 
 
 def camera_rays(scene, cam, width, height, dev, seed):
@@ -154,11 +155,12 @@ def sweep_sets(scene, hit, cam, hemi, n_rows=512, every=4):
 
 
 @contextlib.contextmanager
-def _recorded(module, names, arity):
+def _recorded(module, names, arity=None):
     """Record every call of the wrappers `names` of `module` made inside
     the block, in order: a list of dicts {'kernel': the wrapper's name,
-    'args': its arity positional arguments, omitted ones None, 'out': its
-    result}.  The wrappers run as they would; the list holds their
+    'args': its arity positional arguments, omitted ones None (arity
+    None: a dict of all its arguments by name, defaults filled in), 'out':
+    its result}.  The wrappers run as they would; the list holds their
     tensors.  A wrapper counts its launches on the module's attribute of
     its name, the recorder while it stands in: the count carries over
     both ways."""
@@ -166,9 +168,17 @@ def _recorded(module, names, arity):
     wrapped = {name: getattr(module, name) for name in names}
 
     def recorder(name, fn):
-        def call(*args):
-            args = args + (None,) * (arity - len(args))
-            out = fn(*args)
+        sig = inspect.signature(fn) if arity is None else None
+
+        def call(*args, **kw):
+            if arity is None:
+                out = fn(*args, **kw)
+                bound = sig.bind(*args, **kw)
+                bound.apply_defaults()
+                args = dict(bound.arguments)
+            else:
+                args = args + (None,) * (arity - len(args))
+                out = fn(*args)
             calls.append({'kernel': name, 'args': args, 'out': out})
             return out
         call.launches = fn.launches
@@ -220,6 +230,14 @@ def recorded_fetch_calls():
     fetch, the fetch kernel on the card) made inside the block, as
     _recorded does; 'args' is (table, tid, uv)."""
     return _recorded(textures, ('fetch',), 3)
+
+
+def recorded_lobe_calls():
+    """Record every call of the lobes' eval and sample (shading/lobes.py
+    eval_lobes and sample_lobes, the lobe kernels on the card) made
+    inside the block, as _recorded does; 'args' is the call's arguments
+    by name."""
+    return _recorded(lobes, ('eval_lobes', 'sample_lobes'))
 
 
 def _bounce_one(scene, camera, binning, width, height, spp, seed):
@@ -288,6 +306,18 @@ def frame_fetch_calls(scene, camera, width, height, spp=1, seed=42):
     recorded_fetch_calls' list."""
     with recorded_fetch_calls() as calls:
         _bounce_one(scene, camera, 'morton', width, height, spp, seed)
+    return calls
+
+
+def frame_lobe_calls(scene, camera, width, height, spp=1, max_depth=2,
+                     seed=42, **kw):
+    """The lobes' eval and sample calls of a frame of max_depth bounces
+    (ray_binning 'morton'; kw to render_frame): each bounce's eval over
+    every light group of its NEE, then its sample in the scatter.
+    Returns recorded_lobe_calls' list."""
+    with recorded_lobe_calls() as calls:
+        renderer.render_frame(scene, camera, pt.PTParams(max_depth=max_depth),
+                              width, height, spp=spp, seed=seed, **kw)
     return calls
 
 

@@ -16,16 +16,25 @@ A lobe record (tensors shaped (..., L) or (..., L, 3)):
   ceta   f32x3 conductor complex IOR (real)
   ck     f32x3 conductor complex IOR (imag)
 
-`types_present`, the scene's static set of lobe types (`lobe_types` of a
-committed scene), leaves out every family that no material uses, so a
-Lambertian scene runs the Lambertian ops alone; None means every type.
+On CUDA tensors `eval_lobes` and `sample_lobes` launch the kernels of
+csrc/lobes.cu, one thread a hit, which run each slot's own family alone
+(an absent family costs nothing there); on CPU tensors they run
+`_eval_lobes` and `_sample_lobes`, the plain versions, whose arithmetic
+the kernels repeat op for op (bit-equal on the card).  In the plain
+versions `types_present`, the scene's static set of lobe types
+(`lobe_types` of a committed scene), leaves out every family that no
+material uses, so a Lambertian scene runs the Lambertian ops alone; None
+means every type.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..core import math as vm
+from ..ops import cuda_build as cb
 from ..sampling import shapesampler as ss
 
 # lobe ids (the reference's numbering, so lobe tables are shared)
@@ -148,7 +157,21 @@ def eval_lobes(lobes, ns, ng, wo, wi, type_mask: int = DIFFUSE,
     """Sum of the lobes' evals (CompositedBRDF::eval, compositedbrdf.h:
     74-80); of the lobe set only the cosine family evaluates non-zero.
     lobes: dict of (..., L[, 3]) tensors; ns/ng/wo/wi: (..., 3) ->
-    (..., 3)."""
+    (..., 3); wi may lead with axes of its own (the lights of a call).
+    On CUDA tensors the kernel, which takes the pathtracer's shapes: an
+    (R, L) record, ns and wo (R, 3), wi (R, 3) or (nl, R, 3)
+    (types_present is not needed there); on CPU tensors `_eval_lobes`."""
+    if lobes['type'].is_cuda:
+        return _eval_kernel(lobes, ns, wo, wi, type_mask)
+    return _eval_lobes(lobes, ns, ng, wo, wi, type_mask, types_present)
+
+
+def _eval_lobes(lobes, ns, ng, wo, wi, type_mask: int = DIFFUSE,
+                types_present=None):
+    """The plain eval: torch ops over every slot, the families of
+    types_present."""
+    if lobes['type'].is_cuda:
+        _eval_lobes.cuda_calls += 1
     present = _present_fn(types_present)
     t = lobes['type']
     sel = (type_bits(t) & type_mask) != 0
@@ -190,7 +213,21 @@ def sample_lobes(lobes, ns, ng, wo, s2, s1, type_mask: int = ALL,
     tx/ty: the surface tangent frame (the anisotropic conductor's; None
     builds one around ns).  Returns a dict of (...,)-shaped wi (.., 3),
     pdf, weight (.., 3) (the sampled lobe's color term), type_bits, eta
-    (the relative IOR factor for roulette) and valid."""
+    (the relative IOR factor for roulette) and valid.  On CUDA tensors
+    the kernel, which takes an (R, L) record and (R,)-led per-hit arrays;
+    on CPU tensors `_sample_lobes`."""
+    if lobes['type'].is_cuda:
+        return _sample_kernel(lobes, ns, ng, wo, s2, s1, type_mask, tx, ty)
+    return _sample_lobes(lobes, ns, ng, wo, s2, s1, type_mask, tx, ty,
+                         types_present)
+
+
+def _sample_lobes(lobes, ns, ng, wo, s2, s1, type_mask: int = ALL,
+                  tx=None, ty=None, types_present=None):
+    """The plain sample: torch ops over every slot, each family of
+    types_present sampled for every slot, then the selects."""
+    if lobes['type'].is_cuda:
+        _sample_lobes.cuda_calls += 1
     present = _present_fn(types_present)
     t = lobes['type']                               # (..., L)
     color = lobes['color']                          # (..., L, 3)
@@ -479,6 +516,152 @@ def _sample_glossy(lobes, present, t, nsb, wob, ng, cos_o, cos_o_c, u, v,
     w_gl = torch.where(is_aniso[..., None], w_a,
                        torch.where(is_ph[..., None], w_ph[..., None], w_mf))
     return wi_gl, pdf_gl, w_gl
+
+
+# ---------------------------------------------------------------- kernels
+
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    'yrt_lobes_eval': [_PTRS, _STRIDES, _L, _L, _L, _L, ctypes.c_void_p],
+    'yrt_lobes_sample': [_PTRS, _STRIDES, _L, _L, _L, _PTRS],
+}
+_RECORD = ('type', 'color', 'eta', 'exp')
+_CONDUCTOR = ('ceta', 'ck')
+_WIDE = ('color', 'ceta', 'ck')
+
+
+def _check(name, x, dev, shape):
+    if x.dtype != torch.float32 or x.device != dev or x.shape != shape:
+        raise ValueError(f"{name}: expected float32 {tuple(shape)} on {dev}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _record(lobes, names):
+    """The lobe record's arrays as the kernels read them, each through its
+    own strides: int64 types (R, L), f32 parameters (R, L) or, color,
+    ceta and ck, (R, L, 3) on the types' device."""
+    t = lobes['type']
+    if t.dim() != 2 or not 1 <= t.shape[1] <= 4:
+        raise ValueError(f"the lobe kernels take an (R, L) record of 1 to 4 "
+                         f"slots a hit, got types {tuple(t.shape)}")
+    out = [t.to(torch.int64)]
+    for name in names[1:]:
+        shape = t.shape + ((3,) if name in _WIDE else ())
+        _check(name, lobes[name], t.device, shape)
+        out.append(lobes[name])
+    return out
+
+
+def _eval_kernel(lobes, ns, wo, wi, type_mask):
+    """eval_lobes on the card: csrc/lobes.cu over the record's R hits,
+    ns and wo (R, 3), each thread looping over wi's lights ((nl, R, 3),
+    or one light as (R, 3))."""
+    record = _record(lobes, _RECORD)
+    r, dev = record[0].shape[0], record[0].device
+    lights = wi if wi.dim() == 3 else wi[None]
+    for name, x in (('ns', ns), ('wo', wo)):
+        _check(name, x, dev, torch.Size((r, 3)))
+    _check('wi', lights, dev, torch.Size((lights.shape[0], r, 3)))
+    out = torch.empty(wi.shape, dtype=torch.float32, device=dev)
+    if out.numel():
+        _eval_op(*record, ns, wo, lights, int(type_mask), out)
+    return out
+
+
+def _sample_kernel(lobes, ns, ng, wo, s2, s1, type_mask, tx, ty):
+    """sample_lobes on the card: csrc/lobes.cu, one thread a hit of the
+    record's R: ns, ng, wo, tx, ty (R, 3), s2 (R, 2), s1 (R,)."""
+    record = _record(lobes, _RECORD + _CONDUCTOR)
+    r, dev = record[0].shape[0], record[0].device
+    frame = (None, None) if tx is None or ty is None else (tx, ty)
+    for name, x, width in (('ns', ns, (3,)), ('ng', ng, (3,)),
+                           ('wo', wo, (3,)), ('s2', s2, (2,)), ('s1', s1, ()),
+                           ('tx', frame[0], (3,)), ('ty', frame[1], (3,))):
+        if x is not None:
+            _check(name, x, dev, torch.Size((r,) + width))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {'wi': torch.empty((r, 3), **f32), 'pdf': torch.empty(r, **f32),
+           'weight': torch.empty((r, 3), **f32),
+           'type_bits': torch.empty(r, dtype=torch.int64, device=dev),
+           'eta': torch.empty(r, **f32),
+           'valid': torch.empty(r, dtype=torch.bool, device=dev)}
+    if r:
+        _sample_op(*record, ns, ng, wo, s2, s1, *frame, int(type_mask),
+                   *out.values())
+    return out
+
+
+def _args(xs):
+    """Pointers and (3 an array) strides in elements of the kernel's
+    inputs; None is a null pointer."""
+    ptrs, strides = [], []
+    for x in xs:
+        ptrs.append(None if x is None else x.data_ptr())
+        st = () if x is None else x.stride()
+        strides += list(st) + [0] * (3 - len(st))
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_longlong * len(strides))(*strides))
+
+
+def _launch_eval(ltype, color, eta, exp, ns, wo, wi, type_mask, out):
+    """The operator _eval_op on CUDA tensors: the eval kernel over the
+    (R, L) record's hits and wi's (nl, R, 3) lights, out (nl, R, 3);
+    counted in eval_lobes.launches."""
+    ptrs, strides = _args((ltype, color, eta, exp, ns, wo, wi))
+    cb.launch(cb.library('lobes', _SIGNATURES).yrt_lobes_eval, 'lobes_eval',
+              out.device, ptrs, strides, wi.shape[1], wi.shape[0],
+              ltype.shape[1], type_mask, out)
+    cb.bump(eval_lobes)
+
+
+def _launch_sample(ltype, color, eta, exp, ceta, ck, ns, ng, wo, s2, s1,
+                   tx, ty, type_mask, wi, pdf, weight, bits, eta_out, valid):
+    """The operator _sample_op on CUDA tensors: the sample kernel over the
+    (R, L) record's hits into the (R,)-shaped outputs; counted in
+    sample_lobes.launches."""
+    ptrs, strides = _args((ltype, color, eta, exp, ceta, ck, ns, ng, wo, s2,
+                           s1, tx, ty))
+    outs = (wi, pdf, weight, bits, eta_out, valid)
+    out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
+    cb.launch(cb.library('lobes', _SIGNATURES).yrt_lobes_sample,
+              'lobes_sample', wi.device, ptrs, strides, ltype.shape[0],
+              ltype.shape[1], type_mask, out_ptrs)
+    cb.bump(sample_lobes)
+
+
+# The launches as torch operators, so that a profiler links the kernels to
+# them, and through them to the yrt.lobes span open around each call (a
+# kernel launched straight from a profiler range is linked to nothing).
+# Declared with torch.library.Library, as the texture fetch's operator is;
+# a second copy of the package in the process declares its own.
+_LIB = torch.library.Library('yrt', 'FRAGMENT')
+
+
+def _declare(name, schema, impl):
+    while hasattr(torch.ops.yrt, name):
+        name += '_'
+    _LIB.define(name + schema)
+    _LIB.impl(name, impl, 'CUDA')
+    return getattr(torch.ops.yrt, name)
+
+
+_eval_op = _declare(
+    'lobes_eval', '(Tensor ltype, Tensor color, Tensor eta, Tensor exp, '
+    'Tensor ns, Tensor wo, Tensor wi, int type_mask, Tensor(a!) out) -> ()',
+    _launch_eval)
+_sample_op = _declare(
+    'lobes_sample', '(Tensor ltype, Tensor color, Tensor eta, Tensor exp, '
+    'Tensor ceta, Tensor ck, Tensor ns, Tensor ng, Tensor wo, Tensor s2, '
+    'Tensor s1, Tensor? tx, Tensor? ty, int type_mask, Tensor(a!) wi, '
+    'Tensor(b!) pdf, Tensor(c!) weight, Tensor(d!) type_bits, '
+    'Tensor(e!) eta_out, Tensor(f!) valid) -> ()', _launch_sample)
+
+# launch counts: the kernels launched, and the plain versions run on CUDA
+# tensors
+eval_lobes.launches = sample_lobes.launches = 0
+_eval_lobes.cuda_calls = _sample_lobes.cuda_calls = 0
 
 
 def has_type(lobes, type_mask: int):

@@ -288,6 +288,10 @@ def build_table(mats: list[MaterialSpec]) -> dict:
             raise ValueError(f"material {i} has {len(ms.lobes)} lobes, "
                              f"more than MAX_LOBES={l}")
         for j, lo in enumerate(ms.lobes):
+            if not 0 <= lo.type < lb.NUM_LOBE_TYPES:
+                raise ValueError(f"material {i}, lobe {j}: type {lo.type} "
+                                 f"is not a lobe type (0 to "
+                                 f"{lb.NUM_LOBE_TYPES - 1})")
             out['lobe_type'][i, j] = lo.type
             out['lobe_color'][i, j] = lo.color
             out['lobe_cscale'][i, j] = lo.cscale

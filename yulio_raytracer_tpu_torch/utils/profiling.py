@@ -23,7 +23,9 @@ here
   A bounce's record also counts its lanes (`width`), the rays it traced
   (`rays`), its shadow candidates (`shadow`) and, compacted, the lanes
   live after it (`live`), and a bounce's yrt.env record the rays that
-  missed every triangle (`escaped`); tensor counts are read with the
+  missed every triangle (`escaped`), and a yrt.lobes record the lanes
+  its call evaluates or samples (`lanes`: hits x lights for an eval,
+  hits for a sample; a host int); tensor counts are read with the
   frame's own ray count (`settle`), so tracing adds no host sync;
 * `trace(log_dir)` wraps `torch.profiler.profile` (with the card's
   activity when there is a card) and writes a Chrome trace (a
