@@ -2462,7 +2462,8 @@ def main():
             names = {e.get('name', '') for e in json.load(f)['traceEvents']}
     kernels_named = sorted({kernel_of(n) for n in names} - {None})
     if (pt.SPAN_SHADE not in names or kernels_named
-            != ['intersect_dense_kernel', 'occluded_dense_kernel']):
+            != ['intersect_dense_kernel', 'lobes_eval_kernel',
+                'lobes_sample_kernel', 'occluded_dense_kernel']):
         raise AssertionError(f"profiling.trace: the trace names "
                              f"{kernels_named}, shade range "
                              f"{pt.SPAN_SHADE in names}")

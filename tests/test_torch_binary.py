@@ -16,7 +16,7 @@ import torch
 
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.ops import traverse, wide
-from yulio_raytracer_tpu_torch import binary_turns, raysets
+from yulio_raytracer_tpu_torch import raysets
 
 torch.set_num_threads(2)
 COLONNADE_SMALL = dict(cols_x=3, cols_z=2, tess=(8, 10))
@@ -137,14 +137,6 @@ def test_frame_binary_calls_rejects_other_paths(colonnade):
     with pytest.raises(ValueError, match='accel_or_binning'):
         raysets.frame_binary_calls(colonnade, bs.colonnade_camera(8, 8),
                                    'morton', 8, 8)
-
-
-def test_binary_turns_needs_a_card(tmp_path):
-    """The K5/K6 A/B timing script exits 1 without a CUDA device, before
-    it builds anything."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert binary_turns.main([str(tmp_path), '--bounds']) == 1
 
 
 def _walk_nearest_first(nodes, leaf_ok, org, dirn, tnear, tfar, root):

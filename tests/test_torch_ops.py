@@ -24,7 +24,7 @@ from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 from yulio_raytracer_tpu_torch.ops import dense, wide, intersect as ops
 from yulio_raytracer_tpu_torch.ops import cuda_build as cb
-from yulio_raytracer_tpu_torch import dense_turns, raysets, wide_turns
+from yulio_raytracer_tpu_torch import raysets, turns
 
 torch.set_num_threads(2)
 
@@ -224,23 +224,22 @@ def test_check_packed_guards_the_stack_words(tables, field):
             wide._check_packed(out, 4)
 
 
-def test_kernel_entry_follows_the_largest_leaf(monkeypatch,
-                                               colonnade_nodes4):
+def test_kernel_entry_follows_the_largest_leaf(colonnade_nodes4):
     """The wrappers launch the kernels' *_slots forms for a table with a
     leaf of SLOTS_MIN triangles or more, and notice a table changed in
     place."""
-    monkeypatch.setattr(wide, '_lib', lambda: SimpleNamespace(
-        yrt_occluded_wide='words', yrt_occluded_wide_slots='slots'))
+    lib = SimpleNamespace(yrt_occluded_wide='words',
+                          yrt_occluded_wide_slots='slots')
     nodes4 = torch.as_tensor(colonnade_nodes4.copy())
-    assert wide._entry('yrt_occluded_wide', nodes4) == 'words'
+    assert wide._entry(lib, 'yrt_occluded_wide', nodes4) == 'words'
     nodes4.view(-1, 4, 8)[:, :, 7].clamp_(max=wide.SLOTS_MIN - 1)
-    assert wide._entry('yrt_occluded_wide', nodes4) == 'words'
+    assert wide._entry(lib, 'yrt_occluded_wide', nodes4) == 'words'
     leaf = torch.nonzero(nodes4.view(-1, 4, 8)[:, :, 7] > 0)[0]
     nodes4.view(-1, 4, 8)[leaf[0], leaf[1], 7] = float(wide.SLOTS_MIN)
-    assert wide._entry('yrt_occluded_wide', nodes4) == 'slots'
+    assert wide._entry(lib, 'yrt_occluded_wide', nodes4) == 'slots'
     big = bs.colonnade(cols_x=3, cols_z=2, tess=(8, 10)).commit(
         device='cpu', leaf_size=512).nodes4
-    assert wide._entry('yrt_occluded_wide', big) == 'slots'
+    assert wide._entry(lib, 'yrt_occluded_wide', big) == 'slots'
 
 
 def test_check_packed_accepts_the_colonnade(colonnade_nodes4):
@@ -536,31 +535,15 @@ def test_plain_dense_counts_the_kernels_tests(cornell_sets, rays, cull):
     assert counts == {}
 
 
-def test_dense_turns_needs_a_card(tmp_path):
-    """The dense turns tool exits 1 without a CUDA device, before it
-    builds anything."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert dense_turns.main([str(tmp_path), '--bounds']) == 1
-
-
-def test_wide_turns_needs_a_card(tmp_path):
-    """The A/B timing script exits 1 without a CUDA device, before it
-    builds anything."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert wide_turns.main([str(tmp_path)]) == 1
-
-
 def test_run_turns_alternates_and_holds_the_libraries_equal(monkeypatch,
                                                              capsys):
-    """The turns driver of wide_turns, pairs_turns and binary_turns: it
+    """The turns driver of every family of the turns tool: it
     first requires both libraries' outputs bit-equal on every set, then
     times this checkout's first on even rounds and the other's first on
     odd ones, then each extra timed step; a set's summary has each
     library's median and spread, the rounds this one won, the extra
     steps' medians and extra()'s keys, and one [turns] line is printed
-    per set."""
+    per set, ending with extra()'s numbers."""
     order = []
     times = {'this': iter([1.0, 3.0, 1.0]), 'other': iter([2.0, 2.0, 2.0]),
              'step': iter([0.5, 0.25, 0.75])}
@@ -568,7 +551,7 @@ def test_run_turns_alternates_and_holds_the_libraries_equal(monkeypatch,
     def fake_median_ms(fn):
         fn()
         return next(times[order[-1]])
-    monkeypatch.setattr(wide_turns, 'median_ms', fake_median_ms)
+    monkeypatch.setattr(turns, 'median_ms', fake_median_ms)
 
     def run(k, calls):
         order.append(k)
@@ -576,8 +559,8 @@ def test_run_turns_alternates_and_holds_the_libraries_equal(monkeypatch,
 
     def extra(what, calls, outs, med):
         assert torch.equal(outs[1][0], torch.arange(3) * 2)
-        return {'note': med['other'] / med['this']}, '; a note'
-    summary, outs = wide_turns.run_turns(
+        return {'note': med['other'] / med['this'], 'by': 'bytes'}
+    summary, outs = turns.run_turns(
         {'set': [1, 2]}, run, 3, 'a card', len,
         also={'step': lambda calls: order.append('step')}, extra=extra)
     assert order == ['this', 'other'] + ['this', 'other', 'step',
@@ -591,9 +574,9 @@ def test_run_turns_alternates_and_holds_the_libraries_equal(monkeypatch,
     assert len(outs['set']) == 2
     line = capsys.readouterr().out.strip()
     assert line.startswith('[turns] set on 2 rays, 3 rounds: this median')
-    assert line.endswith('; step alone 0.5000 ms; a note; a card')
+    assert line.endswith('; step alone 0.5000 ms; note 2; by bytes; a card')
 
     def disagree(k, calls):
         return [(torch.tensor([k == 'this']),)]
     with pytest.raises(AssertionError, match='disagree'):
-        wide_turns.run_turns({'set': [1]}, disagree, 1, 'a card', len)
+        turns.run_turns({'set': [1]}, disagree, 1, 'a card', len)

@@ -317,7 +317,7 @@ def test_init_distributed_nccl_needs_a_card_per_process():
 
 
 def test_launch_counts_survive_threads():
-    """cuda_build.bump, which every kernel wrapper calls where it
+    """cuda_build.bump, which every kernel's operator calls where it
     launches, loses no count when 16 threads bump one wrapper at once
     with the interpreter switching threads every microsecond."""
     from yulio_raytracer_tpu_torch.ops import cuda_build

@@ -17,7 +17,6 @@ from yulio_raytracer_tpu.ops import pallas_traverse as ppt
 
 from yulio_raytracer_tpu_torch.geometry import mesh, bvh, primitives
 from yulio_raytracer_tpu_torch.ops import splitleaf, traverse, wide
-from yulio_raytracer_tpu_torch import incoherent_turns
 
 torch.set_num_threads(2)
 R = psl.BLOCK          # the reference kernel takes 1024s
@@ -155,12 +154,3 @@ def test_split_rejects_leaves_past_max_leaf(split_setup):
         splitleaf.intersect_packet_split(s['nodes'], s['tris'], *rays,
                                          max_leaf=256)
     assert splitleaf.max_groups(8) == 2 and splitleaf.max_groups(32) == 5
-
-
-def test_incoherent_turns_needs_a_card(tmp_path):
-    """The K10/K11 turns tool exits 1 without a CUDA device, before it
-    builds anything."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert incoherent_turns.main([str(tmp_path), '--bounds']) == 1
-

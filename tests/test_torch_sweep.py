@@ -28,7 +28,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
-from yulio_raytracer_tpu_torch import raysets, sweep_turns
+from yulio_raytracer_tpu_torch import raysets, turns
 from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
 
 torch.set_num_threads(2)
@@ -192,7 +192,7 @@ def _loop(tris, idx, org, d, reps):
     """One thread's loop in csrc/sweep.cu: the triangles tris (k, 16),
     numbered idx, tested one at a time in order, `reps` times, a strictly
     nearer hit replacing the best; also the tests past the sign test and
-    past the t window (as sweep_turns.stage_passes counts them)."""
+    past the t window (as turns.stage_passes counts them)."""
     n = org.shape[0]
     t_b = torch.full((n,), float('inf'))
     tri_b = torch.full((n,), -1, dtype=torch.int32)
@@ -375,25 +375,25 @@ def test_slices_fill_the_card_only_when_rays_are_few():
 
 @pytest.mark.parametrize('reps', [1, 2])
 def test_stage_passes_count_a_sequential_sweep(duplicated, reps):
-    """sweep_turns.stage_passes' counts equal those of a loop over the
+    """turns.stage_passes' counts equal those of a loop over the
     triangles one at a time: the tests past the sign test, and those with
     0 < t < the best t before them."""
     tris, org, d = duplicated
     org, d = org[:200], d[:200]
     _, _, passed = _loop(tris, torch.arange(tris.shape[0]), org, d, reps)
-    got = sweep_turns.stage_passes(tris, org, d, reps)
+    got = turns.stage_passes(tris, org, d, reps)
     assert got == {'pair': 200 * tris.shape[0] * reps, 'sign': passed[0],
                    'window': passed[1]}
     assert 0 < got['window'] < got['sign'] < got['pair']
 
 
 def test_sweep_turns_runs_the_other_tree_through_its_wrappers(cornell):
-    """sweep_turns imports another checkout's sweep module under a package
+    """`turns sweep` imports another checkout's sweep module under a package
     name of its own, bound to that checkout's csrc, and runs a set's call
     through its wrappers; one_slice sets SLICE_BLOCKS_PER_SM to 0 for the
     call and restores it.  The other tree is this checkout, on CPU
     tensors: the plain versions."""
-    other = sweep_turns.other_sweep(ROOT)
+    other = turns.other_sweep(ROOT)
     assert other is not sweep
     assert other.__name__ == '_other_yrt.proto_sublane_sweep'
     assert other.cb.CSRC == sweep.cb.CSRC
@@ -405,19 +405,11 @@ def test_sweep_turns_runs_the_other_tree_through_its_wrappers(cornell):
         for kind, switch, table in (('rows', False, rows),
                                     ('tiles', False, tiles),
                                     ('tiles', True, tiles)):
-            got = sweep_turns.sweep_call(other, kind, switch, table, org, d,
-                                         2, one)
+            got = turns.sweep_call(other, kind, switch, table, org, d, 2,
+                                   one)
             assert torch.equal(got[0], ref[0])
             assert torch.equal(got[1], ref[1])
-    with sweep_turns.one_slice(other, True):
+    with turns.one_slice(other, True):
         assert other.slices(128, 100, 512, 2, 132) == 1
     assert other.SLICE_BLOCKS_PER_SM == sweep.SLICE_BLOCKS_PER_SM
     assert other.slices(128, 100, 512, 2, 132) == 256
-
-
-def test_sweep_turns_needs_a_card(tmp_path):
-    """The K12 turns tool exits 1 without a CUDA device, before it builds
-    or imports anything."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert sweep_turns.main([str(tmp_path), '--bounds']) == 1

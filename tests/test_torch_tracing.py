@@ -6,8 +6,7 @@ films bit-equal with the tracer on and off; the bounce counts against
 FrameStats.num_rays; a two-thread mesh frame, one tree a thread;
 bounce_stats read from the bounce records; the texture fetch's slot
 counts, the lobes' lanes and the environment's escaped rays, made only
-under the tracer; the fetch's and the lobes' operators, declared for
-CUDA alone, and the plain lobes on CPU tensors; and profile_frame's
+under the tracer; the plain lobes on CPU tensors; and profile_frame's
 readings of a trace (idle_by_span, span_summary) on synthetic events."""
 import os
 import subprocess
@@ -379,39 +378,6 @@ def test_textures_import_without_cuda():
     assert out.returncode == 0 and out.stdout.strip() == 'ok', out.stderr
 
 
-def test_fetch_op_is_declared_for_cuda_alone():
-    """The fetch's operator (yrt::texture_fetch) is declared at import,
-    writing its `out` alone, with a CUDA kernel only: CPU tensors reach
-    no launch and no count.  A second copy of the package declares one of
-    its own."""
-    args = tex._op.default._schema.arguments
-    assert str(tex._op).startswith('yrt.texture_fetch')
-    assert args[-1].name == 'out' and args[-1].alias_info.is_write
-    assert not any(a.alias_info for a in args[:-1])
-    launches = tex.fetch.launches
-    with pytest.raises(NotImplementedError):
-        tex._op(*[torch.zeros(1)] * 9)
-    assert tex.fetch.launches == launches
-    code = ("import importlib.util, os, sys\n"
-            "import yulio_raytracer_tpu_torch.shading.textures as a\n"
-            "pkg = os.path.dirname(os.path.dirname(a.__file__))\n"
-            "spec = importlib.util.spec_from_file_location('_other_yrt', "
-            "os.path.join(pkg, '__init__.py'), "
-            "submodule_search_locations=[pkg])\n"
-            "m = importlib.util.module_from_spec(spec)\n"
-            "sys.modules['_other_yrt'] = m\n"
-            "spec.loader.exec_module(m)\n"
-            "b = importlib.import_module('_other_yrt.shading.textures')\n"
-            "print(a._op, b._op)\n")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, '-c', code], cwd=root,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-2000:]
-    first, second = out.stdout.split()
-    assert first == 'yrt.texture_fetch' and second == 'yrt.texture_fetch_'
-
-
-
 def test_frame_fetch_calls_record_each_bounce(textured):
     """raysets.frame_fetch_calls: one call a bounce, over the (R, 4) lobe
     slots with the hits' (R, 2) uv expanded, not copied; each call's
@@ -621,40 +587,6 @@ def test_lobe_kernel_wrappers_import_nothing_at_their_first_call():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == '[]'
-
-
-def test_lobe_ops_are_declared_for_cuda_alone():
-    """The lobes' operators (yrt::lobes_eval, yrt::lobes_sample) are
-    declared at import, writing their outputs alone, with CUDA kernels
-    only: CPU tensors reach no launch.  A second copy of the package in
-    one process declares operators of its own."""
-    for op, n_out in ((lb._eval_op, 1), (lb._sample_op, 6)):
-        args = op.default._schema.arguments
-        assert all(a.alias_info.is_write for a in args[-n_out:])
-        assert not any(a.alias_info for a in args[:-n_out])
-    assert str(lb._eval_op).startswith('yrt.lobes_eval')
-    assert str(lb._sample_op).startswith('yrt.lobes_sample')
-    launches = (lb.eval_lobes.launches, lb.sample_lobes.launches)
-    with pytest.raises(NotImplementedError):
-        lb._eval_op(*[torch.zeros(1)] * 7, 1, torch.zeros(1))
-    assert (lb.eval_lobes.launches, lb.sample_lobes.launches) == launches
-    code = ("import importlib.util, os, sys\n"
-            "import yulio_raytracer_tpu_torch.shading.lobes as a\n"
-            "pkg = os.path.dirname(os.path.dirname(a.__file__))\n"
-            "spec = importlib.util.spec_from_file_location('_other_yrt', "
-            "os.path.join(pkg, '__init__.py'), "
-            "submodule_search_locations=[pkg])\n"
-            "m = importlib.util.module_from_spec(spec)\n"
-            "sys.modules['_other_yrt'] = m\n"
-            "spec.loader.exec_module(m)\n"
-            "b = importlib.import_module('_other_yrt.shading.lobes')\n"
-            "print(a._eval_op, a._sample_op, b._eval_op, b._sample_op)\n")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, '-c', code], cwd=root,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.split() == ['yrt.lobes_eval', 'yrt.lobes_sample',
-                                  'yrt.lobes_eval_', 'yrt.lobes_sample_']
 
 
 def test_lobes_count_lanes_under_the_tracer(textured, monkeypatch):

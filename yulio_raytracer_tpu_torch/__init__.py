@@ -2,10 +2,14 @@
 
 The JAX package stays the reference; every module here names its JAX
 counterpart by file, and tests/test_torch_*.py hold each against it.  The
-port imports torch and numpy, never jax.  Its traversal kernels are CUDA
-C++ for Hopper (sm_90a) in csrc/, built by nvcc at first use into
-build/kernels/ and bound with ctypes (ops/cuda_build.py); on CPU tensors
-each kernel wrapper runs its plain torch version instead.
+port imports torch and numpy, never jax.  Its kernels are CUDA C++ for
+Hopper (sm_90a) in csrc/, built by nvcc at first use into build/kernels/
+with a plain C interface.  They have one launch route: a wrapper checks
+its arguments and calls a torch operator that ops/cuda_build.operator
+declared (yrt::<name>, CUDA only), whose implementation is its module's
+`launch`, the one place that knows the kernel's C interface; a profiler
+links each kernel to the span around its call.  On CPU tensors each
+wrapper runs its plain torch version instead.
 
 Layers, from the entry point down:
   api          the entry points: api/output.py, the StartRT session
@@ -21,8 +25,9 @@ Layers, from the entry point down:
   scene        SceneBuilder.commit(device=None: the card, quality=) ->
                TorchScene
   geometry     host-side packing and BVH build (numpy, native builder)
-  ops          intersection: dense.py, wide.py, traverse.py, pairs.py
-               and grid.py wrap the kernels
+  ops          intersection: dense.py, wide.py, traverse.py, pairs.py,
+               grid.py and splitleaf.py wrap the kernels; cuda_build.py
+               builds, loads and declares them
   utils        logging, profiling (the render path's span tree, its
                tracer, traces, commit stats) and the random-scene
                fuzzer (utils/regression.py)
@@ -30,7 +35,16 @@ Layers, from the entry point down:
                processes (sharding.py) and the TCP render servers
                (network.py)
   native       the C ABI shim (yuliort_shim.cpp) and its build
-profile_frame.py profiles one frame of a timed cell on the card.
+
+Tools beside the layers, none on the render path:
+  turns        a family of this checkout's kernels against another
+               checkout's, timed in turns on the card (`python -m
+               yulio_raytracer_tpu_torch.turns FAMILY OTHER_ROOT`)
+  wide_ab      the walks of one tree side by side on the card
+  raysets      the ray sets and the recorded calls the tools time
+  roofline     the card's peaks and the flops of one test
+  profile_frame  one frame of a timed cell under torch.profiler
+  proto_sublane_sweep  the dense-sweep layout prototype (K12)
 
 Where a frame's time goes: `with profiling.tracing() as t:
 render_frame(...)`, then `t.spans()` holds a record of every span of the

@@ -1,19 +1,27 @@
-"""Build and load the package's CUDA kernels at first use.
+"""Build, load and launch the package's CUDA kernels.
 
 Each `csrc/<name>.cu` is compiled by nvcc alone into a shared library
 with a plain C interface, `build/kernels/lib<name>-<hash>.so` under the
 repository root (the hash covers the sources and flags, so an edited
-source rebuilds), and loaded with ctypes.  Every C entry point returns
-`cudaGetLastError()` after its launch; `launch` raises on a nonzero
-code.  Nothing here runs at import time.
+source rebuilds), and loaded with ctypes at first use.  Every C entry
+point returns `cudaGetLastError()` after its launch; `launch` raises on a
+nonzero code.
+
+Every kernel is launched through a torch operator that `operator`
+declares: the one route from a wrapper to a kernel.  Declaring runs
+nothing on a device and builds nothing; nvcc runs at an operator's first
+call.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
 import threading
 
 import torch
@@ -29,6 +37,19 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 MAX_RAYS = 1 << 30
 
 _LIBS: dict = {}
+# the library of the port's operators: torch.library.Library, not
+# custom_op, whose first call imports some 800 modules, seconds of a
+# run's set-up
+_OPS_LIB = torch.library.Library('yrt', 'FRAGMENT')
+
+# every operator this copy of the package declared: {name: (operator, its
+# C entry point, the function that launches it)}
+OPERATORS: dict = {}
+# the schemas' common parts: a ray batch (ray_args), the outputs of a
+# closest-hit kernel (empty_hit) and of an any-hit kernel
+RAYS = 'Tensor org, Tensor dirn, Tensor tnear, Tensor tfar'
+HIT = 'Tensor(a!) t, Tensor(b!) tri, Tensor(c!) u, Tensor(d!) v'
+OCC = 'Tensor(a!) occ'
 
 
 def _nvcc() -> str:
@@ -98,6 +119,45 @@ def launch(fn, what: str, device, *args):
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
 
 
+def operator(name, schema, launch, library, counted):
+    """Declare the torch operator yrt::<name><schema> and return it.  Its
+    CUDA implementation is launch(library(), 'yrt_' + name, *args), the C
+    entry point of that name in the loaded library, then a bump of the
+    wrapper `counted` as its module holds it at the call (a recorder may
+    stand in for it: raysets._recorded); it has no other, so CPU tensors
+    raise NotImplementedError.  Through the operator a profiler links the
+    kernel to the span open around the call (a kernel launched straight
+    from a profiler range is linked to nothing).  A second copy of the
+    package in one process (the turns tool imports another checkout's)
+    declares name + '_', so that each copy runs its own kernels."""
+    entry = 'yrt_' + name
+    module = sys.modules[counted.__module__]
+
+    def impl(*args):
+        launch(library(), entry, *args)
+        bump(getattr(module, counted.__name__))
+    while hasattr(torch.ops.yrt, name):
+        name += '_'
+    _OPS_LIB.define(name + schema)
+    _OPS_LIB.impl(name, impl, 'CUDA')
+    op = getattr(torch.ops.yrt, name)
+    OPERATORS[name] = (op, entry, launch)
+    return op
+
+
+@functools.cache
+def kernel_names(csrc: str = CSRC) -> frozenset:
+    """The __global__ names the sources in csrc define."""
+    names = set()
+    for fn in os.listdir(csrc):
+        if fn.endswith('.cu'):
+            with open(os.path.join(csrc, fn)) as f:
+                names.update(re.findall(
+                    r'__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?'
+                    r'(\w+)\s*\(', f.read()))
+    return frozenset(names)
+
+
 def ray_args(org, dirn, tnear, tfar, *time):
     """One ray batch for a kernel (with its per-ray `time` for a motion
     kernel): checked to hold fewer than MAX_RAYS rays, made contiguous,
@@ -153,3 +213,20 @@ def empty_hit(r: int, device):
             torch.empty((r,), dtype=torch.int32, device=device),
             torch.empty((r,), dtype=torch.float32, device=device),
             torch.empty((r,), dtype=torch.float32, device=device))
+
+
+def closest(op, *args):
+    """(t, tri, u, v) that op, a closest-hit kernel's operator, writes
+    for the rays of args (org third)."""
+    hit = empty_hit(args[2].shape[0], args[2].device)
+    op(*args, *hit)
+    return hit
+
+
+def occluded(op, *args):
+    """The (R,) bool occlusion that op, an any-hit kernel's operator,
+    writes for the rays of args (org third)."""
+    occ = torch.empty((args[2].shape[0],), dtype=torch.bool,
+                      device=args[2].device)
+    op(*args, occ)
+    return occ

@@ -128,40 +128,52 @@ def _lib():
     return cb.library('dense', _SIGNATURES)
 
 
+def kernel_args(tris, org, dirn, tnear, tfar):
+    """The kernels' checked inputs: (rows, live rows, org, dirn, tnear,
+    tfar)."""
+    org, dirn, tnear, tfar = cb.ray_args(org, dirn, tnear, tfar)
+    rows = cb.table_arg('tris', _rows(tris), 16, org.device)
+    return rows, live_rows(tris), org, dirn, tnear, tfar
+
+
+def launch(lib, entry, rows, live, org, dirn, tnear, tfar, *out):
+    """K1 (yrt_intersect_dense) or K2 (yrt_occluded_dense) of lib, a
+    build of csrc/dense.cu, on kernel_args' inputs and its outputs."""
+    cb.launch(getattr(lib, entry), entry, org.device, rows, live, org, dirn,
+              tnear, tfar, org.shape[0], *out)
+
+
 def intersect_dense(tris, org, dirn, tnear, tfar) -> Hit:
     """Closest hit of each ray (R, 3) against all triangles."""
     if org.device.type == 'cpu':
         return intersect_dense_plain(tris, org, dirn, tnear, tfar)
-    org, dirn, tnear, tfar = cb.ray_args(org, dirn, tnear, tfar)
-    rows = cb.table_arg('tris', _rows(tris), 16, org.device)
-    r, live = org.shape[0], live_rows(tris)
-    if live == 0:
-        return Hit(torch.full((r,), INF, device=org.device),
-                   torch.full((r,), -1, dtype=torch.int32, device=org.device),
-                   torch.zeros((r,), device=org.device),
-                   torch.zeros((r,), device=org.device))
-    hit = cb.empty_hit(r, org.device)
-    cb.launch(_lib().yrt_intersect_dense, 'intersect_dense', org.device,
-              rows, live, org, dirn, tnear, tfar, r, *hit)
-    cb.bump(intersect_dense)
-    return Hit(*hit)
+    args = kernel_args(tris, org, dirn, tnear, tfar)
+    r, dev = org.shape[0], org.device
+    if args[1] == 0:
+        return Hit(torch.full((r,), INF, device=dev),
+                   torch.full((r,), -1, dtype=torch.int32, device=dev),
+                   torch.zeros((r,), device=dev),
+                   torch.zeros((r,), device=dev))
+    return Hit(*cb.closest(_intersect_op, *args))
 
 
 def occluded_dense(tris, org, dirn, tnear, tfar):
     """(R,) bool: is each ray segment (tnear, tfar) occluded."""
     if org.device.type == 'cpu':
         return occluded_dense_plain(tris, org, dirn, tnear, tfar)
-    org, dirn, tnear, tfar = cb.ray_args(org, dirn, tnear, tfar)
-    rows = cb.table_arg('tris', _rows(tris), 16, org.device)
-    r, live = org.shape[0], live_rows(tris)
-    if live == 0:
-        return torch.zeros((r,), dtype=torch.bool, device=org.device)
-    occ = torch.empty((r,), dtype=torch.bool, device=org.device)
-    cb.launch(_lib().yrt_occluded_dense, 'occluded_dense', org.device,
-              rows, live, org, dirn, tnear, tfar, r, occ)
-    cb.bump(occluded_dense)
-    return occ
+    args = kernel_args(tris, org, dirn, tnear, tfar)
+    if args[1] == 0:
+        return torch.zeros((org.shape[0],), dtype=torch.bool,
+                           device=org.device)
+    return cb.occluded(_occluded_op, *args)
 
+
+_intersect_op = cb.operator(
+    'intersect_dense', f'(Tensor rows, int live, {cb.RAYS}, {cb.HIT}) -> ()',
+    launch, _lib, intersect_dense)
+_occluded_op = cb.operator(
+    'occluded_dense', f'(Tensor rows, int live, {cb.RAYS}, {cb.OCC}) -> ()',
+    launch, _lib, occluded_dense)
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 intersect_dense.launches = 0

@@ -300,8 +300,19 @@ def march_raw(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
     the rays in any order, best grouped by cell (march_sort_key)."""
     if org.device.type == 'cpu':
         return march_raw_plain(grid, org, dirn, tnear, tfar, res)
+    args = kernel_args(grid, org, dirn, tnear, tfar, res)
+    r, dev = org.shape[0], org.device
+    t = torch.empty((r,), dtype=torch.float32, device=dev)
+    slot = torch.empty((r,), dtype=torch.int32, device=dev)
+    _op(*args, t, slot)
+    return t, slot
+
+
+def kernel_args(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
+    """K10's checked inputs: (rows, cell_tile_lo, cell_tile_hi, grid_lo,
+    grid_hi, org, dirn, tnear, tfar, res)."""
     rays = cb.ray_args(org, dirn, tnear, tfar)
-    r, dev = rays[0].shape[0], rays[0].device
+    dev = rays[0].device
     rows = cb.table_arg('rows', grid['rows'], 16, dev)
     cells = [pairs.index_arg(k, grid[k], (res ** 3,), dev)
              for k in ('cell_tile_lo', 'cell_tile_hi')]
@@ -309,12 +320,16 @@ def march_raw(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
     if any(b.dtype != torch.float32 or b.shape != (3,) or b.device != dev
            for b in box):
         raise ValueError(f"grid_lo/grid_hi: expected float32 (3,) on {dev}")
-    t = torch.empty((r,), dtype=torch.float32, device=dev)
-    slot = torch.empty((r,), dtype=torch.int32, device=dev)
-    cb.launch(pairs.lib().yrt_grid_march, 'march_raw', dev, rows, *cells,
-              *box, *rays, res, r, t, slot)
-    cb.bump(march_raw)
-    return t, slot
+    return (rows, *cells, *box, *rays, res)
+
+
+def launch(lib, entry, rows, cell_lo, cell_hi, grid_lo, grid_hi, org, dirn,
+           tnear, tfar, res, t, slot):
+    """K10 (yrt_grid_march) of lib, a build of csrc/grid.cu, on
+    kernel_args' inputs and its outputs."""
+    cb.launch(getattr(lib, entry), entry, org.device, rows, cell_lo, cell_hi,
+              grid_lo, grid_hi, org, dirn, tnear, tfar, res, org.shape[0], t,
+              slot)
 
 
 def march_sort_key(grid, org, dirn, tnear, tfar, res: int = GRID_RES):
@@ -344,6 +359,11 @@ def intersect_march(grid, org, dirn, tnear, tfar,
     slot[perm] = s_p
     return _to_hit(grid, org, dirn, t, slot)
 
+
+_op = cb.operator(
+    'grid_march', '(Tensor rows, Tensor cell_tile_lo, Tensor cell_tile_hi, '
+    f'Tensor grid_lo, Tensor grid_hi, {cb.RAYS}, int res, Tensor(a!) t, '
+    'Tensor(b!) slot) -> ()', launch, pairs.lib, march_raw)
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 march_raw.launches = 0

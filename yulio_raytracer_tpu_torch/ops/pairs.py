@@ -191,7 +191,7 @@ def index_arg(name, x, shape, device):
     return x
 
 
-def _kernel_args(rows, org, dirn, tnear, tfar, gs, ge):
+def kernel_args(rows, org, dirn, tnear, tfar, gs, ge):
     if rows.shape[0] % TL:
         raise ValueError(f"rows: {rows.shape[0]} slots are not whole tiles "
                          f"of {TL}")
@@ -206,6 +206,17 @@ def _kernel_args(rows, org, dirn, tnear, tfar, gs, ge):
             rows.shape[0] // TL, r)
 
 
+def launch(lib, entry, *args):
+    """The binning yrt_bin_pairs of lib, a build of csrc/grid.cu, on (gs,
+    ge, tnear, tfar, n_tiles, scratch, t, slot, occ), or its sweep K8
+    (yrt_intersect_pairs) or K9 (yrt_occluded_pairs) on (rows, org, dirn,
+    tnear, tfar, ge, scratch, n_tiles, outputs); the C interface takes
+    the ray count after n_tiles."""
+    k, rays = (5, args[0]) if entry == 'yrt_bin_pairs' else (8, args[1])
+    cb.launch(getattr(lib, entry), entry, rays.device, *args[:k],
+              rays.shape[0], *args[k:])
+
+
 def bin_rays(gs, ge, tnear, tfar, n_tiles, t=None, slot=None, occ=None):
     """Group the rays that sweep something (ge > gs, tfar > tnear) by
     their first tile gs on the card (csrc/grid.cu yrt_bin_pairs: a count,
@@ -215,9 +226,7 @@ def bin_rays(gs, ge, tnear, tfar, n_tiles, t=None, slot=None, occ=None):
     The arguments are checked by the sweep's wrapper."""
     scratch = torch.empty((lib().yrt_pairs_scratch(n_tiles, gs.shape[0]),),
                           dtype=torch.int32, device=gs.device)
-    cb.launch(lib().yrt_bin_pairs, 'bin_rays', gs.device, gs, ge, tnear,
-              tfar, n_tiles, gs.shape[0], scratch, t, slot, occ)
-    cb.bump(bin_rays)
+    _OPS['bin_pairs'](gs, ge, tnear, tfar, n_tiles, scratch, t, slot, occ)
     return scratch
 
 
@@ -227,16 +236,14 @@ def intersect_pairs_raw(rows, org, dirn, tnear, tfar, gs=None, ge=None):
     if org.device.type == 'cpu':
         return intersect_pairs_raw_plain(rows, org, dirn, tnear, tfar, gs,
                                          ge)
-    rows, *rays, gs, ge, n_tiles, r = _kernel_args(rows, org, dirn, tnear,
-                                                   tfar, gs, ge)
+    rows, *rays, gs, ge, n_tiles, r = kernel_args(rows, org, dirn, tnear,
+                                                  tfar, gs, ge)
     dev = rows.device
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     slot = torch.empty((r,), dtype=torch.int32, device=dev)
     scratch = None if gs is None else bin_rays(gs, ge, *rays[2:], n_tiles,
                                                t=t, slot=slot)
-    cb.launch(lib().yrt_intersect_pairs, 'intersect_pairs_raw', dev, rows,
-              *rays, ge, scratch, n_tiles, r, t, slot)
-    cb.bump(intersect_pairs_raw)
+    _OPS['intersect_pairs'](rows, *rays, ge, scratch, n_tiles, t, slot)
     return t, slot
 
 
@@ -245,15 +252,12 @@ def occluded_pairs(rows, org, dirn, tnear, tfar, gs=None, ge=None):
     segment (tnear, tfar); false where tfar <= tnear."""
     if org.device.type == 'cpu':
         return occluded_pairs_plain(rows, org, dirn, tnear, tfar, gs, ge)
-    rows, *rays, gs, ge, n_tiles, r = _kernel_args(rows, org, dirn, tnear,
-                                                   tfar, gs, ge)
-    dev = rows.device
-    occ = torch.empty((r,), dtype=torch.bool, device=dev)
+    rows, *rays, gs, ge, n_tiles, r = kernel_args(rows, org, dirn, tnear,
+                                                  tfar, gs, ge)
+    occ = torch.empty((r,), dtype=torch.bool, device=rows.device)
     scratch = None if gs is None else bin_rays(gs, ge, *rays[2:], n_tiles,
                                                occ=occ)
-    cb.launch(lib().yrt_occluded_pairs, 'occluded_pairs', dev, rows, *rays,
-              ge, scratch, n_tiles, r, occ)
-    cb.bump(occluded_pairs)
+    _OPS['occluded_pairs'](rows, *rays, ge, scratch, n_tiles, occ)
     return occ
 
 
@@ -263,6 +267,19 @@ def intersect_pairs(rows, org, dirn, tnear, tfar, gs=None, ge=None) -> Hit:
     t, slot = intersect_pairs_raw(rows, org, dirn, tnear, tfar, gs, ge)
     return Hit(t, slot, *recompute_uv(rows, org, dirn, t, slot))
 
+
+_SWEEP = f'(Tensor rows, {cb.RAYS}, Tensor? ge, Tensor? scratch, int n_tiles'
+_OPS = {
+    'bin_pairs': cb.operator(
+        'bin_pairs', '(Tensor gs, Tensor ge, Tensor tnear, Tensor tfar, '
+        'int n_tiles, Tensor(a!) scratch, Tensor(b!)? t, Tensor(c!)? slot, '
+        'Tensor(d!)? occ) -> ()', launch, lib, bin_rays),
+    'intersect_pairs': cb.operator(
+        'intersect_pairs', f'{_SWEEP}, Tensor(a!) t, Tensor(b!) slot) -> ()',
+        launch, lib, intersect_pairs_raw),
+    'occluded_pairs': cb.operator(
+        'occluded_pairs', f'{_SWEEP}, {cb.OCC}) -> ()', launch, lib,
+        occluded_pairs)}
 
 # launch counts: kernels launched (bin_rays: the binning before a ranged
 # sweep), and plain versions run on CUDA tensors

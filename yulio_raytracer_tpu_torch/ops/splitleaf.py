@@ -223,15 +223,26 @@ def intersect_packet_split(nodes, tris, org, dirn, tnear, tfar,
     if org.device.type == 'cpu':
         return intersect_split_plain(nodes, tris, org, dirn, tnear, tfar,
                                      max_leaf)
-    args = traverse._kernel_args(nodes, tris.reshape(-1, 16), org, dirn,
-                                 tnear, tfar)
-    r, dev = args[2].shape[0], args[2].device
-    groups = _groups(nodes, max_leaf)
-    hit = cb.empty_hit(r, dev)
-    cb.launch(cb.library('splitleaf', _SIGNATURES).yrt_intersect_split,
-              'intersect_packet_split', dev, *args, r, groups, *hit)
-    cb.bump(intersect_packet_split)
-    return Hit(*hit)
+    return Hit(*cb.closest(_op, *kernel_args(nodes, tris, org, dirn, tnear,
+                                             tfar, max_leaf)))
+
+
+def kernel_args(nodes, tris, org, dirn, tnear, tfar, max_leaf=None):
+    """The kernel's checked inputs: (nodes, tris, org, dirn, tnear, tfar,
+    the rows a leaf spans (_groups))."""
+    args = traverse.kernel_args(nodes, tris, org, dirn, tnear, tfar)[:6]
+    return (*args, _groups(nodes, max_leaf))
+
+
+def launch(lib, entry, nodes, tris, org, dirn, tnear, tfar, groups, *out):
+    """K11 (yrt_intersect_split) of lib, a build of csrc/splitleaf.cu, on
+    kernel_args' inputs and its outputs."""
+    cb.launch(getattr(lib, entry), entry, org.device, nodes, tris, org,
+              dirn, tnear, tfar, org.shape[0], groups, *out)
+
+
+def _lib():
+    return cb.library('splitleaf', _SIGNATURES)
 
 
 def intersect_packet_split_sorted(nodes, tris, org, dirn, tnear, tfar,
@@ -244,6 +255,10 @@ def intersect_packet_split_sorted(nodes, tris, org, dirn, tnear, tfar,
                                                     tf, max_leaf),
         org, dirn, tnear, tfar, bbox_lo, bbox_hi)
 
+
+_op = cb.operator(
+    'intersect_split', f'(Tensor nodes, Tensor tris, {cb.RAYS}, int groups, '
+    f'{cb.HIT}) -> ()', launch, _lib, intersect_packet_split)
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 intersect_packet_split.launches = 0

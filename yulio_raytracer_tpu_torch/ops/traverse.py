@@ -388,11 +388,17 @@ def occluded_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar, time,
 
 # ------------------------------------------------------------- wrappers
 
-def _kernel_args(nodes, rows, *rays):
-    rays = cb.ray_args(*rays)
-    dev = rays[0].device
+def kernel_args(nodes, tris, org, dirn, tnear, tfar, roots=None, time=None):
+    """The kernels' checked inputs: (nodes, tris, org, dirn, tnear, tfar,
+    then the rays' times for a motion walk (time given; pack_tris_mb
+    rows), else their roots (roots_arg; pack_tris rows))."""
+    motion = time is not None
+    rays = cb.ray_args(org, dirn, tnear, tfar, *((time,) if motion else ()))
+    r, dev = rays[0].shape[0], rays[0].device
+    rows = tris.reshape(-1, MB_STRIDE if motion else 16)
     return (cb.table_arg('nodes', nodes, 8, dev),
-            cb.table_arg('tris', rows, rows.shape[1], dev), *rays)
+            cb.table_arg('tris', rows, rows.shape[1], dev), *rays[:4],
+            rays[4] if motion else _roots_arg(roots, r, dev))
 
 
 def _roots_arg(roots, r, dev):
@@ -413,6 +419,14 @@ def _lib():
     return cb.library('binary', _SIGNATURES)
 
 
+def launch(lib, entry, nodes, tris, org, dirn, tnear, tfar, last, *out):
+    """K5/K6 (yrt_intersect_binary / yrt_occluded_binary) or K7
+    (yrt_intersect_motion / yrt_occluded_motion) of lib, a build of
+    csrc/binary.cu, on kernel_args' inputs and its outputs."""
+    cb.launch(getattr(lib, entry), entry, org.device, nodes, tris, org,
+              dirn, tnear, tfar, last, org.shape[0], *out)
+
+
 def intersect_packet(nodes, tris, org, dirn, tnear, tfar, roots=None) -> Hit:
     """Closest hit of each ray (R, 3) through the binary BVH tables,
     each ray walking the subtree of its node of roots ((R,) int32; None:
@@ -420,13 +434,8 @@ def intersect_packet(nodes, tris, org, dirn, tnear, tfar, roots=None) -> Hit:
     if org.device.type == 'cpu':
         return intersect_binary_plain(nodes, tris, org, dirn, tnear, tfar,
                                       roots)
-    args = _kernel_args(nodes, tris.reshape(-1, 16), org, dirn, tnear, tfar)
-    r, dev = args[2].shape[0], args[2].device
-    hit = cb.empty_hit(r, dev)
-    cb.launch(_lib().yrt_intersect_binary, 'intersect_packet', dev, *args,
-              _roots_arg(roots, r, dev), r, *hit)
-    cb.bump(intersect_packet)
-    return Hit(*hit)
+    return Hit(*cb.closest(_OPS['intersect_binary'], *kernel_args(
+        nodes, tris, org, dirn, tnear, tfar, roots)))
 
 
 def occluded_packet(nodes, tris, org, dirn, tnear, tfar, roots=None):
@@ -435,13 +444,8 @@ def occluded_packet(nodes, tris, org, dirn, tnear, tfar, roots=None):
     if org.device.type == 'cpu':
         return occluded_binary_plain(nodes, tris, org, dirn, tnear, tfar,
                                      roots)
-    args = _kernel_args(nodes, tris.reshape(-1, 16), org, dirn, tnear, tfar)
-    r, dev = args[2].shape[0], args[2].device
-    occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    cb.launch(_lib().yrt_occluded_binary, 'occluded_packet', dev, *args,
-              _roots_arg(roots, r, dev), r, occ)
-    cb.bump(occluded_packet)
-    return occ
+    return cb.occluded(_OPS['occluded_binary'], *kernel_args(
+        nodes, tris, org, dirn, tnear, tfar, roots))
 
 
 def intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
@@ -451,14 +455,8 @@ def intersect_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar,
     if org.device.type == 'cpu':
         return intersect_motion_plain(nodes, tris_mb, org, dirn, tnear,
                                       tfar, time)
-    args = _kernel_args(nodes, tris_mb.reshape(-1, MB_STRIDE), org, dirn,
-                        tnear, tfar, time)
-    r, dev = args[2].shape[0], args[2].device
-    hit = cb.empty_hit(r, dev)
-    cb.launch(_lib().yrt_intersect_motion, 'intersect_packet_mb', dev,
-              *args, r, *hit)
-    cb.bump(intersect_packet_mb)
-    return Hit(*hit)
+    return Hit(*cb.closest(_OPS['intersect_motion'], *kernel_args(
+        nodes, tris_mb, org, dirn, tnear, tfar, time=time)))
 
 
 def occluded_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar, time):
@@ -469,14 +467,17 @@ def occluded_packet_mb(nodes, tris_mb, org, dirn, tnear, tfar, time):
     if org.device.type == 'cpu':
         return occluded_motion_plain(nodes, tris_mb, org, dirn, tnear, tfar,
                                      time)
-    args = _kernel_args(nodes, tris_mb.reshape(-1, MB_STRIDE), org, dirn,
-                        tnear, tfar, time)
-    r, dev = args[2].shape[0], args[2].device
-    occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    cb.launch(_lib().yrt_occluded_motion, 'occluded_packet_mb', dev, *args,
-              r, occ)
-    cb.bump(occluded_packet_mb)
-    return occ
+    return cb.occluded(_OPS['occluded_motion'], *kernel_args(
+        nodes, tris_mb, org, dirn, tnear, tfar, time=time))
+
+
+_OPS = {name: cb.operator(
+    name, f'(Tensor nodes, Tensor tris, {cb.RAYS}, {last}, {out}) -> ()',
+    launch, _lib, counted) for name, last, out, counted in (
+        ('intersect_binary', 'Tensor? roots', cb.HIT, intersect_packet),
+        ('occluded_binary', 'Tensor? roots', cb.OCC, occluded_packet),
+        ('intersect_motion', 'Tensor time', cb.HIT, intersect_packet_mb),
+        ('occluded_motion', 'Tensor time', cb.OCC, occluded_packet_mb))}
 
 
 # ---------------------------------------------------------- staged walks

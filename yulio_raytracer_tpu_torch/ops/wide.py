@@ -427,7 +427,9 @@ def _any_plain(nodes4, tris, org, dirn, tnear, tfar, counts=None):
 
 # ------------------------------------------------------------- wrappers
 
-def _kernel_args(nodes4, tris, org, dirn, tnear, tfar, width=4):
+def kernel_args(nodes4, tris, org, dirn, tnear, tfar, width=4):
+    """The kernels' checked inputs: (nodes, tris, org, dirn, tnear,
+    tfar)."""
     org, dirn, tnear, tfar = cb.ray_args(org, dirn, tnear, tfar)
     return (cb.table_arg('nodes4', nodes4, 8 * width, org.device),
             cb.table_arg('tris', tris.reshape(-1, 16), 16, org.device),
@@ -438,15 +440,22 @@ def _lib():
     return cb.library('wide', _SIGNATURES)
 
 
-def _entry(name, nodes4):
-    """The C entry point `name` of the kernels' library for the table
-    nodes4: its *_slots form where a leaf has SLOTS_MIN triangles or
-    more."""
+def _entry(lib, name, nodes4):
+    """The C entry point `name` of lib for the table nodes4: its *_slots
+    form where a leaf has SLOTS_MIN triangles or more."""
     seen = _LARGEST_LEAF.get(nodes4)
     if seen is None or seen[0] != nodes4._version:
         seen = (nodes4._version, int(nodes4.reshape(-1, 8)[:, 7].max()))
         _LARGEST_LEAF[nodes4] = seen
-    return getattr(_lib(), name + '_slots' if seen[1] >= SLOTS_MIN else name)
+    return getattr(lib, name + '_slots' if seen[1] >= SLOTS_MIN else name)
+
+
+def launch(lib, entry, nodes, tris, org, dirn, tnear, tfar, *out):
+    """K3/K4 (yrt_intersect_wide[8] / yrt_occluded_wide[8], in the
+    *_slots form the table needs) of lib, a build of csrc/wide.cu, on
+    kernel_args' inputs and its outputs."""
+    cb.launch(_entry(lib, entry, nodes), entry, org.device, nodes, tris,
+              org, dirn, tnear, tfar, org.shape[0], *out)
 
 
 def _check_width(nodes4, width):
@@ -464,13 +473,8 @@ def intersect_packet4(nodes4, tris, org, dirn, tnear, tfar,
     _check_width(nodes4, width)
     if org.device.type == 'cpu':
         return intersect_wide_plain(nodes4, tris, org, dirn, tnear, tfar)
-    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar, width)
-    r, dev = args[2].shape[0], args[2].device
-    hit = cb.empty_hit(r, dev)
-    name = 'yrt_intersect_wide' if width == 4 else 'yrt_intersect_wide8'
-    cb.launch(_entry(name, args[0]), name, dev, *args, r, *hit)
-    cb.bump(intersect_packet4 if width == 4 else intersect_packet8)
-    return Hit(*hit)
+    return Hit(*cb.closest(_OPS['intersect', width], *kernel_args(
+        nodes4, tris, org, dirn, tnear, tfar, width)))
 
 
 def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar, width=4):
@@ -479,13 +483,8 @@ def occluded_packet4(nodes4, tris, org, dirn, tnear, tfar, width=4):
     _check_width(nodes4, width)
     if org.device.type == 'cpu':
         return occluded_wide_plain(nodes4, tris, org, dirn, tnear, tfar)
-    args = _kernel_args(nodes4, tris, org, dirn, tnear, tfar, width)
-    r, dev = args[2].shape[0], args[2].device
-    occ = torch.empty((r,), dtype=torch.bool, device=dev)
-    name = 'yrt_occluded_wide' if width == 4 else 'yrt_occluded_wide8'
-    cb.launch(_entry(name, args[0]), name, dev, *args, r, occ)
-    cb.bump(occluded_packet4 if width == 4 else occluded_packet8)
-    return occ
+    return cb.occluded(_OPS['occluded', width], *kernel_args(
+        nodes4, tris, org, dirn, tnear, tfar, width))
 
 
 def intersect_packet8(nodes8, tris, org, dirn, tnear, tfar) -> Hit:
@@ -499,6 +498,17 @@ def occluded_packet8(nodes8, tris, org, dirn, tnear, tfar):
     kernel's."""
     return occluded_packet4(nodes8, tris, org, dirn, tnear, tfar, width=8)
 
+
+_OPS = {('intersect', w): cb.operator(
+    'intersect_wide' + suffix, f'(Tensor nodes, Tensor tris, {cb.RAYS}, '
+    f'{cb.HIT}) -> ()', launch, _lib, counted)
+    for w, suffix, counted in ((4, '', intersect_packet4),
+                               (8, '8', intersect_packet8))}
+_OPS.update({('occluded', w): cb.operator(
+    'occluded_wide' + suffix, f'(Tensor nodes, Tensor tris, {cb.RAYS}, '
+    f'{cb.OCC}) -> ()', launch, _lib, counted)
+    for w, suffix, counted in ((4, '', occluded_packet4),
+                               (8, '8', occluded_packet8))})
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 intersect_packet4.launches = 0

@@ -45,6 +45,7 @@ from .cameras import cameras as cam
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
 from .io import ecs
+from .ops import cuda_build as cb
 from .shading import lobes as lb
 from .utils import profiling
 
@@ -136,14 +137,6 @@ SPANS = profiling.SPANS
 IDLE_CLASSES = ('compact', 'bounce', 'frame', 'outside')
 # the glue's device activities reported by name, largest first
 TOP_GLUE = 6
-# the port's kernels by their __global__ names (csrc/*.cu)
-KERNELS = ('intersect_dense_kernel', 'occluded_dense_kernel',
-           'intersect_wide_kernel', 'occluded_wide_kernel',
-           'intersect_binary_kernel', 'occluded_binary_kernel',
-           'intersect_motion_kernel', 'occluded_motion_kernel',
-           'closest_pairs_kernel', 'occluded_pairs_kernel',
-           'bin_count_kernel', 'bin_scan_kernel', 'bin_scatter_kernel',
-           'march_kernel', 'split_kernel')
 
 
 def kernel_of(event_name: str):
@@ -152,7 +145,7 @@ def kernel_of(event_name: str):
     m = re.match(r'_Z(\d+)', event_name)
     ident = (event_name[m.end():m.end() + int(m.group(1))] if m else
              event_name.removeprefix('void ').split('(')[0].split('<')[0])
-    return ident if ident in KERNELS else None
+    return ident if ident in cb.kernel_names() else None
 
 
 def _is_device(evt) -> bool:

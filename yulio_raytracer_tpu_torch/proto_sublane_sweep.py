@@ -41,14 +41,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from .ops import cuda_build as cb
-from .wide_turns import median_ms
 
 INF = float('inf')
 RAYS_OLD, RAYS_NEW = 1024, 128      # the script's rays per program
@@ -185,13 +183,13 @@ def slices(block_rays, n_rays, units, min_units, sm_count):
     return max(1, min(-(-target // blocks), units // min_units))
 
 
-def _launch(kind, table, org, dirn, reps, switch=False):
+def _sweep(kind, table, org, dirn, reps, switch=False):
     """One launch of the sweep kernel `kind` ('rows' or 'tiles') on
     checked arguments (`_kernel_args`), over the triangle slices
     `slices` chooses; returns (t, tri)."""
-    lib, r, dev = _lib(), org.shape[0], org.device
+    r, dev = org.shape[0], org.device
     units = table.shape[0] // (8 if kind == 'tiles' else 1)
-    n_slices = slices(lib.yrt_sweep_block_rays(int(kind == 'tiles')), r,
+    n_slices = slices(_lib().yrt_sweep_block_rays(int(kind == 'tiles')), r,
                       units, MIN_SLICE[kind],
                       torch.cuda.get_device_properties(
                           dev).multi_processor_count)
@@ -199,14 +197,19 @@ def _launch(kind, table, org, dirn, reps, switch=False):
             if n_slices > 1 else None)
     out = (torch.empty((r,), dtype=torch.float32, device=dev),
            torch.empty((r,), dtype=torch.int32, device=dev))
-    if kind == 'tiles':
-        cb.launch(lib.yrt_sweep_tiles, 'sweep_tiles', dev, table, units, org,
-                  dirn, r, int(reps), int(bool(switch)), n_slices, keys,
-                  *out)
-    else:
-        cb.launch(lib.yrt_sweep_rows, 'sweep_rows', dev, table, units, org,
-                  dirn, r, int(reps), n_slices, keys, *out)
+    form = (int(bool(switch)),) if kind == 'tiles' else ()
+    _OPS[kind](table, org, dirn, int(reps), *form, n_slices, keys, *out)
     return out
+
+
+def launch(lib, entry, table, org, dirn, reps, *rest):
+    """yrt_sweep_rows of lib, a build of csrc/sweep.cu, on (rows, org,
+    dirn, reps, n_slices, keys, t, tri), or yrt_sweep_tiles on (tiles,
+    org, dirn, reps, switch, n_slices, keys, t, tri); the C interface
+    takes the table's units after it and the ray count after the rays."""
+    units = table.shape[0] // (8 if entry == 'yrt_sweep_tiles' else 1)
+    cb.launch(getattr(lib, entry), entry, org.device, table, units, org,
+              dirn, org.shape[0], reps, *rest)
 
 
 def sweep_rows(rows, org, dirn, reps=1):
@@ -215,9 +218,7 @@ def sweep_rows(rows, org, dirn, reps=1):
     script's `old_kernel`; the kernel gives a thread two rays)."""
     if org.device.type == 'cpu':
         return sweep_rows_plain(rows, org, dirn, reps)
-    out = _launch('rows', *_kernel_args(rows, org, dirn), reps)
-    cb.bump(sweep_rows)
-    return out
+    return _sweep('rows', *_kernel_args(rows, org, dirn), reps)
 
 
 def sweep_tiles(tiles, org, dirn, reps=1, switch=False):
@@ -230,10 +231,16 @@ def sweep_tiles(tiles, org, dirn, reps=1, switch=False):
     if tiles.shape[0] % 8:
         raise ValueError(f"{tiles.shape[0]} rows are not whole super-tiles "
                          "of 8 rows")
-    out = _launch('tiles', tiles, org, dirn, reps, switch)
-    cb.bump(sweep_tiles)
-    return out
+    return _sweep('tiles', tiles, org, dirn, reps, switch)
 
+
+_OUT = 'Tensor(a!)? keys, Tensor(b!) t, Tensor(c!) tri) -> ()'
+_OPS = {'rows': cb.operator(
+            'sweep_rows', '(Tensor rows, Tensor org, Tensor dirn, int reps, '
+            f'int n_slices, {_OUT}', launch, _lib, sweep_rows),
+        'tiles': cb.operator(
+            'sweep_tiles', '(Tensor tiles, Tensor org, Tensor dirn, int reps, '
+            f'int switch, int n_slices, {_OUT}', launch, _lib, sweep_tiles)}
 
 # launch counts: kernels launched, and plain versions run on CUDA tensors
 sweep_rows.launches = 0
@@ -267,6 +274,7 @@ def run(which: str, rows: int, reps: int, iters: int):
     against 1024 rays; 'new', 'newsw': `rows` super-tiles of 64 against
     128), on the script's random numbers (`shape_a`).  Prints and
     returns (Gpairs/s, median ms of `iters` launches)."""
+    from .turns import median_ms
     tris, org, dirn = shape_a(which, rows, torch.device('cuda'))
     pairs = rows * 8 * 1024 * reps
     if which == 'old':
@@ -290,10 +298,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the sweep kernels have no CPU "
                            "mode")
-    print("card:", subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
+    from .turns import card_name
+    print("card:", card_name())
     for w in args.what.split(','):
         run(w, args.rows, args.reps, args.iters)
     return 0

@@ -5,8 +5,7 @@ roots, the dense kernels' entry sets, the sweep prototype's rows and
 rays on a scene, and the dense, pair, binary and motion kernels', the
 texture fetch's and the lobes' own calls in a frame; and a committed
 scene's tree as 8-wide rows.
-`chip_smoke.py`, `wide_turns`, `wide_ab`, `pairs_turns`, `binary_turns`,
-`dense_turns` and `sweep_turns` make them with these functions.
+`chip_smoke.py`, `turns` and `wide_ab` make them with these functions.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """The least time the card could take for a kernel's work, from which
-`chip_smoke.py`, `wide_ab` and the *_turns tools state every bound: the
+`chip_smoke.py`, `wide_ab` and the `turns` tool state every bound: the
 larger of the bytes the function must move (each input read once, each
 output written once) over the card's memory rate, and the operations it
 does over its peak f32 rate.  The rates are the H100 SXM's published

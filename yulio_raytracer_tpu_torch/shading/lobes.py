@@ -605,58 +605,42 @@ def _args(xs):
             (ctypes.c_longlong * len(strides))(*strides))
 
 
-def _launch_eval(ltype, color, eta, exp, ns, wo, wi, type_mask, out):
-    """The operator _eval_op on CUDA tensors: the eval kernel over the
-    (R, L) record's hits and wi's (nl, R, 3) lights, out (nl, R, 3);
-    counted in eval_lobes.launches."""
+def launch_eval(lib, entry, ltype, color, eta, exp, ns, wo, wi, type_mask,
+                out):
+    """F2's eval (yrt_lobes_eval) of lib over the (R, L) record's hits
+    and wi's (nl, R, 3) lights, out (nl, R, 3)."""
     ptrs, strides = _args((ltype, color, eta, exp, ns, wo, wi))
-    cb.launch(cb.library('lobes', _SIGNATURES).yrt_lobes_eval, 'lobes_eval',
-              out.device, ptrs, strides, wi.shape[1], wi.shape[0],
-              ltype.shape[1], type_mask, out)
-    cb.bump(eval_lobes)
+    cb.launch(getattr(lib, entry), entry, out.device, ptrs, strides,
+              wi.shape[1], wi.shape[0], ltype.shape[1], type_mask, out)
 
 
-def _launch_sample(ltype, color, eta, exp, ceta, ck, ns, ng, wo, s2, s1,
-                   tx, ty, type_mask, wi, pdf, weight, bits, eta_out, valid):
-    """The operator _sample_op on CUDA tensors: the sample kernel over the
-    (R, L) record's hits into the (R,)-shaped outputs; counted in
-    sample_lobes.launches."""
+def launch_sample(lib, entry, ltype, color, eta, exp, ceta, ck, ns, ng, wo,
+                  s2, s1, tx, ty, type_mask, *outs):
+    """F2's sample (yrt_lobes_sample) of lib over the (R, L) record's
+    hits into the (R,)-shaped outputs (wi, pdf, weight, type_bits, eta,
+    valid)."""
     ptrs, strides = _args((ltype, color, eta, exp, ceta, ck, ns, ng, wo, s2,
                            s1, tx, ty))
-    outs = (wi, pdf, weight, bits, eta_out, valid)
     out_ptrs = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
-    cb.launch(cb.library('lobes', _SIGNATURES).yrt_lobes_sample,
-              'lobes_sample', wi.device, ptrs, strides, ltype.shape[0],
-              ltype.shape[1], type_mask, out_ptrs)
-    cb.bump(sample_lobes)
+    cb.launch(getattr(lib, entry), entry, outs[0].device, ptrs, strides,
+              ltype.shape[0], ltype.shape[1], type_mask, out_ptrs)
 
 
-# The launches as torch operators, so that a profiler links the kernels to
-# them, and through them to the yrt.lobes span open around each call (a
-# kernel launched straight from a profiler range is linked to nothing).
-# Declared with torch.library.Library, as the texture fetch's operator is;
-# a second copy of the package in the process declares its own.
-_LIB = torch.library.Library('yrt', 'FRAGMENT')
+def _lib():
+    return cb.library('lobes', _SIGNATURES)
 
 
-def _declare(name, schema, impl):
-    while hasattr(torch.ops.yrt, name):
-        name += '_'
-    _LIB.define(name + schema)
-    _LIB.impl(name, impl, 'CUDA')
-    return getattr(torch.ops.yrt, name)
-
-
-_eval_op = _declare(
+_eval_op = cb.operator(
     'lobes_eval', '(Tensor ltype, Tensor color, Tensor eta, Tensor exp, '
     'Tensor ns, Tensor wo, Tensor wi, int type_mask, Tensor(a!) out) -> ()',
-    _launch_eval)
-_sample_op = _declare(
+    launch_eval, _lib, eval_lobes)
+_sample_op = cb.operator(
     'lobes_sample', '(Tensor ltype, Tensor color, Tensor eta, Tensor exp, '
     'Tensor ceta, Tensor ck, Tensor ns, Tensor ng, Tensor wo, Tensor s2, '
     'Tensor s1, Tensor? tx, Tensor? ty, int type_mask, Tensor(a!) wi, '
     'Tensor(b!) pdf, Tensor(c!) weight, Tensor(d!) type_bits, '
-    'Tensor(e!) eta_out, Tensor(f!) valid) -> ()', _launch_sample)
+    'Tensor(e!) eta_out, Tensor(f!) valid) -> ()', launch_sample, _lib,
+    sample_lobes)
 
 # launch counts: the kernels launched, and the plain versions run on CUDA
 # tensors

@@ -136,31 +136,22 @@ def _fetch_kernel(table, tid, uv):
     return out
 
 
-def _launch(data, off, w, h, filt, inv, tid, uv, out):
-    """The operator _op on CUDA tensors: the kernel over tid's slots,
-    uv (R, k, 2) read through its strides; counted in fetch.launches."""
-    cb.launch(cb.library('texture', _SIGNATURES).yrt_texture_fetch,
-              'fetch', out.device, data, off, w, h, filt, inv, tid, uv,
-              off.numel(), tid.numel(), uv.shape[1], *uv.stride(), out)
-    cb.bump(fetch)
+def launch(lib, entry, data, off, w, h, filt, inv, tid, uv, out):
+    """F1 (yrt_texture_fetch) of lib over tid's slots, uv (R, k, 2) read
+    through its strides."""
+    cb.launch(getattr(lib, entry), entry, out.device, data, off, w, h, filt,
+              inv, tid, uv, off.numel(), tid.numel(), uv.shape[1],
+              *uv.stride(), out)
 
 
-# The launch as a torch operator, so that a profiler links the kernel to
-# it, and through it to the span open around the fetch (a kernel launched
-# straight from a profiler range is linked to nothing).  Declared with
-# torch.library.Library, not custom_op: custom_op's first call imports
-# some 800 modules, seconds of a run's set-up.  A second copy of the
-# package in the process (the *_turns scripts import another checkout's)
-# declares an operator of its own, so that each runs its own kernel.
-_LIB = torch.library.Library('yrt', 'FRAGMENT')
-_OP_NAME = 'texture_fetch'
-while hasattr(torch.ops.yrt, _OP_NAME):
-    _OP_NAME += '_'
-_LIB.define(_OP_NAME + '(Tensor data, Tensor off, Tensor w, Tensor h, '
-            'Tensor filter, Tensor invert, Tensor tid, Tensor uv, '
-            'Tensor(a!) out) -> ()')
-_LIB.impl(_OP_NAME, _launch, 'CUDA')
-_op = getattr(torch.ops.yrt, _OP_NAME)
+def _lib():
+    return cb.library('texture', _SIGNATURES)
+
+
+_op = cb.operator(
+    'texture_fetch', '(Tensor data, Tensor off, Tensor w, Tensor h, '
+    'Tensor filter, Tensor invert, Tensor tid, Tensor uv, Tensor(a!) out) '
+    '-> ()', launch, _lib, fetch)
 
 
 def _fetch(table, tid, uv):

@@ -8,7 +8,7 @@ occluded_packet_staged).
 The counterpart of the reference's scripts/bench_wide_ab.py and
 scripts/profile_staged.py.  The colonnade is committed on the card at
 leaf 32 (its BVH4 and binary rows; the 8-wide rows are read back from the
-binary ones, raysets.nodes8), with the ray sets wide_turns and
+binary ones, raysets.nodes8), with the ray sets `turns wide` and
 chip_smoke.py time K3/K4 on, from seed 42: its 1024^2 camera rays, 1M
 hemisphere rays from their hits, and the shadow rays from those hits to
 its 4 lights.  The closest-hit forms run on the camera and hemisphere
@@ -32,9 +32,8 @@ import sys
 import torch
 
 from . import raysets, roofline
-from .io import builtin_scenes as bs
 from .ops import traverse, wide
-from .wide_turns import SEED, card_name, median_ms
+from .turns import card_name, colonnade, median_ms, nbytes
 
 
 def forms(sc, nodes8):
@@ -66,11 +65,6 @@ def forms(sc, nodes8):
 
 def _tuple(x):
     return tuple(x) if isinstance(x, tuple) else (x,)
-
-
-def nbytes(*xs):
-    return sum(x.numel() * x.element_size() for x in xs
-               if isinstance(x, torch.Tensor))
 
 
 def run_form(kernel, plain, tables, extra, rays, reps):
@@ -120,19 +114,11 @@ def main(argv=None):
         return 1
     dev = torch.device('cuda')
     card = card_name()
-    sc = bs.colonnade().commit(device=dev, leaf_size=32)
+    sc, cam, _, hemi, shadow = colonnade(dev)
     nodes8 = raysets.nodes8(sc)
     print(f"[ab] colonnade (leaf 32): {sc.nodes.shape[0]} binary, "
           f"{sc.nodes4.shape[0]} BVH4 and {nodes8.shape[0]} BVH8 rows",
           flush=True)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    org, dirn, _ = raysets.camera_rays(sc, bs.colonnade_camera(1024, 1024),
-                                       1024, 1024, dev, SEED)
-    zeros = torch.zeros(org.shape[0], device=dev)
-    cam = (org, dirn, zeros, torch.full_like(zeros, float('inf')))
-    hit = wide.intersect_packet4(sc.nodes4, sc.tris, *cam)
-    *hemi, dg, eps = raysets.hemisphere_rays(sc, org, dirn, hit, gen, dev)
-    shadow = raysets.shadow_rays(sc, dg, eps, hit.valid, gen, dev)
     sets = (('camera', 'closest', cam), ('hemisphere', 'closest', hemi),
             ('shadow', 'any', shadow))
     table = forms(sc, nodes8)
