@@ -6,7 +6,7 @@
 Phases, one line each (a failure raises and the exit code is nonzero):
  1. toolchain: torch / CUDA / nvcc versions, the card's name and power limit;
  2. build: the CUDA kernels from yulio_raytracer_tpu_torch/csrc, one nvcc
-    per source (eight), all started together;
+    per source (nine), all started together;
  3. every kernel against its plain torch version on the card, at the main
     paths' shapes: the dense pair on cornell (64^2 camera rays plus
     hemisphere rays from their hits; shadow rays to its lights), the BVH4
@@ -76,7 +76,12 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     (sponza.frame_1024's traffic: 2^23 hits a bounce, its 6 triangle
     lights in one eval, raysets.frame_lobe_calls), bit-equal in every
     output to the plain versions on the card and to the frame's own
-    results, F2 alone launched, once a call.
+    results, F2 alone launched, once a call; and the RNG kernel F3
+    (rng.draw, under uniform1/2/3 and hash_u32) on every draw of that
+    frame (its camera samples, each bounce's 6-light NEE draw and the
+    scatter's two; 2^23 lanes a call, raysets.frame_rng_calls), bit-equal
+    to the plain versions on the card and to the frame's own results, F3
+    alone launched, once a call.
     The plain versions count the pair and box tests their kernels make,
     and the BVH4 and binary ones each ray's largest stack occupancy
     (printed as median, 99th percentile and max);
@@ -105,7 +110,10 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     path runs, never), and no plain version on a CUDA tensor; F1 runs on
     the textured paths (sponza, sphere_glass, sphere_mirror, test_stereo
     and the random scenes) and on no other; F2 on every path-traced
-    frame (its NEE's eval, its scatter's sample); the pair
+    frame (its NEE's eval, its scatter's sample); F3 on every frame of
+    the stateless sampler and the debug renderer's, and under the
+    precomputed sampler only where a shadow cap draws its jitter (the
+    uncapped cornell and motion frames draw nothing); the pair
     kernels' binning (ops/pairs.py bin_rays) ran once for each of their
     ranged calls and on no other path;
  5. timed full-size frames (cornell_512, colonnade_1024,
@@ -191,6 +199,8 @@ Phases, one line each (a failure raises and the exit code is nonzero):
     1024^2 atlas.  F2's is bytes too (lobe_bytes): a hit's types, the
     parameters of each slot its kernel evaluates or samples, the per-hit
     vectors and the outputs, each once, over sponza's frame's calls.
+    F3's is bytes (rng_bytes): 8 B a lane of each stream that is a
+    tensor (the pixel and sample ids), and its outputs once.
 The last lines are a JSON summary of the kernels, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}.
 Exits nonzero without a result when no CUDA device is present.
@@ -223,6 +233,9 @@ PSNR_MIN = 40.0
 # the lobe kernels' wrappers, which every path-traced frame launches (its
 # NEE evaluates the lobes, its scatter samples them)
 F2 = frozenset({'eval_lobes', 'sample_lobes'})
+# the RNG kernel's wrapper (core/rng.py draw), which every frame of the
+# stateless sampler launches (its camera samples, each bounce's draws)
+F3 = frozenset({'draw'})
 
 
 def phase(name, msg):
@@ -404,6 +417,19 @@ def lobe_bytes(kind, a, lb):
             + 24 * int(cond.sum()) + 24 * framed * int(aniso.sum())), r
 
 
+def rng_bytes(kind, args):
+    """(bytes, draws) of one call of the RNG kernel F3 on the key's four
+    streams `args` for draws of kind `kind` (0 the key itself, n its n
+    floats): 8 B a lane of each stream that is a tensor, read once, and
+    the outputs written once (8 B a key, 4 B a float); the draws: the
+    dims (a sequence's length, else 1) x the lanes."""
+    lanes = next(x for x in args if isinstance(x, torch.Tensor)).numel()
+    tensors = sum(isinstance(x, torch.Tensor) for x in args)
+    dims = len(args[3]) if isinstance(args[3], (list, tuple)) else 1
+    width = 8 if kind == 0 else 4 * kind
+    return lanes * (8 * tensors + width * dims), lanes * dims
+
+
 def stack_depth(what, counts):
     """The plain versions' largest stack occupancy per ray on the sets of
     one table (median, 99th percentile, max), from each set's counts."""
@@ -458,7 +484,7 @@ def multi_device_phase(dev, card, cornell, colonnade, zero_counters,
     """Phase 8: the mesh, the TCP servers, two gloo ranks and the C ABI on
     the card (see the module docstring); returns its seconds.  dense_path
     and bvh4_path: the kernels a path-traced frame launches through the
-    dense kernels or the BVH4 ones (F2 with each)."""
+    dense kernels or the BVH4 ones (F2 and F3 with each)."""
     from yulio_raytracer_tpu_torch import renderer
     from yulio_raytracer_tpu_torch.api import cli, output, session
     from yulio_raytracer_tpu_torch.film import accum
@@ -772,6 +798,7 @@ def main():
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from yulio_raytracer_tpu_torch.api import cli, output, session
+    from yulio_raytracer_tpu_torch.core import rng
     from yulio_raytracer_tpu_torch.film import accum, stereo_strip, tonemap
     from yulio_raytracer_tpu_torch.integrator import pathtracer as pt
     from yulio_raytracer_tpu_torch.io import builtin_scenes as bs
@@ -792,7 +819,7 @@ def main():
     from yulio_raytracer_tpu_torch.raysets import (
         camera_rays, dense_entry_rays, frame_binary_calls,
         frame_dense_calls, frame_fetch_calls, frame_lobe_calls,
-        frame_motion_calls, frame_pair_calls,
+        frame_motion_calls, frame_pair_calls, frame_rng_calls,
         from_treelet_roots, hemisphere_rays, nodes8, scattered_rays,
         shadow_rays, sweep_sets)
 
@@ -806,7 +833,7 @@ def main():
 
     t0 = time.perf_counter()
     names = ('dense', 'wide', 'binary', 'grid', 'splitleaf', 'sweep',
-             'texture', 'lobes')
+             'texture', 'lobes', 'rng')
     with ThreadPoolExecutor(len(names) + 2) as pool:  # one nvcc per source
         # and the C ABI's shim (g++) and host (cc) beside them
         shim_and_host = [pool.submit(f) for f in (native_build.shim,
@@ -868,9 +895,13 @@ def main():
         # F2 likewise (the reference's lobes are jnp)
         (lb.eval_lobes, lb._eval_lobes, 'lobes.cu', None, 0),
         (lb.sample_lobes, lb._sample_lobes, 'lobes.cu', None, 0),
+        # F3 likewise (the reference's RNG is jnp uint32 arithmetic); its
+        # other plain versions follow the list's
+        (rng.draw, rng._uniform2_plain, 'rng.cu', None, 0),
     )
     counters = [k[0] for k in kernels]
-    plains = [k[1] for k in kernels]
+    plains = [k[1] for k in kernels] + [
+        f for f in rng.PLAIN.values() if f is not rng._uniform2_plain]
 
     def zero_counters():
         for f in (*counters, pairs.bin_rays):
@@ -1638,6 +1669,63 @@ def main():
         raise AssertionError(f"sponza's lobe calls launched {ran}, not F2 "
                              f"alone, or another plain version ran")
     del l_calls
+    # F3 on every draw of the same frame (one pass of 2^23 lanes: the
+    # camera samples, then each bounce's one NEE draw over the 6 lights'
+    # dims and the scatter's 2D and 1D samples), through the kernel's
+    # wrapper and through the plain versions on the card, bit-equal to
+    # both and to the frame's own result, one launch a call; timed
+    # (median of 10), bound by bytes (rng_bytes)
+    zero_counters()
+    r_calls = frame_rng_calls(sponza, bs.sponza_like_camera(1024, 1024),
+                              1024, 1024, spp=8, max_depth=4, seed=SEED)
+    shapes = [(c['args'][0], tuple(c['out'].shape)) for c in r_calls]
+    frame = [(0, (2**23,)), (2, (2**23, 2)), (2, (2**23, 2))] + [
+        (2, (6, 2**23, 2)), (2, (2**23, 2)), (1, (2**23,))] * 4
+    if shapes != frame or rng.draw.launches != len(frame) or any(
+            f.cuda_calls for f in plains):
+        raise AssertionError(f"sponza's draws: {shapes}, {rng.draw.launches}"
+                             f" launches; not the camera samples and 4 "
+                             f"bounces of an NEE and a scatter of 2^23 "
+                             f"lanes, one launch each")
+    zero_counters()
+    for n, c in enumerate(r_calls):
+        kind, *args = c['args']
+        launches = rng.draw.launches
+        got = rng.draw(kind, *args)
+        if rng.draw.launches != launches + 1:
+            raise AssertionError("F3: a draw was not one launch")
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        plain = rng.PLAIN[kind](*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not (torch.equal(got, plain) and torch.equal(c['out'], plain)):
+            raise AssertionError(f"F3 on sponza's draw {n + 1} (kind {kind}"
+                                 f", {tuple(plain.shape)}): not bit-equal to"
+                                 f" the plain version's")
+        del got, plain
+        ms = cuda_ms(lambda: rng.draw(kind, *args), reps=10)
+        moved, draws = rng_bytes(kind, args)
+        bound_ms = roofline.bound(moved, 0)[0]
+        phase('kernels', f"draw {n + 1} of {len(r_calls)} (sponza_like "
+              f"1024^2 frame, kind {kind}, out {tuple(c['out'].shape)}, "
+              f"{draws} draws): bit-equal to the plain version and to the "
+              f"frame's own result; kernel {ms:.3f} ms (median of 10), "
+              f"plain {plain_ms:.3f} ms; {moved} bytes, bound "
+              f"{bound_ms:.4f} ms: {bound_ms / ms:.2%} of it; {card}")
+        acc = results.setdefault('draw', {'calls': 0, 'lanes': 0, 'ms': 0.0,
+                                          'plain_ms': 0.0, 'bytes': 0})
+        for key, v in (('calls', 1), ('lanes', draws), ('ms', ms),
+                       ('plain_ms', plain_ms), ('bytes', moved)):
+            acc[key] += v
+    ran = {f.__name__: f.launches for f in counters if f.launches}
+    if set(ran) != F3 or any(f.cuda_calls for f in plains
+                             if f not in rng.PLAIN.values()):
+        raise AssertionError(f"sponza's draws launched {ran}, not F3 alone, "
+                             f"or another plain version ran")
+    del r_calls
     # sphere_glass (bench.py bench_tpu_psnr_glass): 4,992 triangles under
     # the ambient dome, at the sphere_glass_512 frame's leaf 32.  K3/K4 on
     # its tables, bit-equal: 256^2 camera rays, the hemisphere rays from
@@ -1757,9 +1845,9 @@ def main():
         ('sphere_glass_64', bs.sphere_glass().commit(device=dev),
          bs.sphere_glass_camera(64, 64), 8, 32, 'morton', (k3, k4, fx)),
     )
-    le, ls = ix['eval_lobes'], ix['sample_lobes']
+    le, ls, dr = ix['eval_lobes'], ix['sample_lobes'], ix['draw']
     for name, scene, cam, depth, spp, binning, used in goldens:
-        used = (*used, le, ls)      # and F2: every golden shades
+        used = (*used, le, ls, dr)  # and F2 and F3: every golden shades
         zero_counters()
         film, stats = renderer.render_frame(
             scene, cam, pt.PTParams(max_depth=depth, ray_binning=binning),
@@ -1841,10 +1929,10 @@ def main():
           f"{stats.num_rays:.0f} rays, kernel launches {counts}")
     if (not np.isfinite(img).all() or db < PSNR_MIN
             or set(counts) != {'intersect_packet4', 'occluded_packet4',
-                               'fetch', *F2}
+                               'fetch', *F2, *F3}
             or any(f.cuda_calls for f in plains)):
         raise AssertionError(f"sphere_mirror_64: PSNR {db:.2f}, launches "
-                             f"{counts}: not K3/K4, F1 and F2 alone, or "
+                             f"{counts}: not K3/K4, F1, F2 and F3 alone, or "
                              "disagrees with the CPU")
     main_launches = [a + b for a, b in zip(main_launches, ran)]
     # K11's entry points, the reference's bench_incoherent.py 'split'
@@ -2022,14 +2110,15 @@ def main():
     timed_modes('stereo_face_1536', colonnade, stereo_face_camera(1536, 1536),
                 pt.PTParams(**STEREO_PARAMS), 1536, 2,
                 "1536^2, 2 spp, depth 10, t_max_shadow_ray 120",
-                {'intersect_packet4', 'occluded_packet4', *F2})
+                {'intersect_packet4', 'occluded_packet4', *F2, *F3})
     # sphere_glass at its camera's own size with the golden's spp and
     # depth: the ambient dome's NEE and escaped rays, glass chains past the
     # roulette start; one pass of 2^23 rays
     timed_modes('sphere_glass_512', glass, bs.sphere_glass_camera(512, 512),
                 pt.PTParams(max_depth=8), 512, 32,
                 "512^2, 32 spp, depth 8, leaf 32",
-                {'intersect_packet4', 'occluded_packet4', 'fetch', *F2})
+                {'intersect_packet4', 'occluded_packet4', 'fetch', *F2,
+                 *F3})
 
     # ---- 6. the production output path -----------------------------------
     os.makedirs(OUT, exist_ok=True)
@@ -2093,7 +2182,7 @@ def main():
     peaks.append(torch.cuda.max_memory_allocated())
     counts = launched('test_stereo strip', {'intersect_packet4',
                                             'occluded_packet4', 'fetch',
-                                            *F2})
+                                            *F2, *F3})
     strip_path = os.path.join(OUT, 'test_stereo_view.ppm')
     image.store(strip_path, strip)
     size = max(stereo_st.width, stereo_st.height)
@@ -2123,12 +2212,12 @@ def main():
     small = (dataclasses.replace(stereo_st, width=32, height=32, spp=4,
                                  watermark=True),
              stereo_sb, stereo_rig, 'view',
-             {'intersect_packet4', 'occluded_packet4', 'fetch', *F2})
+             {'intersect_packet4', 'occluded_packet4', 'fetch', *F2, *F3})
     room_st, room_sb, room_rigs = session.collada_job(
         os.path.join(SCENES, 'test_room.dae'), session.ParamsRT(size=64,
                                                                 spp=4))
     room = (room_st, room_sb, room_rigs[0][1], room_rigs[0][0],
-            {'intersect_dense', 'occluded_dense', *F2})
+            {'intersect_dense', 'occluded_dense', *F2, *F3})
     for label, (st, sb, rig, name, want) in (('test_stereo_32', small),
                                              ('test_room_64', room)):
         wm = stereo_strip.load_watermark() if st.watermark else None
@@ -2150,7 +2239,7 @@ def main():
     if cli.main(['-c', cornell_ecs, '-size', '64', '64', '-o', outs[0]]):
         raise AssertionError("cli.main on the card failed")
     counts = launched('cli cornell', {'intersect_dense', 'occluded_dense',
-                                      *F2})
+                                      *F2, *F3})
     if cli.main(['-c', cornell_ecs, '-size', '64', '64', '-o', outs[1]],
                 device='cpu'):
         raise AssertionError("cli.main on the CPU failed")
@@ -2190,9 +2279,9 @@ def main():
     from yulio_raytracer_tpu_torch.sampling import precomputed
     from yulio_raytracer_tpu_torch.utils import profiling, regression
     t_interactive = time.perf_counter()
-    # a path-traced frame's kernels: the walk's, and F2
-    bvh4_path = {'intersect_packet4', 'occluded_packet4', *F2}
-    dense_path = {'intersect_dense', 'occluded_dense', *F2}
+    # a path-traced frame's kernels: the walk's, F2 and F3
+    bvh4_path = {'intersect_packet4', 'occluded_packet4', *F2, *F3}
+    dense_path = {'intersect_dense', 'occluded_dense', *F2, *F3}
 
     def timed_frames(what, scene, cam, params, res, spp, want, **kw):
         """A frame to warm up, then 3 with the counters zeroed; returns
@@ -2258,8 +2347,8 @@ def main():
     tables_s = time.perf_counter() - t0
     fs, mrps, line, _ = timed_frames(
         'cornell_512 (precomputed)', cornell, bs.cornell_camera(512, 512),
-        pt.PTParams(max_depth=4), 512, 32, dense_path, sampler='precomputed',
-        pixel_filter='bspline')
+        pt.PTParams(max_depth=4), 512, 32, dense_path - F3,
+        sampler='precomputed', pixel_filter='bspline')
     phase('interactive', f"cornell_512 (512^2, 32 spp, depth 4, b-spline, "
           f"sampler precomputed): {line}; build_tables (64 sets x 32 "
           f"samples, 4 1D and 5 2D dims) {tables_s:.3f} s on the host, in "
@@ -2280,8 +2369,8 @@ def main():
           "compaction off and auto bit-equal")
     del films
     for name, sb, camf, want, spp, depth in (
-            ('cornell_64', bs.cornell_box(), bs.cornell_camera, dense_path,
-             2, 3),
+            ('cornell_64', bs.cornell_box(), bs.cornell_camera,
+             dense_path - F3, 2, 3),
             ('motion_field_64', bs.motion_field(), bs.motion_field_camera,
              {'intersect_packet_mb', 'occluded_packet_mb', *F2}, 2, 2)):
         imgs = []
@@ -2304,7 +2393,8 @@ def main():
     zero_counters()
     runs = [debugrenderer.render(colonnade, col_cam, dparams, 1024, 1024,
                                  seed=i)[1] for i in (1, 2, 3)]
-    counts = launched('debug renderer (colonnade)', {'intersect_packet4'})
+    counts = launched('debug renderer (colonnade)',
+                      {'intersect_packet4', *F3})
     mrps = sorted(s.mrps for s in runs)
     secs = sorted(s.seconds for s in runs)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2463,7 +2553,8 @@ def main():
     kernels_named = sorted({kernel_of(n) for n in names} - {None})
     if (pt.SPAN_SHADE not in names or kernels_named
             != ['intersect_dense_kernel', 'lobes_eval_kernel',
-                'lobes_sample_kernel', 'occluded_dense_kernel']):
+                'lobes_sample_kernel', 'occluded_dense_kernel',
+                'rng_uniform_kernel']):
         raise AssertionError(f"profiling.trace: the trace names "
                              f"{kernels_named}, shade range "
                              f"{pt.SPAN_SHADE in names}")
@@ -2527,7 +2618,7 @@ def main():
                 'library_ms': None, 'slots': res['slots'],
                 'texel_slots': res['texel_slots'], 'bytes': res['bytes']})
             continue
-        if f in (lb.eval_lobes, lb.sample_lobes):
+        if f in (lb.eval_lobes, lb.sample_lobes, rng.draw):
             bound_ms = roofline.bound(res['bytes'], 0)[0]
             phase('bounds', f"{f.__name__} on {res['calls']} calls of "
                   f"sponza's frame, {res['lanes']} lanes: {res['bytes']} "

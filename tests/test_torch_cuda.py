@@ -13,7 +13,9 @@ goldens rendered through them, the StereoCube rays against the port's
 CPU rays, compaction 'auto' against 'off' on the colonnade, the fetch
 kernel against the plain fetch on the card, the lobe kernels against the
 plain eval and sample (every lobe type, the cells' material tables, edge
-inputs, whole sponza and test_stereo frames), and the
+inputs, whole sponza and test_stereo frames), the RNG kernel against the
+plain int64 draws (every form of the port's callers, edge ids, whole
+sponza and test_stereo frames, a first call that imports nothing), and the
 shading layer (the texture fetch, the shade context and the materials
 probe of every preset), a scene of an HDRI light alone and test_room.dae's
 12 stereo faces against the port's CPU results; the precomputed sampler,
@@ -1770,6 +1772,27 @@ def _lobe_frames(scene, camera, params, res, spp, monkeypatch, **kw):
     return out
 
 
+def _shading_frame(which):
+    """(scene, camera, params, res, render_frame kw) of a small frame of a
+    shading cell on the card: sponza_like at 64^2 (depth 4) or
+    test_stereo's back face at 32^2 (depth 10, the cap 120, the b-spline
+    filter, compacted)."""
+    if which == 'sponza_64':
+        scene = bs.sponza_like().commit(leaf_size=32)
+        return (scene, bs.sponza_like_camera(64, 64),
+                pt.PTParams(max_depth=4), 64, {})
+    from yulio_raytracer_tpu_torch.api import cli
+    from yulio_raytracer_tpu_torch.io import ecs
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    settings, sb = ecs.parse_ecs(os.path.join(root, 'assets', 'scenes',
+                                              'test_stereo.ecs'))
+    scene = sb.commit(accel=settings.accel)
+    camera = cli.stereo_rigs(settings)[0][1][2]
+    params = pt.PTParams(max_depth=10, t_max_shadow_ray=120.0)
+    return scene, camera, params, 32, dict(compaction='auto',
+                                           pixel_filter='bspline')
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('which', ['sponza_64', 'test_stereo_32'])
 def test_lobe_kernels_render_the_plain_frame_on_card(cuda, which,
@@ -1781,20 +1804,7 @@ def test_lobe_kernels_render_the_plain_frame_on_card(cuda, which,
     MetallicPaint, Uber and the textured ground).  Every eval and sample
     call of the kernels' frame launches its kernel; no plain version runs
     there."""
-    if which == 'sponza_64':
-        scene = bs.sponza_like().commit(leaf_size=32)
-        camera, params, res, kw = (bs.sponza_like_camera(64, 64),
-                                   pt.PTParams(max_depth=4), 64, {})
-    else:
-        from yulio_raytracer_tpu_torch.api import cli
-        from yulio_raytracer_tpu_torch.io import ecs
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        settings, sb = ecs.parse_ecs(os.path.join(root, 'assets', 'scenes',
-                                                  'test_stereo.ecs'))
-        scene = sb.commit(accel=settings.accel)
-        camera = cli.stereo_rigs(settings)[0][1][2]
-        params = pt.PTParams(max_depth=10, t_max_shadow_ray=120.0)
-        res, kw = 32, dict(compaction='auto', pixel_filter='bspline')
+    scene, camera, params, res, kw = _shading_frame(which)
     (f_k, s_k, n_k), (f_p, s_p, n_p) = _lobe_frames(
         scene, camera, params, res, 4, monkeypatch, **kw)
     assert n_k[0] > 0 and n_k[1] > 0 and n_k[2:] == [0, 0]
@@ -1802,3 +1812,140 @@ def test_lobe_kernels_render_the_plain_frame_on_card(cuda, which,
     assert s_k.num_rays == s_p.num_rays
     assert torch.equal(f_k.rgb_sum, f_p.rgb_sum)
     assert torch.equal(accum.resolve(f_k), accum.resolve(f_p))
+
+
+# the RNG's ids at the edges of the u32 mask (0, 2^32 - 1, 2^32, 2^40), a
+# negative one, and one whose key of (seed 0, sample 0, dim 0) is
+# 0xFFFFFFFF, which converts to exactly 1.0
+RNG_EDGES = [0, 2**32 - 1, 2**32, 2**40, -5]
+RNG_SEED = 2**31 + 12345
+
+
+def _unmix(y):
+    """The u32 whose lowbias32 mix (core/rng.py _mix) is y."""
+    m = 2**32 - 1
+    y ^= y >> 16
+    y = (y * pow(0x846CA68B, -1, 2**32)) & m
+    y ^= (y >> 15) ^ (y >> 30)
+    y = (y * pow(0x7FEB352D, -1, 2**32)) & m
+    return y ^ (y >> 16)
+
+
+def _rng_ids(seed, r, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 2**62, (r,), generator=g, dtype=torch.int64)
+    ones = (_unmix(2**32 - 1) * pow(0x85EBCA77, -1, 2**32)) % 2**32
+    edges = torch.tensor(RNG_EDGES + [ones])[:r]
+    x[:edges.numel()] = edges
+    return x.to(dev)
+
+
+# the forms of the port's callers, by kind n (0 the key, n its floats):
+# the NEE's light dims of a group (k = 1, 2, 6, 20, and 70, past one
+# launch's 64) and the shadow cap's, the scatter's and roulette's int dim,
+# the debug renderer's int sample, the b-spline's three dims, uniform3,
+# the stratum's scramble, and a lane tensor in every place
+RNG_FORMS = {
+    'nee_1': (2, lambda p, s: (RNG_SEED, p, s, [24])),
+    'nee_2': (2, lambda p, s: (RNG_SEED, p, s, [24, 25])),
+    'nee_6': (2, lambda p, s: (RNG_SEED, p, s, list(range(24, 30)))),
+    'nee_20': (2, lambda p, s: (RNG_SEED, p, s, list(range(23, 43)))),
+    'shadow_6': (1, lambda p, s: (RNG_SEED, p, s, list(range(19, 25)))),
+    'shadow_70': (1, lambda p, s: (7, p, s, list(range(3, 73)))),
+    'scatter': (2, lambda p, s: (RNG_SEED, p, s, 16)),
+    'roulette': (1, lambda p, s: (RNG_SEED, p, s, 18)),
+    'debug': (2, lambda p, s: (0, p, 0, 8 + 3)),
+    'bspline': (2, lambda p, s: (42, p, s, [0x5F375A86, 0x2545F491,
+                                             0x9E3779B9])),
+    'uniform3': (3, lambda p, s: (RNG_SEED, p, s, 5)),
+    'uniform3_dims': (3, lambda p, s: (RNG_SEED, p, s, [5, 2**32 + 6])),
+    'scramble': (0, lambda p, s: (p, 0, RNG_SEED, 0x9E3779B9)),
+    'all_lanes': (1, lambda p, s: (p, s, p ^ s, s)),
+    'ones': (1, lambda p, s: (0, p, 0, 0)),
+}
+RNG_PUBLIC = {0: 'hash_u32', 1: 'uniform1', 2: 'uniform2', 3: 'uniform3'}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('r', [1, 1001, 2**23])
+@pytest.mark.parametrize('form', sorted(RNG_FORMS))
+def test_rng_kernel_matches_plain_on_card(cuda, form, r):
+    """F3 against the plain int64 versions run on the same card, bit for
+    bit, in dtype, shape and device, on every form of the port's draws
+    (RNG_FORMS) at R = 1, an odd R and 2^23 lanes, with ids at 0,
+    2^32 - 1, 2^32, 2^40 and below 0 and a seed above 2^31; a key of
+    0xFFFFFFFF gives 1.0.  Each call is one launch; the plain versions
+    count their CUDA calls."""
+    from yulio_raytracer_tpu_torch.core import rng
+    n, make = RNG_FORMS[form]
+    args = make(_rng_ids(1, r, cuda), _rng_ids(2, r, cuda))
+    launches, plain = rng.draw.launches, rng.PLAIN[n].cuda_calls
+    got = getattr(rng, RNG_PUBLIC[n])(*args)
+    ref = rng.PLAIN[n](*args)
+    torch.cuda.synchronize()
+    assert rng.draw.launches == launches + 1
+    assert rng.PLAIN[n].cuda_calls == plain + 1
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert got.device == ref.device == args[1 if n else 0].device
+    assert torch.equal(got, ref), (form, r, torch.nonzero(
+        got != ref)[:4].tolist())
+    if form == 'ones' and r > len(RNG_EDGES):
+        assert float(got[len(RNG_EDGES)]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['sponza_64', 'test_stereo_32'])
+def test_rng_kernel_renders_the_plain_frame_on_card(cuda, which,
+                                                    monkeypatch):
+    """A whole frame with F3 equals the frame with every draw forced to
+    the plain versions on the card, bit for bit (the frames of
+    test_lobe_kernels_render_the_plain_frame_on_card, 4 spp): every draw
+    of the kernel's frame launches F3, and the plain frame makes as many
+    plain calls."""
+    from yulio_raytracer_tpu_torch.core import rng
+    scene, camera, params, res, kw = _shading_frame(which)
+
+    def frame():
+        return renderer.render_frame(scene, camera, params, res, res, spp=4,
+                                     seed=42, **kw)
+
+    def plain_calls():
+        return sum(f.cuda_calls for f in rng.PLAIN.values())
+    launches, plain = rng.draw.launches, plain_calls()
+    f_k, s_k = frame()
+    torch.cuda.synchronize()
+    drawn = rng.draw.launches - launches
+    assert drawn > 0 and plain_calls() == plain
+    monkeypatch.setattr(rng, 'draw', lambda n, *args: rng.PLAIN[n](*args))
+    f_p, s_p = frame()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert plain_calls() - plain == drawn
+    assert s_k.num_rays == s_p.num_rays
+    assert torch.equal(f_k.rgb_sum, f_p.rgb_sum)
+    assert torch.equal(accum.resolve(f_k), accum.resolve(f_p))
+
+
+@pytest.mark.cuda
+def test_rng_kernel_first_call_loads_no_module(cuda):
+    """With rng.cu built and loaded, the first draws of each form on the
+    card import no module, and each is one launch."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys, torch\n"
+        "from yulio_raytracer_tpu_torch import renderer\n"
+        "from yulio_raytracer_tpu_torch.core import rng\n"
+        "rng._lib()\n"
+        "p = torch.arange(64, device='cuda')\n"
+        "torch.cuda.synchronize()\n"
+        "before = set(sys.modules)\n"
+        "rng.uniform2(3, p, p, [1, 2, 3])\n"
+        "rng.uniform1(3, p, 0, 4)\n"
+        "rng.uniform3(3, p, p, 5)\n"
+        "rng.hash_u32(p, 0, 3, 0x9E3779B9)\n"
+        "torch.cuda.synchronize()\n"
+        "print(sorted(set(sys.modules) - before), rng.draw.launches)\n")
+    out = subprocess.run([sys.executable, '-c', code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == '[] 4'

@@ -16,6 +16,7 @@ from portbench import tracing
 from yulio_raytracer_tpu_torch import profile_frame
 from yulio_raytracer_tpu_torch import proto_sublane_sweep as sweep
 from yulio_raytracer_tpu_torch import turns
+from yulio_raytracer_tpu_torch.core import rng
 from yulio_raytracer_tpu_torch.ops import cuda_build as cb
 from yulio_raytracer_tpu_torch.ops import (dense, grid, pairs, splitleaf,
                                            traverse, wide)
@@ -38,16 +39,18 @@ OPERATORS = {
     'texture_fetch': ('out',), 'lobes_eval': ('out',),
     'lobes_sample': ('wi', 'pdf', 'weight', 'type_bits', 'eta_out',
                      'valid'),
+    'rng_uniform': ('out',),
 }
 # each module's C entry points, by the source they are built from
 SIGNATURES = {'dense': dense._SIGNATURES, 'wide': wide._SIGNATURES,
               'binary': traverse._SIGNATURES, 'grid': pairs._SIGNATURES,
               'splitleaf': splitleaf._SIGNATURES, 'sweep': sweep._SIGNATURES,
-              'texture': textures._SIGNATURES, 'lobes': lobes._SIGNATURES}
+              'texture': textures._SIGNATURES, 'lobes': lobes._SIGNATURES,
+              'rng': rng._SIGNATURES}
 # entry points that launch nothing: they return a size to the host
 QUERIES = {'yrt_pairs_scratch', 'yrt_sweep_block_rays'}
 MODULES = (dense, wide, traverse, pairs, grid, splitleaf, sweep, textures,
-           lobes)
+           lobes, rng)
 
 
 def _launch_counts():
@@ -101,7 +104,8 @@ def test_ops_are_declared_for_cuda_alone(name, second_copy):
                  if a.alias_info and a.alias_info.is_write) == OPERATORS[name]
     assert all(a.alias_info is None for a in args
                if a.name not in OPERATORS[name])
-    cpu = [0 if str(a.type) == 'int' else torch.zeros(1) for a in args]
+    cpu = [0 if str(a.type) == 'int' else [0] if str(a.type) == 'List[int]'
+           else torch.zeros(1) for a in args]
     before = _launch_counts()
     with pytest.raises(NotImplementedError):
         op(*cpu)
@@ -176,11 +180,11 @@ def test_kernels_launch_through_the_launch_functions_alone():
 
 def test_kernel_names_are_read_from_the_sources():
     """cuda_build.kernel_names holds the benchmark's kernel list and the
-    texture fetch's and the lobes' kernels, and profile_frame counts
-    each by its mangled or demangled name."""
+    texture fetch's, the lobes' and the RNG's kernels, and profile_frame
+    counts each by its mangled or demangled name."""
     names = cb.kernel_names()
     shading = {'texture_fetch_kernel', 'lobes_eval_kernel',
-               'lobes_sample_kernel'}
+               'lobes_sample_kernel', 'rng_uniform_kernel'}
     assert names >= set(tracing.KERNELS) | shading
     assert profile_frame.kernel_of('_Z20texture_fetch_kernelPK6float4') == (
         'texture_fetch_kernel')

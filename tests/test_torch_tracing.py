@@ -37,7 +37,9 @@ PARENTS = {prof.FRAME: {None}, prof.PASS: {prof.FRAME},
            prof.SHADE: {prof.BOUNCE}, prof.FETCH: {prof.SHADE},
            prof.NEE: {prof.BOUNCE}, prof.LIGHTS: {prof.NEE},
            prof.LOBES: {prof.NEE, prof.SCATTER}, prof.OCCLUDED: {prof.NEE},
-           prof.SCATTER: {prof.BOUNCE}, prof.COMPACT: {prof.PASS},
+           prof.SCATTER: {prof.BOUNCE},
+           prof.RNG: {prof.RAYGEN, prof.NEE, prof.SCATTER},
+           prof.COMPACT: {prof.PASS},
            prof.SYNC: {prof.COMPACT, prof.FRAME}, prof.FILM: {prof.FRAME}}
 
 

@@ -333,8 +333,9 @@ def _live(state, params):
 def _shadow_cap(params, seed, pixel_id, sample_id, wi, dims):
     """The Yulio dome trick (pathtracer.py:497-513, cpp:148-157): the
     shadow tmax of light samples wi (nk, R, 3) becomes the cap jittered
-    by +-t_max_shadow_jitter (u on dims (nk, 1)), lengthened by up to
-    100 caps where wi points at or below the horizon."""
+    by +-t_max_shadow_jitter (u on dims, the nk lights' host ints),
+    lengthened by up to 100 caps where wi points at or below the
+    horizon."""
     cap, jit = params.t_max_shadow_ray, params.t_max_shadow_jitter
     u = rng.uniform1(seed, pixel_id, sample_id, dims)
     tmax = cap + (2.0 * cap * jit * u - cap * jit)
@@ -449,8 +450,7 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
             cand_gs, contrib_gs, wi_gs, tfar_gs = [], [], [], []
             illum = dg['illum_mask'] & rng._MASK
             for idxs, light, masks in groups:
-                dims = torch.tensor([(base + dim_light + li) & rng._MASK
-                                     for li in idxs], device=dev)[:, None]
+                dims = [(base + dim_light + li) & rng._MASK for li in idxs]
                 mask_ok = (torch.tensor(masks, device=dev)[:, None]
                            & illum) != 0
                 u2 = (nee_u2.expand(len(idxs), r, 2) if samples is not None
@@ -468,8 +468,8 @@ def _make_bounce(scene, params: PTParams, seed, backplate=None,
                 if has_shadow_cap:
                     tmax = _shadow_cap(
                         params, seed, pixel_id, sample_id, wi,
-                        torch.tensor([(base + _DIM_SHADOW + li) & rng._MASK
-                                      for li in idxs], device=dev)[:, None])
+                        [(base + _DIM_SHADOW + li) & rng._MASK
+                         for li in idxs])
                 contrib = (thr * le * brdf
                            / torch.clamp(pdf, min=1e-20)[..., None])
                 cand_gs.append(cand)

@@ -24,8 +24,10 @@ activities by name, and the frames' peak device memory; then what the
 port's tracer reads over three more frames (profiling.tracing(), no
 profiler: span_summary, with the share of traced rays that escaped to
 the environment) and the profiled frame's device idle time by
-the span open on the host (idle_by_span).  The last line is the same as
-one JSON object.  Needs a CUDA device.
+the span open on the host (idle_by_span); and the RNG's device ms a
+frame (its yrt.rng spans), its calls a frame and the share of them that
+ran its kernel F3.  The last line is the same as one JSON object.  Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import torch
 
 from . import renderer
 from .cameras import cameras as cam
+from .core import rng
 from .integrator import pathtracer as pt
 from .io import builtin_scenes as bs
 from .io import ecs
@@ -208,19 +211,24 @@ def span_summary(spans, frames: int) -> dict:
     escaped_pct, 100 x the rays that missed (the yrt.env records'
     `escaped`) over the rays traced, None without an environment;
     bounces, the yrt.bounce spans; lobe_calls, the yrt.lobes spans (the
-    lobes' evals and samples), and lobe_lanes, their `lanes` summed."""
+    lobes' evals and samples), and lobe_lanes, their `lanes` summed;
+    rng_calls, the yrt.rng spans (the RNG's draws), and rng_lanes, their
+    `lanes` summed."""
     b = [s for s in spans if s.name == profiling.BOUNCE]
     lanes = sum(s.attrs['width'] for s in b)
     rays = sum(s.attrs['rays'] for s in b)
     env = [s for s in spans if s.name == profiling.ENV]
     lobes = [s for s in spans if s.name == profiling.LOBES]
+    draws = [s for s in spans if s.name == profiling.RNG]
     return {'enqueue_ms': sum(s.end - s.start for s in b) / 1e6 / frames,
             'live_pct': 100.0 * rays / lanes if lanes else None,
             'escaped_pct': (100.0 * sum(s.attrs['escaped'] for s in env)
                             / rays if env and rays else None),
             'bounces': len(b) / frames,
             'lobe_calls': len(lobes) / frames,
-            'lobe_lanes': sum(s.attrs['lanes'] for s in lobes) / frames}
+            'lobe_lanes': sum(s.attrs['lanes'] for s in lobes) / frames,
+            'rng_calls': len(draws) / frames,
+            'rng_lanes': sum(s.attrs['lanes'] for s in draws) / frames}
 
 
 def profile_cell(name: str, compaction: str = 'auto') -> dict:
@@ -247,10 +255,12 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
     frames = sorted(frame(44 + i)[1].seconds for i in range(3))
     peak = torch.cuda.max_memory_allocated()
     launched = lb.eval_lobes.launches + lb.sample_lobes.launches
+    drawn = rng.draw.launches
     with profiling.tracing() as tracer:
         traced = statistics.median(frame(47 + i)[1].seconds
                                    for i in range(3))
     launched = lb.eval_lobes.launches + lb.sample_lobes.launches - launched
+    drawn = rng.draw.launches - drawn
     summary = span_summary(tracer.spans(), 3)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -294,11 +304,15 @@ def profile_cell(name: str, compaction: str = 'auto') -> dict:
             'top_glue': [{'op': name[:80], 'calls': n, 'ms': us / 1e3}
                          for us, n, name in sorted(glue, reverse=True)[
                              :TOP_GLUE]],
+            'rng_ms': spans.get(profiling.RNG, {}).get('ms'),
             'traced': dict(summary, frame_s=traced,
                            lobe_kernel_share=(launched / 3
                                               / summary['lobe_calls']
                                               if summary['lobe_calls']
-                                              else None)),
+                                              else None),
+                           rng_kernel_share=(drawn / 3 / summary['rng_calls']
+                                             if summary['rng_calls']
+                                             else None)),
             'idle_s': idle_by_span(prof)}
 
 
@@ -347,6 +361,12 @@ def main(argv) -> int:
                  f"{tr['lobe_calls']:.0f} calls, "
                  f"{tr['lobe_kernel_share']:.0%} by the kernels, "
                  f"{tr['lobe_lanes']:.0f} lanes")
+              + ", rng " + ('n/a' if tr['rng_kernel_share'] is None else
+                           f"{tr['rng_calls']:.0f} calls, "
+                           f"{tr['rng_kernel_share']:.0%} by F3, "
+                           f"{tr['rng_lanes']:.0f} lanes, device "
+                           + ('n/a' if r['rng_ms'] is None else
+                              f"{r['rng_ms']:.2f} ms"))
               + "; idle ms " + ', '.join(
                   f"{c} {idle[c] * 1e3:.1f}"
                   for c in IDLE_CLASSES + ('total',))

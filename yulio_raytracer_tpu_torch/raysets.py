@@ -3,8 +3,8 @@ bounce's hemisphere rays from their hits, the NEE shadow rays to every
 light, rays scattered through a scene's box, rays started at treelet
 roots, the dense kernels' entry sets, the sweep prototype's rows and
 rays on a scene, and the dense, pair, binary and motion kernels', the
-texture fetch's and the lobes' own calls in a frame; and a committed
-scene's tree as 8-wide rows.
+texture fetch's, the lobes' and the RNG's own calls in a frame; and a
+committed scene's tree as 8-wide rows.
 `chip_smoke.py`, `turns` and `wide_ab` make them with these functions.
 """
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import renderer
+from .core import rng
 from .integrator import pathtracer as pt
 from .lights import lights as glights
 from .ops import intersect as ops_i
@@ -160,9 +161,9 @@ def _recorded(module, names, arity=None):
     'args': its arity positional arguments, omitted ones None (arity
     None: a dict of all its arguments by name, defaults filled in), 'out':
     its result}.  The wrappers run as they would; the list holds their
-    tensors.  A wrapper counts its launches on the module's attribute of
-    its name, the recorder while it stands in: the count carries over
-    both ways."""
+    tensors.  A wrapper that counts its launches counts them on the
+    module's attribute of its name, the recorder while it stands in: the
+    count carries over both ways."""
     calls = []
     wrapped = {name: getattr(module, name) for name in names}
 
@@ -180,7 +181,8 @@ def _recorded(module, names, arity=None):
                 out = fn(*args)
             calls.append({'kernel': name, 'args': args, 'out': out})
             return out
-        call.launches = fn.launches
+        if hasattr(fn, 'launches'):
+            call.launches = fn.launches
         return call
     for name, fn in wrapped.items():
         setattr(module, name, recorder(name, fn))
@@ -188,7 +190,8 @@ def _recorded(module, names, arity=None):
         yield calls
     finally:
         for name, fn in wrapped.items():
-            fn.launches = getattr(module, name).launches
+            if hasattr(fn, 'launches'):
+                fn.launches = getattr(module, name).launches
             setattr(module, name, fn)
 
 
@@ -237,6 +240,14 @@ def recorded_lobe_calls():
     inside the block, as _recorded does; 'args' is the call's arguments
     by name."""
     return _recorded(lobes, ('eval_lobes', 'sample_lobes'))
+
+
+def recorded_rng_calls():
+    """Record every draw of the RNG (core/rng.py _draw, under uniform1/2/3
+    and hash_u32: the kernel F3 on the card) made inside the block, as
+    _recorded does; 'args' is (n, a, b, c, d): the kind of draw (0 the key
+    itself, n its floats) and the key's four streams."""
+    return _recorded(rng, ('_draw',), 5)
 
 
 def _bounce_one(scene, camera, binning, width, height, spp, seed):
@@ -315,6 +326,20 @@ def frame_lobe_calls(scene, camera, width, height, spp=1, max_depth=2,
     every light group of its NEE, then its sample in the scatter.
     Returns recorded_lobe_calls' list."""
     with recorded_lobe_calls() as calls:
+        renderer.render_frame(scene, camera, pt.PTParams(max_depth=max_depth),
+                              width, height, spp=spp, seed=seed, **kw)
+    return calls
+
+
+def frame_rng_calls(scene, camera, width, height, spp=1, max_depth=2,
+                    seed=42, **kw):
+    """The RNG's draws of a frame of max_depth bounces (ray_binning
+    'morton'; kw to render_frame): each pass's camera samples, then each
+    bounce's light samples (with the shadow cap's jitter where there is
+    a cap) over every light group of its NEE, its roulette past the
+    roulette start, and its scatter's two samples.  Returns
+    recorded_rng_calls' list."""
+    with recorded_rng_calls() as calls:
         renderer.render_frame(scene, camera, pt.PTParams(max_depth=max_depth),
                               width, height, spp=spp, seed=seed, **kw)
     return calls

@@ -51,10 +51,11 @@ def pixel_sample_bspline(seed, pixel_id, sample_id, spp, dim: int = 0):
     minus 2 (the 4-fold convolution of unit boxes, support [-2, 2] about
     the pixel's centre), so samples keep unit weight."""
     s0 = pixel_sample(seed, pixel_id, sample_id, spp, dim)
-    # the extra draws' dims as the reference's u32 XORs
-    u1, u2, u3 = (rng.uniform2(seed, pixel_id, sample_id,
-                               (dim ^ salt) & rng._MASK)
-                  for salt in (0x5F375A86, 0x2545F491, 0x9E3779B9))
+    # the extra draws' dims as the reference's u32 XORs, in one call
+    u1, u2, u3 = rng.uniform2(seed, pixel_id, sample_id,
+                              [(dim ^ salt) & rng._MASK
+                               for salt in (0x5F375A86, 0x2545F491,
+                                            0x9E3779B9)])
     return 0.5 + (s0 + u1 + u2 + u3) - 2.0
 
 

@@ -25,8 +25,10 @@ here
   live after it (`live`), and a bounce's yrt.env record the rays that
   missed every triangle (`escaped`), and a yrt.lobes record the lanes
   its call evaluates or samples (`lanes`: hits x lights for an eval,
-  hits for a sample; a host int); tensor counts are read with the
-  frame's own ray count (`settle`), so tracing adds no host sync;
+  hits for a sample; a host int), and a yrt.rng record the draws of
+  its call (`lanes`: dims x lanes; a host int); tensor counts are read
+  with the frame's own ray count (`settle`), so tracing adds no host
+  sync;
 * `trace(log_dir)` wraps `torch.profiler.profile` (with the card's
   activity when there is a card) and writes a Chrome trace (a
   `trace*.json` in log_dir, viewable in Perfetto or chrome://tracing)
@@ -43,16 +45,17 @@ their own thread):
     yrt.frame             renderer._frame: width, height, spp
       yrt.pass            renderer._render_pass: rays
         yrt.raygen        the pass's sample sets and camera rays
+          yrt.rng         one call of the RNG (core/rng.py): lanes
         yrt.bounce        one call of the bounce: depth, width
           yrt.intersect   closest hits and their differential geometry
           yrt.env         the escaped rays' environment and backplate;
                           escaped
           yrt.shade_context > yrt.texture_fetch
           yrt.nee         light samples and shadow rays
-            yrt.light_sample, yrt.lobes
+            yrt.rng, yrt.light_sample, yrt.lobes
             yrt.occluded  the shadow rays' any-hit
-          yrt.scatter     roulette, the lobe sample (its yrt.lobes),
-                          Beer, the state update
+          yrt.scatter     roulette, the lobe sample (its yrt.rng and
+                          yrt.lobes), Beer, the state update
         yrt.compact       trace_compacted's live count and gather
           yrt.sync        the live count read on the host
       yrt.film            the pass's radiance into the film, the weight
@@ -82,12 +85,13 @@ LIGHTS = 'yrt.light_sample'
 LOBES = 'yrt.lobes'
 OCCLUDED = 'yrt.occluded'
 SCATTER = 'yrt.scatter'
+RNG = 'yrt.rng'
 COMPACT = 'yrt.compact'
 SYNC = 'yrt.sync'
 FILM = 'yrt.film'
 # the registry of span names, outermost first
 SPANS = (FRAME, PASS, RAYGEN, BOUNCE, INTERSECT, ENV, SHADE, FETCH, NEE,
-         LIGHTS, LOBES, OCCLUDED, SCATTER, COMPACT, SYNC, FILM)
+         LIGHTS, LOBES, OCCLUDED, SCATTER, RNG, COMPACT, SYNC, FILM)
 
 _profiling = torch.autograd._profiler_enabled
 _tracer = None                  # the Tracer of the open tracing() block
